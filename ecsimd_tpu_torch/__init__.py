@@ -7,22 +7,30 @@ JAX package and its Python-int oracle, and it keeps the JAX package's module
 names so that each module's counterpart is easy to find.
 
 Layer map:
-  specs, convert, oracle  shared with ecsimd_tpu by import (they use no JAX)
-  ops.bignum / ops.mont   digit-plane carry add/sub, selects, product columns
+  specs, convert, oracle  the port's own copies of the JAX package's
+                          framework-free modules (the port imports nothing
+                          of ecsimd_tpu; tests hold the copies to it)
+  ops.bignum / ops.mont   digit-plane carry add/sub, compares, selects,
+                          product columns
   ops.solinas             multiply-free Solinas reduction (P-256)
   field.GFp               prime-field value type (plain Solinas fields)
-  curves.point / group    points and the co-Z group law; plain ladder
+  curves.point / group    points, the co-Z group law, Jacobian doubling,
+                          general and complete adds; plain ladder
   kernels                 hand-written CUDA kernels for sm_90a (csrc/) and
-                          their wrappers: comb (k*G), ladder (k*P), affine
-                          conversion, field probe
-  api                     batched scalar-multiplication entry points
+                          their wrappers: comb (k*G, plain and strict),
+                          ladder and signed window (k*P), affine
+                          conversion, field probe; glv.strict_varbase routes
+  api, ecdh, ecdsa        batched scalar-multiplication entry points, ECDH,
+                          the two ECDSA helpers ECDH needs
 
 Every public function runs on the device of its input tensors: a CUDA tensor
 goes through the CUDA kernel, a CPU tensor through the kernel's plain PyTorch
-version.
+version. Constructors that make tensors from ints default to the card
+(``device="cuda"``) and raise where there is none; the CPU is used only
+when the caller asks for it.
 """
 
-from ecsimd_tpu.specs import (
+from ecsimd_tpu_torch.specs import (
     CURVES,
     DIGIT_BITS,
     FIELDS,

@@ -2,21 +2,22 @@
 
 The port of ``ecsimd_tpu/api.py``'s main path. Every function runs on the
 device of its input tensors: on a CUDA tensor through the hand-written
-kernels (``kernels/ladder.py`` for k_i * P_i, ``kernels/comb.py`` for
-k_i * B, then ``kernels/affine.py`` for the affine conversion), on a CPU
-tensor through their plain PyTorch versions. Both give the same planes, so
-the affine results equal the JAX package's.
-The constructors take ``device=``.
+kernels (``kernels/ladder.py`` and ``kernels/window.py`` for k_i * P_i,
+``kernels/comb.py`` for k_i * B, then ``kernels/affine.py`` for the affine
+conversion), on a CPU tensor through their plain PyTorch versions. Both give
+the same planes, so the affine results equal the JAX package's.
+The constructors take ``device=`` and default to the card: with no card
+they raise, and the CPU is used only when the caller asks for it.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ecsimd_tpu import convert
-from ecsimd_tpu.specs import P256, CurveSpec
+from ecsimd_tpu_torch import convert
 from ecsimd_tpu_torch.curves.point import AffinePoint
-from ecsimd_tpu_torch.kernels import affine, comb, ladder
+from ecsimd_tpu_torch.kernels import affine, comb, ladder, window
+from ecsimd_tpu_torch.specs import P256, CurveSpec
 
 
 def scalar_mult(scalars, points: AffinePoint) -> AffinePoint:
@@ -32,41 +33,63 @@ def scalar_mult_p256(scalars, points: AffinePoint) -> AffinePoint:
     return scalar_mult(scalars, points)
 
 
+def scalar_mult_fast(scalars, points: AffinePoint, strict: bool = False) -> AffinePoint:
+    """Batched constant-time k_i * P_i through the signed w = 4 window
+    (masked lookups). Scalar domain: [1, order-1) minus a measure-zero
+    degenerate class (``kernels/window.py``); ``strict=True`` uses complete
+    adds and takes all of [1, order)."""
+    return affine.to_affine(window.scalar_mult(scalars, points, strict=strict))
+
+
+def scalar_mult_shared_fast(k: int, points: AffinePoint) -> AffinePoint:
+    """One host scalar k times every point of the batch: k broadcast into
+    the planes that ``scalar_mult_fast`` takes."""
+    d = points.curve.field.ndigits
+    batch = points.x.shape[-1]
+    scalars = torch.from_numpy(convert.broadcast_int(int(k), d, batch)).to(points.x.device)
+    return scalar_mult_fast(scalars, points)
+
+
 def scalar_mult_base(
     scalars, curve: CurveSpec = P256, base: tuple[int, int] | None = None,
     strict: bool = False,
 ) -> AffinePoint:
     """Fixed-base k_i * B for a base shared by every lane (default the
     curve generator) through the comb; tables are built on the host once per
-    (curve, base, device). ``strict`` (complete additions) is not ported yet."""
+    (curve, base, device). ``strict`` uses complete additions: scalar
+    domain [1, order)."""
     return affine.to_affine(comb.scalar_mult_base(scalars, curve, base=base, strict=strict))
 
 
 # --- host-friendly integer interfaces ----------------------------------------
 
 
-def generator_batch(curve: CurveSpec, batch: int, device="cpu") -> AffinePoint:
+def _to(planes, device) -> torch.Tensor:
+    return torch.from_numpy(planes).to(torch.device(device))
+
+
+def generator_batch(curve: CurveSpec, batch: int, device="cuda") -> AffinePoint:
     """The curve generator broadcast across a batch."""
     d = curve.field.ndigits
-    gx = torch.from_numpy(convert.broadcast_int(curve.gx, d, 1)).to(device)
-    gy = torch.from_numpy(convert.broadcast_int(curve.gy, d, 1)).to(device)
+    gx = _to(convert.broadcast_int(curve.gx, d, 1), device)
+    gy = _to(convert.broadcast_int(curve.gy, d, 1), device)
     return AffinePoint(gx.expand(d, batch).contiguous(), gy.expand(d, batch).contiguous(), curve)
 
 
-def points_from_ints(xs, ys, curve: CurveSpec, device="cpu") -> AffinePoint:
+def points_from_ints(xs, ys, curve: CurveSpec, device="cuda") -> AffinePoint:
     d = curve.field.ndigits
     return AffinePoint(
-        torch.from_numpy(convert.ints_to_planes(xs, d)).to(device),
-        torch.from_numpy(convert.ints_to_planes(ys, d)).to(device),
+        _to(convert.ints_to_planes(xs, d), device),
+        _to(convert.ints_to_planes(ys, d), device),
         curve,
     )
 
 
-def scalars_from_ints(ks, curve: CurveSpec, device="cpu"):
-    return torch.from_numpy(convert.ints_to_planes(ks, curve.field.ndigits)).to(device)
+def scalars_from_ints(ks, curve: CurveSpec, device="cuda"):
+    return _to(convert.ints_to_planes(ks, curve.field.ndigits), device)
 
 
-def scalar_mult_ints(ks, xs, ys, curve: CurveSpec = P256, device="cpu"):
+def scalar_mult_ints(ks, xs, ys, curve: CurveSpec = P256, device="cuda"):
     """Pure-int convenience API: returns (x, y) int lists."""
     pts = points_from_ints(xs, ys, curve, device)
     res = scalar_mult(scalars_from_ints(ks, curve, device), pts)

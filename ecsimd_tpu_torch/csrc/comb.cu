@@ -2,13 +2,20 @@
 // Hopper, sm_90a).
 //
 // Replaces ecsimd_tpu/kernels/comb.py:_comb_kernel (serial chain, one
-// accumulator, unroll 1, non-strict). Width-8 signed-odd comb with no
+// accumulator, unroll 1), both strict variants. Width-8 signed-odd comb with no
 // doublings: the entry index of position j is e_j = w9_j >> 1, where w9_j
 // is the 9-bit window k[8j .. 8j+8]; the accumulator seeds from position
 // 0's entry with z = 1 (the recoding's top digit is folded into that
 // table), positions 1..31 each add one entry with ADD_Z2_1, and even
-// scalars get -B added at the end (k was computed as k + 1). Same order as
+// scalars get -B added at the end (k was computed as k + 1). Strict
+// (ec_comb_p256_strict): every add, the fix-up included, is add_complete
+// against the entry with z = 1, so prefix sums that hit an entry, its
+// opposite or infinity stay right, and k = n - 1 gives -B. Same order as
 // kernels/comb.comb_plain, so the Jacobian planes agree bit for bit.
+//
+// Not constant-time in its memory accesses: load_entry's address is the
+// secret window (entry_index), where the TPU kernel reads every entry of
+// the position through a one-hot product. The arithmetic is uniform.
 //
 // Tables: int32 (32, 256, 32) — per position and entry, the 16 x-digits
 // then the 16 y-digits of an affine point, base 2^16. 1 MiB in all, so the
@@ -20,7 +27,9 @@
 // the thread.
 //
 // What bounds it: 32-bit integer multiply-add throughput (31 + 1 mixed adds
-// of 12 field multiplies each); the gathers are L2 hits, 4 KiB per lane.
+// of 7 field multiplies and 4 squarings each; strict: 31 + 1 complete adds of
+// 15 and 9); the
+// gathers are L2 hits, 4 KiB per lane.
 
 #include "coz_p256.cuh"
 
@@ -71,6 +80,18 @@ __device__ __forceinline__ void load_entry(const int32_t* tables, int j, uint32_
   y = fe_from_digits(d + 16);
 }
 
+// acc + (ex, ey, 1): the mixed add, or the complete add when strict.
+template <bool kStrict>
+__device__ __forceinline__ void comb_add(fe x1, fe y1, fe z1, fe ex, fe ey, fe& x3, fe& y3,
+                                         fe& z3) {
+  if constexpr (kStrict) {
+    add_complete(x1, y1, z1, ex, ey, fe_from_u32(1u), x3, y3, z3);
+  } else {
+    add_z2_1(x1, y1, z1, ex, ey, x3, y3, z3);
+  }
+}
+
+template <bool kStrict>
 __device__ __forceinline__ void comb_lane(const int32_t* scalars, const int32_t* tables,
                                           const int32_t* negbase, int32_t* ax_out,
                                           int32_t* ay_out, int32_t* z_out, int64_t B,
@@ -80,11 +101,12 @@ __device__ __forceinline__ void comb_lane(const int32_t* scalars, const int32_t*
   fe z = fe_from_u32(1u);
   for (int j = 1; j < kPositions; ++j) {
     load_entry(tables, j, entry_index(scalars, B, i, j), ex, ey);
-    add_z2_1(x, y, z, ex, ey, x, y, z);
+    comb_add<kStrict>(x, y, z, ex, ey, x, y, z);
   }
   // parity fixup: even k computed (k+1)B; add -B
   fe sx, sy, sz;
-  add_z2_1(x, y, z, fe_from_digits(negbase), fe_from_digits(negbase + 16), sx, sy, sz);
+  comb_add<kStrict>(x, y, z, fe_from_digits(negbase), fe_from_digits(negbase + 16), sx, sy,
+                    sz);
   const uint32_t even = ((uint32_t)scalars[i] & 1u) ^ 1u;
   fe_store(ax_out, B, i, fe_select(even, sx, x));
   fe_store(ay_out, B, i, fe_select(even, sy, y));
@@ -103,7 +125,16 @@ comb_p256_kernel(const int32_t* __restrict__ scalars, const int32_t* __restrict_
                  int32_t* __restrict__ ay, int32_t* __restrict__ z, int64_t B) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= B) return;
-  p256::comb_lane(scalars, tables, negbase, ax, ay, z, B, i);
+  p256::comb_lane<false>(scalars, tables, negbase, ax, ay, z, B, i);
+}
+
+__global__ void __launch_bounds__(kThreads)
+comb_strict_p256_kernel(const int32_t* __restrict__ scalars, const int32_t* __restrict__ tables,
+                        const int32_t* __restrict__ negbase, int32_t* __restrict__ ax,
+                        int32_t* __restrict__ ay, int32_t* __restrict__ z, int64_t B) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= B) return;
+  p256::comb_lane<true>(scalars, tables, negbase, ax, ay, z, B, i);
 }
 
 }  // namespace
@@ -117,6 +148,17 @@ extern "C" int ec_comb_p256(const int32_t* scalars, const int32_t* tables,
   if (B > 0) {
     const int64_t blocks = (B + kThreads - 1) / kThreads;
     comb_p256_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        scalars, tables, negbase, ax, ay, z, B);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ec_comb_p256_strict(const int32_t* scalars, const int32_t* tables,
+                                   const int32_t* negbase, int32_t* ax, int32_t* ay, int32_t* z,
+                                   int64_t B, void* stream) {
+  if (B > 0) {
+    const int64_t blocks = (B + kThreads - 1) / kThreads;
+    comb_strict_p256_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
         scalars, tables, negbase, ax, ay, z, B);
   }
   return (int)cudaGetLastError();

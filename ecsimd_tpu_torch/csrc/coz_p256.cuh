@@ -11,8 +11,9 @@
 // taken by value so that callers may pass outputs that alias inputs.
 //
 // What bounds these formulas: field multiplies (ZDAU: 9 mul + 7 sqr,
-// ADD_Z2_1: 8 mul + 4 sqr) — 32-bit multiply-add throughput; all state stays in
-// registers.
+// ADD_Z2_1: 7 mul + 4 sqr, jac_dbl: 3 mul + 5 sqr, jac_add: 12 mul + 4 sqr,
+// add_complete: 15 mul + 9 sqr)
+// — 32-bit multiply-add throughput; all state stays in registers.
 
 #pragma once
 
@@ -118,6 +119,69 @@ __device__ __forceinline__ void add_z2_1(fe x1, fe y1, fe z1, fe x2, fe y2,
   z3 = fe_sub(fe_sub(fe_sqr(fe_add(z1, h)), z1z1), hh);
   x3 = x;
   y3 = y;
+}
+
+// --- free-standing Jacobian formulas (window kernel, strict comb) -------------
+// Replace ecsimd_tpu/kernels/coz.py:jac_dbl, jac_add and add_complete_any;
+// plain twins: curves/group.py dbl_am3, jac_add, add_complete.
+
+// dbl-2001-b for a = -3 (3M + 5S). Doubling of infinity stays at infinity
+// (z3 = 2 y1 z1).
+__device__ __forceinline__ void jac_dbl(fe x1, fe y1, fe z1, fe& x3, fe& y3, fe& z3) {
+  fe delta = fe_sqr(z1);
+  fe gamma = fe_sqr(y1);
+  fe beta4 = fe_mul4(x1, gamma);
+  fe t = fe_mul(fe_sub(x1, delta), fe_add(x1, delta));
+  fe alpha = fe_add(fe_dbl(t), t);
+  fe x = fe_sub(fe_sqr(alpha), fe_dbl(beta4));
+  fe g8 = fe_dbl(fe_dbl(fe_dbl(fe_sqr(gamma))));
+  y3 = fe_sub(fe_mul(alpha, fe_sub(beta4, x)), g8);
+  z3 = fe_sub(fe_sub(fe_sqr(fe_add(y1, z1)), gamma), delta);
+  x3 = x;
+}
+
+// General Jacobian add (add-2007-bl with Z3 = Z1 Z2 H, 12M + 4S), also returning h = U2 - U1
+// and r = S2 - S1; degenerate when h == 0 (equal or opposite points).
+__device__ __forceinline__ void jac_add(fe x1, fe y1, fe z1, fe x2, fe y2, fe z2,
+                                        fe& x3, fe& y3, fe& z3, fe& h, fe& r) {
+  fe z1z1 = fe_sqr(z1);
+  fe z2z2 = fe_sqr(z2);
+  fe u1 = fe_mul(x1, z2z2);
+  fe u2 = fe_mul(x2, z1z1);
+  fe s1 = fe_mul(fe_mul(y1, z2z2), z2);
+  fe s2 = fe_mul(fe_mul(y2, z1z1), z1);
+  fe hh_ = fe_sub(u2, u1);
+  fe rr = fe_sub(s2, s1);
+  fe hh = fe_sqr(hh_);
+  fe hhh = fe_mul(hh_, hh);
+  fe v = fe_mul(u1, hh);
+  fe x = fe_sub(fe_sub(fe_sqr(rr), hhh), fe_dbl(v));
+  y3 = fe_sub(fe_mul(rr, fe_sub(v, x)), fe_mul(s1, hhh));
+  z3 = fe_mul(fe_mul(z1, z2), hh_);
+  x3 = x;
+  h = hh_;
+  r = rr;
+}
+
+// Exception-free add: the general add with the cases it corrupts completed
+// by masks, without branches — P1 == P2 (h == 0, r == 0) -> jac_dbl(P1);
+// P1 == -P2 (h == 0, r != 0) -> infinity (z = 0); P1 == inf (z1 == 0) ->
+// (x2, y2, 1). P2 must be finite. Both the add and the doubling are always
+// computed, so the time does not depend on which case a lane is in.
+__device__ __forceinline__ void add_complete(fe x1, fe y1, fe z1, fe x2, fe y2, fe z2,
+                                             fe& x3, fe& y3, fe& z3) {
+  fe ax, ay, az, h, r, dx, dy, dz;
+  jac_add(x1, y1, z1, x2, y2, z2, ax, ay, az, h, r);
+  jac_dbl(x1, y1, z1, dx, dy, dz);
+  const uint32_t inf1 = fe_is_zero(z1);
+  const uint32_t hz = fe_is_zero(h);
+  const uint32_t rz = fe_is_zero(r);
+  const uint32_t same = hz & rz & (inf1 ^ 1u);
+  const uint32_t opp = hz & (rz ^ 1u) & (inf1 ^ 1u);
+  az = fe_select(same, dz, fe_select(opp, fe_zero(), az));
+  x3 = fe_select(inf1, x2, fe_select(same, dx, ax));
+  y3 = fe_select(inf1, y2, fe_select(same, dy, ay));
+  z3 = fe_select(inf1, fe_from_u32(1u), az);
 }
 
 }  // namespace p256

@@ -63,6 +63,13 @@ __device__ __forceinline__ fe fe_load(const int32_t* planes, int64_t B, int64_t 
   return r;
 }
 
+// 32-bit word w (bits 32w .. 32w+31) of lane i of a (16, B) digit plane set.
+__device__ __forceinline__ uint32_t scalar_word(const int32_t* planes, int64_t B, int64_t i,
+                                                int w) {
+  return ((uint32_t)planes[(2 * w) * B + i] & 0xFFFFu) |
+         ((uint32_t)planes[(2 * w + 1) * B + i] << 16);
+}
+
 __device__ __forceinline__ void fe_store(int32_t* planes, int64_t B, int64_t i, const fe& a) {
 #pragma unroll
   for (int j = 0; j < 8; ++j) {

@@ -20,12 +20,6 @@
 
 namespace p256 {
 
-__device__ __forceinline__ uint32_t scalar_word(const int32_t* scalars, int64_t B, int64_t i,
-                                                int w) {
-  return ((uint32_t)scalars[(2 * w) * B + i] & 0xFFFFu) |
-         ((uint32_t)scalars[(2 * w + 1) * B + i] << 16);
-}
-
 __device__ __forceinline__ void ladder_lane(const int32_t* scalars, const int32_t* xs,
                                             const int32_t* ys, int32_t* ax_out,
                                             int32_t* ay_out, int32_t* z_out, int64_t B,

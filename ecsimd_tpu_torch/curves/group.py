@@ -1,7 +1,9 @@
 """L5: co-Z Jacobian group law and the plain masked-swap ladder.
 
 The port of ``ecsimd_tpu/curves/group.py`` (co-Z arithmetic after
-Goundar-Joye-Miyaji, eprint 2010/309). ``scalar_mult`` here is the plain
+Goundar-Joye-Miyaji, eprint 2010/309), plus plain twins of the free-standing
+Jacobian formulas of ``ecsimd_tpu/kernels/coz.py`` that the window and strict
+comb kernels run (``dbl_am3``, ``jac_add``, ``add_complete``). ``scalar_mult`` here is the plain
 PyTorch version of the ladder kernel (``kernels/ladder.py``): the same
 formula sequence on GFp planes, one Python loop over the scalar bits, every
 step branch-free with per-lane swap masks. Since every field result is
@@ -11,7 +13,7 @@ planes bit for bit.
 
 from __future__ import annotations
 
-from ecsimd_tpu.specs import DIGIT_BITS, CurveSpec
+from ecsimd_tpu_torch.specs import DIGIT_BITS, CurveSpec
 from ecsimd_tpu_torch.curves.point import JacobianPoint
 from ecsimd_tpu_torch.field import GFp, gfp_swap_if
 
@@ -99,6 +101,125 @@ def tplu(x1: GFp, y1: GFp, curve: CurveSpec):
     """Co-Z tripling: (3P, P') with common z."""
     x2p, y2p, xu, yu, z = dblu(x1, y1, curve)
     return zaddu(xu, yu, x2p, y2p, z)
+
+
+# --- free-standing Jacobian doubling and adds -----------------------------------
+
+
+def jac_dbl(x1: GFp, y1: GFp, z1: GFp, curve: CurveSpec):
+    """General-a Jacobian doubling (dbl-2007-bl shape), the port of
+    ``ecsimd_tpu/curves/group.py:jac_dbl``. Doubling of infinity stays at
+    infinity (z3 = 2 y1 z1)."""
+    a = x1.const_like(curve.a)
+    xx = x1.sqr()
+    yy = y1.sqr()
+    yyyy = yy.sqr()
+    zz = z1.sqr()
+    s = ((x1 + yy).sqr() - xx - yyyy).double()
+    m = xx + xx.double() + a * zz.sqr()
+    x3 = m.sqr() - s.double()
+    y3 = m * (s - x3) - yyyy.shift_left(3)
+    z3 = (y1 + z1).sqr() - yy - zz
+    return x3, y3, z3
+
+
+def jac_add_complete(p1: JacobianPoint, p2: JacobianPoint) -> JacobianPoint:
+    """Exception-free general Jacobian add (add-2007-bl with masked
+    completion), the port of ``ecsimd_tpu/curves/group.py:jac_add_complete``:
+
+      h == 0, r == 0  (P1 == P2)   -> doubling of P1 (``jac_dbl``),
+      h == 0, r != 0  (P1 == -P2)  -> infinity (Z == 0),
+      Z1 == 0         (P1 == inf)  -> P2,
+      Z2 == 0         (P2 == inf)  -> P1,
+
+    with per-lane selects only. The strict comb's plain version."""
+    curve = p1.curve
+    x1, y1, z1 = p1.x, p1.y, p1.z
+    x2, y2, z2 = p2.x, p2.y, p2.z
+    x3, y3, z3, h, r = jac_add(x1, y1, z1, x2, y2, z2, with_hr=True)
+    hz, rz = h.is_zero(), r.is_zero()
+    inf1, inf2 = z1.is_zero(), z2.is_zero()
+    m_same = hz & rz & (1 - inf1) & (1 - inf2)
+    m_opp = hz & (1 - rz) & (1 - inf1) & (1 - inf2)
+    xd, yd, zd = jac_dbl(x1, y1, z1, curve)
+    x3 = xd.select(m_same, x3)
+    y3 = yd.select(m_same, y3)
+    z3 = zd.select(m_same, z3.select(1 - m_opp, z3.const_like(0)))
+    x3 = x2.select(inf1, x1.select(inf2, x3))
+    y3 = y2.select(inf1, y1.select(inf2, y3))
+    z3 = z2.select(inf1, z1.select(inf2, z3))
+    return JacobianPoint(x3, y3, z3, curve)
+
+
+# --- plain twins of the window kernel's device formulas --------------------------
+# ``ecsimd_tpu/kernels/coz.py``'s jac_dbl, jac_add and add_complete_any, as
+# ``csrc/coz_p256.cuh`` runs them: a = -3 on a Solinas field only.
+
+
+def _require_am3(curve: CurveSpec):
+    if not curve.am3:
+        raise NotImplementedError(
+            f"{curve.name}: the window formulas cover a = -3 only; general-a "
+            "doubling is not ported yet (ROADMAP B0)"
+        )
+
+
+def dbl_am3(x1: GFp, y1: GFp, z1: GFp, curve: CurveSpec):
+    """dbl-2001-b for a = -3 (3M + 5S), the twin of
+    ``ecsimd_tpu/kernels/coz.py:jac_dbl`` and of ``jac_dbl`` in
+    ``csrc/coz_p256.cuh``. For a = -3 it gives the same values as the
+    general-a ``jac_dbl``: X3 = M^2 - 8XY^2, Z3 = 2YZ with M = 3(X - Z^2)(X + Z^2)."""
+    _require_am3(curve)
+    delta = z1.sqr()
+    gamma = y1.sqr()
+    beta4 = x1.mul_scaled(gamma, 4)
+    alpha = (x1 - delta).mul_scaled(x1 + delta, 3)
+    x3 = alpha.sqr() - beta4.double()
+    z3 = (y1 + z1).sqr() - gamma - delta
+    y3 = alpha * (beta4 - x3) - gamma.sqr().shift_left(3)
+    return x3, y3, z3
+
+
+def jac_add(x1: GFp, y1: GFp, z1: GFp, x2: GFp, y2: GFp, z2: GFp, with_hr: bool = False):
+    """General Jacobian add (add-2007-bl with Z3 = Z1 Z2 H, 12M + 4S); degenerate when the x
+    lines collide (h == 0). ``with_hr`` also returns (h, r) for the complete
+    add. Twin of ``ecsimd_tpu/kernels/coz.py:jac_add``."""
+    z1z1 = z1.sqr()
+    z2z2 = z2.sqr()
+    u1 = x1 * z2z2
+    u2 = x2 * z1z1
+    s1 = y1 * z2z2 * z2
+    s2 = y2 * z1z1 * z1
+    h = u2 - u1
+    r = s2 - s1
+    hh = h.sqr()
+    hhh = h * hh
+    v = u1 * hh
+    x3 = r.sqr() - hhh - v.double()
+    y3 = r * (v - x3) - s1 * hhh
+    z3 = z1 * z2 * h
+    if with_hr:
+        return x3, y3, z3, h, r
+    return x3, y3, z3
+
+
+def add_complete(x1: GFp, y1: GFp, z1: GFp, x2: GFp, y2: GFp, z2: GFp, curve: CurveSpec):
+    """Exception-free add of the strict window and strict comb, the twin of
+    ``ecsimd_tpu/kernels/coz.py:add_complete_any``: P1 == P2 -> ``dbl_am3``
+    of P1, P1 == -P2 -> infinity (Z == 0), P1 == inf -> (x2, y2, 1). P2 must
+    be finite. Per-lane selects only."""
+    x3, y3, z3, h, r = jac_add(x1, y1, z1, x2, y2, z2, with_hr=True)
+    hz, rz, inf1 = h.is_zero(), r.is_zero(), z1.is_zero()
+    m_same = hz & rz & (1 - inf1)
+    m_opp = hz & (1 - rz) & (1 - inf1)
+    xd, yd, zd = dbl_am3(x1, y1, z1, curve)
+    x3 = xd.select(m_same, x3)
+    y3 = yd.select(m_same, y3)
+    z3 = zd.select(m_same, z3.select(1 - m_opp, z3.const_like(0)))
+    x3 = x2.select(inf1, x3)
+    y3 = y2.select(inf1, y3)
+    z3 = x1.const_like(1).select(inf1, z3)
+    return x3, y3, z3
 
 
 # --- the ladder -------------------------------------------------------------------

@@ -10,7 +10,7 @@ import dataclasses
 
 import torch
 
-from ecsimd_tpu.specs import CurveSpec
+from ecsimd_tpu_torch.specs import CurveSpec
 from ecsimd_tpu_torch.field import GFp
 
 

@@ -14,7 +14,7 @@ import dataclasses
 
 import torch
 
-from ecsimd_tpu.specs import FieldSpec, int_to_digits
+from ecsimd_tpu_torch.specs import FieldSpec, int_to_digits
 from ecsimd_tpu_torch.ops import bignum as bn
 from ecsimd_tpu_torch.ops import mont, solinas
 
@@ -157,7 +157,15 @@ class GFp:
         out = bn.select(zero, torch.zeros_like(flat), inv[:, :b])
         return GFp._of(out.reshape(self.planes.shape), fs)
 
-    # -- selection -------------------------------------------------------------
+    # -- comparison and selection ------------------------------------------------
+
+    def is_zero(self):
+        """Per-lane int64 0/1 mask of x == 0 (values are canonical)."""
+        return bn.is_zero(self.planes)
+
+    def eq(self, o: "GFp"):
+        """Per-lane int64 0/1 mask of x == o (the JAX package's ``==``)."""
+        return bn.cmp_eq(self.planes, o.planes)
 
     def select(self, mask, other: "GFp") -> "GFp":
         """mask ? self : other, per lane."""

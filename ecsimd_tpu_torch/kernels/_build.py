@@ -1,9 +1,10 @@
 """Build and load the CUDA kernels of ``ecsimd_tpu_torch/csrc``.
 
 At first use, ``library()`` compiles every source in ``SOURCES`` with
-``nvcc`` for Hopper (``sm_90a``) into one shared library with a plain C
-interface, under ``build/ecsimd_tpu_torch/`` beside the package, and loads
-it with ``ctypes``. The file name carries a hash of the sources and flags,
+``nvcc`` for Hopper (``sm_90a``), one ``nvcc`` process per source, all
+started together, and links the objects into one shared library with a
+plain C interface, under ``build/ecsimd_tpu_torch/`` beside the package; it
+loads it with ``ctypes``. The file name carries a hash of the sources and flags,
 so an edited source builds anew. Nothing is built or imported on import:
 the CPU tests import every module on machines without ``nvcc``.
 
@@ -28,11 +29,11 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ecsimd_tpu_torch"
-SOURCES = ("field_ops.cu", "ladder.cu", "comb.cu", "affine.cu")
+SOURCES = ("field_ops.cu", "ladder.cu", "comb.cu", "affine.cu", "window.cu")
 HEADERS = ("field_p256.cuh", "coz_p256.cuh")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = ARCH_FLAGS + (
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared memory and spills per kernel, kept in the log
 )
 
@@ -89,19 +90,29 @@ def library() -> Build:
     seconds = 0.0
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        # build under a temporary name and rename, so that a concurrent or
+        # build in a private directory and rename, so that a concurrent or
         # interrupted build never leaves a partial library under the final name
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        log.write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, so)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            nvcc = _nvcc()
+            t0 = time.perf_counter()
+            objs = [str(Path(tmp) / f"{src}.o") for src in SOURCES]
+            procs = [
+                subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(CSRC / src)],
+                                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                for src, obj in zip(SOURCES, objs)
+            ]
+            outs = [(src, proc, *proc.communicate()) for src, proc in zip(SOURCES, procs)]
+            failed = [f"{src}:\n{err}" for src, proc, _, err in outs if proc.returncode != 0]
+            if failed:
+                raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+            lib_tmp = str(Path(tmp) / so.name)
+            link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", lib_tmp, *objs],
+                                  capture_output=True, text=True)
+            if link.returncode != 0:
+                raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+            seconds = time.perf_counter() - t0
+            log.write_text("".join(out + err for _, _, out, err in outs))
+            os.replace(lib_tmp, so)
     lib = ctypes.CDLL(str(so))
     return Build(lib, seconds, log.read_text() if log.exists() else "")
 

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from ecsimd_tpu.specs import P256, CurveSpec
+from ecsimd_tpu_torch.specs import P256, CurveSpec
 from ecsimd_tpu_torch.curves.point import AffinePoint, JacobianPoint
 from ecsimd_tpu_torch.kernels import _build
 

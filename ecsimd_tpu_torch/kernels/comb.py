@@ -6,7 +6,9 @@ Replaces ``ecsimd_tpu/kernels/comb.py`` (``comb_mont_planes`` with
 built once on the host with Python ints for the shared base: entry e of
 position i >= 1 holds the affine (2e - 255) * 2^(8i) * B, and position 0
 additionally folds in the recoding's constant top digit, so the scalar
-multiplication is 31 mixed additions and no doublings. ``_batch_inv``,
+multiplication is 31 mixed additions and no doublings (``strict``: 31
+complete adds, ``group.jac_add_complete``, each with one doubling computed
+beside it). ``_batch_inv``,
 ``_to_internal`` and ``base_tables`` are copies of the JAX package's
 pure-Python ones (a test asserts equal output); ``entry_indices`` and
 ``comb_plain`` are PyTorch ports of ``entry_indices`` and
@@ -14,7 +16,13 @@ pure-Python ones (a test asserts equal output); ``entry_indices`` and
 
 Scalar domain: k in [1, order-1), minus the measure-zero degenerate class
 of scalars whose prefix sums collide with a table entry's x line
-(``ecsimd_tpu/kernels/comb.py`` docstring).
+(``ecsimd_tpu/kernels/comb.py`` docstring); ``strict``: all of [1, order),
+k = order - 1 included (its chain ends at infinity and the fix-up resolves
+inf + (-B) = -B).
+
+Kernel B gathers each position's entry with a load addressed by the scalar's
+window, so unlike the TPU kernel's one-hot read of the whole position its
+memory access pattern depends on the secret (ROADMAP queue C).
 """
 
 from __future__ import annotations
@@ -24,12 +32,13 @@ import functools
 import numpy as np
 import torch
 
-from ecsimd_tpu import convert
-from ecsimd_tpu.specs import DIGIT_BITS, P256, CurveSpec, int_to_digits
+from ecsimd_tpu_torch import convert
 from ecsimd_tpu_torch.curves import group
 from ecsimd_tpu_torch.curves.point import JacobianPoint
 from ecsimd_tpu_torch.field import GFp
 from ecsimd_tpu_torch.kernels import _build
+from ecsimd_tpu_torch.oracle import window as ow
+from ecsimd_tpu_torch.specs import DIGIT_BITS, P256, CurveSpec, int_to_digits
 
 W = 8  # window width in bits; 2^(W-1) signed-odd magnitudes per position
 NENT = 1 << W  # table entries per position: d = 2e - (2^W - 1), e in [0, 2^W)
@@ -38,6 +47,12 @@ KERNEL = _build.Kernel(
     symbol="ec_comb_p256",
     source="ecsimd_tpu_torch/csrc/comb.cu",
     replaces="ecsimd_tpu/kernels/comb.py:213 _comb_kernel",
+    n_pointers=6,
+)
+KERNEL_STRICT = _build.Kernel(
+    symbol="ec_comb_p256_strict",
+    source="ecsimd_tpu_torch/csrc/comb.cu",
+    replaces="ecsimd_tpu/kernels/comb.py:213 _comb_kernel (strict=True)",
     n_pointers=6,
 )
 
@@ -81,8 +96,6 @@ def base_tables(curve: CurveSpec, bx: int, by: int):
               special init step;
       negbase: classical affine (x, y) of -B (parity fixup operand).
     """
-    from ecsimd_tpu.oracle import window as ow
-
     fs = curve.field
     p, d = fs.p, fs.ndigits
     npos = _npos(fs.nbits)
@@ -184,11 +197,12 @@ def entry_indices(scalars, curve: CurveSpec):
     return torch.stack(idx)
 
 
-def comb_plain(scalars, tables, curve: CurveSpec, negbase):
+def comb_plain(scalars, tables, curve: CurveSpec, negbase, strict: bool = False):
     """Plain PyTorch comb on (D, B) planes, in the order of the JAX
     package's ``comb_xla_planes``: seed from the position-0 entry with
     z = 1, one ADD_Z2_1 per position 1..npos-1, then add -B on even lanes.
-    Returns Jacobian (ax, ay, z) int32 planes."""
+    ``strict`` replaces every add with ``group.jac_add_complete`` against
+    the entry with z = 1. Returns Jacobian (ax, ay, z) int32 planes."""
     fs = curve.field
     d = fs.ndigits
     idx = entry_indices(scalars, curve)
@@ -197,22 +211,27 @@ def comb_plain(scalars, tables, curve: CurveSpec, negbase):
         e = tables[i][idx[i]].t()  # (2d, B)
         return GFp(e[:d], fs), GFp(e[d:], fs)
 
+    def add(x, y, z, ex, ey):
+        if not strict:
+            return group.add_z2_1(x, y, z, ex, ey)
+        p = group.jac_add_complete(
+            JacobianPoint(x, y, z, curve), JacobianPoint(ex, ey, ex.const_like(1), curve))
+        return p.x, p.y, p.z
+
     x, y = entry(0)
     z = GFp.one(fs, x.planes)
     for i in range(1, _npos(fs.nbits)):
-        ex, ey = entry(i)
-        x, y, z = group.add_z2_1(x, y, z, ex, ey)
+        x, y, z = add(x, y, z, *entry(i))
 
-    nbx = x.const_like(negbase[0])
-    nby = x.const_like(negbase[1])
-    sx, sy, sz = group.add_z2_1(x, y, z, nbx, nby)
+    sx, sy, sz = add(x, y, z, x.const_like(negbase[0]), x.const_like(negbase[1]))
     meven = 1 - (scalars[0] & 1)
     return sx.select(meven, x).planes, sy.select(meven, y).planes, sz.select(meven, z).planes
 
 
-def comb_planes(scalars, tables, negbase_digits, curve: CurveSpec = P256):
-    """Run kernel B on (D, B) int32 CUDA scalar planes with device tables
-    from ``device_tables``. Returns Jacobian (ax, ay, z) planes."""
+def comb_planes(scalars, tables, negbase_digits, curve: CurveSpec = P256, strict: bool = False):
+    """Run kernel B (``strict``: its complete-add instantiation) on (D, B)
+    int32 CUDA scalar planes with device tables from ``device_tables``.
+    Returns Jacobian (ax, ay, z) planes."""
     _build.require_cuda(scalars, "comb")
     if curve != P256:
         raise NotImplementedError(
@@ -226,9 +245,10 @@ def comb_planes(scalars, tables, negbase_digits, curve: CurveSpec = P256):
     _build.check_planes("negbase", negbase_digits, (2 * d,), dev)
     if tables.data_ptr() % 16:
         raise ValueError("tables: kernel B reads entries as 16-byte words; need 16-byte alignment")
+    kernel = KERNEL_STRICT if strict else KERNEL
     ax, ay, z = (torch.empty(shape, dtype=torch.int32, device=dev) for _ in range(3))
-    _build.launch(KERNEL, [scalars, tables, negbase_digits, ax, ay, z], shape[1])
-    KERNEL.launches += 1
+    _build.launch(kernel, [scalars, tables, negbase_digits, ax, ay, z], shape[1])
+    kernel.launches += 1
     return ax, ay, z
 
 
@@ -239,18 +259,16 @@ def scalar_mult_base(
     """k_i * B for a base shared by every lane (default: the generator).
 
     scalars: (D, B) classical digit planes. Kernel B for CUDA tensors,
-    ``comb_plain`` for CPU tensors. ``strict`` (complete additions),
-    ``chains`` (independent accumulators) and ``unroll`` are the JAX
-    package's options; none is ported yet."""
-    if strict or chains != 1 or unroll != 1:
-        raise NotImplementedError(
-            "comb strict / chains / unroll are not ported yet (ROADMAP B2)"
-        )
+    ``comb_plain`` for CPU tensors. ``strict`` uses complete additions
+    (scalar domain [1, order)). ``chains`` (independent accumulators) and
+    ``unroll`` are the JAX package's options; neither is ported yet."""
+    if chains != 1 or unroll != 1:
+        raise NotImplementedError("comb chains / unroll are not ported yet (ROADMAP B2)")
     fs = curve.field
     bx, by = base if base is not None else (curve.gx, curve.gy)
     tables, negbase, negbase_digits = device_tables(curve, int(bx), int(by), scalars.device)
     if scalars.device.type == "cpu":
-        ax, ay, z = comb_plain(scalars, tables, curve, negbase)
+        ax, ay, z = comb_plain(scalars, tables, curve, negbase, strict)
     else:
-        ax, ay, z = comb_planes(scalars.contiguous(), tables, negbase_digits, curve)
+        ax, ay, z = comb_planes(scalars.contiguous(), tables, negbase_digits, curve, strict)
     return JacobianPoint(GFp(ax, fs), GFp(ay, fs), GFp(z, fs), curve)

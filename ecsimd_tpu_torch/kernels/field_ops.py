@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from ecsimd_tpu.specs import P256_FIELD, FieldSpec
+from ecsimd_tpu_torch.specs import P256_FIELD, FieldSpec
 from ecsimd_tpu_torch.field import GFp
 from ecsimd_tpu_torch.kernels import _build
 

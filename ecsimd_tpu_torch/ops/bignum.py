@@ -1,4 +1,4 @@
-"""L1: digit-plane bignum ops on torch tensors (the subset GFp needs).
+"""L1: digit-plane bignum ops on torch tensors (the subset GFp and ECDH need).
 
 A batch of D-digit unsigned integers is a tensor of shape ``(D, *batch)``
 whose plane ``k`` holds base-2^16 digit ``k`` (little-endian digits) of every
@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from ecsimd_tpu.specs import DIGIT_BITS, DIGIT_MASK
+from ecsimd_tpu_torch.specs import DIGIT_BITS, DIGIT_MASK
 
 I64 = torch.int64
 
@@ -59,6 +59,15 @@ def sub(a, b):
     borrow)``. The borrow doubles as the unsigned compare a < b."""
     d, carry = normalize_signed(a - b)
     return d, -carry  # the carry-out of a - b is 0 or -1
+
+
+def cmp_lt(a, b):
+    """Unsigned a < b per lane: the borrow of a - b."""
+    return sub(a, b)[1]
+
+
+def cmp_eq(a, b):
+    return (a == b).all(dim=0).to(I64)
 
 
 def is_zero(a):

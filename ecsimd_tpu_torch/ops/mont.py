@@ -12,7 +12,7 @@ import functools
 
 import torch
 
-from ecsimd_tpu.specs import DIGIT_BITS, DIGIT_MASK, FieldSpec
+from ecsimd_tpu_torch.specs import DIGIT_BITS, DIGIT_MASK, FieldSpec
 from ecsimd_tpu_torch.ops import bignum as bn
 
 I64 = torch.int64

@@ -17,7 +17,7 @@ import functools
 
 import torch
 
-from ecsimd_tpu.specs import DIGIT_BITS, FieldSpec, int_to_digits
+from ecsimd_tpu_torch.specs import DIGIT_BITS, FieldSpec, int_to_digits
 from ecsimd_tpu_torch.ops import bignum as bn
 from ecsimd_tpu_torch.ops import mont
 

@@ -18,7 +18,7 @@ from ecsimd_tpu_torch.curves.point import JacobianPoint
 from ecsimd_tpu_torch.field import GFp
 from ecsimd_tpu_torch.kernels import affine
 from tests.toy import TOY64
-from tests.torch_helpers import ints, multiples, planes, rand_ints, tplanes
+from tests.torch_helpers import ints, multiples, planes, port_spec, rand_ints, tplanes
 
 N = 8
 
@@ -35,8 +35,9 @@ def _jacobians(curve, seed):
 @pytest.mark.parametrize("curve", [TOY64, P256], ids=lambda c: c.name)
 def test_to_affine_matches_oracle(curve):
     cols = _jacobians(curve, 60)
-    d, fs = curve.field.ndigits, curve.field
-    jac = JacobianPoint(*(GFp(tplanes(c, d), fs) for c in cols), curve)
+    tc = port_spec(curve)
+    d, fs = tc.field.ndigits, tc.field
+    jac = JacobianPoint(*(GFp(tplanes(c, d), fs) for c in cols), tc)
     before = affine.KERNEL.launches
     out = affine.to_affine(jac)
     assert affine.KERNEL.launches == before  # CPU tensors never launch
@@ -47,7 +48,8 @@ def test_to_affine_matches_oracle(curve):
 def test_to_affine_matches_jax_toy64():
     cols = _jacobians(TOY64, 61)
     d, fs = TOY64.field.ndigits, TOY64.field
-    port = affine.to_affine(JacobianPoint(*(GFp(tplanes(c, d), fs) for c in cols), TOY64))
+    tc = port_spec(TOY64)
+    port = affine.to_affine(JacobianPoint(*(GFp(tplanes(c, d), tc.field) for c in cols), tc))
     jjac = JJacobian(*(JGFp.from_classical(jnp.asarray(planes(c, d)), fs) for c in cols), TOY64)
     ref = jjac.to_affine(batch_inv=False)  # the per-lane Fermat power of kernel D
     np.testing.assert_array_equal(port.x.numpy(), np.asarray(ref.x))

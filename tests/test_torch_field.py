@@ -10,12 +10,14 @@ import torch
 
 from ecsimd_tpu import field as jfield
 from ecsimd_tpu.kernels import digits as jdigits
+from ecsimd_tpu.ops import bignum as jbn
 from ecsimd_tpu.ops import solinas as jsolinas
 from ecsimd_tpu.specs import P256_FIELD, P384_FIELD, SECP256K1_FIELD, W25519_FIELD
 from ecsimd_tpu_torch import field as tfield
+from ecsimd_tpu_torch.ops import bignum as tbn
 from ecsimd_tpu_torch.ops import solinas as tsolinas
 from tests.toy import GOLDILOCKS
-from tests.torch_helpers import ints, planes, rand_ints, tplanes
+from tests.torch_helpers import ints, planes, port_spec, rand_ints, tplanes
 
 FIELDS = [P256_FIELD, GOLDILOCKS]
 N = 12
@@ -31,12 +33,13 @@ def _operands(fs, seed):
 
 @pytest.mark.parametrize("fs", [P256_FIELD, P384_FIELD, GOLDILOCKS], ids=lambda f: f.name)
 def test_planner_copies_equal_jax(fs):
-    assert tsolinas.reduction_matrix(fs) == jsolinas.reduction_matrix(fs)
-    assert tsolinas._cbar_digit_terms(fs) == jsolinas._cbar_digit_terms(fs)
+    tfs = port_spec(fs)
+    assert tsolinas.reduction_matrix(tfs) == jsolinas.reduction_matrix(fs)
+    assert tsolinas._cbar_digit_terms(tfs) == jsolinas._cbar_digit_terms(fs)
     d = fs.ndigits
     for ncols, bound, lo in [(2 * d + 1, 1 << 22, 0), (2 * d + 1, 4 << 22, 0),
                              (2 * d + 1, 3 << 22, -(2 << 22))]:
-        assert tsolinas._plan(fs, ncols, bound, lo) == jsolinas._plan(fs, ncols, bound, lo)
+        assert tsolinas._plan(tfs, ncols, bound, lo) == jsolinas._plan(fs, ncols, bound, lo)
     cbar = (1 << fs.nbits) % fs.p
     assert tsolinas._balanced_words(cbar, fs.nbits // 32) == jsolinas._balanced_words(
         cbar, fs.nbits // 32)
@@ -46,7 +49,8 @@ def test_planner_copies_equal_jax(fs):
 def test_gfp_ops_match_jax_and_oracle(fs):
     a, b = _operands(fs, 1)
     p, d = fs.p, fs.ndigits
-    ta, tb = tfield.GFp(tplanes(a, d), fs), tfield.GFp(tplanes(b, d), fs)
+    tfs = port_spec(fs)
+    ta, tb = tfield.GFp(tplanes(a, d), tfs), tfield.GFp(tplanes(b, d), tfs)
     ja = jfield.GFp(jnp.asarray(planes(a, d)), fs)
     jb = jfield.GFp(jnp.asarray(planes(b, d)), fs)
     # (name, op, oracle values, also against JAX GFp). JAX's eager squarings
@@ -79,7 +83,8 @@ def test_gfp_matches_kernel_digit_ops(fs):
     """The JAX kernels' digit-list field layer, run eagerly on jnp rows."""
     a, b = _operands(fs, 2)
     d = fs.ndigits
-    ta, tb = tfield.GFp(tplanes(a, d), fs), tfield.GFp(tplanes(b, d), fs)
+    tfs = port_spec(fs)
+    ta, tb = tfield.GFp(tplanes(a, d), tfs), tfield.GFp(tplanes(b, d), tfs)
     la = [jnp.asarray(r) for r in planes(a, d)]
     lb = [jnp.asarray(r) for r in planes(b, d)]
     cases = [
@@ -99,16 +104,17 @@ def test_inverse_and_batch_inverse(fs):
     a, _ = _operands(fs, 3)
     p, d = fs.p, fs.ndigits
     want = [pow(u, p - 2, p) for u in a]  # inverse(0) = 0
-    x = tfield.GFp(tplanes(a, d), fs)
+    tfs = port_spec(fs)
+    x = tfield.GFp(tplanes(a, d), tfs)
     assert ints(x.inverse().planes) == want
     assert ints(x.batch_inverse().planes) == want
     # a batch that is not a power of two, and a single lane
-    assert ints(tfield.GFp(tplanes(a[:5], d), fs).batch_inverse().planes) == want[:5]
-    assert ints(tfield.GFp(tplanes(a[2:3], d), fs).batch_inverse().planes) == want[2:3]
+    assert ints(tfield.GFp(tplanes(a[:5], d), tfs).batch_inverse().planes) == want[:5]
+    assert ints(tfield.GFp(tplanes(a[2:3], d), tfs).batch_inverse().planes) == want[2:3]
 
 
 def test_select_swap_and_constants():
-    fs = P256_FIELD
+    fs = port_spec(P256_FIELD)
     a, b = _operands(fs, 4)
     d = fs.ndigits
     x, y = tfield.GFp(tplanes(a, d), fs), tfield.GFp(tplanes(b, d), fs)
@@ -120,9 +126,25 @@ def test_select_swap_and_constants():
     assert ints(t.planes) == want_x
     assert ints(x.const_like(fs.p + 5).planes) == [5] * N
     assert ints(tfield.GFp.one(fs, x.planes).planes) == [1] * N
+    assert x.eq(x).tolist() == [1] * N and x.eq(y).tolist() == [int(u == v) for u, v in zip(a, b)]
+    assert x.is_zero().tolist() == [int(u == 0) for u in a]
+
+
+def test_compares_match_jax_bignum():
+    """cmp_lt / cmp_eq / is_zero, the digit-plane compares ECDH's range
+    checks use, against ops/bignum.py on equal, adjacent and random values."""
+    p = P256_FIELD.p
+    a, b = _operands(P256_FIELD, 5)
+    a, b = a + [p, p - 1, 7, 0], b + [p, p, 6, 0]
+    ta, tb = tplanes(a, 16).to(torch.int64), tplanes(b, 16).to(torch.int64)
+    ja, jb = jnp.asarray(planes(a, 16)), jnp.asarray(planes(b, 16))
+    for tfn, jfn in ((tbn.cmp_lt, jbn.cmp_lt), (tbn.cmp_eq, jbn.cmp_eq)):
+        assert tfn(ta, tb).tolist() == np.asarray(jfn(ja, jb)).tolist()
+    assert tbn.cmp_lt(ta, tb).tolist() == [int(u < v) for u, v in zip(a, b)]
+    assert tbn.is_zero(ta).tolist() == np.asarray(jbn.is_zero(ja)).tolist()
 
 
 @pytest.mark.parametrize("fs", [SECP256K1_FIELD, W25519_FIELD], ids=lambda f: f.name)
 def test_unported_reductions_raise(fs):
     with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        tfield.GFp(tplanes([1], fs.ndigits), fs)
+        tfield.GFp(tplanes([1], fs.ndigits), port_spec(fs))

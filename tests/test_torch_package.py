@@ -1,6 +1,7 @@
-"""Packaging of the PyTorch port: it imports no JAX, its CUDA sources are
-where the build step looks, its launch counters start at 0, and every public
-path dispatches by the device of its input tensors."""
+"""Packaging of the PyTorch port: it imports neither JAX nor anything of the
+JAX package, its CUDA sources are where the build step looks, its launch
+counters start at 0, and every public path dispatches by the device of its
+input tensors."""
 
 import ast
 import subprocess
@@ -12,53 +13,61 @@ import torch
 
 import ecsimd_tpu_torch
 from ecsimd_tpu.specs import P256
-from ecsimd_tpu_torch.kernels import _build, affine, comb, field_ops, ladder
-from tests.torch_helpers import ints, rand_ints, tplanes
+from ecsimd_tpu_torch.curves.point import AffinePoint
+from ecsimd_tpu_torch.kernels import _build, affine, comb, field_ops, ladder, window
+from tests.toy import TOY64
+from tests.torch_helpers import ints, port_spec, rand_ints, tplanes
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = Path(ecsimd_tpu_torch.__file__).resolve().parent
-KERNELS = (comb.KERNEL, ladder.KERNEL, field_ops.KERNEL, affine.KERNEL)
+KERNELS = (comb.KERNEL, comb.KERNEL_STRICT, ladder.KERNEL, window.KERNEL, window.KERNEL_STRICT,
+           field_ops.KERNEL, affine.KERNEL)
+MODULES = sorted(
+    "ecsimd_tpu_torch" + "".join("." + part for part in f.relative_to(PORT).with_suffix("").parts)
+    for f in PORT.rglob("*.py")
+)
 
 
 def test_import_leaves_jax_out():
     code = (
-        "import sys\n"
-        "import ecsimd_tpu_torch, ecsimd_tpu_torch.api\n"
-        "import ecsimd_tpu_torch.kernels.comb, ecsimd_tpu_torch.kernels.ladder\n"
-        "import ecsimd_tpu_torch.kernels.field_ops, ecsimd_tpu_torch.kernels.affine\n"
-        "from ecsimd_tpu_torch.kernels import affine, comb, field_ops, ladder\n"
-        "print(sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')))\n"
-        "print([k.launches for k in (comb.KERNEL, ladder.KERNEL, field_ops.KERNEL,"
-        " affine.KERNEL)])\n"
+        "import importlib, sys\n"
+        f"for m in {[m.removesuffix('.__init__') for m in MODULES]!r}:\n"
+        "    importlib.import_module(m)\n"
+        "from ecsimd_tpu_torch.kernels import affine, comb, field_ops, ladder, window\n"
+        "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'ecsimd_tpu')))\n"
+        "print([k.launches for k in (comb.KERNEL, comb.KERNEL_STRICT, ladder.KERNEL,"
+        " window.KERNEL, window.KERNEL_STRICT, field_ops.KERNEL, affine.KERNEL)])\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, check=True, timeout=120).stdout.splitlines()
-    assert out == ["[]", "[0, 0, 0, 0]"]
+    assert out == ["[]", "[0, 0, 0, 0, 0, 0, 0]"]
+    assert len(MODULES) > 20
 
 
 def test_no_port_source_imports_jax():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) > 10
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "tests/test_torch_cuda.py"]
+    assert len(files) > 20
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):
             names = []
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
-            elif isinstance(node, ast.ImportFrom) and node.module:
+            elif isinstance(node, ast.ImportFrom):
+                assert node.level == 0, f"{f}: relative import"
                 names = [node.module]
             for n in names:
-                assert n.split(".")[0] != "jax", f"{f} imports {n}"
-                assert not (n.startswith("ecsimd_tpu.") and n.split(".")[1] in (
-                    "api", "field", "curves", "kernels", "ops", "parallel")), f"{f} imports {n}"
+                assert n.split(".")[0] not in ("jax", "ecsimd_tpu"), f"{f} imports {n}"
 
 
 def test_cuda_sources_listed_and_present():
     listed = set(_build.SOURCES + _build.HEADERS)
     on_disk = {p.name for p in _build.CSRC.iterdir() if p.suffix in (".cu", ".cuh")}
     assert listed == on_disk
+    assert len({k.symbol for k in KERNELS}) == len(KERNELS)
     for k in KERNELS:
         assert (ROOT / k.source).is_file(), k.source
         assert Path(k.source).name in _build.SOURCES
+        assert f'extern "C" int {k.symbol}(' in (ROOT / k.source).read_text(), k.symbol
         path, line = k.replaces.split()[0].split(":")
         assert (ROOT / path).is_file() and int(line) > 0, k.replaces
     assert _build.BUILD_DIR.parent.name == "build"
@@ -67,12 +76,17 @@ def test_cuda_sources_listed_and_present():
 def test_launch_counters_start_at_zero_and_cpu_paths_launch_nothing():
     before = [k.launches for k in KERNELS]
     assert all(isinstance(n, int) for n in before)
-    fs = P256.field
+    fs = port_spec(P256.field)
     a = rand_ints(np.random.default_rng(30), fs.p, 4, edges=[0, fs.p - 1])
     out = field_ops.probe(tplanes(a, 16), tplanes(a[::-1], 16))
     assert ints(out[0]) == [x * y % fs.p for x, y in zip(a, a[::-1])]
     assert ints(out[4]) == [(-x) % fs.p for x in a]
-    comb.scalar_mult_base(tplanes([7, 9], 16))
+    comb.scalar_mult_base(tplanes([7, 9], 16), port_spec(P256))
+    toy = port_spec(TOY64)
+    g = [tplanes([v, v], 4) for v in (toy.gx, toy.gy)]
+    for strict in (False, True):
+        comb.scalar_mult_base(tplanes([7, 9], 4), toy, strict=strict)
+        window.scalar_mult(tplanes([7, 9], 4), AffinePoint(*g, toy), strict=strict)
     assert [k.launches for k in KERNELS] == before
     assert field_ops.probe(tplanes(a, 16), tplanes(a, 16)).device.type == "cpu"
     assert torch.equal(out, field_ops.probe_plain(tplanes(a, 16), tplanes(a[::-1], 16)))

@@ -3,11 +3,30 @@
 Inputs are drawn from numpy.random.default_rng(seed) and handed to both the
 JAX package and the port as the same int32 planes."""
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from ecsimd_tpu import convert
+from ecsimd_tpu import specs as jspecs
 from ecsimd_tpu.oracle import window as ow
+from ecsimd_tpu_torch import specs as tspecs
+
+
+def port_spec(spec):
+    """A reference FieldSpec or CurveSpec (``ecsimd_tpu.specs``,
+    ``tests/toy.py``) rebuilt field by field as the port's own spec type.
+    The two packages' frozen dataclasses never compare equal, and the port
+    keys its ``curve != P256`` checks and its caches on its own type."""
+    if isinstance(spec, tspecs.FieldSpec | tspecs.CurveSpec):
+        return spec
+    kw = {f.name: getattr(spec, f.name) for f in dataclasses.fields(spec)}
+    if isinstance(spec, jspecs.FieldSpec):
+        return tspecs.FieldSpec(**kw)
+    assert isinstance(spec, jspecs.CurveSpec), type(spec)
+    kw["field"] = port_spec(spec.field)
+    return tspecs.CurveSpec(**kw)
 
 
 def rand_ints(rng, bound: int, n: int, edges=()):
