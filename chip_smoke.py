@@ -7,9 +7,10 @@ its main paths at bench.py's deployment size, 524,288 lanes, with bench.py's
 scalar draw (uniform mod n, edge scalars 1, 2, 5, n-2 first): batched
 P-256 scalar multiplication — fixed-base k_i * G through the comb kernel,
 variable-base k_i * P_i through the co-Z ladder and through the signed
-window, each followed by the affine-conversion kernel — and batched ECDH.
-Phases, one line each; any failed check raises and the script exits
-non-zero:
+window, each followed by the affine-conversion kernel — batched ECDH, and
+batched ECDSA sign / verify / recover on P-256 and secp256k1 (comb, strict
+window, strict GLV and affine kernels). Phases, one line each; any failed
+check raises and the script exits non-zero:
 
   0. device: a CUDA card is required; prints its name, power limit and
      maximum SM clock.
@@ -18,10 +19,11 @@ non-zero:
      registers, spills, stack frame and shared memory.
   2. field probe (kernel C) against the plain GFp: 65,536 lanes plus edge
      values, exact; 64 lanes also against Python ints.
-  3. comb (kernel B) against comb_plain: Jacobian planes, exact, 65,536
-     lanes; 512 lanes (edge scalars 1, 2, 5, n-2 first) against the oracle.
-  4. ladder (kernel A) against group.scalar_mult the same way, lanes < 512
-     carrying distinct points (i+1)G.
+  3. comb (kernel B, its masked shared-memory table scan) against
+     comb_plain: Jacobian planes, exact, 65,536 lanes; 512 lanes (edge
+     scalars 1, 2, 5, n-2 first) against the oracle.
+  4. ladder (kernel A): 512 lanes carrying distinct points (i+1)G against
+     the oracle (against group.scalar_mult in phase 6, at full width).
   5. affine conversion (kernel D) against the plain JacobianPoint.to_affine
      on phase 3's 65,536 comb results, one lane set to infinity; exact.
   6. the first main path through api.scalar_mult_base and api.scalar_mult
@@ -43,6 +45,25 @@ non-zero:
      oracle; launch counts; kernels E, E strict and B strict exact against
      their plain versions on the path's own inputs; CUDA-event times of
      each kernel, its plain version and the end-to-end call.
+ 10. secp256k1 field (kernel C on the CIOS Montgomery field) against the
+     plain CIOS GFp on 65,536 lanes, and 64 lanes against Python ints.
+ 11. secp256k1 kernels: GLV (kernel F), plain and strict, against glv_plain
+     on 65,536 lanes, and strict against the oracle on 512 lanes with
+     distinct points (i+1)G and the lambda-class scalars (1, 2, lambda,
+     lambda +- 1, n-1, n-2, splits with k1 = 0 or k2 = 0); comb (B) and
+     strict comb on secp256k1 against comb_plain on 65,536 lanes and the
+     oracle on 512; affine (D) on secp256k1 against to_affine the same way.
+ 12. the third main path at B = 524,288, on P-256 and on secp256k1: keys
+     Q = d G (api.scalar_mult_base), ecdsa.sign_planes, verify_planes on the
+     honest batch (every lane valid) and on a tampered one (r + 1, s = 0,
+     s = n, r = 0, an off-curve Q, a hash = n lane, and on secp256k1 a
+     valid u2 = lambda lane): masks exact against the oracle on 512 lanes
+     and the tampered ones; recover_planes with v = 0 and v = 1, one of
+     which gives Q on every lane; 8 P-256 lanes with RFC 6979 A.2.5 nonces
+     equal the RFC's signatures. Launch counts, CUDA-event times of each
+     call, of its kernels and of its plain-PyTorch parts (the mod-n batch
+     inverse, the GLV split, recovery's square root); the new kernels
+     against their plain versions on the path's own inputs.
 
 Inputs come from numpy.random.default_rng(SEED). The line before the last
 is a JSON object with one entry per kernel; the last line is the device
@@ -50,6 +71,7 @@ summary ``{"ok": true, "device": {...}}``.
 """
 
 import functools
+import hashlib
 import json
 import subprocess
 import sys
@@ -58,14 +80,17 @@ import time
 import numpy as np
 import torch
 
-from ecsimd_tpu_torch import api, convert, ecdh
+from ecsimd_tpu_torch import api, convert, ecdh, ecdsa, glv
 from ecsimd_tpu_torch.curves import group
 from ecsimd_tpu_torch.curves.point import AffinePoint, JacobianPoint
 from ecsimd_tpu_torch.field import GFp
 from ecsimd_tpu_torch.kernels import _build, affine, comb, field_ops, ladder, window
+from ecsimd_tpu_torch.kernels import glv as kglv
+from ecsimd_tpu_torch.ops import mont
 from ecsimd_tpu_torch.oracle import coz
+from ecsimd_tpu_torch.oracle import field as ofield
 from ecsimd_tpu_torch.oracle import window as ow
-from ecsimd_tpu_torch.specs import P256
+from ecsimd_tpu_torch.specs import P256, SECP256K1
 
 SEED = 0xEC51
 BATCH = 524288  # bench.py's deployment size
@@ -75,19 +100,44 @@ MAIN_ORACLE_LANES = 64
 D = P256.field.ndigits
 N, P = P256.order, P256.p
 EDGE_SCALARS = [1, 2, 5, N - 2]
-# CUDA names <name>_p256_kernel, as -Xptxas -v reports them
-KERNELS = ("comb", "comb_strict", "ladder", "window", "window_strict", "affine", "field_probe")
+# kernel name in the JSON line -> CUDA kernel name as -Xptxas -v reports it
+PTXAS_NAMES = {
+    "comb": "comb_p256", "comb_strict": "comb_strict_p256", "ladder": "ladder_p256",
+    "window": "window_p256", "window_strict": "window_strict_p256", "affine": "affine_p256",
+    "field_probe": "field_probe_p256", "comb_secp256k1": "comb_secp256k1",
+    "comb_strict_secp256k1": "comb_strict_secp256k1", "affine_secp256k1": "affine_secp256k1",
+    "field_probe_secp256k1": "field_probe_secp256k1", "glv": "glv_secp256k1",
+    "glv_strict": "glv_strict_secp256k1",
+}
+
+# RFC 6979 A.2.5, P-256 with SHA-256: private key x, and (message, k, r, s)
+RFC6979_X = 0xC9AFA9D845BA75166B5C215767B1D6934E50C3DB36E89B127B8A622B120F6721
+RFC6979_SHA256 = [
+    (b"sample", 0xA6E3C57DD01ABE90086538398355DD4C3B17AA873382B0F24D6129493D8AAD60,
+     0xEFD48B2AACB6A8FD1140DD9CD45E81D69D2C877B56AAF991C34D0EA84EAF3716,
+     0xF7CB1C942D657C41D436C7A1B6E29F65F3E900DBB9AFF4064DC4AB2F843ACDA8),
+    (b"test", 0xD16B6AE827F17175E040871A1C7EC3500192C4C92677336EC2537ACAEE0008E0,
+     0xF1ABB023518351CD71D881567B1EA663ED3EFCF6C5132B354F28D3B0B7D38367,
+     0x019F4113742A2B14BD25926B49C649155F267E60D3814B4C0CC84250E46F0083),
+]
 
 # The least time the card could take for a kernel's work (bound_ms): the
 # larger of its bytes over the memory rate and its 32-bit multiply-adds over
 # the IMAD rate. Field multiplies (M) and squarings (S) per formula, counted
-# in csrc/coz_p256.cuh and field_p256.cuh (fe_inv: 256 squarings and one
-# multiply per set bit of p - 2). Every kernel is constant-time, so the count
-# does not depend on the data.
+# in csrc/coz_p256.cuh, coz_secp256k1.cuh, jacobian.cuh and the field
+# headers. An inversion z^(p - 2) is charged the shortest known addition
+# chain, not the kernels' square-and-multiply: 255 S + 12 M on P-256 (runs
+# of 32, 1 and 94 ones), 255 S + 15 M on secp256k1 (libsecp256k1's chain).
+# Every kernel is constant-time, so the count does not depend on the data.
 FORMULA_MS = {
     "add_z2_1": (7, 4), "zdau": (9, 7), "tplu": (6, 7), "jac_dbl": (3, 5),
-    "jac_add": (12, 4), "add_complete": (15, 9), "fe_inv": (128, 256),
+    "jac_add": (12, 4), "add_complete": (15, 9), "fe_inv": (12, 255),
     "affine_tail": (3, 1),  # z^-2, then x z^-2 and y z^-2 z^-1
+    "probe": (1, 1),
+    # secp256k1 (a = 0): dbl-2007-bl 1M + 7S; the complete add is jac_add
+    # + that doubling; to_classical is 1M per output
+    "k1_jac_dbl": (1, 7), "k1_add_complete": (13, 11), "k1_fe_inv": (15, 255),
+    "k1_affine_tail": (5, 1), "beta": (1, 0),
 }
 
 
@@ -96,6 +146,7 @@ def lane_ms(*terms):
     return tuple(sum(n * FORMULA_MS[f][i] for n, f in terms) for i in (0, 1))
 
 
+GLV_WINDOWS = 4 * kglv.KERNEL_DIGITS  # 36 windows of 4 doublings and two adds
 LANE_MS = {
     "comb": lane_ms((32, "add_z2_1")),
     "comb_strict": lane_ms((32, "add_complete")),
@@ -103,16 +154,41 @@ LANE_MS = {
     "window": lane_ms((257, "jac_dbl"), (71, "jac_add"), (1, "add_z2_1")),
     "window_strict": lane_ms((257, "jac_dbl"), (7, "jac_add"), (65, "add_complete")),
     "affine": lane_ms((1, "fe_inv"), (1, "affine_tail")),
+    "field_probe": lane_ms((1, "probe")),
+    "comb_secp256k1": lane_ms((32, "add_z2_1")),
+    "comb_strict_secp256k1": lane_ms((32, "k1_add_complete")),
+    "affine_secp256k1": lane_ms((1, "k1_fe_inv"), (1, "k1_affine_tail")),
+    "field_probe_secp256k1": lane_ms((1, "probe")),
+    # table (1 dbl + 7 adds), beta x of the 8 entries, the first add, 36
+    # windows (4 dbl, 2 adds), 2 fix-ups
+    "glv": lane_ms((1, "k1_jac_dbl"), (7, "jac_add"), (kglv.TABLE, "beta"), (1, "jac_add"),
+                   (4 * GLV_WINDOWS, "k1_jac_dbl"), (2 * GLV_WINDOWS, "jac_add"),
+                   (2, "add_z2_1")),
+    "glv_strict": lane_ms((1, "k1_jac_dbl"), (7, "jac_add"), (kglv.TABLE, "beta"),
+                          (1, "k1_add_complete"), (4 * GLV_WINDOWS, "k1_jac_dbl"),
+                          (2 * GLV_WINDOWS, "k1_add_complete"), (2, "k1_add_complete")),
 }
-# 32 x 32 -> 64-bit products, two 32-bit multiply-adds each: a multiply has
-# 8 x 8 products, a squaring 36 (8 squares, 28 cross products taken once)
+# 32 x 32 -> 64-bit products, two 32-bit multiply-adds each. A multiply has
+# 8 x 8 products, a squaring 36 (8 squares, 28 cross products taken once).
+# The reduction: none on P-256 (Solinas: adds only); on secp256k1 the least
+# the function needs, not the kernels' CIOS (8 x (1 + 8) products): p =
+# 2^256 - 2^32 - 977, so the high half folds in as hi * 977 (8 products)
+# plus a shift, and the fold's carry word once more (1 product).
 IMADS_PER_MUL, IMADS_PER_SQR = 2 * 64, 2 * 36
+K1_FOLD_IMADS = 2 * (8 + 1)
+K1_FIELD = {"comb_secp256k1", "comb_strict_secp256k1", "affine_secp256k1",
+            "field_probe_secp256k1", "glv", "glv_strict"}
 PLANE_BYTES = D * 4  # one (16,) int32 digit column per lane
 BYTES_PER_LANE = {  # each input plane read once, each output plane written once
     "comb": 4 * PLANE_BYTES, "comb_strict": 4 * PLANE_BYTES, "ladder": 6 * PLANE_BYTES,
     "window": 6 * PLANE_BYTES, "window_strict": 6 * PLANE_BYTES, "affine": 5 * PLANE_BYTES,
+    "field_probe": 7 * PLANE_BYTES,
+    "comb_secp256k1": 4 * PLANE_BYTES, "comb_strict_secp256k1": 4 * PLANE_BYTES,
+    "affine_secp256k1": 5 * PLANE_BYTES, "field_probe_secp256k1": 7 * PLANE_BYTES,
+    "glv": 5 * PLANE_BYTES + (2 * kglv.KERNEL_DIGITS + 2) * 4,
+    "glv_strict": 5 * PLANE_BYTES + (2 * kglv.KERNEL_DIGITS + 2) * 4,
 }
-COMB_TABLE_BYTES = 32 * 256 * 2 * D * 4
+COMB_TABLE_BYTES = (256 + 31 * 128) * 16 * 4  # kernel B's limb layout
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak memory bandwidth
 IMAD_PER_SM_PER_CLOCK = 64  # CUDA C++ Programming Guide, compute capability 9.0
 SMS = 132
@@ -130,37 +206,42 @@ def random_planes(rng, n):
     return planes.astype(np.int32)
 
 
-def scalar_ints(rng, n, edges=EDGE_SCALARS):
+def scalar_ints(rng, n, edges=EDGE_SCALARS, curve=P256):
     """bench.py's draw: uniform mod n (0 -> 1), edge scalars in the first lanes."""
-    ks = [int.from_bytes(rng.bytes(32), "little") % N or 1 for _ in range(n)]
+    ks = [int.from_bytes(rng.bytes(32), "little") % curve.order or 1 for _ in range(n)]
     ks[: len(edges)] = edges
     return ks
 
 
-def scalar_planes(rng, n, edges=EDGE_SCALARS):
-    return convert.ints_to_planes(scalar_ints(rng, n, edges), D)
+def scalar_planes(rng, n, edges=EDGE_SCALARS, curve=P256):
+    return convert.ints_to_planes(scalar_ints(rng, n, edges, curve), D)
+
+
+def to_dev(ints, dev):
+    return torch.from_numpy(convert.ints_to_planes(ints, D)).to(dev)
 
 
 @functools.cache
-def multiples_of_g(n):
+def multiples_of_g(n, curve=P256):
     """Affine (i+1)*G for i < n: oracle Jacobian adds, one batched inversion."""
-    jacs = [(P256.gx, P256.gy, 1)]
+    p = curve.p
+    jacs = [(curve.gx, curve.gy, 1)]
     if n > 1:
-        jacs.append(ow._jac_dbl(jacs[0], P256))
+        jacs.append(ow._jac_dbl(jacs[0], curve))
     for _ in range(n - 2):
-        jacs.append(ow._jac_add(jacs[-1], jacs[0], P256))
-    zinv = comb._batch_inv([z for _, _, z in jacs], P)
-    return [(x * zi * zi % P, y * zi * zi * zi % P) for (x, y, _), zi in zip(jacs, zinv)]
+        jacs.append(ow._jac_add(jacs[-1], jacs[0], curve))
+    zinv = comb._batch_inv([z for _, _, z in jacs], p)
+    return [(x * zi * zi % p, y * zi * zi * zi % p) for (x, y, _), zi in zip(jacs, zinv)]
 
 
-def varbase_points(n, device):
+def varbase_points(n, device, curve=P256):
     """Affine planes: lanes < ORACLE_LANES carry (i+1)G, the rest G."""
-    pts = multiples_of_g(ORACLE_LANES)
-    g = api.generator_batch(P256, n, device)
+    pts = multiples_of_g(ORACLE_LANES, curve)
+    g = api.generator_batch(curve, n, device)
     xs, ys = g.x.clone(), g.y.clone()
     xs[:, :ORACLE_LANES] = torch.from_numpy(convert.ints_to_planes([x for x, _ in pts], D))
     ys[:, :ORACLE_LANES] = torch.from_numpy(convert.ints_to_planes([y for _, y in pts], D))
-    return AffinePoint(xs, ys, P256)
+    return AffinePoint(xs, ys, curve)
 
 
 def affine_ints(pt, lanes):
@@ -169,21 +250,31 @@ def affine_ints(pt, lanes):
     return list(zip(x, y))
 
 
-def jacobian_affine_ints(planes, lanes):
+def jacobian_affine_ints(planes, lanes, curve=P256):
     """Jacobian (x, y, z) planes -> affine int pairs via the plain to_affine."""
-    jac = JacobianPoint(*(GFp(t[:, :lanes].contiguous(), P256.field) for t in planes), P256)
+    jac = JacobianPoint(*(GFp(t[:, :lanes].contiguous(), curve.field) for t in planes), curve)
     return affine_ints(jac.to_affine(), lanes)
 
 
-def oracle_base(ks):
-    """k * G; (n-1) G = -G, outside the ladder oracle's domain."""
-    return [(P256.gx, (P - P256.gy) % P) if k == N - 1
-            else coz.scalar_mult_affine(k, P256.gx, P256.gy, P256) for k in ks]
+def oracle_mult(k, pt, curve=P256):
+    """k * pt (affine ints) for any k: infinity as (0, 0), (n-1) pt = -pt
+    (outside the ladder oracle's domain)."""
+    k %= curve.order
+    x, y = pt
+    if k == 0:
+        return (0, 0)
+    if k == curve.order - 1:
+        return (x, (curve.p - y) % curve.p)
+    return coz.scalar_mult_affine(k, x, y, curve)
 
 
-def oracle_varbase(ks):
+def oracle_base(ks, curve=P256):
+    return [oracle_mult(k, (curve.gx, curve.gy), curve) for k in ks]
+
+
+def oracle_varbase(ks, curve=P256):
     """k_i * (i+1) * G, the points of varbase_points."""
-    return oracle_base([k * (i + 1) % N for i, k in enumerate(ks)])
+    return oracle_base([k * (i + 1) % curve.order for i, k in enumerate(ks)], curve)
 
 
 def window_degenerate(k, i):
@@ -195,6 +286,51 @@ def window_degenerate(k, i):
         return False
     except ZeroDivisionError:
         return True
+
+
+def _jac_mult(k, pt, curve):
+    """Double-and-add on Jacobian ints, None for infinity (k >= 0)."""
+    acc, base = None, pt
+    while k:
+        if k & 1:
+            acc = base if acc is None else ow._jac_add(acc, base, curve)
+        k >>= 1
+        if k:
+            base = ow._jac_dbl(base, curve)
+    return acc
+
+
+def oracle_verify(z, r, s, qx, qy, curve):
+    """ECDSA verification with Python ints (FIPS 186-5): ranges, Q on the
+    curve, R = u1 G + u2 Q by double-and-add, R.x == r mod n."""
+    n, p = curve.order, curve.p
+    if not (1 <= r < n and 1 <= s < n):
+        return 0
+    if (qy * qy - qx**3 - curve.a * qx - curve.b) % p:
+        return 0
+    w = pow(s, -1, n)
+    u1, u2 = z % n * w % n, r * w % n
+    acc = _jac_mult(u1, (curve.gx, curve.gy, 1), curve)
+    s2 = _jac_mult(u2, (qx, qy, 1), curve)
+    if acc is None:
+        acc = s2
+    elif s2 is not None:
+        same_x = acc[0] * s2[2] ** 2 % p == s2[0] * acc[2] ** 2 % p
+        if same_x and acc[1] * s2[2] ** 3 % p == s2[1] * acc[2] ** 3 % p:
+            acc = ow._jac_dbl(acc, curve)
+        elif same_x:
+            acc = None
+        else:
+            acc = ow._jac_add(acc, s2, curve)
+    if acc is None or acc[2] % p == 0:
+        return 0
+    return int(acc[0] * pow(acc[2] * acc[2], -1, p) % p % n == r)
+
+
+def oracle_sign(z, d, k, curve):
+    n = curve.order
+    r = coz.scalar_mult_affine(k, curve.gx, curve.gy, curve)[0] % n
+    return r, pow(k, -1, n) * (z % n + r * d) % n
 
 
 def max_abs_diff(xs, ys):
@@ -232,7 +368,7 @@ def resource_report(log):
     out, current = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            current = next((k for k in KERNELS if f"{k}_p256_kernel" in line), None)
+            current = next((k for k, c in PTXAS_NAMES.items() if f"{c}_kernel" in line), None)
         if current is None:
             continue
         words = line.replace(",", "").split()
@@ -249,7 +385,8 @@ def resource_report(log):
 def bound(name, lanes, sm_clock_mhz):
     """(bound_ms, bound_by) for ``lanes`` lanes of kernel ``name``."""
     muls, sqrs = LANE_MS[name]
-    ops = (muls * IMADS_PER_MUL + sqrs * IMADS_PER_SQR) * lanes
+    extra = K1_FOLD_IMADS if name in K1_FIELD else 0
+    ops = (muls * (IMADS_PER_MUL + extra) + sqrs * (IMADS_PER_SQR + extra)) * lanes
     nbytes = BYTES_PER_LANE[name] * lanes + (COMB_TABLE_BYTES if name.startswith("comb") else 0)
     op_ms = ops / (IMAD_PER_SM_PER_CLOCK * SMS * sm_clock_mhz * 1e6) * 1e3
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -283,7 +420,7 @@ def main():
     res = resource_report(build.log)
     print(f"phase 1 build: {build.seconds:.1f} s nvcc ({len(_build.SOURCES)} sources in "
           f"parallel); ptxas {json.dumps(res)}", flush=True)
-    for kname in KERNELS:
+    for kname in PTXAS_NAMES:
         check(kname in res and "registers" in res[kname], f"ptxas report for {kname}")
 
     # -- phase 2: field probe ----------------------------------------------------
@@ -313,9 +450,10 @@ def main():
 
     # -- phase 3: comb -----------------------------------------------------------
     tables, negbase, negbase_digits = comb.device_tables(P256, P256.gx, P256.gy, dev)
+    limbs = comb.kernel_tables(P256, P256.gx, P256.gy, dev)
     s_np = scalar_planes(rng, CHECK_LANES)
     s_dev = torch.from_numpy(s_np).to(dev)
-    comb_got = comb.comb_planes(s_dev, tables, negbase_digits)
+    comb_got = comb.comb_planes(s_dev, limbs, negbase_digits)
     want = comb.comb_plain(s_dev, tables, P256, negbase)
     torch.cuda.synchronize()
     comb_check_err = max_abs_diff(comb_got, want)
@@ -327,19 +465,13 @@ def main():
           f"vs oracle (edge scalars 1, 2, 5, n-2)", flush=True)
 
     # -- phase 4: ladder ---------------------------------------------------------
+    # its plain version (~25 s, launch-bound at any width) runs once, on the
+    # main path's 524,288 lanes in phase 6
     pts = varbase_points(CHECK_LANES, dev)
     got = ladder.ladder_planes(s_dev, pts.x, pts.y)
-    t0 = time.perf_counter()
-    plain = group.scalar_mult(s_dev, JacobianPoint.from_affine(pts))
-    want = (plain.x.planes, plain.y.planes, plain.z.planes)
-    torch.cuda.synchronize()
-    ladder_plain_s = time.perf_counter() - t0
-    ladder_check_err = max_abs_diff(got, want)
-    check(ladder_check_err == 0, "ladder kernel == group.scalar_mult (Jacobian)")
     check(jacobian_affine_ints(got, ORACLE_LANES) == oracle_varbase(ks), "ladder vs oracle")
-    print(f"phase 4 ladder: {CHECK_LANES} lanes exact vs group.scalar_mult "
-          f"({ladder_plain_s:.1f} s plain); {ORACLE_LANES} lanes with points (i+1)G vs oracle",
-          flush=True)
+    print(f"phase 4 ladder: {ORACLE_LANES} lanes with points (i+1)G vs oracle (against "
+          f"group.scalar_mult in phase 6)", flush=True)
 
     # -- phase 5: affine conversion ----------------------------------------------
     jx, jy, jz = (t.clone() for t in comb_got)
@@ -358,8 +490,9 @@ def main():
     s_np = scalar_planes(rng, BATCH)
     scalars = torch.from_numpy(s_np).to(dev)
     points = varbase_points(BATCH, dev)
-    counted = (comb.KERNEL, comb.KERNEL_STRICT, ladder.KERNEL, window.KERNEL,
-               window.KERNEL_STRICT, affine.KERNEL, field_ops.KERNEL)
+    counted = (*comb.KERNELS.values(), ladder.KERNEL, window.KERNEL, window.KERNEL_STRICT,
+               *affine.KERNELS.values(), *field_ops.KERNELS.values(), kglv.KERNEL,
+               kglv.KERNEL_STRICT)
     for k in counted:
         k.launches = 0
     out_base = api.scalar_mult_base(scalars)
@@ -377,10 +510,10 @@ def main():
     check(affine_ints(out_var, MAIN_ORACLE_LANES) == oracle_varbase(ks), "main path k*P vs oracle")
 
     # each kernel against its plain version at the main path's shape
-    comb_ms = time_ms(lambda: comb.comb_planes(scalars, tables, negbase_digits), 20)
+    comb_ms = time_ms(lambda: comb.comb_planes(scalars, limbs, negbase_digits), 20)
     comb_plain_ms, comb_plain_out = time_once_ms(
         lambda: comb.comb_plain(scalars, tables, P256, negbase))
-    jac_b = comb.comb_planes(scalars, tables, negbase_digits)
+    jac_b = comb.comb_planes(scalars, limbs, negbase_digits)
     comb_err = max_abs_diff(jac_b, comb_plain_out)
     check(comb_err == 0, "comb kernel == comb_plain at B = 524,288")
     del comb_plain_out
@@ -437,7 +570,7 @@ def main():
     # -- phase 8: strict comb (kernel B strict) -----------------------------------
     s8_np = scalar_planes(rng, CHECK_LANES, EDGE_SCALARS + [N - 1])
     s8 = torch.from_numpy(s8_np).to(dev)
-    got = comb.comb_planes(s8, tables, negbase_digits, strict=True)
+    got = comb.comb_planes(s8, limbs, negbase_digits, strict=True)
     comb_strict_check_err = max_abs_diff(
         got, comb.comb_plain(s8, tables, P256, negbase, strict=True))
     check(comb_strict_check_err == 0, "strict comb kernel == strict comb_plain (Jacobian)")
@@ -518,7 +651,7 @@ def main():
     comb_strict_plain_ms, plain = time_once_ms(
         lambda: comb.comb_plain(scalars, tables, P256, negbase, strict=True))
     comb_strict_err = max_abs_diff(
-        comb.comb_planes(scalars, tables, negbase_digits, strict=True), plain)
+        comb.comb_planes(scalars, limbs, negbase_digits, strict=True), plain)
     check(comb_strict_err == 0, "strict comb kernel == strict comb_plain at B = 524,288")
     del plain
 
@@ -526,7 +659,7 @@ def main():
     window_strict_ms = time_ms(
         lambda: window.window_planes(scalars, points.x, points.y, strict=True), 5)
     comb_strict_ms = time_ms(
-        lambda: comb.comb_planes(scalars, tables, negbase_digits, strict=True), 20)
+        lambda: comb.comb_planes(scalars, limbs, negbase_digits, strict=True), 20)
     fast_ms = time_ms(lambda: api.scalar_mult_fast(scalars, points), 5)
     fast_strict_ms = time_ms(lambda: api.scalar_mult_fast(scalars, points, strict=True), 5)
     base_strict_ms = time_ms(lambda: api.scalar_mult_base(scalars, strict=True), 10)
@@ -545,41 +678,299 @@ def main():
           f"{shared_ms:.3f} ms ({rate(shared_ms):.0f} secrets/s); plain times at the same shape, "
           f"one run each {card}", flush=True)
 
-    def entry(kernel, kname, err, ms, plain_ms):
-        bound_ms, bound_by = bound(kname, BATCH, sm_clock_mhz)
+    # -- phase 10: the secp256k1 field (kernel C on the CIOS field) ------------------
+    fs_k1 = SECP256K1.field
+    pk = fs_k1.p
+    a = random_planes(rng, CHECK_LANES)
+    b = random_planes(rng, CHECK_LANES)
+    edges = [0, 1, pk - 1, pk - 2]
+    pairs = [(x, y) for x in edges for y in edges]
+    a[:, : len(pairs)] = convert.ints_to_planes([x for x, _ in pairs], D)
+    b[:, : len(pairs)] = convert.ints_to_planes([y for _, y in pairs], D)
+    a_dev, b_dev = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+    got = field_ops.probe(a_dev, b_dev, fs_k1)
+    probe_k1_err = max_abs_diff(got, field_ops.probe_plain(a_dev, b_dev, fs_k1))
+    check(probe_k1_err == 0, "secp256k1 field probe == plain CIOS GFp")
+    ai, bi = convert.planes_to_ints(a[:, :64]), convert.planes_to_ints(b[:, :64])
+    ints = [convert.planes_to_ints(got[k, :, :64].cpu().numpy()) for k in range(5)]
+    # the planes are Montgomery-form values: the Montgomery oracle's ops
+    check(ints[0] == [ofield.mont_mul(x, y, fs_k1) for x, y in zip(ai, bi)],
+          "k1 probe mul vs ints")
+    check(ints[1] == [ofield.mont_sqr(x, fs_k1) for x in ai], "k1 probe sqr vs ints")
+    check(ints[2] == [ofield.mont_add(x, y, fs_k1) for x, y in zip(ai, bi)],
+          "k1 probe add vs ints")
+    check(ints[3] == [ofield.mont_sub(x, y, fs_k1) for x, y in zip(ai, bi)],
+          "k1 probe sub vs ints")
+    check(ints[4] == [ofield.mont_opposite(x, fs_k1) for x in ai], "k1 probe opposite vs ints")
+    probe_k1_ms = time_ms(lambda: field_ops.probe(a_dev, b_dev, fs_k1), 20)
+    probe_k1_plain_ms = time_ms(lambda: field_ops.probe_plain(a_dev, b_dev, fs_k1), 3)
+    print(f"phase 10 secp256k1 field probe: {CHECK_LANES} lanes exact vs plain CIOS GFp and 64 vs "
+          f"ints; kernel {probe_k1_ms:.3f} ms, plain {probe_k1_plain_ms:.3f} ms {card}", flush=True)
+
+    # -- phase 11: the secp256k1 kernels: GLV (F), comb (B), affine (D) -------------
+    k1 = SECP256K1
+    nk = k1.order
+    pp = glv.glv_params(k1)
+    lam = pp.lam
+    # the lambda class; m lambda (k1 = 0, k2 = m) and small k (k2 = 0)
+    glv_edges = [1, 2, lam, lam - 1, lam + 1, nk - 1, nk - 2] + [
+        m * lam % nk for m in (3, 5, 6)] + [7, (1 << 100) + 1]
+    splits = [glv.split_int(k, pp, nk) for k in glv_edges]
+    check([sp[0] for sp in splits[7:10]] == [0, 0, 0] and [sp[2] for sp in splits[10:]] == [0, 0],
+          "the edge lanes split with k1 = 0 and with k2 = 0")
+    s11_ints = scalar_ints(rng, CHECK_LANES, glv_edges, k1)
+    s11 = to_dev(s11_ints, dev)
+    pts_k1 = varbase_points(CHECK_LANES, dev, k1)
+    xm = GFp.from_classical(pts_k1.x, fs_k1).planes.contiguous()
+    ym = GFp.from_classical(pts_k1.y, fs_k1).planes.contiguous()
+    packed11 = kglv.pack_scalars(s11, k1)
+    glv_check, glv_plain_check_ms = {}, {}
+    for strict, kname in ((False, "glv"), (True, "glv_strict")):
+        got = kglv.glv_planes(packed11, xm, ym, k1, strict=strict)
+        glv_plain_check_ms[kname], want = time_once_ms(
+            lambda: kglv.glv_plain(packed11, xm, ym, k1, strict))
+        glv_check[kname] = max_abs_diff(got, want)
+        check(glv_check[kname] == 0, f"{kname} kernel == glv_plain (Jacobian)")
+        del want
+        if strict:
+            check(jacobian_affine_ints(got, ORACLE_LANES, k1)
+                  == oracle_varbase(s11_ints[:ORACLE_LANES], k1), "glv_strict vs oracle")
+    print(f"phase 11 glv: F and F strict {CHECK_LANES} lanes exact vs glv_plain "
+          f"({glv_plain_check_ms['glv']:.1f} / {glv_plain_check_ms['glv_strict']:.1f} ms plain); "
+          f"strict {ORACLE_LANES} lanes with points (i+1)G vs oracle (1, 2, lambda, lambda +- 1, "
+          f"n-1, n-2, k1 = 0 and k2 = 0 splits)", flush=True)
+
+    tables_k1, negbase_k1, nb_k1 = comb.device_tables(k1, k1.gx, k1.gy, dev)
+    limbs_k1 = comb.kernel_tables(k1, k1.gx, k1.gy, dev)
+    comb_k1_check = {}
+    for strict, kname in ((False, "comb_secp256k1"), (True, "comb_strict_secp256k1")):
+        edges = [1, 2, 5, nk - 2] + ([nk - 1] if strict else [])
+        s_ints = scalar_ints(rng, CHECK_LANES, edges, k1)
+        s_k1 = to_dev(s_ints, dev)
+        got = comb.comb_planes(s_k1, limbs_k1, nb_k1, k1, strict=strict)
+        comb_k1_check[kname] = max_abs_diff(
+            got, comb.comb_plain(s_k1, tables_k1, k1, negbase_k1, strict))
+        check(comb_k1_check[kname] == 0, f"{kname} kernel == comb_plain (Jacobian)")
+        check(jacobian_affine_ints(got, ORACLE_LANES, k1)
+              == oracle_base(s_ints[:ORACLE_LANES], k1), f"{kname} vs oracle")
+        comb_k1_got, comb_k1_ints = got, s_ints
+    jx, jy, jz = (t.clone() for t in comb_k1_got)
+    jz[:, -1] = 0  # a lane at infinity maps to (0, 0)
+    got = affine.affine_planes(jx, jy, jz, k1)
+    plain = JacobianPoint(*(GFp(t, fs_k1) for t in (jx, jy, jz)), k1).to_affine()
+    affine_k1_check = max_abs_diff(got, (plain.x, plain.y))
+    check(affine_k1_check == 0, "secp256k1 affine kernel == JacobianPoint.to_affine")
+    check(not bool(got[0][:, -1].any() or got[1][:, -1].any()), "k1 lane at infinity -> (0, 0)")
+    check(affine_ints(AffinePoint(*got, k1), ORACLE_LANES)
+          == oracle_base(comb_k1_ints[:ORACLE_LANES], k1), "secp256k1 affine vs oracle")
+    del got, plain, jx, jy, jz, comb_k1_got
+    print(f"phase 11 comb, comb_strict, affine on secp256k1: {CHECK_LANES} lanes exact vs "
+          f"comb_plain / to_affine (one lane at infinity); {ORACLE_LANES} lanes vs oracle "
+          f"(edge scalars 1, 2, 5, n-2; n-1 strict)", flush=True)
+
+    # -- phase 12: the third main path, batched ECDSA, on both curves ----------------
+    def ecdsa_path(curve):
+        n, p = curve.order, curve.p
+        fs_n = ecdsa.order_field(curve)
+        d_ints = scalar_ints(rng, BATCH, [1, 2, 5, n - 2], curve)
+        k_ints = scalar_ints(rng, BATCH, [n - 2, 5, 2, 1], curve)
+        z_ints = [int.from_bytes(rng.bytes(32), "big") for _ in range(BATCH)]
+        z_ints[4] = n  # e == 0 mod n: u1 == 0 in verification
+        rfc = curve == P256
+        if rfc:  # lanes 8..15: RFC 6979 A.2.5 keys, hashes and nonces
+            for i in range(8, 16):
+                msg, k_rfc, _, _ = RFC6979_SHA256[i % 2]
+                h1 = hashlib.sha256(msg).digest()
+                d_ints[i], z_ints[i] = RFC6979_X, ecdsa._bits2int(h1, 256)
+                k_ints[i] = ecdsa.rfc6979_nonce(h1, RFC6979_X, curve)
+                check(k_ints[i] == k_rfc, "RFC 6979 A.2.5 nonce")
+        d_dev, k_dev, z_dev = (to_dev(v, dev) for v in (d_ints, k_ints, z_ints))
+        vid = [torch.full((BATCH,), v, dtype=torch.int32, device=dev) for v in (0, 1)]
+
+        # the tampered batch: lanes 500..505 r + 1, s = 0, s = n, r = 0, an
+        # off-curve Q and (secp256k1) a valid signature with u2 = lambda
+        t = ORACLE_LANES - 12
+
+        def tampered(r, s, q):
+            z_t, r_t, s_t, qx_t, qy_t = z_dev.clone(), r.clone(), s.clone(), q.x.clone(), q.y.clone()
+            r_t[:, t] = to_dev([(convert.planes_to_ints(r[:, t:t + 1].cpu().numpy())[0] + 1) % n],
+                               dev)[:, 0]
+            s_t[:, t + 1] = 0
+            s_t[:, t + 2] = to_dev([n], dev)[:, 0]
+            r_t[:, t + 3] = 0
+            y_off = (convert.planes_to_ints(q.y[:, t + 4:t + 5].cpu().numpy())[0] + 1) % p
+            qy_t[:, t + 4] = to_dev([y_off], dev)[:, 0]
+            if curve == SECP256K1:
+                dd, kk = d_ints[t + 5], k_ints[t + 5]
+                rr = oracle_sign(0, dd, kk, curve)[0]
+                ss = rr * pow(lam, -1, n) % n
+                zz = ss * (kk - lam * dd) % n
+                qq = coz.scalar_mult_affine(dd, curve.gx, curve.gy, curve)
+                for tens, v in ((z_t, zz), (r_t, rr), (s_t, ss), (qx_t, qq[0]), (qy_t, qq[1])):
+                    tens[:, t + 5] = to_dev([v], dev)[:, 0]
+            return z_t, r_t, s_t, qx_t, qy_t
+
+        for k in counted:
+            k.launches = 0
+        q = api.scalar_mult_base(d_dev, curve)
+        r, s, ok = ecdsa.sign_planes(z_dev, d_dev, k_dev, curve)
+        v_ok = ecdsa.verify_planes(z_dev, r, s, q.x, q.y, curve)
+        z_t, r_t, s_t, qx_t, qy_t = tampered(r, s, q)
+        v_t = ecdsa.verify_planes(z_t, r_t, s_t, qx_t, qy_t, curve)
+        rec = [ecdsa.recover_planes(z_dev, r, s, v, curve) for v in vid]
+        torch.cuda.synchronize()
+        launches = {k.symbol: k.launches for k in counted}
+        varbase_kernel = kglv.KERNEL_STRICT if curve == SECP256K1 else window.KERNEL_STRICT
+        for k in (comb.KERNELS[(curve, False)], affine.KERNELS[curve], varbase_kernel):
+            check(launches[k.symbol] >= 1, f"ECDSA path on {curve.name} launched {k.symbol}")
+
+        check(bool(ok.all()), f"{curve.name}: every lane signed")
+        check(bool(v_ok.all()), f"{curve.name}: every honest signature verifies")
+        ri = convert.planes_to_ints(r[:, :ORACLE_LANES].cpu().numpy())
+        si = convert.planes_to_ints(s[:, :ORACLE_LANES].cpu().numpy())
+        check(list(zip(ri, si))[:MAIN_ORACLE_LANES] == [
+            oracle_sign(z, d, k, curve) for z, d, k in
+            zip(z_ints[:MAIN_ORACLE_LANES], d_ints, k_ints)], f"{curve.name}: sign vs oracle")
+        if rfc:
+            got = zip(*(convert.planes_to_ints(v[:, 8:16].cpu().numpy()) for v in (r, s)))
+            check(list(got) == [RFC6979_SHA256[i % 2][2:] for i in range(8, 16)],
+                  "8 RFC 6979 A.2.5 signatures")
+        cols = [convert.planes_to_ints(t[:, :ORACLE_LANES].cpu().numpy())
+                for t in (z_t, r_t, s_t, qx_t, qy_t)]
+        want_t = [oracle_verify(*lane, curve) for lane in zip(*cols)]
+        check(v_t[:ORACLE_LANES].tolist() == want_t, f"{curve.name}: tampered masks vs oracle")
+        tampered_lanes = want_t[t:t + 6]
+        check(tampered_lanes == [0] * 5 + [1], f"{curve.name}: tampered lanes {tampered_lanes}")
+        check(bool((v_t[ORACLE_LANES:] == 1).all()), f"{curve.name}: untouched lanes verify")
+        found = torch.zeros(BATCH, dtype=torch.bool, device=dev)
+        for qx_r, qy_r, ok_r in rec:
+            found |= ok_r.bool() & (qx_r == q.x).all(0) & (qy_r == q.y).all(0)
+        check(bool(found.all()), f"{curve.name}: v = 0 or v = 1 recovers Q on every lane")
+        del v_t, rec, found
+
+        # times: the calls, their kernels, and their plain-PyTorch parts; the
+        # calls and the plain parts take seconds and ran above, so one warm
+        # run each
+        t = {"sign": time_once_ms(lambda: ecdsa.sign_planes(z_dev, d_dev, k_dev, curve))[0],
+             "verify": time_once_ms(lambda: ecdsa.verify_planes(z_dev, r, s, q.x, q.y, curve))[0],
+             "recover": time_once_ms(lambda: ecdsa.recover_planes(z_dev, r, s, vid[0], curve))[0]}
+        limbs_c = comb.kernel_tables(curve, curve.gx, curve.gy, dev)
+        nb_c = comb.device_tables(curve, curve.gx, curve.gy, dev)[2]
+        jac = comb.comb_planes(d_dev, limbs_c, nb_c, curve)
+        t["kernel_comb"] = time_ms(lambda: comb.comb_planes(d_dev, limbs_c, nb_c, curve), 10)
+        t["kernel_affine"] = time_ms(lambda: affine.affine_planes(*jac, curve), 10)
+        if curve == SECP256K1:
+            packed = kglv.pack_scalars(d_dev, curve)
+            qxm = GFp.from_classical(q.x, curve.field).planes.contiguous()
+            qym = GFp.from_classical(q.y, curve.field).planes.contiguous()
+            t["kernel_glv_strict"] = time_ms(
+                lambda: kglv.glv_planes(packed, qxm, qym, curve, strict=True), 3)
+            t["plain_glv_split"] = time_ms(lambda: kglv.pack_scalars(d_dev, curve), 3)
+        else:
+            t["kernel_window_strict"] = time_ms(
+                lambda: window.window_planes(d_dev, q.x, q.y, strict=True), 3)
+        km = mont.mont_from_classical(k_dev.to(torch.int64), fs_n)
+        t["plain_batch_inverse_mod_n"] = time_once_ms(
+            lambda: ecdsa._batch_inverse_mont(km, fs_n))[0]
+        t["plain_recovery_sqrt"] = time_once_ms(lambda: group.affine_from_x(r, curve))[0]
+        out = {"launches": launches, "ms": t, "d": d_dev, "q": q, "jac": jac}
+        if curve == SECP256K1:
+            out.update(packed=packed, qxm=qxm, qym=qym)
+        print(f"phase 12 ECDSA {curve.name} B={BATCH}: launches {json.dumps(launches)}; every "
+              f"lane signed and verified; {ORACLE_LANES} lanes of the tampered batch exact vs "
+              f"oracle (r+1, s=0, s=n, r=0, off-curve Q rejected; "
+              f"{'u2 = lambda' if curve == SECP256K1 else 'an honest'} lane accepted); hash = n "
+              f"lane; recovery gives Q on every lane{'; RFC 6979 A.2.5 on 8 lanes' if rfc else ''}; "
+              f"ms {json.dumps({k: round(v, 3) for k, v in t.items()})} {card}", flush=True)
+        return out
+
+    path12 = {c.name: ecdsa_path(c) for c in (P256, SECP256K1)}
+    launches12 = {}
+    for c in path12.values():
+        for sym, v in c["launches"].items():
+            launches12[sym] = launches12.get(sym, 0) + v
+
+    # the secp256k1 kernels against their plain versions on the path's own
+    # inputs (these launches come after the counts were read)
+    pk1 = path12[SECP256K1.name]
+    glv_strict_plain_ms, plain = time_once_ms(
+        lambda: kglv.glv_plain(pk1["packed"], pk1["qxm"], pk1["qym"], SECP256K1, True))
+    glv_strict_err = max_abs_diff(
+        kglv.glv_planes(pk1["packed"], pk1["qxm"], pk1["qym"], SECP256K1, strict=True), plain)
+    check(glv_strict_err == 0, "glv_strict kernel == glv_plain at B = 524,288")
+    del plain
+    comb_k1_plain_ms, plain = time_once_ms(
+        lambda: comb.comb_plain(pk1["d"], tables_k1, SECP256K1, negbase_k1))
+    comb_k1_err = max_abs_diff(pk1["jac"], plain)
+    check(comb_k1_err == 0, "secp256k1 comb kernel == comb_plain at B = 524,288")
+    affine_k1_plain_ms, plain = time_once_ms(
+        lambda: JacobianPoint(*(GFp(t, fs_k1) for t in pk1["jac"]), SECP256K1).to_affine())
+    affine_k1_err = max_abs_diff(affine.affine_planes(*pk1["jac"], SECP256K1), (plain.x, plain.y))
+    check(affine_k1_err == 0, "secp256k1 affine kernel == to_affine at B = 524,288")
+    del plain
+    comb_k1_strict_ms = time_ms(
+        lambda: comb.comb_planes(pk1["d"], limbs_k1, nb_k1, SECP256K1, strict=True), 10)
+    comb_k1_strict_plain_ms, plain = time_once_ms(
+        lambda: comb.comb_plain(pk1["d"], tables_k1, SECP256K1, negbase_k1, strict=True))
+    comb_k1_strict_err = max_abs_diff(
+        comb.comb_planes(pk1["d"], limbs_k1, nb_k1, SECP256K1, strict=True), plain)
+    check(comb_k1_strict_err == 0, "secp256k1 strict comb kernel == comb_plain at B = 524,288")
+    del plain
+    glv_ms = time_ms(lambda: kglv.glv_planes(packed11, xm, ym, k1, strict=False), 5)
+    print(f"phase 12 secp256k1 kernels exact vs their plain versions at B = {BATCH}: "
+          f"glv_strict plain {glv_strict_plain_ms:.1f} ms, comb plain {comb_k1_plain_ms:.1f} ms, "
+          f"strict comb {comb_k1_strict_ms:.3f} ms (plain {comb_k1_strict_plain_ms:.1f} ms), "
+          f"affine plain {affine_k1_plain_ms:.1f} ms; glv (plain chain) {glv_ms:.3f} ms at "
+          f"{CHECK_LANES} lanes {card}", flush=True)
+
+    paths = {"phase6": launches6, "phase9": launches9, "phase12": launches12}
+
+    def entry(kernel, kname, err, ms, plain_ms, lanes=BATCH):
+        bound_ms, bound_by = bound(kname, lanes, sm_clock_mhz)
         return {
             "name": kname, "route": "cuda", "source": kernel.source, "replaces": kernel.replaces,
-            "launches": launches6[kernel.symbol] + launches9[kernel.symbol],
-            "launches_by_path": {"phase6": launches6[kernel.symbol],
-                                 "phase9": launches9[kernel.symbol]},
+            "launches": sum(v[kernel.symbol] for v in paths.values()),
+            "launches_by_path": {k: v[kernel.symbol] for k, v in paths.items()},
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None, "lanes": BATCH,
+            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None, "lanes": lanes,
             **res[kname],
         }
 
+    ms_k1 = pk1["ms"]
     kernels = [
         entry(comb.KERNEL, "comb", max(comb_err, comb_check_err), comb_ms, comb_plain_ms),
         entry(comb.KERNEL_STRICT, "comb_strict", max(comb_strict_err, comb_strict_check_err),
               comb_strict_ms, comb_strict_plain_ms),
-        entry(ladder.KERNEL, "ladder", max(ladder_err, ladder_check_err), ladder_ms,
-              ladder_plain_ms),
+        entry(comb.KERNEL_SECP256K1, "comb_secp256k1",
+              max(comb_k1_err, comb_k1_check["comb_secp256k1"]), ms_k1["kernel_comb"],
+              comb_k1_plain_ms),
+        entry(comb.KERNEL_SECP256K1_STRICT, "comb_strict_secp256k1",
+              max(comb_k1_strict_err, comb_k1_check["comb_strict_secp256k1"]), comb_k1_strict_ms,
+              comb_k1_strict_plain_ms),
+        entry(ladder.KERNEL, "ladder", ladder_err, ladder_ms, ladder_plain_ms),
         *(entry(k, kname, max(window_err[kname], window_check[kname]), ms,
                 window_plain_ms[kname])
           for k, kname, ms in ((window.KERNEL, "window", window_ms),
                                (window.KERNEL_STRICT, "window_strict", window_strict_ms))),
+        entry(kglv.KERNEL, "glv", glv_check["glv"], glv_ms, glv_plain_check_ms["glv"],
+              lanes=CHECK_LANES),
+        entry(kglv.KERNEL_STRICT, "glv_strict", max(glv_strict_err, glv_check["glv_strict"]),
+              ms_k1["kernel_glv_strict"], glv_strict_plain_ms),
         entry(affine.KERNEL, "affine", max(affine_err, affine_check_err), affine_ms,
               affine_plain_ms),
+        entry(affine.KERNEL_SECP256K1, "affine_secp256k1", max(affine_k1_err, affine_k1_check),
+              ms_k1["kernel_affine"], affine_k1_plain_ms),
+        entry(field_ops.KERNEL, "field_probe", probe_err, probe_ms, probe_plain_ms,
+              lanes=CHECK_LANES),
+        entry(field_ops.KERNEL_SECP256K1, "field_probe_secp256k1", probe_k1_err, probe_k1_ms,
+              probe_k1_plain_ms, lanes=CHECK_LANES),
     ]
-    probe = {
-        "name": "field_probe", "route": "cuda", "source": field_ops.KERNEL.source,
-        "replaces": field_ops.KERNEL.replaces, "lanes": CHECK_LANES, "max_abs_err": probe_err,
-        "ms": probe_ms, "plain_ms": probe_plain_ms, **res["field_probe"],
-    }
     api_ms = {"scalar_mult_base": base_api_ms, "scalar_mult": var_api_ms,
               "scalar_mult_fast": fast_ms, "scalar_mult_fast_strict": fast_strict_ms,
               "scalar_mult_base_strict": base_strict_ms,
-              "ecdh.derive_public_planes": derive_ms, "ecdh.shared_secret_planes": shared_ms}
-    print(json.dumps({"kernels": kernels, "checks": [probe], "card": smi,
+              "ecdh.derive_public_planes": derive_ms, "ecdh.shared_secret_planes": shared_ms,
+              **{f"ecdsa.{c}.{k}": v for c, pth in path12.items() for k, v in pth["ms"].items()}}
+    print(json.dumps({"kernels": kernels, "card": smi,
                       "sm_clock_max_mhz": sm_clock_mhz, "batch": BATCH,
                       "build_s": build.seconds, "api_ms": api_ms,
                       "wall_s": time.perf_counter() - t_start}))

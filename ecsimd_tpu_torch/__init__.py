@@ -10,18 +10,22 @@ Layer map:
   specs, convert, oracle  the port's own copies of the JAX package's
                           framework-free modules (the port imports nothing
                           of ecsimd_tpu; tests hold the copies to it)
-  ops.bignum / ops.mont   digit-plane carry add/sub, compares, selects,
-                          product columns
+  ops.bignum / ops.mont   digit-plane carry add/sub, products, compares,
+                          selects; CIOS Montgomery multiplication
   ops.solinas             multiply-free Solinas reduction (P-256)
-  field.GFp               prime-field value type (plain Solinas fields)
+  field.GFp               prime-field value type (Solinas and Montgomery
+                          fields), inversion, square roots
   curves.point / group    points, the co-Z group law, Jacobian doubling,
-                          general and complete adds; plain ladder
+                          general and complete adds, decompression; plain
+                          ladder
+  glv                     the GLV endomorphism split (secp256k1)
   kernels                 hand-written CUDA kernels for sm_90a (csrc/) and
-                          their wrappers: comb (k*G, plain and strict),
-                          ladder and signed window (k*P), affine
-                          conversion, field probe; glv.strict_varbase routes
+                          their wrappers: comb (k*G, P-256 and secp256k1,
+                          plain and strict), ladder, signed window and GLV
+                          (k*P), affine conversion, field probe;
+                          glv.strict_varbase routes
   api, ecdh, ecdsa        batched scalar-multiplication entry points, ECDH,
-                          the two ECDSA helpers ECDH needs
+                          ECDSA sign / verify / recover
 
 Every public function runs on the device of its input tensors: a CUDA tensor
 goes through the CUDA kernel, a CPU tensor through the kernel's plain PyTorch
@@ -37,6 +41,7 @@ from ecsimd_tpu_torch.specs import (
     P256,
     P256_FIELD,
     P384,
+    SECP256K1,
     SECP256K1_FIELD,
     CurveSpec,
     FieldSpec,
@@ -51,6 +56,7 @@ __all__ = [
     "P256",
     "P256_FIELD",
     "P384",
+    "SECP256K1",
     "SECP256K1_FIELD",
     "CurveSpec",
     "FieldSpec",

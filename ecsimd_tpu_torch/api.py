@@ -2,9 +2,10 @@
 
 The port of ``ecsimd_tpu/api.py``'s main path. Every function runs on the
 device of its input tensors: on a CUDA tensor through the hand-written
-kernels (``kernels/ladder.py`` and ``kernels/window.py`` for k_i * P_i,
-``kernels/comb.py`` for k_i * B, then ``kernels/affine.py`` for the affine
-conversion), on a CPU tensor through their plain PyTorch versions. Both give
+kernels (``kernels/ladder.py``, ``kernels/window.py`` and ``kernels/glv.py``
+for k_i * P_i, ``kernels/comb.py`` for k_i * B, then ``kernels/affine.py``
+for the affine conversion), on a CPU tensor through their plain PyTorch
+versions. Both give
 the same planes, so the affine results equal the JAX package's.
 The constructors take ``device=`` and default to the card: with no card
 they raise, and the CPU is used only when the caller asks for it.
@@ -16,7 +17,7 @@ import torch
 
 from ecsimd_tpu_torch import convert
 from ecsimd_tpu_torch.curves.point import AffinePoint
-from ecsimd_tpu_torch.kernels import affine, comb, ladder, window
+from ecsimd_tpu_torch.kernels import affine, comb, glv, ladder, window
 from ecsimd_tpu_torch.specs import P256, CurveSpec
 
 
@@ -39,6 +40,15 @@ def scalar_mult_fast(scalars, points: AffinePoint, strict: bool = False) -> Affi
     degenerate class (``kernels/window.py``); ``strict=True`` uses complete
     adds and takes all of [1, order)."""
     return affine.to_affine(window.scalar_mult(scalars, points, strict=strict))
+
+
+def scalar_mult_glv(scalars, points: AffinePoint, strict: bool = True) -> AffinePoint:
+    """Batched k_i * P_i through the GLV endomorphism split, the
+    variable-base path of j-invariant-0 curves (secp256k1): k = k1 + k2
+    lambda with |k_i| ~ sqrt(n) halves the doublings (``kernels/glv.py``).
+    ``strict`` defaults True: k = lambda makes k1 = 0, so the degenerate
+    classes are easy to reach."""
+    return affine.to_affine(glv.scalar_mult(scalars, points, strict=strict))
 
 
 def scalar_mult_shared_fast(k: int, points: AffinePoint) -> AffinePoint:

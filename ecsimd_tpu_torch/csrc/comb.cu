@@ -1,43 +1,53 @@
-// Kernel B: fixed-base comb k_i * B on P-256, one lane per thread (NVIDIA
-// Hopper, sm_90a).
+// Kernel B: fixed-base comb k_i * B on P-256 and on secp256k1, one lane per
+// thread (NVIDIA Hopper, sm_90a).
 //
 // Replaces ecsimd_tpu/kernels/comb.py:_comb_kernel (serial chain, one
-// accumulator, unroll 1), both strict variants. Width-8 signed-odd comb with no
-// doublings: the entry index of position j is e_j = w9_j >> 1, where w9_j
-// is the 9-bit window k[8j .. 8j+8]; the accumulator seeds from position
-// 0's entry with z = 1 (the recoding's top digit is folded into that
-// table), positions 1..31 each add one entry with ADD_Z2_1, and even
+// accumulator, unroll 1), both strict variants. Width-8 signed-odd comb
+// with no doublings: the entry index of position j is e_j = w9_j >> 1,
+// where w9_j is the 9-bit window k[8j .. 8j+8]; the accumulator seeds from
+// position 0's entry with z = 1 (the recoding's top digit is folded into
+// that table), positions 1..31 each add one entry with ADD_Z2_1, and even
 // scalars get -B added at the end (k was computed as k + 1). Strict
-// (ec_comb_p256_strict): every add, the fix-up included, is add_complete
+// (ec_comb_*_strict): every add, the fix-up included, is add_complete
 // against the entry with z = 1, so prefix sums that hit an entry, its
 // opposite or infinity stay right, and k = n - 1 gives -B. Same order as
-// kernels/comb.comb_plain, so the Jacobian planes agree bit for bit.
+// kernels/comb.comb_plain, so the Jacobian planes agree bit for bit
+// (Montgomery form on secp256k1, as the JAX package keeps it).
 //
-// Not constant-time in its memory accesses: load_entry's address is the
-// secret window (entry_index), where the TPU kernel reads every entry of
-// the position through a one-hot product. The arithmetic is uniform.
+// Constant time, memory accesses included: no address depends on the
+// scalar. The TPU kernel reads every entry of a position through a one-hot
+// product on its matrix unit; here the block stages each position's table
+// in shared memory and every thread scans every entry with masks (the
+// window kernel's table_get, at the comb's size). The scan is a broadcast:
+// all threads of a warp read the same 16 bytes at once, without bank
+// conflicts.
 //
-// Tables: int32 (32, 256, 32) — per position and entry, the 16 x-digits
-// then the 16 y-digits of an affine point, base 2^16. 1 MiB in all, so the
-// whole table stays in the 50 MB L2 cache; each lane gathers 32 entries of
-// 128 bytes with plain read-only loads. The TPU's one-hot x table matmul on
-// the matrix unit, its int8 biased half-digit tables and its grid axis over
-// positions (accumulator in scratch memory, a discarded add at j == 0) were
-// workarounds for its memory system; here the positions are a loop inside
-// the thread.
+// Tables (kernels/comb.kernel_tables): int32 (4224, 16) — per entry the 8
+// x-limbs then the 8 y-limbs of an affine point, 32-bit limbs in the
+// field's internal form. Position 0 keeps its 256 signed entries (the top
+// digit folded in makes them not pairwise opposite); positions 1..31 keep
+// only the 128 positive entries (2m+1) 2^(8j) B and the sign is applied by
+// a masked negation of y. So a position is 2,048 words (4,096 for position
+// 0), 270 KiB in all, read from L2 into shared memory by cp.async, double
+// buffered: position j+1 is in flight while the lanes add position j.
 //
-// What bounds it: 32-bit integer multiply-add throughput (31 + 1 mixed adds
-// of 7 field multiplies and 4 squarings each; strict: 31 + 1 complete adds of
-// 15 and 9); the
-// gathers are L2 hits, 4 KiB per lane.
+// What bounds it: the masked scan, ~68 K shared-memory words per lane (one
+// 16-byte broadcast load and four masked ORs per 4 words), beside the
+// chain's 32-bit multiply-adds (31 + 1 mixed adds of 7 field multiplies
+// and 4 squarings; strict: complete adds of 15 + 9 on P-256, 13 + 11 on
+// secp256k1).
 
 #include "coz_p256.cuh"
+#include "coz_secp256k1.cuh"
 
-namespace p256 {
+namespace comb {
 
 constexpr int kPositions = 32;
-constexpr int kEntries = 256;
-constexpr int kEntryWords = 32;  // 16 x-digits + 16 y-digits
+constexpr int kEntries0 = 256;                 // position 0
+constexpr int kHalfEntries = 128;              // positions 1..31
+constexpr int kEntryVecs = 4;                  // 16 words: x limbs, then y limbs
+constexpr int kBufVecs = kEntries0 * kEntryVecs;  // 16 KiB, the largest position
+constexpr int kThreads = 128;
 
 // Entry index of position j: bits 8j .. 8j+8 of the scalar, shifted right
 // by one (bit 256 reads as 0).
@@ -52,114 +62,112 @@ __device__ __forceinline__ uint32_t entry_index(const int32_t* scalars, int64_t 
   return (w & 0x1FFu) >> 1;
 }
 
-// Two base-2^16 digit rows -> 8 x 32-bit limbs.
-__device__ __forceinline__ fe fe_from_digits(const int32_t* d) {
-  fe r;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    r.v[j] = ((uint32_t)d[2 * j] & 0xFFFFu) | ((uint32_t)d[2 * j + 1] << 16);
+// Start copying position j's entries into `buf`, 16 bytes per request,
+// spread over the block's threads.
+__device__ __forceinline__ void stage_position(const uint4* tables, int j, uint4* buf) {
+  const int first = j == 0 ? 0 : kEntries0 + (j - 1) * kHalfEntries;
+  const int vecs = (j == 0 ? kEntries0 : kHalfEntries) * kEntryVecs;
+  const uint4* src = tables + (int64_t)first * kEntryVecs;
+  for (int q = threadIdx.x; q < vecs; q += blockDim.x) {
+    const unsigned dst = (unsigned)__cvta_generic_to_shared(buf + q);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src + q)
+                 : "memory");
   }
-  return r;
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// Gather entry e of position j: 128 contiguous bytes, as eight 16-byte
-// read-only loads.
-__device__ __forceinline__ void load_entry(const int32_t* tables, int j, uint32_t e, fe& x,
-                                           fe& y) {
-  const int32_t* src = tables + ((int64_t)j * kEntries + e) * kEntryWords;
-  int32_t d[kEntryWords];
-#pragma unroll
-  for (int q = 0; q < kEntryWords / 4; ++q) {
-    const int4 v = __ldg(reinterpret_cast<const int4*>(src) + q);
-    d[4 * q] = v.x;
-    d[4 * q + 1] = v.y;
-    d[4 * q + 2] = v.z;
-    d[4 * q + 3] = v.w;
-  }
-  x = fe_from_digits(d);
-  y = fe_from_digits(d + 16);
+// Wait until at most `kPending` staged positions are still in flight.
+template <int kPending>
+__device__ __forceinline__ void wait_staged() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
-// acc + (ex, ey, 1): the mixed add, or the complete add when strict.
-template <bool kStrict>
-__device__ __forceinline__ void comb_add(fe x1, fe y1, fe z1, fe ex, fe ey, fe& x3, fe& y3,
-                                         fe& z3) {
-  if constexpr (kStrict) {
-    add_complete(x1, y1, z1, ex, ey, fe_from_u32(1u), x3, y3, z3);
-  } else {
-    add_z2_1(x1, y1, z1, ex, ey, x3, y3, z3);
+// Entry `idx` of the n staged entries, reading every entry with masks.
+template <int kN>
+__device__ __forceinline__ void scan(const uint4* buf, uint32_t idx, ec::fe& x, ec::fe& y) {
+  x = ec::fe_zero();
+  y = ec::fe_zero();
+#pragma unroll 4
+  for (int e = 0; e < kN; ++e) {
+    const uint32_t mask = 0u - (uint32_t)(idx == (uint32_t)e);
+    const uint4 q0 = buf[e * kEntryVecs], q1 = buf[e * kEntryVecs + 1];
+    const uint4 q2 = buf[e * kEntryVecs + 2], q3 = buf[e * kEntryVecs + 3];
+    x.v[0] |= q0.x & mask; x.v[1] |= q0.y & mask; x.v[2] |= q0.z & mask; x.v[3] |= q0.w & mask;
+    x.v[4] |= q1.x & mask; x.v[5] |= q1.y & mask; x.v[6] |= q1.z & mask; x.v[7] |= q1.w & mask;
+    y.v[0] |= q2.x & mask; y.v[1] |= q2.y & mask; y.v[2] |= q2.z & mask; y.v[3] |= q2.w & mask;
+    y.v[4] |= q3.x & mask; y.v[5] |= q3.y & mask; y.v[6] |= q3.z & mask; y.v[7] |= q3.w & mask;
   }
 }
 
-template <bool kStrict>
-__device__ __forceinline__ void comb_lane(const int32_t* scalars, const int32_t* tables,
-                                          const int32_t* negbase, int32_t* ax_out,
-                                          int32_t* ay_out, int32_t* z_out, int64_t B,
-                                          int64_t i) {
-  fe x, y, ex, ey;
-  load_entry(tables, 0, entry_index(scalars, B, i, 0), x, y);
-  fe z = fe_from_u32(1u);
-  for (int j = 1; j < kPositions; ++j) {
-    load_entry(tables, j, entry_index(scalars, B, i, j), ex, ey);
-    comb_add<kStrict>(x, y, z, ex, ey, x, y, z);
-  }
-  // parity fixup: even k computed (k+1)B; add -B
-  fe sx, sy, sz;
-  comb_add<kStrict>(x, y, z, fe_from_digits(negbase), fe_from_digits(negbase + 16), sx, sy,
-                    sz);
-  const uint32_t even = ((uint32_t)scalars[i] & 1u) ^ 1u;
-  fe_store(ax_out, B, i, fe_select(even, sx, x));
-  fe_store(ay_out, B, i, fe_select(even, sy, y));
-  fe_store(z_out, B, i, fe_select(even, sz, z));
-}
+}  // namespace comb
 
+namespace p256 {
+#include "comb_lane.cuh"
 }  // namespace p256
+
+namespace secp256k1 {
+#include "comb_lane.cuh"
+}  // namespace secp256k1
 
 namespace {
 
-constexpr int kThreads = 128;
+using comb::kThreads;
 
-__global__ void __launch_bounds__(kThreads)
-comb_p256_kernel(const int32_t* __restrict__ scalars, const int32_t* __restrict__ tables,
-                 const int32_t* __restrict__ negbase, int32_t* __restrict__ ax,
-                 int32_t* __restrict__ ay, int32_t* __restrict__ z, int64_t B) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B) return;
-  p256::comb_lane<false>(scalars, tables, negbase, ax, ay, z, B, i);
-}
+// Lanes past the end of the batch run the chain on the last lane and store
+// nothing: every thread takes part in the block's staging and barriers.
+#define EC_COMB_KERNEL(NAME, NS, STRICT)                                                   \
+  __global__ void __launch_bounds__(kThreads)                                              \
+  NAME(const int32_t* __restrict__ scalars, const uint4* __restrict__ tables,              \
+       const int32_t* __restrict__ negbase, int32_t* __restrict__ ax,                      \
+       int32_t* __restrict__ ay, int32_t* __restrict__ z, int64_t B) {                     \
+    __shared__ uint4 buf[2][comb::kBufVecs];                                               \
+    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;                      \
+    NS::comb_lane<STRICT>(scalars, tables, negbase, ax, ay, z, B, i < B ? i : B - 1,       \
+                          i < B, buf);                                                     \
+  }
 
-__global__ void __launch_bounds__(kThreads)
-comb_strict_p256_kernel(const int32_t* __restrict__ scalars, const int32_t* __restrict__ tables,
-                        const int32_t* __restrict__ negbase, int32_t* __restrict__ ax,
-                        int32_t* __restrict__ ay, int32_t* __restrict__ z, int64_t B) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= B) return;
-  p256::comb_lane<true>(scalars, tables, negbase, ax, ay, z, B, i);
+EC_COMB_KERNEL(comb_p256_kernel, p256, false)
+EC_COMB_KERNEL(comb_strict_p256_kernel, p256, true)
+EC_COMB_KERNEL(comb_secp256k1_kernel, secp256k1, false)
+EC_COMB_KERNEL(comb_strict_secp256k1_kernel, secp256k1, true)
+
+template <class Kernel>
+int launch(Kernel kernel, const int32_t* scalars, const int32_t* tables, const int32_t* negbase,
+           int32_t* ax, int32_t* ay, int32_t* z, int64_t B, void* stream) {
+  if (B > 0) {
+    const int64_t blocks = (B + kThreads - 1) / kThreads;
+    kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        scalars, reinterpret_cast<const uint4*>(tables), negbase, ax, ay, z, B);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// scalars: (16, B) int32 digit planes; tables: (32, 256, 32) int32, 16-byte
-// aligned; negbase: 32 int32 digits (x then y) of -B; ax, ay, z: (16, B)
-// outputs. Launches on `stream` and returns cudaGetLastError().
+// scalars: (16, B) int32 digit planes; tables: (4224, 16) int32 limbs,
+// 16-byte aligned; negbase: 32 int32 digits (x then y) of -B, internal form;
+// ax, ay, z: (16, B) outputs. Launches on `stream` and returns
+// cudaGetLastError().
 extern "C" int ec_comb_p256(const int32_t* scalars, const int32_t* tables,
                             const int32_t* negbase, int32_t* ax, int32_t* ay, int32_t* z,
                             int64_t B, void* stream) {
-  if (B > 0) {
-    const int64_t blocks = (B + kThreads - 1) / kThreads;
-    comb_p256_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        scalars, tables, negbase, ax, ay, z, B);
-  }
-  return (int)cudaGetLastError();
+  return launch(comb_p256_kernel, scalars, tables, negbase, ax, ay, z, B, stream);
 }
 
 extern "C" int ec_comb_p256_strict(const int32_t* scalars, const int32_t* tables,
                                    const int32_t* negbase, int32_t* ax, int32_t* ay, int32_t* z,
                                    int64_t B, void* stream) {
-  if (B > 0) {
-    const int64_t blocks = (B + kThreads - 1) / kThreads;
-    comb_strict_p256_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        scalars, tables, negbase, ax, ay, z, B);
-  }
-  return (int)cudaGetLastError();
+  return launch(comb_strict_p256_kernel, scalars, tables, negbase, ax, ay, z, B, stream);
+}
+
+extern "C" int ec_comb_secp256k1(const int32_t* scalars, const int32_t* tables,
+                                 const int32_t* negbase, int32_t* ax, int32_t* ay, int32_t* z,
+                                 int64_t B, void* stream) {
+  return launch(comb_secp256k1_kernel, scalars, tables, negbase, ax, ay, z, B, stream);
+}
+
+extern "C" int ec_comb_secp256k1_strict(const int32_t* scalars, const int32_t* tables,
+                                        const int32_t* negbase, int32_t* ax, int32_t* ay,
+                                        int32_t* z, int64_t B, void* stream) {
+  return launch(comb_strict_secp256k1_kernel, scalars, tables, negbase, ax, ay, z, B, stream);
 }

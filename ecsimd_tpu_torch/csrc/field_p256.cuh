@@ -11,9 +11,9 @@
 // carry ripple from 16 to 8 steps. Carries ride in 64-bit accumulators,
 // which nvcc lowers to add-with-carry chains; no inline PTX is needed.
 //
-// The tensor interface stays the JAX package's: (16, B) int32 planes of
-// base-2^16 digits, digit k of lane i at planes[k * B + i], so neighbouring
-// threads read neighbouring words. fe_load/fe_store convert at the edges.
+// The tensor interface stays the JAX package's (limbs.cuh, which also holds
+// the loads, stores, selects and the modular add/sub shared with
+// field_secp256k1.cuh).
 //
 // Every function returns a canonical value in [0, p). Because of that, any
 // correct reduction gives the same result, and a kernel that follows the
@@ -26,149 +26,51 @@
 
 #pragma once
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "limbs.cuh"
 
 namespace p256 {
 
-struct fe {
-  uint32_t v[8];
-};
+using ec::fe;
+using ec::fe_from_digits;
+using ec::fe_from_u32;
+using ec::fe_is_zero;
+using ec::fe_load;
+using ec::fe_select;
+using ec::fe_store;
+using ec::fe_swap_if;
+using ec::fe_zero;
+using ec::scalar_word;
 
 // p = 2^256 - 2^224 + 2^192 + 2^96 - 1
 #define P256_P {0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu, 0u, 0u, 0u, 1u, 0xFFFFFFFFu}
 
-__device__ __forceinline__ fe fe_zero() {
-  fe r;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) r.v[j] = 0u;
-  return r;
-}
-
-__device__ __forceinline__ fe fe_from_u32(uint32_t x) {
-  fe r = fe_zero();
-  r.v[0] = x;
-  return r;
-}
-
-// Lane i of a (16, B) int32 base-2^16 digit plane set.
-__device__ __forceinline__ fe fe_load(const int32_t* planes, int64_t B, int64_t i) {
-  fe r;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    uint32_t lo = (uint32_t)planes[(2 * j) * B + i];
-    uint32_t hi = (uint32_t)planes[(2 * j + 1) * B + i];
-    r.v[j] = (lo & 0xFFFFu) | (hi << 16);
-  }
-  return r;
-}
-
-// 32-bit word w (bits 32w .. 32w+31) of lane i of a (16, B) digit plane set.
-__device__ __forceinline__ uint32_t scalar_word(const int32_t* planes, int64_t B, int64_t i,
-                                                int w) {
-  return ((uint32_t)planes[(2 * w) * B + i] & 0xFFFFu) |
-         ((uint32_t)planes[(2 * w + 1) * B + i] << 16);
-}
-
-__device__ __forceinline__ void fe_store(int32_t* planes, int64_t B, int64_t i, const fe& a) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    planes[(2 * j) * B + i] = (int32_t)(a.v[j] & 0xFFFFu);
-    planes[(2 * j + 1) * B + i] = (int32_t)(a.v[j] >> 16);
-  }
-}
-
-// Branch-free r = m ? a : b (m in {0, 1}).
-__device__ __forceinline__ fe fe_select(uint32_t m, const fe& a, const fe& b) {
-  const uint32_t mask = 0u - m;
-  fe r;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) r.v[j] = (a.v[j] & mask) | (b.v[j] & ~mask);
-  return r;
-}
-
-// Branch-free swap of a and b when m == 1.
-__device__ __forceinline__ void fe_swap_if(uint32_t m, fe& a, fe& b) {
-  const uint32_t mask = 0u - m;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    uint32_t t = (a.v[j] ^ b.v[j]) & mask;
-    a.v[j] ^= t;
-    b.v[j] ^= t;
-  }
-}
-
-__device__ __forceinline__ uint32_t fe_is_zero(const fe& a) {
-  uint32_t o = 0u;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) o |= a.v[j];
-  return o == 0u ? 1u : 0u;
-}
-
-// a - p if (carry or a >= p), else a. Needs a + carry * 2^256 < 2p.
 __device__ __forceinline__ fe fe_cond_sub_p(const fe& a, uint32_t carry) {
   const uint32_t P[8] = P256_P;
-  fe t;
-  int64_t acc = 0;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    acc += (int64_t)a.v[j] - (int64_t)P[j];
-    t.v[j] = (uint32_t)acc;
-    acc >>= 32;  // 0 or -1
-  }
-  const uint32_t no_borrow = (uint32_t)(acc + 1);  // 1 when a >= p
-  return fe_select(carry | no_borrow, t, a);
+  return ec::fe_cond_sub(a, carry, P);
 }
 
 __device__ __forceinline__ fe fe_add(const fe& a, const fe& b) {
-  fe s;
-  uint64_t acc = 0;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    acc += (uint64_t)a.v[j] + b.v[j];
-    s.v[j] = (uint32_t)acc;
-    acc >>= 32;
-  }
-  return fe_cond_sub_p(s, (uint32_t)acc);
+  const uint32_t P[8] = P256_P;
+  return ec::fe_add_mod(a, b, P);
 }
 
 __device__ __forceinline__ fe fe_sub(const fe& a, const fe& b) {
   const uint32_t P[8] = P256_P;
-  fe d;
-  int64_t acc = 0;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    acc += (int64_t)a.v[j] - (int64_t)b.v[j];
-    d.v[j] = (uint32_t)acc;
-    acc >>= 32;
-  }
-  // a < b: add p back (mod 2^256)
-  const uint32_t mask = (uint32_t)acc;  // 0 or 0xFFFFFFFF
-  fe r;
-  uint64_t c = 0;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    c += (uint64_t)d.v[j] + (P[j] & mask);
-    r.v[j] = (uint32_t)c;
-    c >>= 32;
-  }
-  return r;
+  return ec::fe_sub_mod(a, b, P);
 }
 
 __device__ __forceinline__ fe fe_dbl(const fe& a) { return fe_add(a, a); }
 
 __device__ __forceinline__ fe fe_neg(const fe& a) {
   const uint32_t P[8] = P256_P;
-  fe d;
-  int64_t acc = 0;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    acc += (int64_t)P[j] - (int64_t)a.v[j];
-    d.v[j] = (uint32_t)acc;
-    acc >>= 32;
-  }
-  return fe_select(fe_is_zero(a), a, d);  // -0 = 0
+  return ec::fe_neg_mod(a, P);
 }
+
+// The field's 1, and the conversion of a result to a classical residue:
+// P-256 residues are stored plain (no Montgomery factor), so both are trivial.
+__device__ __forceinline__ fe fe_one() { return fe_from_u32(1u); }
+
+__device__ __forceinline__ fe fe_to_classical(const fe& a) { return a; }
 
 // NIST fast reduction (FIPS 186-4 D.2.3) of a 512-bit product c[0..15]:
 // r = s1 + 2 s2 + 2 s3 + s4 + s5 - s6 - s7 - s8 - s9, written per 32-bit

@@ -1,9 +1,11 @@
 """L5: co-Z Jacobian group law and the plain masked-swap ladder.
 
 The port of ``ecsimd_tpu/curves/group.py`` (co-Z arithmetic after
-Goundar-Joye-Miyaji, eprint 2010/309), plus plain twins of the free-standing
-Jacobian formulas of ``ecsimd_tpu/kernels/coz.py`` that the window and strict
-comb kernels run (``dbl_am3``, ``jac_add``, ``add_complete``). ``scalar_mult`` here is the plain
+Goundar-Joye-Miyaji, eprint 2010/309, point decompression), plus plain twins
+of the free-standing Jacobian formulas of ``ecsimd_tpu/kernels/coz.py`` that
+the window, GLV and strict comb kernels run (``dbl_am3``, ``jac_dbl``,
+``jac_add``, ``add_complete`` and the ``*_any`` dispatch over the curve's
+shape). ``scalar_mult`` here is the plain
 PyTorch version of the ladder kernel (``kernels/ladder.py``): the same
 formula sequence on GFp planes, one Python loop over the scalar bits, every
 step branch-free with per-lane swap masks. Since every field result is
@@ -14,7 +16,7 @@ planes bit for bit.
 from __future__ import annotations
 
 from ecsimd_tpu_torch.specs import DIGIT_BITS, CurveSpec
-from ecsimd_tpu_torch.curves.point import JacobianPoint
+from ecsimd_tpu_torch.curves.point import AffinePoint, JacobianPoint
 from ecsimd_tpu_torch.field import GFp, gfp_swap_if
 
 
@@ -108,15 +110,18 @@ def tplu(x1: GFp, y1: GFp, curve: CurveSpec):
 
 def jac_dbl(x1: GFp, y1: GFp, z1: GFp, curve: CurveSpec):
     """General-a Jacobian doubling (dbl-2007-bl shape), the port of
-    ``ecsimd_tpu/curves/group.py:jac_dbl``. Doubling of infinity stays at
-    infinity (z3 = 2 y1 z1)."""
-    a = x1.const_like(curve.a)
+    ``ecsimd_tpu/curves/group.py:jac_dbl`` and of ``kernels/coz.py:
+    jac_dbl_general_a``, which drops the a term for a = 0 (1M + 7S there,
+    as in ``csrc/coz_secp256k1.cuh``; the values are the same). Doubling of
+    infinity stays at infinity (z3 = 2 y1 z1)."""
     xx = x1.sqr()
     yy = y1.sqr()
     yyyy = yy.sqr()
     zz = z1.sqr()
     s = ((x1 + yy).sqr() - xx - yyyy).double()
-    m = xx + xx.double() + a * zz.sqr()
+    m = xx + xx.double()
+    if curve.a % curve.p:
+        m = m + x1.const_like(curve.a) * zz.sqr()
     x3 = m.sqr() - s.double()
     y3 = m * (s - x3) - yyyy.shift_left(3)
     z3 = (y1 + z1).sqr() - yy - zz
@@ -151,16 +156,17 @@ def jac_add_complete(p1: JacobianPoint, p2: JacobianPoint) -> JacobianPoint:
     return JacobianPoint(x3, y3, z3, curve)
 
 
-# --- plain twins of the window kernel's device formulas --------------------------
-# ``ecsimd_tpu/kernels/coz.py``'s jac_dbl, jac_add and add_complete_any, as
-# ``csrc/coz_p256.cuh`` runs them: a = -3 on a Solinas field only.
+# --- plain twins of the kernels' device formulas --------------------------------
+# ``ecsimd_tpu/kernels/coz.py``'s jac_dbl, jac_add, add_complete_any and the
+# dispatch over the curve's shape, as ``csrc/coz_p256.cuh`` (a = -3) and
+# ``csrc/coz_secp256k1.cuh`` (a = 0) run them.
 
 
 def _require_am3(curve: CurveSpec):
     if not curve.am3:
         raise NotImplementedError(
-            f"{curve.name}: the window formulas cover a = -3 only; general-a "
-            "doubling is not ported yet (ROADMAP B0)"
+            f"{curve.name}: dbl-2001-b needs a = -3; curves with another a double "
+            "through jac_dbl (dbl_any dispatches, ROADMAP B0)"
         )
 
 
@@ -178,6 +184,14 @@ def dbl_am3(x1: GFp, y1: GFp, z1: GFp, curve: CurveSpec):
     z3 = (y1 + z1).sqr() - gamma - delta
     y3 = alpha * (beta4 - x3) - gamma.sqr().shift_left(3)
     return x3, y3, z3
+
+
+def dbl_any(x1: GFp, y1: GFp, z1: GFp, curve: CurveSpec):
+    """``kernels/coz.py:dbl_any``: dbl-2001-b for a = -3, the general-a
+    doubling otherwise."""
+    if curve.am3:
+        return dbl_am3(x1, y1, z1, curve)
+    return jac_dbl(x1, y1, z1, curve)
 
 
 def jac_add(x1: GFp, y1: GFp, z1: GFp, x2: GFp, y2: GFp, z2: GFp, with_hr: bool = False):
@@ -204,15 +218,15 @@ def jac_add(x1: GFp, y1: GFp, z1: GFp, x2: GFp, y2: GFp, z2: GFp, with_hr: bool 
 
 
 def add_complete(x1: GFp, y1: GFp, z1: GFp, x2: GFp, y2: GFp, z2: GFp, curve: CurveSpec):
-    """Exception-free add of the strict window and strict comb, the twin of
-    ``ecsimd_tpu/kernels/coz.py:add_complete_any``: P1 == P2 -> ``dbl_am3``
-    of P1, P1 == -P2 -> infinity (Z == 0), P1 == inf -> (x2, y2, 1). P2 must
-    be finite. Per-lane selects only."""
+    """Exception-free add of the strict window, GLV and comb kernels, the
+    twin of ``ecsimd_tpu/kernels/coz.py:add_complete_any``: P1 == P2 ->
+    ``dbl_any`` of P1, P1 == -P2 -> infinity (Z == 0), P1 == inf ->
+    (x2, y2, 1). P2 must be finite. Per-lane selects only."""
     x3, y3, z3, h, r = jac_add(x1, y1, z1, x2, y2, z2, with_hr=True)
     hz, rz, inf1 = h.is_zero(), r.is_zero(), z1.is_zero()
     m_same = hz & rz & (1 - inf1)
     m_opp = hz & (1 - rz) & (1 - inf1)
-    xd, yd, zd = dbl_am3(x1, y1, z1, curve)
+    xd, yd, zd = dbl_any(x1, y1, z1, curve)
     x3 = xd.select(m_same, x3)
     y3 = yd.select(m_same, y3)
     z3 = zd.select(m_same, z3.select(1 - m_opp, z3.const_like(0)))
@@ -220,6 +234,23 @@ def add_complete(x1: GFp, y1: GFp, z1: GFp, x2: GFp, y2: GFp, z2: GFp, curve: Cu
     y3 = y2.select(inf1, y3)
     z3 = x1.const_like(1).select(inf1, z3)
     return x3, y3, z3
+
+
+# --- point decompression ---------------------------------------------------------
+
+
+def compute_y(x: GFp, curve: CurveSpec):
+    """Solve y^2 = x^3 + a x + b per lane: (y, ok mask)."""
+    rhs = x.sqr() * x + x.const_like(curve.a) * x + x.const_like(curve.b)
+    return rhs.sqrt()
+
+
+def affine_from_x(x_planes, curve: CurveSpec):
+    """Decompress a batch of classical x coordinates: (AffinePoint, ok mask);
+    y is the root ``GFp.sqrt`` picks, its parity not chosen."""
+    x = GFp.from_classical(x_planes, curve.field)
+    y, ok = compute_y(x, curve)
+    return AffinePoint(x_planes, y.to_classical(), curve), ok
 
 
 # --- the ladder -------------------------------------------------------------------

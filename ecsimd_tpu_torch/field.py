@@ -1,11 +1,14 @@
-"""L3: GF(p) prime-field value type for plain-domain Solinas fields.
+"""L3: GF(p) prime-field value type over Solinas and Montgomery fields.
 
 The port of ``ecsimd_tpu/field.py``'s ``GFp``: a dataclass around (D, *batch)
-int32 digit planes, values in [0, p), with operator sugar, constant powers
-and inversion. Each operation widens to int64 planes, runs the digit-plane
-ops of ``ops/`` and narrows back, so the stored planes keep the JAX
-package's int32 interface. Montgomery (CIOS) and Crandall fields are not
-ported yet and raise ``NotImplementedError`` (ROADMAP A6).
+int32 digit planes, values in [0, p), with operator sugar, constant powers,
+inversion and square roots. Solinas fields (P-256) store plain residues;
+Montgomery fields (secp256k1, every ECDSA order field) store x R mod p with
+R = 2^nbits, as the JAX package does, so the planes agree bit for bit. Each
+operation widens to int64 planes, runs the digit-plane ops of ``ops/`` and
+narrows back, so the stored planes keep the JAX package's int32 interface.
+Crandall fields are not ported yet and raise ``NotImplementedError``
+(ROADMAP A6-Crandall).
 """
 
 from __future__ import annotations
@@ -26,6 +29,29 @@ def _wide(planes):
     return planes.to(I64)
 
 
+def _mul_planes(a, b, fs: FieldSpec):
+    if fs.reduction == "solinas":
+        return solinas.fast_mul(a, b, fs)
+    return mont.mont_mul(a, b, fs)
+
+
+def _one_planes(fs: FieldSpec, like):
+    """The internal-domain 1 (R mod p for Montgomery fields), as int64
+    planes shaped like ``like``."""
+    one = fs.R_mod_p if not fs.plain else 1
+    return mont._const_planes(int_to_digits(one, fs.ndigits), like).expand(like.shape)
+
+
+def _scale(r: "GFp", scale: int) -> "GFp":
+    """r * scale for the small constants the formulas fuse, by modular adds:
+    the Montgomery reduction's t < R p contract forbids scaling the columns,
+    and the residue is canonical either way."""
+    out = r
+    for _ in range(scale - 1):
+        out = out + r
+    return out
+
+
 @dataclasses.dataclass(frozen=True, eq=False)
 class GFp:
     """A batch of field elements as plain-domain digit planes."""
@@ -34,10 +60,10 @@ class GFp:
     fs: FieldSpec
 
     def __post_init__(self):
-        if self.fs.reduction != "solinas":
+        if self.fs.reduction == "crandall":
             raise NotImplementedError(
-                f"{self.fs.name}: {self.fs.reduction} reduction is not ported to "
-                "PyTorch yet (ROADMAP A6: CIOS and Crandall fields)"
+                f"{self.fs.name}: crandall reduction is not ported to PyTorch yet "
+                "(ROADMAP A6-Crandall, with X25519)"
             )
 
     @classmethod
@@ -48,13 +74,17 @@ class GFp:
 
     @classmethod
     def from_classical(cls, planes, fs: FieldSpec) -> "GFp":
-        """Classical planes -> internal domain (the identity for the plain
-        Solinas fields)."""
-        return cls(planes, fs)
+        """Classical planes -> internal domain (x R mod p for Montgomery
+        fields, the identity for the plain Solinas fields)."""
+        if fs.plain:
+            return cls(planes, fs)
+        return cls._of(mont.mont_from_classical(_wide(planes), fs), fs)
 
     @classmethod
     def constant(cls, value: int, fs: FieldSpec, like) -> "GFp":
-        c = mont._const_planes(int_to_digits(value % fs.p, fs.ndigits), like)
+        """A host constant, converted to the internal domain on the host."""
+        m = value % fs.p if fs.plain else (value << fs.nbits) % fs.p
+        c = mont._const_planes(int_to_digits(m, fs.ndigits), like)
         return cls(c.expand(like.shape).to(I32), fs)
 
     @classmethod
@@ -64,7 +94,9 @@ class GFp:
     # -- accessors -----------------------------------------------------------
 
     def to_classical(self):
-        return self.planes
+        if self.fs.plain:
+            return self.planes
+        return mont.mont_to_classical(_wide(self.planes), self.fs).to(I32)
 
     # -- arithmetic ----------------------------------------------------------
 
@@ -75,19 +107,22 @@ class GFp:
         return GFp._of(mont.mod_sub(_wide(self.planes), _wide(o.planes), self.fs), self.fs)
 
     def __mul__(self, o: "GFp") -> "GFp":
-        return self.mul_scaled(o, 1)
+        return GFp._of(_mul_planes(_wide(self.planes), _wide(o.planes), self.fs), self.fs)
 
     def sqr(self) -> "GFp":
         return self.sqr_scaled(1)
 
     def mul_scaled(self, o: "GFp", scale: int) -> "GFp":
-        """scale * self * o for a small constant scale, fused into the
-        Solinas reduction."""
+        """scale * self * o for a small constant scale: fused into the
+        Solinas reduction, or doublings after a Montgomery multiply."""
+        if self.fs.reduction != "solinas":
+            return _scale(GFp._of(mont.mont_mul(_wide(self.planes), _wide(o.planes), self.fs),
+                                  self.fs), scale)
         out = solinas.fast_mul(_wide(self.planes), _wide(o.planes), self.fs, scale)
         return GFp._of(out, self.fs)
 
     def sqr_scaled(self, scale: int) -> "GFp":
-        return GFp._of(solinas.fast_sqr(_wide(self.planes), self.fs, scale), self.fs)
+        return self.mul_scaled(self, scale)
 
     def double(self) -> "GFp":
         return GFp._of(mont.mod_shift_left_one(_wide(self.planes), self.fs), self.fs)
@@ -135,7 +170,7 @@ class GFp:
         flat = _wide(self.planes).reshape(d, -1)
         b = flat.shape[1]
         zero = bn.is_zero(flat)
-        one = mont._const_planes(int_to_digits(1, d), flat).expand(d, b)
+        one = _one_planes(fs, flat)
         a = bn.select(zero, one, flat)
         bp = 1 << (b - 1).bit_length()
         if bp != b:
@@ -146,16 +181,56 @@ class GFp:
         while cur.shape[1] > 1:
             left, right = cur[:, 0::2], cur[:, 1::2]
             pairs.append((left, right))
-            cur = solinas.fast_mul(left, right, fs)
+            cur = _mul_planes(left, right, fs)
 
         inv = _wide(GFp._of(cur, fs).inverse().planes)
         for left, right in reversed(pairs):
-            inv_l = solinas.fast_mul(inv, right, fs)
-            inv_r = solinas.fast_mul(inv, left, fs)
+            inv_l = _mul_planes(inv, right, fs)
+            inv_r = _mul_planes(inv, left, fs)
             inv = torch.stack([inv_l, inv_r], dim=2).reshape(d, -1)
 
         out = bn.select(zero, torch.zeros_like(flat), inv[:, :b])
         return GFp._of(out.reshape(self.planes.shape), fs)
+
+    def sqrt(self) -> tuple["GFp", torch.Tensor]:
+        """Per-lane square root and an int64 0/1 mask of the lanes that have
+        one (sqrt(0) = 0 with ok = 1), by the field's kind, as the JAX
+        package dispatches on the public p:
+
+          p = 3 (mod 4): x^((p+1)/4) — P-256 and secp256k1;
+          p = 5 (mod 8): r = x^((p+3)/8), times sqrt(-1) where r^2 != x
+          (the toy GLV field);
+          otherwise: Tonelli-Shanks with a fixed round schedule and masked
+          multiplies (no data-dependent trips)."""
+        fs = self.fs
+        kind = fs.sqrt_kind
+        if kind == "p3mod4":
+            r = self.pow_const(fs.sqrt_exponent)
+        elif kind == "p5mod8":
+            r = self.pow_const((fs.p + 3) // 8)
+            fixed = r * self.const_like(fs.sqrt_m1)
+            r = r.select(r.sqr().eq(self), fixed)
+        else:
+            r = self._tonelli_shanks()
+        return r, r.sqr().eq(self)
+
+    def _tonelli_shanks(self) -> "GFp":
+        """Constant-time Tonelli-Shanks: s - 1 fixed rounds, per-lane masked
+        multiplies (the JAX package's ``_tonelli_shanks``)."""
+        q, s, c_int = self.fs.ts_params
+        c = self.const_like(c_int)
+        t = self.pow_const(q)
+        r = self.pow_const((q + 1) // 2)
+        one = GFp.one(self.fs, self.planes)
+        for i in range(s, 1, -1):
+            b = t
+            for _ in range(i - 2):
+                b = b.sqr()
+            e = b.eq(one)  # b == 1: this round is a no-op
+            r = r.select(e, r * c)
+            c = c.sqr()
+            t = t.select(e, t * c)
+        return r
 
     # -- comparison and selection ------------------------------------------------
 

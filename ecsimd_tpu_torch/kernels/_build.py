@@ -29,8 +29,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ecsimd_tpu_torch"
-SOURCES = ("field_ops.cu", "ladder.cu", "comb.cu", "affine.cu", "window.cu")
-HEADERS = ("field_p256.cuh", "coz_p256.cuh")
+SOURCES = ("field_ops.cu", "ladder.cu", "comb.cu", "affine.cu", "window.cu", "glv.cu")
+HEADERS = ("limbs.cuh", "field_p256.cuh", "field_secp256k1.cuh", "jacobian.cuh", "coz_p256.cuh",
+           "coz_secp256k1.cuh", "comb_lane.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -85,8 +86,8 @@ def _digest() -> str:
 def library() -> Build:
     """Build (if needed) and load the kernel library. Cached per process."""
     digest = _digest()
-    so = BUILD_DIR / f"libecsimd_p256_{digest}.so"
-    log = BUILD_DIR / f"libecsimd_p256_{digest}.log"
+    so = BUILD_DIR / f"libecsimd_{digest}.so"
+    log = BUILD_DIR / f"libecsimd_{digest}.log"
     seconds = 0.0
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -1,5 +1,5 @@
-"""Fixed-base comb k_i * B: kernel B (``csrc/comb.cu``), its wrapper, its
-plain PyTorch version and the host-built tables.
+"""Fixed-base comb k_i * B: kernel B (``csrc/comb.cu``, P-256 and
+secp256k1), its wrapper, its plain PyTorch version and the host-built tables.
 
 Replaces ``ecsimd_tpu/kernels/comb.py`` (``comb_mont_planes`` with
 ``chain="serial"`` and its Pallas body ``_comb_kernel``). The tables are
@@ -20,9 +20,13 @@ of scalars whose prefix sums collide with a table entry's x line
 k = order - 1 included (its chain ends at infinity and the fix-up resolves
 inf + (-B) = -B).
 
-Kernel B gathers each position's entry with a load addressed by the scalar's
-window, so unlike the TPU kernel's one-hot read of the whole position its
-memory access pattern depends on the secret (ROADMAP queue C).
+Kernel B reads no table word at an address that depends on the scalar, as
+the TPU kernel's one-hot read of the whole position does not: the block
+stages each position in shared memory and every lane scans all of it with
+masks. Its table layout (``kernel_tables``) keeps a position's entries as
+32-bit limbs, and only the positive half of positions 1..31 (the sign is a
+masked negation). ``comb_plain`` keeps the indexed gather: it is the
+comparator, and runs on the main path only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -32,13 +36,12 @@ import functools
 import numpy as np
 import torch
 
-from ecsimd_tpu_torch import convert
 from ecsimd_tpu_torch.curves import group
 from ecsimd_tpu_torch.curves.point import JacobianPoint
 from ecsimd_tpu_torch.field import GFp
 from ecsimd_tpu_torch.kernels import _build
 from ecsimd_tpu_torch.oracle import window as ow
-from ecsimd_tpu_torch.specs import DIGIT_BITS, P256, CurveSpec, int_to_digits
+from ecsimd_tpu_torch.specs import DIGIT_BITS, P256, SECP256K1, CurveSpec, int_to_digits
 
 W = 8  # window width in bits; 2^(W-1) signed-odd magnitudes per position
 NENT = 1 << W  # table entries per position: d = 2e - (2^W - 1), e in [0, 2^W)
@@ -55,6 +58,23 @@ KERNEL_STRICT = _build.Kernel(
     replaces="ecsimd_tpu/kernels/comb.py:213 _comb_kernel (strict=True)",
     n_pointers=6,
 )
+KERNEL_SECP256K1 = _build.Kernel(
+    symbol="ec_comb_secp256k1",
+    source="ecsimd_tpu_torch/csrc/comb.cu",
+    replaces="ecsimd_tpu/kernels/comb.py:213 _comb_kernel (secp256k1)",
+    n_pointers=6,
+)
+KERNEL_SECP256K1_STRICT = _build.Kernel(
+    symbol="ec_comb_secp256k1_strict",
+    source="ecsimd_tpu_torch/csrc/comb.cu",
+    replaces="ecsimd_tpu/kernels/comb.py:213 _comb_kernel (secp256k1, strict=True)",
+    n_pointers=6,
+)
+# (curve, strict) -> kernel B instantiation
+KERNELS = {
+    (P256, False): KERNEL, (P256, True): KERNEL_STRICT,
+    (SECP256K1, False): KERNEL_SECP256K1, (SECP256K1, True): KERNEL_SECP256K1_STRICT,
+}
 
 
 def _npos(nbits: int) -> int:
@@ -164,16 +184,36 @@ def tables_from_numpy(np_tables, device) -> torch.Tensor:
 def device_tables(curve: CurveSpec, bx: int, by: int, device: torch.device):
     """(tables, negbase, negbase_digits) on ``device``, built once per
     (curve, base, device): the comb's one piece of carried state. The
-    negbase digits are the 2D int32 digits of -B's x then y, as kernel B
-    reads them."""
+    negbase digits are the 2D int32 internal-domain digits of -B's x then y,
+    as kernel B reads them."""
     tables, negbase = base_tables(curve, bx, by)
-    d = curve.field.ndigits
-    nb = np.concatenate([convert.ints_to_planes([v], d)[:, 0] for v in negbase])
+    fs = curve.field
+    nb = np.concatenate([int_to_digits(_to_internal(v, fs), fs.ndigits) for v in negbase])
     return (
         tables_from_numpy(tables, device),
         negbase,
         torch.tensor(nb, dtype=torch.int32, device=device),
     )
+
+
+def limb_layout(np_tables):
+    """Kernel B's table layout from (npos, 256, 2D) int32 digit tables:
+    (256 + (npos - 1) * 128, D) int32 rows, one per kept entry, each the
+    D/2 32-bit limbs of x then of y. Position 0 keeps its 256 entries;
+    positions 1..npos-1 keep entries 128..255, the positive multiples
+    (2m+1) 2^(8i) B in magnitude order (entry 127 - m is their opposite)."""
+    t = np.asarray(np_tables).astype(np.int64)
+    d = t.shape[2] // 2
+    limbs = (t[..., 0::2] & 0xFFFF) | (t[..., 1::2] << DIGIT_BITS)
+    rows = np.concatenate([limbs[0], limbs[1:, NENT // 2 :].reshape(-1, d)])
+    return rows.astype(np.uint32).view(np.int32)
+
+
+@functools.cache
+def kernel_tables(curve: CurveSpec, bx: int, by: int, device: torch.device) -> torch.Tensor:
+    """``limb_layout`` of the base's tables on ``device``, built once per
+    (curve, base, device)."""
+    return torch.tensor(limb_layout(base_tables(curve, bx, by)[0]), device=device)
 
 
 # --- entry indices and the plain comb ---------------------------------------------
@@ -230,22 +270,24 @@ def comb_plain(scalars, tables, curve: CurveSpec, negbase, strict: bool = False)
 
 def comb_planes(scalars, tables, negbase_digits, curve: CurveSpec = P256, strict: bool = False):
     """Run kernel B (``strict``: its complete-add instantiation) on (D, B)
-    int32 CUDA scalar planes with device tables from ``device_tables``.
-    Returns Jacobian (ax, ay, z) planes."""
+    int32 CUDA scalar planes with ``kernel_tables`` and the negbase digits
+    of ``device_tables``. Returns Jacobian (ax, ay, z) planes (internal
+    domain)."""
     _build.require_cuda(scalars, "comb")
-    if curve != P256:
+    kernel = KERNELS.get((curve, strict))
+    if kernel is None:
         raise NotImplementedError(
-            f"{curve.name}: the CUDA comb covers P-256 only (ROADMAP B0, other fields)"
+            f"{curve.name}: the CUDA comb covers P-256 and secp256k1 (ROADMAP B0, other fields)"
         )
     d = curve.field.ndigits
     shape = (d, scalars.shape[-1])
     dev = scalars.device
+    npos = _npos(curve.field.nbits)
     _build.check_planes("scalars", scalars, shape, dev)
-    _build.check_planes("tables", tables, (_npos(curve.field.nbits), NENT, 2 * d), dev)
+    _build.check_planes("tables", tables, (NENT + (npos - 1) * NENT // 2, d), dev)
     _build.check_planes("negbase", negbase_digits, (2 * d,), dev)
     if tables.data_ptr() % 16:
-        raise ValueError("tables: kernel B reads entries as 16-byte words; need 16-byte alignment")
-    kernel = KERNEL_STRICT if strict else KERNEL
+        raise ValueError("tables: kernel B stages entries as 16-byte words; need 16-byte alignment")
     ax, ay, z = (torch.empty(shape, dtype=torch.int32, device=dev) for _ in range(3))
     _build.launch(kernel, [scalars, tables, negbase_digits, ax, ay, z], shape[1])
     kernel.launches += 1
@@ -265,10 +307,11 @@ def scalar_mult_base(
     if chains != 1 or unroll != 1:
         raise NotImplementedError("comb chains / unroll are not ported yet (ROADMAP B2)")
     fs = curve.field
-    bx, by = base if base is not None else (curve.gx, curve.gy)
-    tables, negbase, negbase_digits = device_tables(curve, int(bx), int(by), scalars.device)
+    bx, by = (int(v) for v in (base if base is not None else (curve.gx, curve.gy)))
+    tables, negbase, negbase_digits = device_tables(curve, bx, by, scalars.device)
     if scalars.device.type == "cpu":
         ax, ay, z = comb_plain(scalars, tables, curve, negbase, strict)
     else:
-        ax, ay, z = comb_planes(scalars.contiguous(), tables, negbase_digits, curve, strict)
+        limbs = kernel_tables(curve, bx, by, scalars.device)
+        ax, ay, z = comb_planes(scalars.contiguous(), limbs, negbase_digits, curve, strict)
     return JacobianPoint(GFp(ax, fs), GFp(ay, fs), GFp(z, fs), curve)

@@ -1,5 +1,6 @@
-"""Field-operation probe: the device field layer (``csrc/field_p256.cuh``)
-run on digit planes by kernel C (``csrc/field_ops.cu``).
+"""Field-operation probe: the device field layers (``csrc/field_p256.cuh``,
+``csrc/field_secp256k1.cuh``) run on digit planes by kernel C
+(``csrc/field_ops.cu``).
 
 The device field layer replaces ``ecsimd_tpu/kernels/digits.py``, which has
 no ``pallas_call`` of its own; the JAX package tests it through an
@@ -12,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from ecsimd_tpu_torch.specs import P256_FIELD, FieldSpec
+from ecsimd_tpu_torch.specs import P256_FIELD, SECP256K1_FIELD, FieldSpec
 from ecsimd_tpu_torch.field import GFp
 from ecsimd_tpu_torch.kernels import _build
 
@@ -22,12 +23,21 @@ KERNEL = _build.Kernel(
     replaces="tests/test_kernels.py:30 _run_binop (kernels/digits.py field ops)",
     n_pointers=3,
 )
+KERNEL_SECP256K1 = _build.Kernel(
+    symbol="ec_field_probe_secp256k1",
+    source="ecsimd_tpu_torch/csrc/field_ops.cu",
+    replaces="tests/test_kernels.py:30 _run_binop (kernels/digits.py field ops, Montgomery)",
+    n_pointers=3,
+)
+KERNELS = {P256_FIELD: KERNEL, SECP256K1_FIELD: KERNEL_SECP256K1}
 
 OPS = ("mul", "sqr", "add", "sub", "opposite")
 
 
 def probe_plain(a, b, fs: FieldSpec = P256_FIELD):
-    """(5, D, B) int32 planes of a*b, a^2, a+b, a-b, -a through GFp."""
+    """(5, D, B) int32 planes of a*b, a^2, a+b, a-b, -a through GFp, the
+    planes read as the field's internal form (Montgomery form for
+    secp256k1)."""
     x, y = GFp(a, fs), GFp(b, fs)
     outs = (x * y, x.sqr(), x + y, x - y, x.opposite())
     return torch.stack([o.planes for o in outs])
@@ -39,14 +49,15 @@ def probe(a, b, fs: FieldSpec = P256_FIELD):
     if a.device.type == "cpu":
         return probe_plain(a, b, fs)
     _build.require_cuda(a, "field probe")
-    if fs != P256_FIELD:
+    kernel = KERNELS.get(fs)
+    if kernel is None:
         raise NotImplementedError(
-            f"{fs.name}: the CUDA field layer covers P-256 only (ROADMAP B0, other fields)"
+            f"{fs.name}: the CUDA field layers cover P-256 and secp256k1 (ROADMAP B0, other fields)"
         )
     shape = (fs.ndigits, a.shape[-1])
     _build.check_planes("a", a, shape, a.device)
     _build.check_planes("b", b, shape, a.device)
     out = torch.empty((len(OPS),) + shape, dtype=torch.int32, device=a.device)
-    _build.launch(KERNEL, [a, b, out], shape[1])
-    KERNEL.launches += 1
+    _build.launch(kernel, [a, b, out], shape[1])
+    kernel.launches += 1
     return out

@@ -1,4 +1,4 @@
-"""L1: digit-plane bignum ops on torch tensors (the subset GFp and ECDH need).
+"""L1: digit-plane bignum ops on torch tensors (the subset GFp, GLV and ECDSA need).
 
 A batch of D-digit unsigned integers is a tensor of shape ``(D, *batch)``
 whose plane ``k`` holds base-2^16 digit ``k`` (little-endian digits) of every
@@ -21,6 +21,13 @@ import torch
 from ecsimd_tpu_torch.specs import DIGIT_BITS, DIGIT_MASK
 
 I64 = torch.int64
+
+
+def pad(a, new_ndigits: int):
+    """Zero-extend to more digits."""
+    d = a.shape[0]
+    assert new_ndigits >= d
+    return torch.cat([a, a.new_zeros((new_ndigits - d,) + a.shape[1:])])
 
 
 def normalize_signed(t):
@@ -61,6 +68,12 @@ def sub(a, b):
     return d, -carry  # the carry-out of a - b is 0 or -1
 
 
+def sub_if_above(a, b):
+    """Constant-time conditional reduction: a >= b ? a - b : a."""
+    d, borrow = sub(a, b)
+    return select(1 - borrow, d, a)
+
+
 def cmp_lt(a, b):
     """Unsigned a < b per lane: the borrow of a - b."""
     return sub(a, b)[1]
@@ -92,3 +105,13 @@ def shift_left_one(a):
     out[1:] |= top[:-1]
     return out, top[-1]
 
+
+def mul(a, b):
+    """Full schoolbook product: (D, *batch) x (D, *batch) -> (2D, *batch)
+    normalized digits. The 16 x 16-bit digit products are accumulated
+    exactly in int64 columns (< D 2^32), then rippled once."""
+    d = a.shape[0]
+    acc = torch.zeros((2 * d,) + a.shape[1:], dtype=I64, device=a.device)
+    for i, ai in enumerate(a.unbind(0)):
+        acc[i : i + d] += ai * b
+    return normalize_signed(acc)[0]

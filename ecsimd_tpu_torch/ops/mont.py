@@ -1,9 +1,12 @@
-"""L2: modular add/sub/double/negate and the product grid over digit planes.
+"""L2: modular arithmetic over digit planes: add/sub/double/negate, the
+product grid, and Montgomery multiplication with CIOS reduction.
 
-The port of the helpers of ``ecsimd_tpu/ops/mont.py`` that the plain-domain
-(Solinas) fields use. Montgomery CIOS reduction is not ported yet (ROADMAP
-A6). Operands are int64 planes with digits in [0, 2^16) and values in
-[0, p) (see ``ops/bignum.py`` for why int64).
+The port of ``ecsimd_tpu/ops/mont.py``. Montgomery radix R = 2^nbits, as in
+the JAX package, with the digit-serial CIOS reduction and m' = -p^-1 mod
+2^16, so a Montgomery-form plane here equals the JAX package's bit for bit.
+Operands are int64 planes with digits in [0, 2^16) and values in [0, p)
+(see ``ops/bignum.py`` for why int64); the redundant columns stay far below
+2^62, so nothing wraps.
 """
 
 from __future__ import annotations
@@ -12,7 +15,7 @@ import functools
 
 import torch
 
-from ecsimd_tpu_torch.specs import DIGIT_BITS, DIGIT_MASK, FieldSpec
+from ecsimd_tpu_torch.specs import DIGIT_BITS, DIGIT_MASK, FieldSpec, int_to_digits
 from ecsimd_tpu_torch.ops import bignum as bn
 
 I64 = torch.int64
@@ -84,3 +87,86 @@ def _product_columns(a, b):
     cols = full & DIGIT_MASK
     cols[1:] += full[:-1] >> DIGIT_BITS
     return cols
+
+
+# --- Montgomery reduction / multiplication ------------------------------------
+
+
+def _cios_reduce(cols, fs: FieldSpec):
+    """Digit-serial CIOS Montgomery reduction of redundant columns
+    (2D+1, *batch) of a value t < R p: returns t R^-1 mod p in [0, p).
+
+    For each retired digit i: q = t_i m' mod 2^16 (the lower positions are
+    already zero and their carries absorbed, so cols[i] is exact mod 2^16),
+    add q p at position i, and push the now-zero position's carry up."""
+    d = fs.ndigits
+    p_vec = p_planes(fs, cols)
+    cols = cols.clone()
+    for i in range(d):
+        q = (cols[i] * fs.mprime) & DIGIT_MASK
+        prod = q.unsqueeze(0) * p_vec  # (D, *batch), each < 2^32
+        cols[i : i + d] += prod & DIGIT_MASK
+        cols[i + 1 : i + 1 + d] += prod >> DIGIT_BITS
+        cols[i + 1] += cols[i] >> DIGIT_BITS
+    # result = cols[d..2d] (value < 2p): normalize, then one conditional subtract
+    r, carry = bn.normalize_signed(cols[d : 2 * d])
+    return _cond_sub_p(r, carry + cols[2 * d], fs)
+
+
+def mont_reduce(t, fs: FieldSpec):
+    """Montgomery-reduce a 2D-digit normalized value t < R p."""
+    return _cios_reduce(bn.pad(t, 2 * fs.ndigits + 1), fs)
+
+
+def mont_mul(a, b, fs: FieldSpec):
+    """a b R^-1 mod p: the product grid feeds CIOS in redundant form."""
+    return _cios_reduce(_product_columns(a, b), fs)
+
+
+def mont_sqr(a, fs: FieldSpec):
+    """a^2 R^-1 mod p (the full grid, as the JAX package's XLA path)."""
+    return mont_mul(a, a, fs)
+
+
+def mont_from_classical(a, fs: FieldSpec):
+    """a -> a R mod p = mont_mul(a, R^2 mod p)."""
+    return mont_mul(a, _const_planes(fs.R2_digits(), a).expand_as(a), fs)
+
+
+def mont_to_classical(am, fs: FieldSpec):
+    """a R -> a: reduce the zero-extended value."""
+    return mont_reduce(bn.pad(am, 2 * fs.ndigits), fs)
+
+
+def mont_one(fs: FieldSpec, like):
+    """R mod p, the Montgomery form of 1, shaped like ``like``."""
+    return _const_planes(int_to_digits(fs.R_mod_p, fs.ndigits), like).expand_as(like)
+
+
+def mont_pow_const(am, e: int, fs: FieldSpec):
+    """Montgomery-form power with a public host exponent (classical e):
+    left-to-right square-and-multiply. The bits steer Python control flow;
+    every lane takes the same steps, and the values equal the JAX package's
+    masked loop."""
+    if e == 0:
+        return mont_one(fs, am)
+    acc = am
+    for bit in bin(e)[3:]:
+        acc = mont_sqr(acc, fs)
+        if bit == "1":
+            acc = mont_mul(acc, am, fs)
+    return acc
+
+
+def mont_pow_planes(am, e, fs: FieldSpec):
+    """Per-lane exponent (e as (D, *batch) classical digit planes): every
+    bit costs a squaring and a multiply, kept by a per-lane mask."""
+    d = fs.ndigits
+    acc = mont_one(fs, am)
+    for i in range(d * DIGIT_BITS):
+        bit_idx = d * DIGIT_BITS - 1 - i
+        digit, off = divmod(bit_idx, DIGIT_BITS)
+        ebit = (e[digit] >> off) & 1
+        acc = mont_sqr(acc, fs)
+        acc = bn.select(ebit, mont_mul(acc, am, fs), acc)
+    return acc

@@ -186,10 +186,3 @@ def fast_mul(a, b, fs: FieldSpec, scale: int = 1):
     if scale != 1:
         cols = cols * scale
     return solinas_reduce(cols, fs, col_bound=scale << 22)
-
-
-def fast_sqr(a, fs: FieldSpec, scale: int = 1):
-    """scale*a^2 mod p. The JAX package shares the symmetric products of a
-    triangular grid; eager PyTorch pays per operation launched rather than
-    per digit product, so the full grid (fewer, wider operations) is used."""
-    return fast_mul(a, a, fs, scale)

@@ -9,7 +9,7 @@ import torch
 
 from ecsimd_tpu.kernels import comb as jcomb
 from ecsimd_tpu.oracle import coz as ocoz
-from ecsimd_tpu.specs import P256
+from ecsimd_tpu.specs import P256, SECP256K1
 from ecsimd_tpu_torch import api
 from ecsimd_tpu_torch.kernels import comb as tcomb
 from tests.toy import TOY64, TOY64E
@@ -94,6 +94,37 @@ def test_tables_from_jax_array_give_same_result():
         assert torch.equal(a, b)
     with pytest.raises(ValueError, match="int32"):
         tcomb.tables_from_numpy(jax_np.astype(np.int64), CPU)
+
+
+@pytest.mark.parametrize("curve", [P256, SECP256K1], ids=lambda c: c.name)
+def test_kernel_tables_hold_every_signed_entry(curve):
+    """Kernel B's table layout, read the way csrc/comb.cu reads it: position
+    0 row e; position j >= 1 the row of magnitude m = (e & 127) ^ (127 if
+    e < 128), y negated where e < 128. Every (position, entry) equals the
+    digit tables' entry (internal form), and the negbase digits are -B's."""
+    tc = port_spec(curve)
+    tables, negbase = tcomb.base_tables(tc, curve.gx, curve.gy)
+    limbs = tcomb.limb_layout(tables).view(np.uint32)
+    assert limbs.shape == (256 + 31 * 128, 16)
+    fs, p = curve.field, curve.p
+
+    def limb_int(row):
+        return sum(int(v) << (32 * i) for i, v in enumerate(row))
+
+    def digit_int(row):
+        return sum(int(v) << (16 * i) for i, v in enumerate(row))
+
+    for j in range(32):
+        for e in range(256):
+            neg = j > 0 and e < 128
+            row = limbs[e] if j == 0 else limbs[256 + (j - 1) * 128 + ((e & 127) ^ (127 * neg))]
+            x, y = limb_int(row[:8]), limb_int(row[8:])
+            assert (x, (p - y) % p if neg else y) == (digit_int(tables[j, e, :16]),
+                                                        digit_int(tables[j, e, 16:]))
+    _, _, nb = tcomb.device_tables(tc, curve.gx, curve.gy, CPU)
+    assert [digit_int(nb[:16]), digit_int(nb[16:])] == [tcomb._to_internal(v, fs) for v in negbase]
+    assert torch.equal(tcomb.kernel_tables(tc, curve.gx, curve.gy, CPU),
+                       torch.from_numpy(tcomb.limb_layout(tables)))
 
 
 @pytest.mark.parametrize("kw", [{"chains": 2}, {"unroll": 2}], ids=lambda kw: next(iter(kw)))

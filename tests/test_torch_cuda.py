@@ -12,14 +12,15 @@ import numpy as np
 import pytest
 import torch
 
-from ecsimd_tpu_torch import api, convert, ecdh
+from ecsimd_tpu_torch import api, convert, ecdh, ecdsa, glv
 from ecsimd_tpu_torch.curves import group
 from ecsimd_tpu_torch.curves.point import AffinePoint, JacobianPoint
 from ecsimd_tpu_torch.field import GFp
 from ecsimd_tpu_torch.kernels import affine, comb, field_ops, ladder, window
+from ecsimd_tpu_torch.kernels import glv as kglv
 from ecsimd_tpu_torch.oracle import coz
 from ecsimd_tpu_torch.oracle import window as ow
-from ecsimd_tpu_torch.specs import P256
+from ecsimd_tpu_torch.specs import P256, SECP256K1
 
 pytestmark = pytest.mark.cuda
 D = P256.field.ndigits
@@ -54,11 +55,16 @@ def _planes(vals, dev):
     return torch.from_numpy(convert.ints_to_planes(vals, D)).to(dev)
 
 
-def _scalars(n, seed, dev):
-    edges = [1, 2, 5, P256.order - 2]
-    ks = [k + 1 for k in rand_ints(np.random.default_rng(seed), P256.order - 2, n,
+def _scalars(n, seed, dev, curve=P256):
+    edges = [1, 2, 5, curve.order - 2]
+    ks = [k + 1 for k in rand_ints(np.random.default_rng(seed), curve.order - 2, n,
                                    edges=[e - 1 for e in edges])]
     return ks, _planes(ks, dev)
+
+
+def _comb_tables(curve, dev):
+    tables, negbase, nb = comb.device_tables(curve, curve.gx, curve.gy, dev)
+    return tables, negbase, nb, comb.kernel_tables(curve, curve.gx, curve.gy, dev)
 
 
 def test_field_probe_kernel_matches_plain(cuda):
@@ -76,9 +82,9 @@ def test_field_probe_kernel_matches_plain(cuda):
 
 def test_comb_kernel_matches_plain_and_oracle(cuda):
     ks, s = _scalars(1024, 41, cuda)
-    tables, negbase, nb = comb.device_tables(P256, P256.gx, P256.gy, cuda)
+    tables, negbase, nb, limbs = _comb_tables(P256, cuda)
     before = comb.KERNEL.launches
-    got = comb.comb_planes(s, tables, nb)
+    got = comb.comb_planes(s, limbs, nb)
     assert comb.KERNEL.launches == before + 1
     for k, w in zip(got, comb.comb_plain(s, tables, P256, negbase)):
         assert torch.equal(k, w)
@@ -105,7 +111,7 @@ def test_ladder_kernel_matches_plain_and_oracle(cuda):
 
 def test_affine_kernel_matches_plain_and_oracle(cuda):
     ks, s = _scalars(1024, 43, cuda)
-    tables, negbase, _ = comb.device_tables(P256, P256.gx, P256.gy, cuda)
+    tables, negbase, _, _ = _comb_tables(P256, cuda)
     x, y, z = comb.comb_plain(s, tables, P256, negbase)
     z[:, 0] = 0  # a lane at infinity maps to (0, 0)
     jac = JacobianPoint(*(GFp(t, P256.field) for t in (x, y, z)), P256)
@@ -155,9 +161,9 @@ def test_strict_comb_kernel_matches_plain_and_oracle(cuda):
     ks, _ = _scalars(1024, 45, cuda)
     ks[4] = P256.order - 1
     s = _planes(ks, cuda)
-    tables, negbase, nb = comb.device_tables(P256, P256.gx, P256.gy, cuda)
+    tables, negbase, nb, limbs = _comb_tables(P256, cuda)
     before = comb.KERNEL_STRICT.launches
-    got = comb.comb_planes(s, tables, nb, strict=True)
+    got = comb.comb_planes(s, limbs, nb, strict=True)
     assert comb.KERNEL_STRICT.launches == before + 1
     for k, w in zip(got, comb.comb_plain(s, tables, P256, negbase, strict=True)):
         assert torch.equal(k, w)
@@ -184,3 +190,125 @@ def test_ecdh_on_the_card(cuda):
     assert ints(s12)[:60] == ints(s21)[:60]
     assert ints(s21)[:8] == [
         coz.scalar_mult_affine(a * b % n, P256.gx, P256.gy, P256)[0] for a, b in zip(d1[:8], d2)]
+
+
+# --- secp256k1: the CIOS field layer, kernel F and the secp256k1 B, C, D ---------
+
+
+def _k1_affine(out, lanes):
+    jac = JacobianPoint(*(GFp(t[:, :lanes].contiguous(), SECP256K1.field) for t in out), SECP256K1)
+    aff = jac.to_affine()
+    return list(zip(ints(aff.x), ints(aff.y)))
+
+
+def _k1_oracle(ks, pts):
+    n, p = SECP256K1.order, SECP256K1.p
+    out = []
+    for k, (x, y) in zip(ks, pts):
+        k %= n
+        out.append((x, (p - y) % p) if k == n - 1 else (0, 0) if k == 0
+                   else coz.scalar_mult_affine(k, x, y, SECP256K1))
+    return out
+
+
+def test_field_probe_kernel_secp256k1(cuda):
+    fs = SECP256K1.field
+    p = fs.p
+    rng = np.random.default_rng(50)
+    a = rand_ints(rng, p, 4096, edges=[0, 1, p - 1, p - 2])
+    b = rand_ints(rng, p, 4096, edges=[p - 1, p - 2, 0, 1])
+    ta, tb = _planes(a, cuda), _planes(b, cuda)
+    before = field_ops.KERNEL_SECP256K1.launches
+    got = field_ops.probe(ta, tb, fs)
+    assert field_ops.KERNEL_SECP256K1.launches == before + 1
+    assert torch.equal(got, field_ops.probe_plain(ta, tb, fs))
+    # Montgomery products: a b R^-1
+    assert ints(got[0, :, :64]) == [x * y * fs.R_inv % p for x, y in zip(a[:64], b[:64])]
+
+
+@pytest.mark.parametrize("strict", [False, True], ids=["plain", "strict"])
+def test_comb_kernel_secp256k1(cuda, strict):
+    ks, _ = _scalars(1024, 51, cuda, SECP256K1)
+    if strict:
+        ks[4] = SECP256K1.order - 1
+    s = _planes(ks, cuda)
+    tables, negbase, nb, limbs = _comb_tables(SECP256K1, cuda)
+    kernel = comb.KERNELS[(SECP256K1, strict)]
+    before = kernel.launches
+    got = comb.comb_planes(s, limbs, nb, SECP256K1, strict=strict)
+    assert kernel.launches == before + 1
+    for k, w in zip(got, comb.comb_plain(s, tables, SECP256K1, negbase, strict=strict)):
+        assert torch.equal(k, w)
+    g = [(SECP256K1.gx, SECP256K1.gy)] * 16
+    lanes = range(16) if strict else [i for i in range(16) if i != 3]  # n - 2
+    aff, want = _k1_affine(got, 16), _k1_oracle(ks[:16], g)
+    assert [aff[i] for i in lanes] == [want[i] for i in lanes]
+
+
+def test_affine_kernel_secp256k1(cuda):
+    ks, s = _scalars(1024, 52, cuda, SECP256K1)
+    tables, negbase, _, _ = _comb_tables(SECP256K1, cuda)
+    x, y, z = comb.comb_plain(s, tables, SECP256K1, negbase)
+    z[:, 0] = 0
+    jac = JacobianPoint(*(GFp(t, SECP256K1.field) for t in (x, y, z)), SECP256K1)
+    before = affine.KERNEL_SECP256K1.launches
+    got = affine.affine_planes(x, y, z, SECP256K1)
+    assert affine.KERNEL_SECP256K1.launches == before + 1
+    want = jac.to_affine()
+    assert torch.equal(got[0], want.x) and torch.equal(got[1], want.y)
+    assert list(zip(ints(got[0][:, :16]), ints(got[1][:, :16]))) == [(0, 0)] + _k1_oracle(
+        ks[1:16], [(SECP256K1.gx, SECP256K1.gy)] * 15)
+
+
+@pytest.mark.parametrize("strict", [False, True], ids=["plain", "strict"])
+def test_glv_kernel_matches_plain_and_oracle(cuda, strict):
+    """Kernel F against glv_plain on 256 lanes with the lambda-class scalars
+    (k1 = 0, collisions mid-chain); strict also against the oracle."""
+    n = SECP256K1.order
+    lam = glv.glv_params(SECP256K1).lam
+    ks, _ = _scalars(256, 53, cuda, SECP256K1)
+    ks[:8] = [1, 2, lam, lam - 1, lam + 1, n - 1, n - 2, 3]
+    s = _planes(ks, cuda)
+    pts = multiples(SECP256K1, 256)
+    pt = AffinePoint(_planes([x for x, _ in pts], cuda), _planes([y for _, y in pts], cuda),
+                     SECP256K1)
+    packed = kglv.pack_scalars(s, SECP256K1)
+    xm = GFp.from_classical(pt.x, SECP256K1.field).planes.contiguous()
+    ym = GFp.from_classical(pt.y, SECP256K1.field).planes.contiguous()
+    kernel = kglv.KERNEL_STRICT if strict else kglv.KERNEL
+    before = kernel.launches
+    got = kglv.glv_planes(packed, xm, ym, SECP256K1, strict=strict)
+    assert kernel.launches == before + 1
+    for k, w in zip(got, kglv.glv_plain(packed, xm, ym, SECP256K1, strict)):
+        assert torch.equal(k, w)
+    if strict:
+        want = _k1_oracle([k * (i + 1) for i, k in enumerate(ks[:16])], [pts[0]] * 16)
+        assert _k1_affine(got, 16) == want
+
+
+@pytest.mark.parametrize("curve", [P256, SECP256K1], ids=lambda c: c.name)
+def test_ecdsa_on_the_card(cuda, curve):
+    """sign -> verify -> recover on 64 lanes: every honest signature
+    verifies, a tampered r does not, and one of the two recovery ids gives Q."""
+    n = curve.order
+    d, _ = _scalars(64, 54, cuda, curve)
+    k, _ = _scalars(64, 55, cuda, curve)
+    z = rand_ints(np.random.default_rng(56), 1 << 256, 64)
+    q = api.scalar_mult_base(_planes(d, cuda), curve)
+    r, s, ok = ecdsa.sign_planes(_planes(z, cuda), _planes(d, cuda), _planes(k, cuda), curve)
+    assert bool(ok.all())
+    rk = coz.scalar_mult_affine(k[7], curve.gx, curve.gy, curve)[0] % n
+    assert ints(r)[7] == rk and ints(s)[7] == pow(k[7], -1, n) * (z[7] % n + rk * d[7]) % n
+    v = ecdsa.verify_planes(_planes(z, cuda), r, s, q.x, q.y, curve)
+    assert bool(v.all())
+    r_bad = ints(r)
+    r_bad[5] = (r_bad[5] + 1) % n
+    v = ecdsa.verify_planes(_planes(z, cuda), _planes(r_bad, cuda), s, q.x, q.y, curve)
+    assert v.tolist() == [1] * 5 + [0] + [1] * 58
+    found = torch.zeros(64, dtype=torch.bool, device=cuda)
+    for vid in (0, 1):
+        rx, ry, okr = ecdsa.recover_planes(_planes(z, cuda), r, s,
+                                           torch.full((64,), vid, dtype=torch.int32, device=cuda),
+                                           curve)
+        found |= okr.bool() & (rx == q.x).all(0) & (ry == q.y).all(0)
+    assert bool(found.all())

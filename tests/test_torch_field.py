@@ -12,7 +12,7 @@ from ecsimd_tpu import field as jfield
 from ecsimd_tpu.kernels import digits as jdigits
 from ecsimd_tpu.ops import bignum as jbn
 from ecsimd_tpu.ops import solinas as jsolinas
-from ecsimd_tpu.specs import P256_FIELD, P384_FIELD, SECP256K1_FIELD, W25519_FIELD
+from ecsimd_tpu.specs import P256_FIELD, P384_FIELD, P521_FIELD, SECP256K1_FIELD, W25519_FIELD
 from ecsimd_tpu_torch import field as tfield
 from ecsimd_tpu_torch.ops import bignum as tbn
 from ecsimd_tpu_torch.ops import solinas as tsolinas
@@ -144,7 +144,13 @@ def test_compares_match_jax_bignum():
     assert tbn.is_zero(ta).tolist() == np.asarray(jbn.is_zero(ja)).tolist()
 
 
-@pytest.mark.parametrize("fs", [SECP256K1_FIELD, W25519_FIELD], ids=lambda f: f.name)
+@pytest.mark.parametrize("fs", [SECP256K1_FIELD, W25519_FIELD, P521_FIELD], ids=lambda f: f.name)
 def test_unported_reductions_raise(fs):
+    """Crandall fields are not ported and raise; the Montgomery field of
+    secp256k1 is (tests/test_torch_mont.py) and builds."""
+    if fs.reduction != "crandall":
+        x = tfield.GFp.from_classical(tplanes([1, 2], fs.ndigits), port_spec(fs))
+        assert ints(x.to_classical()) == [1, 2]
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP A6"):
         tfield.GFp(tplanes([1], fs.ndigits), port_spec(fs))

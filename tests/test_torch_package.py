@@ -12,16 +12,18 @@ import numpy as np
 import torch
 
 import ecsimd_tpu_torch
-from ecsimd_tpu.specs import P256
+from ecsimd_tpu.specs import P256, SECP256K1
 from ecsimd_tpu_torch.curves.point import AffinePoint
-from ecsimd_tpu_torch.kernels import _build, affine, comb, field_ops, ladder, window
-from tests.toy import TOY64
+from ecsimd_tpu_torch import ecdsa
+from ecsimd_tpu_torch.kernels import _build, affine, comb, field_ops, glv, ladder, window
+from tests.toy import TOY64, TOYGLV
 from tests.torch_helpers import ints, port_spec, rand_ints, tplanes
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = Path(ecsimd_tpu_torch.__file__).resolve().parent
 KERNELS = (comb.KERNEL, comb.KERNEL_STRICT, ladder.KERNEL, window.KERNEL, window.KERNEL_STRICT,
-           field_ops.KERNEL, affine.KERNEL)
+           field_ops.KERNEL, affine.KERNEL, comb.KERNEL_SECP256K1, comb.KERNEL_SECP256K1_STRICT,
+           field_ops.KERNEL_SECP256K1, affine.KERNEL_SECP256K1, glv.KERNEL, glv.KERNEL_STRICT)
 MODULES = sorted(
     "ecsimd_tpu_torch" + "".join("." + part for part in f.relative_to(PORT).with_suffix("").parts)
     for f in PORT.rglob("*.py")
@@ -33,15 +35,19 @@ def test_import_leaves_jax_out():
         "import importlib, sys\n"
         f"for m in {[m.removesuffix('.__init__') for m in MODULES]!r}:\n"
         "    importlib.import_module(m)\n"
-        "from ecsimd_tpu_torch.kernels import affine, comb, field_ops, ladder, window\n"
+        "from ecsimd_tpu_torch.kernels import affine, comb, field_ops, glv, ladder, window\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'ecsimd_tpu')))\n"
-        "print([k.launches for k in (comb.KERNEL, comb.KERNEL_STRICT, ladder.KERNEL,"
-        " window.KERNEL, window.KERNEL_STRICT, field_ops.KERNEL, affine.KERNEL)])\n"
+        "print([k.launches for k in (*comb.KERNELS.values(), ladder.KERNEL, window.KERNEL,"
+        " window.KERNEL_STRICT, *field_ops.KERNELS.values(), *affine.KERNELS.values(),"
+        " glv.KERNEL, glv.KERNEL_STRICT)])\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, check=True, timeout=120).stdout.splitlines()
-    assert out == ["[]", "[0, 0, 0, 0, 0, 0, 0]"]
+    assert out == ["[]", str([0] * 13)]
     assert len(MODULES) > 20
+    for m in ("ecsimd_tpu_torch.ecdsa", "ecsimd_tpu_torch.glv", "ecsimd_tpu_torch.kernels.glv",
+              "ecsimd_tpu_torch.oracle.field", "ecsimd_tpu_torch.ops.mont"):
+        assert m in MODULES
 
 
 def test_no_port_source_imports_jax():
@@ -87,6 +93,14 @@ def test_launch_counters_start_at_zero_and_cpu_paths_launch_nothing():
     for strict in (False, True):
         comb.scalar_mult_base(tplanes([7, 9], 4), toy, strict=strict)
         window.scalar_mult(tplanes([7, 9], 4), AffinePoint(*g, toy), strict=strict)
+    # the secp256k1-shaped paths: CIOS probe, GLV chain, ECDSA on the toy GLV curve
+    k1 = port_spec(SECP256K1.field)
+    assert ints(field_ops.probe(tplanes(a, 16), tplanes(a, 16), k1)[2]) == [2 * x % k1.p for x in a]
+    tg = port_spec(TOYGLV)
+    gg = [tplanes([v, v], 2) for v in (tg.gx, tg.gy)]
+    glv.scalar_mult(tplanes([7, 9], 2), AffinePoint(*gg, tg))
+    r, s, ok = ecdsa.sign_planes(*(tplanes(v, 2) for v in ([1, 2], [3, 4], [5, 6])), tg)
+    assert ok.tolist() == [1, 1] and r.device.type == "cpu"
     assert [k.launches for k in KERNELS] == before
     assert field_ops.probe(tplanes(a, 16), tplanes(a, 16)).device.type == "cpu"
     assert torch.equal(out, field_ops.probe_plain(tplanes(a, 16), tplanes(a[::-1], 16)))

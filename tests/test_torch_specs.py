@@ -8,14 +8,19 @@ import pytest
 
 from ecsimd_tpu import convert as jconvert
 from ecsimd_tpu import specs as jspecs
+from ecsimd_tpu import ecdsa as jecdsa
+from ecsimd_tpu import glv as jglv
 from ecsimd_tpu.oracle import coz as jcoz
+from ecsimd_tpu.oracle import field as jfield
 from ecsimd_tpu.oracle import window as jwindow
 from ecsimd_tpu_torch import convert as tconvert
+from ecsimd_tpu_torch import ecdsa as tecdsa
 from ecsimd_tpu_torch import glv as tglv
 from ecsimd_tpu_torch import specs as tspecs
 from ecsimd_tpu_torch.oracle import coz as tcoz
+from ecsimd_tpu_torch.oracle import field as tfield
 from ecsimd_tpu_torch.oracle import window as twindow
-from tests.toy import TOY64, TOY64E, TOYGLV
+from tests.toy import GLV32, MONT64, TOY64, TOY64E, TOYGLV, TS64
 from tests.torch_helpers import port_spec, rand_ints
 
 FIELD_CONSTS = ("plain", "ndigits", "R", "R_mod_p", "R2_mod_p", "R_inv", "mprime", "p_digits",
@@ -88,3 +93,31 @@ def test_oracle_equals_the_reference():
             continue
         want = jwindow.scalar_mult_affine(k, jc.gx, jc.gy, jc)
         assert twindow.scalar_mult_affine(k, tc.gx, tc.gy, tc) == want
+
+
+@pytest.mark.parametrize("fs", [jspecs.SECP256K1_FIELD, jspecs.P256_FIELD, MONT64, GLV32, TS64],
+                         ids=lambda f: f.name)
+def test_field_oracle_equals_the_reference(fs):
+    """oracle/field.py's copy: every function on edge and random values,
+    and the sqrt of every kind (p = 3 mod 4, 5 mod 8, Tonelli-Shanks)."""
+    tfs = port_spec(fs)
+    p = fs.p
+    vals = rand_ints(np.random.default_rng(81), p, 12, edges=[0, 1, 2, p - 1, 4, 9])
+    for a, b in zip(vals, vals[::-1]):
+        for name in ("mont_mul", "mont_add", "mont_sub"):
+            assert getattr(tfield, name)(a, b, tfs) == getattr(jfield, name)(a, b, fs), name
+        for name in ("mont_from_classical", "mont_to_classical", "mont_sqr", "mont_opposite",
+                     "mont_inverse", "mont_sqrt"):
+            assert getattr(tfield, name)(a, tfs) == getattr(jfield, name)(a, fs), name
+        assert tfield.mont_pow(a, b, tfs) == jfield.mont_pow(a, b, fs)
+        assert tfield.mont_reduce(a * b, tfs) == jfield.mont_reduce(a * b, fs)
+
+
+@pytest.mark.parametrize("curve", [jspecs.SECP256K1, TOYGLV], ids=lambda c: c.name)
+def test_glv_params_and_order_field_equal_the_reference(curve):
+    t, j = tglv.glv_params(port_spec(curve)), jglv.glv_params(curve)
+    assert type(t) is tglv.GLVParams and type(j) is jglv.GLVParams
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+    assert [f.name for f in dataclasses.fields(tglv.GLVParams)] == [
+        f.name for f in dataclasses.fields(jglv.GLVParams)]
+    _field_equal(tecdsa.order_field(port_spec(curve)), jecdsa.order_field(curve))

@@ -104,10 +104,13 @@ def test_strict_varbase_routes_to_the_strict_window():
     want = twindow.scalar_mult(api.scalars_from_ints(ks, TTOY64, device="cpu"), pt, strict=True)
     for a, b in zip((got.x, got.y, got.z), (want.x, want.y, want.z)):
         assert ints(a.planes) == ints(b.planes)
+    # GLV curves go to the strict GLV chain (tests/test_torch_glv.py)
     glv = port_spec(TOYGLV)
-    with pytest.raises(NotImplementedError, match="ROADMAP B4"):
-        tglv.strict_varbase(api.scalars_from_ints([3], glv, device="cpu"),
-                            api.generator_batch(glv, 1, device="cpu"))
+    s3 = api.scalars_from_ints([3], glv, device="cpu")
+    g = api.generator_batch(glv, 1, device="cpu")
+    got = tglv.strict_varbase(s3, g)
+    want = tglv.scalar_mult(s3, g, strict=True)
+    assert ints(got.x.planes) == ints(want.x.planes) and ints(got.z.planes) == ints(want.z.planes)
 
 
 @pytest.mark.parametrize("strict", [False, True], ids=["plain", "strict"])
