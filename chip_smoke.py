@@ -9,7 +9,9 @@ P-256 scalar multiplication — fixed-base k_i * G through the comb kernel,
 variable-base k_i * P_i through the co-Z ladder and through the signed
 window, each followed by the affine-conversion kernel — batched ECDH, and
 batched ECDSA sign / verify / recover on P-256 and secp256k1 (comb, strict
-window, strict GLV and affine kernels). Phases, one line each; any failed
+window, strict GLV and affine kernels), batched X25519 keygen and exchange
+(Wei25519 comb, affine, x-only ladder and x / z kernels) and the int32
+calibration. Phases, one line each; any failed
 check raises and the script exits non-zero:
 
   0. device: a CUDA card is required; prints its name, power limit and
@@ -64,6 +66,25 @@ check raises and the script exits non-zero:
      call, of its kernels and of its plain-PyTorch parts (the mod-n batch
      inverse, the GLV split, recovery's square root); the new kernels
      against their plain versions on the path's own inputs.
+ 13. the 2^255 - 19 field (kernel C on the Crandall fold) against the plain
+     GFp on 65,536 lanes, edge values included, and 64 lanes against ints.
+ 14. the X25519 kernels on 65,536 lanes: the x-only ladder (kernel G)
+     against mladder_plain, x / z (kernel H) against the plain batch
+     inversion, the Wei25519 comb (B) against comb_plain and affine (D)
+     against to_affine, all exact; 512 lanes against an RFC 7748 int ladder
+     written below; the RFC 7748 §5.2 vectors and iteration 1.
+ 15. the fourth main path at B = 524,288: X25519 keygen of two parties
+     (x25519.derive_public_batch: comb B and affine D on Wei25519) and the
+     exchange both ways (x25519.x25519_batch: kernels G and H), with special
+     peer u's on some lanes (0, 1, p, p + 1, the top bit set, a point on the
+     twist): every other lane's secret equal both ways, 512 lanes and the
+     special ones against the int ladder; G, H, B and D against their plain
+     versions on the path's own inputs; CUDA-event times of the planes
+     calls, the kernels and the plain versions.
+ 16. the calibration entry point: kernel I against calib_plain at small
+     reps, exact; then bench.roofline.measure_int32_ceiling at full reps:
+     measured int32 operations and IMADs per second beside the 64 per SM
+     per clock that bound() assumes.
 
 Inputs come from numpy.random.default_rng(SEED). The line before the last
 is a JSON object with one entry per kernel; the last line is the device
@@ -80,17 +101,18 @@ import time
 import numpy as np
 import torch
 
-from ecsimd_tpu_torch import api, convert, ecdh, ecdsa, glv
+from ecsimd_tpu_torch import api, convert, ecdh, ecdsa, glv, x25519
+from ecsimd_tpu_torch.bench import roofline
 from ecsimd_tpu_torch.curves import group
 from ecsimd_tpu_torch.curves.point import AffinePoint, JacobianPoint
 from ecsimd_tpu_torch.field import GFp
-from ecsimd_tpu_torch.kernels import _build, affine, comb, field_ops, ladder, window
+from ecsimd_tpu_torch.kernels import _build, affine, comb, field_ops, ladder, mladder, window
 from ecsimd_tpu_torch.kernels import glv as kglv
 from ecsimd_tpu_torch.ops import mont
 from ecsimd_tpu_torch.oracle import coz
 from ecsimd_tpu_torch.oracle import field as ofield
 from ecsimd_tpu_torch.oracle import window as ow
-from ecsimd_tpu_torch.specs import P256, SECP256K1
+from ecsimd_tpu_torch.specs import P256, SECP256K1, W25519_FIELD, WEI25519
 
 SEED = 0xEC51
 BATCH = 524288  # bench.py's deployment size
@@ -107,7 +129,10 @@ PTXAS_NAMES = {
     "field_probe": "field_probe_p256", "comb_secp256k1": "comb_secp256k1",
     "comb_strict_secp256k1": "comb_strict_secp256k1", "affine_secp256k1": "affine_secp256k1",
     "field_probe_secp256k1": "field_probe_secp256k1", "glv": "glv_secp256k1",
-    "glv_strict": "glv_strict_secp256k1",
+    "glv_strict": "glv_strict_secp256k1", "mladder": "mladder_w25519",
+    "x25519_xdivz": "xdivz_w25519", "comb_w25519": "comb_w25519",
+    "affine_w25519": "affine_w25519", "field_probe_w25519": "field_probe_w25519",
+    "calib": "calib",
 }
 
 # RFC 6979 A.2.5, P-256 with SHA-256: private key x, and (message, k, r, s)
@@ -138,6 +163,9 @@ FORMULA_MS = {
     # + that doubling; to_classical is 1M per output
     "k1_jac_dbl": (1, 7), "k1_add_complete": (13, 11), "k1_fe_inv": (15, 255),
     "k1_affine_tail": (5, 1), "beta": (1, 0),
+    # 2^255 - 19: the ladder step (5M + 4S, a24 e counted apart), the
+    # addition chain z^(p - 2) (254 S + 11 M) and kernel H's x z^-1
+    "ladder_step": (5, 4), "w_fe_inv": (11, 254), "xdivz": (12, 254),
 }
 
 
@@ -167,6 +195,11 @@ LANE_MS = {
     "glv_strict": lane_ms((1, "k1_jac_dbl"), (7, "jac_add"), (kglv.TABLE, "beta"),
                           (1, "k1_add_complete"), (4 * GLV_WINDOWS, "k1_jac_dbl"),
                           (2 * GLV_WINDOWS, "k1_add_complete"), (2, "k1_add_complete")),
+    "mladder": lane_ms((255, "ladder_step")),
+    "x25519_xdivz": lane_ms((1, "xdivz")),
+    "comb_w25519": lane_ms((32, "add_z2_1")),
+    "affine_w25519": lane_ms((1, "w_fe_inv"), (1, "affine_tail")),
+    "field_probe_w25519": lane_ms((1, "probe")),
 }
 # 32 x 32 -> 64-bit products, two 32-bit multiply-adds each. A multiply has
 # 8 x 8 products, a squaring 36 (8 squares, 28 cross products taken once).
@@ -174,10 +207,15 @@ LANE_MS = {
 # the function needs, not the kernels' CIOS (8 x (1 + 8) products): p =
 # 2^256 - 2^32 - 977, so the high half folds in as hi * 977 (8 products)
 # plus a shift, and the fold's carry word once more (1 product).
+# On 2^255 - 19 the same: the high half folds in as hi * 38 (8 products)
+# and the carry word once more (1); the ladder's a24 e is a small multiply,
+# 8 products and that 1-product fold, once per bit.
 IMADS_PER_MUL, IMADS_PER_SQR = 2 * 64, 2 * 36
-K1_FOLD_IMADS = 2 * (8 + 1)
-K1_FIELD = {"comb_secp256k1", "comb_strict_secp256k1", "affine_secp256k1",
-            "field_probe_secp256k1", "glv", "glv_strict"}
+FOLD_IMADS = 2 * (8 + 1)
+FOLD_FIELD = {"comb_secp256k1", "comb_strict_secp256k1", "affine_secp256k1",
+              "field_probe_secp256k1", "glv", "glv_strict", "mladder", "x25519_xdivz",
+              "comb_w25519", "affine_w25519", "field_probe_w25519"}
+SMALL_IMADS = {"mladder": 255 * 2 * (8 + 1)}
 PLANE_BYTES = D * 4  # one (16,) int32 digit column per lane
 BYTES_PER_LANE = {  # each input plane read once, each output plane written once
     "comb": 4 * PLANE_BYTES, "comb_strict": 4 * PLANE_BYTES, "ladder": 6 * PLANE_BYTES,
@@ -187,6 +225,9 @@ BYTES_PER_LANE = {  # each input plane read once, each output plane written once
     "affine_secp256k1": 5 * PLANE_BYTES, "field_probe_secp256k1": 7 * PLANE_BYTES,
     "glv": 5 * PLANE_BYTES + (2 * kglv.KERNEL_DIGITS + 2) * 4,
     "glv_strict": 5 * PLANE_BYTES + (2 * kglv.KERNEL_DIGITS + 2) * 4,
+    "mladder": 4 * PLANE_BYTES, "x25519_xdivz": 3 * PLANE_BYTES,
+    "comb_w25519": 4 * PLANE_BYTES, "affine_w25519": 5 * PLANE_BYTES,
+    "field_probe_w25519": 7 * PLANE_BYTES, "calib": 3 * 4,  # per element: a, b, out
 }
 COMB_TABLE_BYTES = (256 + 31 * 128) * 16 * 4  # kernel B's limb layout
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak memory bandwidth
@@ -382,11 +423,21 @@ def resource_report(log):
     return out
 
 
-def bound(name, lanes, sm_clock_mhz):
-    """(bound_ms, bound_by) for ``lanes`` lanes of kernel ``name``."""
-    muls, sqrs = LANE_MS[name]
-    extra = K1_FOLD_IMADS if name in K1_FIELD else 0
-    ops = (muls * (IMADS_PER_MUL + extra) + sqrs * (IMADS_PER_SQR + extra)) * lanes
+def bound(name, lanes, sm_clock_mhz, reps=0):
+    """(bound_ms, bound_by) for ``lanes`` lanes of kernel ``name``. The
+    calibration kernel I (``lanes`` elements, ``reps`` chain steps) is
+    charged its issued instructions: a chain step's 5 operations compile to
+    4 (IMAD and IMAD.IADD on the multiply-add pipe, LOP3 and LEA.HI on the
+    ALU pipe: the shift and its add fuse; cuobjdump -sass of csrc/calib.cu
+    on sm_90a), and the two pipes issue side by side at 64 lanes per SM per
+    clock each."""
+    if name == "calib":
+        ops = CALIB_PIPE_INSTRS_PER_STEP * roofline.CHAINS * reps * lanes / 2  # per pipe
+    else:
+        muls, sqrs = LANE_MS[name]
+        extra = FOLD_IMADS if name in FOLD_FIELD else 0
+        ops = (muls * (IMADS_PER_MUL + extra) + sqrs * (IMADS_PER_SQR + extra)
+               + SMALL_IMADS.get(name, 0)) * lanes
     nbytes = BYTES_PER_LANE[name] * lanes + (COMB_TABLE_BYTES if name.startswith("comb") else 0)
     op_ms = ops / (IMAD_PER_SM_PER_CLOCK * SMS * sm_clock_mhz * 1e6) * 1e3
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -398,6 +449,240 @@ def nvidia_smi(query):
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+
+
+# RFC 7748 §5.2: (scalar, u, X25519(scalar, u)) as hex, and iteration 1
+# (k = u = 9, one step of the iteration test)
+RFC7748 = [
+    ("a546e36bf0527c9d3b16154b82465edd62144c0ac1fc5a18506a2244ba449ac4",
+     "e6db6867583030db3594c1a424b15f7c726624ec26b3353b10a903a6d0ab1c4c",
+     "c3da55379de9c6908e94ea4df28d084f32eccf03491c71f754b4075577a28552"),
+    ("4b66e9d4d1b4673c5ad22691957d6af5c11b6421e0ea01d42ca4169e7918ba0d",
+     "e5210f12786811d3f4b7959d0538ae2c31dbe7106fc03c3efc4cd549c715a493",
+     "95cbde9476e8907d7aade45cb4b873f88b595a68799fa152e6f8f7647aac7957"),
+    ("09" + "00" * 31, "09" + "00" * 31,
+     "422c8e7a6227d7bca1350b3e2bb7279f7897b87bb6854b783c60e80311ae3079"),
+]
+P25519 = W25519_FIELD.p
+CALIB_CHECK_REPS = 16  # kernel I against calib_plain
+CALIB_PIPE_INSTRS_PER_STEP = 4  # kernel I's chain step as compiled: 2 multiply-add + 2 ALU
+CALIB_REPS = 1 << 18  # the ceiling measurement: ~10^2 ms a launch on one H100
+
+
+def x25519_int(k, u):
+    """RFC 7748 §5 X25519 on Python ints: clamped k, any u (reduced mod p),
+    the output u; 0 for a low-order u."""
+    p = P25519
+    u %= p
+    x2, z2, x3, z3, swap = 1, 0, u, 1, 0
+    for t in range(254, -1, -1):
+        kt = (k >> t) & 1
+        if swap ^ kt:
+            x2, x3, z2, z3 = x3, x2, z3, z2
+        swap = kt
+        a, b, c, d = (x2 + z2) % p, (x2 - z2) % p, (x3 + z3) % p, (x3 - z3) % p
+        aa, bb, da, cb = a * a % p, b * b % p, d * a % p, c * b % p
+        e = (aa - bb) % p
+        x3, z3 = (da + cb) ** 2 % p, u * (da - cb) ** 2 % p
+        x2, z2 = aa * bb % p, e * (aa + x25519.A24 * e) % p
+    if swap:
+        x2, z2 = x3, z3
+    return x2 * pow(z2, p - 2, p) % p
+
+
+def twist_u():
+    """The least u > 1 on the quadratic twist of Curve25519: u^3 + A u^2 + u
+    is not a square mod p."""
+    p, u = P25519, 2
+    while pow((u * u * u + x25519.MONT_A * u * u + u) % p, (p - 1) // 2, p) != p - 1:
+        u += 1
+    return u
+
+
+def split32(raw):
+    return [raw[i:i + 32] for i in range(0, len(raw), 32)]
+
+
+def x25519_phases(rng, dev, card, counted):
+    """Phases 13-16: the 2^255 - 19 field, the X25519 kernels, the fourth
+    main path and the calibration. Returns the numbers of the kernels line."""
+    fs, pw = W25519_FIELD, P25519
+    le = lambda v: v.to_bytes(32, "little")  # noqa: E731
+    out = {}
+
+    # -- phase 13: the 2^255 - 19 field (kernel C on the Crandall fold) --------------
+    a = random_planes(rng, CHECK_LANES)
+    b = random_planes(rng, CHECK_LANES)
+    edges = [0, 1, 2, pw - 1, pw - 2, pw - 19, 1 << 254, (1 << 255) - (1 << 32)]
+    pairs = [(x, y) for x in edges for y in edges]
+    a[:, : len(pairs)] = convert.ints_to_planes([x for x, _ in pairs], D)
+    b[:, : len(pairs)] = convert.ints_to_planes([y for _, y in pairs], D)
+    a_dev, b_dev = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+    got = field_ops.probe(a_dev, b_dev, fs)
+    out["probe_err"] = max_abs_diff(got, field_ops.probe_plain(a_dev, b_dev, fs))
+    check(out["probe_err"] == 0, "w25519 field probe == plain GFp (Crandall)")
+    ai, bi = convert.planes_to_ints(a[:, :64]), convert.planes_to_ints(b[:, :64])
+    ints = [convert.planes_to_ints(got[k, :, :64].cpu().numpy()) for k in range(5)]
+    check(ints[0] == [x * y % pw for x, y in zip(ai, bi)], "w25519 probe mul vs ints")
+    check(ints[1] == [x * x % pw for x in ai], "w25519 probe sqr vs ints")
+    check(ints[2] == [(x + y) % pw for x, y in zip(ai, bi)], "w25519 probe add vs ints")
+    check(ints[3] == [(x - y) % pw for x, y in zip(ai, bi)], "w25519 probe sub vs ints")
+    check(ints[4] == [(-x) % pw for x in ai], "w25519 probe opposite vs ints")
+    out["probe_ms"] = time_ms(lambda: field_ops.probe(a_dev, b_dev, fs), 20)
+    out["probe_plain_ms"] = time_ms(lambda: field_ops.probe_plain(a_dev, b_dev, fs), 3)
+    print(f"phase 13 w25519 field probe: {CHECK_LANES} lanes exact vs plain GFp (edge pairs of "
+          f"0, 1, 2, p-1, p-2, p-19, 2^254, 2^255-2^32) and 64 vs ints; kernel "
+          f"{out['probe_ms']:.3f} ms, plain {out['probe_plain_ms']:.3f} ms {card}", flush=True)
+
+    # -- phase 14: kernels G, H, B, D on 2^255 - 19 / Wei25519 ----------------------
+    k_bytes = split32(rng.bytes(32 * CHECK_LANES))
+    k14 = x25519._byte_planes(k_bytes, True, dev)
+    k_ints = convert.planes_to_ints(k14[:, :ORACLE_LANES].cpu().numpy())
+    u14_np = random_planes(rng, CHECK_LANES)
+    u14_np[:, :4] = convert.ints_to_planes([0, 1, pw - 1, 9], D)
+    u14 = torch.from_numpy(u14_np).to(dev)
+    x2, z2 = mladder.mladder_planes(k14, u14, fs, x25519.A24, 255)
+    px, pz = mladder.mladder_plain(k14, u14, fs, x25519.A24, 255)
+    out["mladder_check_err"] = max_abs_diff((x2, z2), (px, pz))
+    check(out["mladder_check_err"] == 0, "mladder kernel == mladder_plain (x2, z2)")
+    del px, pz
+    h = mladder.xdivz(x2, z2)
+    out["xdivz_check_err"] = max_abs_diff([h], [mladder.xdivz_plain(x2, z2, fs)])
+    check(out["xdivz_check_err"] == 0, "xdivz kernel == plain batch-inverse x / z")
+    u_ints = convert.planes_to_ints(u14_np[:, :ORACLE_LANES])
+    want = [x25519_int(k, u) for k, u in zip(k_ints, u_ints)]
+    check(convert.planes_to_ints(h[:, :ORACLE_LANES].cpu().numpy()) == want,
+          "mladder + xdivz vs the RFC 7748 int ladder")
+    check(want[:2] == [0, 0], "u = 0 and u = 1 give 0")
+    rfc = x25519.x25519_batch([bytes.fromhex(k) for k, _, _ in RFC7748],
+                              [bytes.fromhex(u) for _, u, _ in RFC7748])
+    check([r.hex() for r in rfc] == [o for _, _, o in RFC7748],
+          "RFC 7748 §5.2 vectors, iteration 1")
+
+    tables_w, negbase_w, nb_w = comb.device_tables(WEI25519, WEI25519.gx, WEI25519.gy, dev)
+    limbs_w = comb.kernel_tables(WEI25519, WEI25519.gx, WEI25519.gy, dev)
+    jac = comb.comb_planes(k14, limbs_w, nb_w, WEI25519)
+    out["comb_check_err"] = max_abs_diff(jac, comb.comb_plain(k14, tables_w, WEI25519, negbase_w))
+    check(out["comb_check_err"] == 0, "Wei25519 comb kernel == comb_plain (Jacobian)")
+    jx, jy, jz = (t.clone() for t in jac)
+    jz[:, -1] = 0  # a lane at infinity maps to (0, 0)
+    got = affine.affine_planes(jx, jy, jz, WEI25519)
+    plain = JacobianPoint(*(GFp(t, fs) for t in (jx, jy, jz)), WEI25519).to_affine()
+    out["affine_check_err"] = max_abs_diff(got, (plain.x, plain.y))
+    check(out["affine_check_err"] == 0, "Wei25519 affine kernel == JacobianPoint.to_affine")
+    check(not bool(got[0][:, -1].any() or got[1][:, -1].any()), "w25519 lane at infinity -> (0, 0)")
+    xs = convert.planes_to_ints(got[0][:, :ORACLE_LANES].cpu().numpy())
+    check([(x - x25519.A_OVER_3) % pw for x in xs] == [x25519_int(k, 9) for k in k_ints],
+          "comb + affine keys vs the int ladder X25519(k, 9)")
+    del x2, z2, h, jac, jx, jy, jz, got, plain
+    print(f"phase 14 X25519 kernels: G (x-only ladder) and H (x / z) {CHECK_LANES} lanes exact vs "
+          f"mladder_plain / batch-inverse x / z, {ORACLE_LANES} lanes vs the int ladder (u = 0, 1, "
+          f"p-1, 9 first); RFC 7748 §5.2 vectors and iteration 1; Wei25519 comb (B) and affine "
+          f"(D) {CHECK_LANES} lanes exact vs comb_plain / to_affine (one lane at infinity), "
+          f"{ORACLE_LANES} keys vs the int ladder", flush=True)
+
+    # -- phase 15: the fourth main path, batched X25519 at B = 524,288 --------------
+    ka = split32(rng.bytes(32 * BATCH))
+    kb = split32(rng.bytes(32 * BATCH))
+    sp = ORACLE_LANES - 8  # lanes sp..sp+5: special peer u's, inside the checked lanes
+    for k in counted:
+        k.launches = 0
+    qa = x25519.derive_public_batch(ka)
+    qb = x25519.derive_public_batch(kb)
+    top_set = bytearray(qb[sp + 4])
+    top_set[31] |= 0x80  # masked: the same peer as qb[sp + 4]
+    special = [le(0), le(1), le(pw), le(pw + 1), bytes(top_set), le(twist_u())]
+    peers = qb[:sp] + special + qb[sp + 6:]
+    s_ab = x25519.x25519_batch(ka, peers)
+    s_ba = x25519.x25519_batch(kb, qa)
+    torch.cuda.synchronize()
+    launches15 = {k.symbol: k.launches for k in counted}
+    for k in (comb.KERNEL_W25519, affine.KERNEL_W25519, mladder.KERNEL, mladder.KERNEL_XDIVZ):
+        check(launches15[k.symbol] >= 1, f"X25519 path launched {k.symbol}")
+    check(len(s_ab) == len(s_ba) == len(qa) == BATCH and all(len(v) == 32 for v in s_ab),
+          "output shape: 524,288 32-byte strings")
+    check(all(int.from_bytes(v, "little") < pw for v in (*s_ab[:ORACLE_LANES], *qa[:ORACLE_LANES])),
+          "outputs canonical")
+    low = set(range(sp, sp + 4)) | {sp + 5}  # u = 0, 1, p, p + 1 and the twist lane
+    diff = [i for i in range(BATCH) if s_ab[i] != s_ba[i]]
+    check(diff == [sp, sp + 1, sp + 2, sp + 3, sp + 5],
+          f"k_a * Q_b == k_b * Q_a on every lane but the special peers (differ: {diff[:8]})")
+    ca = [x25519.clamp(k) for k in ka[:ORACLE_LANES]]
+    check([int.from_bytes(q, "little") for q in qa[:ORACLE_LANES]]
+          == [x25519_int(k, 9) for k in ca], "derive_public_batch vs the int ladder")
+    want = [x25519_int(k, x25519.decode_u(u)) for k, u in zip(ca, peers[:ORACLE_LANES])]
+    check([int.from_bytes(v, "little") for v in s_ab[:ORACLE_LANES]] == want,
+          "x25519_batch vs the int ladder, special lanes included")
+    check([s_ab[i] for i in sorted(low - {sp + 5})] == [bytes(32)] * 4, "u = 0, 1, p, p + 1 give 0")
+    check(s_ab[sp + 5] != bytes(32) and s_ab[sp + 4] == s_ba[sp + 4], "twist and masked-bit lanes")
+
+    # the kernels against their plain versions on the path's own inputs (these
+    # launches come after the counts were read)
+    kpa = x25519._byte_planes(ka, True, dev)
+    upb = x25519.reduce_u(x25519._byte_planes(peers, False, dev))
+    x2, z2 = mladder.mladder_planes(kpa, upb, fs, x25519.A24, 255)
+    out["mladder_plain_ms"], plain = time_once_ms(
+        lambda: mladder.mladder_plain(kpa, upb, fs, x25519.A24, 255))
+    out["mladder_err"] = max_abs_diff((x2, z2), plain)
+    check(out["mladder_err"] == 0, "mladder kernel == mladder_plain at B = 524,288")
+    del plain
+    out["xdivz_plain_ms"], plain = time_once_ms(lambda: mladder.xdivz_plain(x2, z2, fs))
+    out["xdivz_err"] = max_abs_diff([mladder.xdivz(x2, z2)], [plain])
+    check(out["xdivz_err"] == 0, "xdivz kernel == batch-inverse x / z at B = 524,288")
+    jac = comb.comb_planes(kpa, limbs_w, nb_w, WEI25519)
+    out["comb_plain_ms"], plain = time_once_ms(
+        lambda: comb.comb_plain(kpa, tables_w, WEI25519, negbase_w))
+    out["comb_err"] = max_abs_diff(jac, plain)
+    check(out["comb_err"] == 0, "Wei25519 comb kernel == comb_plain at B = 524,288")
+    out["affine_plain_ms"], plain = time_once_ms(
+        lambda: JacobianPoint(*(GFp(t, fs) for t in jac), WEI25519).to_affine())
+    out["affine_err"] = max_abs_diff(affine.affine_planes(*jac, WEI25519), (plain.x, plain.y))
+    check(out["affine_err"] == 0, "Wei25519 affine kernel == to_affine at B = 524,288")
+    del plain
+    out["mladder_ms"] = time_ms(lambda: mladder.mladder_planes(kpa, upb, fs, x25519.A24, 255), 5)
+    out["xdivz_ms"] = time_ms(lambda: mladder.xdivz(x2, z2), 10)
+    out["comb_ms"] = time_ms(lambda: comb.comb_planes(kpa, limbs_w, nb_w, WEI25519), 10)
+    out["affine_ms"] = time_ms(lambda: affine.affine_planes(*jac, WEI25519), 10)
+    upb_raw = x25519._byte_planes(peers, False, dev)
+    out["x25519_planes_ms"] = time_ms(lambda: x25519.x25519_planes(kpa, upb_raw), 5)
+    out["derive_public_planes_ms"] = time_ms(lambda: x25519.derive_public_planes(kpa), 10)
+    out["launches15"] = launches15
+    rate = BATCH / (out["x25519_planes_ms"] / 1e3)
+    print(f"phase 15 X25519 main path B={BATCH}: launches {json.dumps(launches15)}; "
+          f"derive_public_batch and x25519_batch both ways equal on every lane but the special "
+          f"peers (u = 0, 1, p, p+1 give 0; twist and masked-bit lanes right), {ORACLE_LANES} "
+          f"lanes vs the int ladder; G, H, B, D exact vs their plain versions; mladder kernel "
+          f"{out['mladder_ms']:.3f} ms, plain {out['mladder_plain_ms']:.1f} ms; xdivz "
+          f"{out['xdivz_ms']:.3f} ms, plain {out['xdivz_plain_ms']:.1f} ms; comb "
+          f"{out['comb_ms']:.3f} ms, plain {out['comb_plain_ms']:.1f} ms; affine "
+          f"{out['affine_ms']:.3f} ms, plain {out['affine_plain_ms']:.1f} ms; "
+          f"x25519.x25519_planes {out['x25519_planes_ms']:.3f} ms ({rate:.0f} exchanges/s), "
+          f"x25519.derive_public_planes {out['derive_public_planes_ms']:.3f} ms {card}", flush=True)
+    del x2, z2, jac, kpa, upb, upb_raw
+
+    # -- phase 16: the calibration (kernel I) --------------------------------------
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    n = sms * roofline.THREADS_PER_SM
+    ca_dev, cb_dev = (torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, size=n, dtype=np.int64)
+                                       .astype(np.int32)).to(dev) for _ in range(2))
+    got = roofline.calib(ca_dev, cb_dev, CALIB_CHECK_REPS)
+    out["calib_plain_ms"], plain = time_once_ms(
+        lambda: roofline.calib_plain(ca_dev, cb_dev, CALIB_CHECK_REPS))
+    out["calib_err"] = max_abs_diff([got], [plain])
+    check(out["calib_err"] == 0, "calib kernel == calib_plain")
+    for k in counted:
+        k.launches = 0
+    ceiling = roofline.measure_int32_ceiling(reps=CALIB_REPS, iters=8, device=dev)
+    out["launches16"] = {k.symbol: k.launches for k in counted}
+    check(out["launches16"][roofline.KERNEL.symbol] >= 1, "calibration launched ec_calib")
+    out["ceiling"] = ceiling
+    out["calib_elements"] = n
+    print(f"phase 16 calibration: kernel I exact vs calib_plain ({n} elements, "
+          f"{CALIB_CHECK_REPS} reps; plain {out['calib_plain_ms']:.1f} ms); measure_int32_ceiling "
+          f"({CALIB_REPS} reps, {n} elements): {ceiling['int32_ops_per_s']:.4e} int32 ops/s, "
+          f"{ceiling['imad_per_s']:.4e} IMAD/s, {ceiling['ms_per_launch']:.3f} ms a launch {card}",
+          flush=True)
+    return out
 
 
 def main():
@@ -492,7 +777,7 @@ def main():
     points = varbase_points(BATCH, dev)
     counted = (*comb.KERNELS.values(), ladder.KERNEL, window.KERNEL, window.KERNEL_STRICT,
                *affine.KERNELS.values(), *field_ops.KERNELS.values(), kglv.KERNEL,
-               kglv.KERNEL_STRICT)
+               kglv.KERNEL_STRICT, mladder.KERNEL, mladder.KERNEL_XDIVZ, roofline.KERNEL)
     for k in counted:
         k.launches = 0
     out_base = api.scalar_mult_base(scalars)
@@ -923,10 +1208,12 @@ def main():
           f"affine plain {affine_k1_plain_ms:.1f} ms; glv (plain chain) {glv_ms:.3f} ms at "
           f"{CHECK_LANES} lanes {card}", flush=True)
 
-    paths = {"phase6": launches6, "phase9": launches9, "phase12": launches12}
+    xp = x25519_phases(rng, dev, card, counted)
+    paths = {"phase6": launches6, "phase9": launches9, "phase12": launches12,
+             "phase15": xp["launches15"], "phase16": xp["launches16"]}
 
-    def entry(kernel, kname, err, ms, plain_ms, lanes=BATCH):
-        bound_ms, bound_by = bound(kname, lanes, sm_clock_mhz)
+    def entry(kernel, kname, err, ms, plain_ms, lanes=BATCH, reps=0):
+        bound_ms, bound_by = bound(kname, lanes, sm_clock_mhz, reps)
         return {
             "name": kname, "route": "cuda", "source": kernel.source, "replaces": kernel.replaces,
             "launches": sum(v[kernel.symbol] for v in paths.values()),
@@ -964,15 +1251,47 @@ def main():
               lanes=CHECK_LANES),
         entry(field_ops.KERNEL_SECP256K1, "field_probe_secp256k1", probe_k1_err, probe_k1_ms,
               probe_k1_plain_ms, lanes=CHECK_LANES),
+        entry(mladder.KERNEL, "mladder", max(xp["mladder_err"], xp["mladder_check_err"]),
+              xp["mladder_ms"], xp["mladder_plain_ms"]),
+        entry(mladder.KERNEL_XDIVZ, "x25519_xdivz", max(xp["xdivz_err"], xp["xdivz_check_err"]),
+              xp["xdivz_ms"], xp["xdivz_plain_ms"]),
+        entry(comb.KERNEL_W25519, "comb_w25519", max(xp["comb_err"], xp["comb_check_err"]),
+              xp["comb_ms"], xp["comb_plain_ms"]),
+        entry(affine.KERNEL_W25519, "affine_w25519", max(xp["affine_err"], xp["affine_check_err"]),
+              xp["affine_ms"], xp["affine_plain_ms"]),
+        entry(field_ops.KERNEL_W25519, "field_probe_w25519", xp["probe_err"], xp["probe_ms"],
+              xp["probe_plain_ms"], lanes=CHECK_LANES),
+        # ms and bound at the ceiling measurement's CALIB_REPS; plain_ms at
+        # CALIB_CHECK_REPS on the same elements (the plain chains take
+        # ~10^2 launches a step)
+        {**entry(roofline.KERNEL, "calib", xp["calib_err"], xp["ceiling"]["ms_per_launch"],
+                 xp["calib_plain_ms"], lanes=xp["calib_elements"], reps=CALIB_REPS),
+         "reps": CALIB_REPS, "plain_reps": CALIB_CHECK_REPS},
     ]
     api_ms = {"scalar_mult_base": base_api_ms, "scalar_mult": var_api_ms,
               "scalar_mult_fast": fast_ms, "scalar_mult_fast_strict": fast_strict_ms,
               "scalar_mult_base_strict": base_strict_ms,
               "ecdh.derive_public_planes": derive_ms, "ecdh.shared_secret_planes": shared_ms,
-              **{f"ecdsa.{c}.{k}": v for c, pth in path12.items() for k, v in pth["ms"].items()}}
+              **{f"ecdsa.{c}.{k}": v for c, pth in path12.items() for k, v in pth["ms"].items()},
+              "x25519.x25519_planes": xp["x25519_planes_ms"],
+              "x25519.derive_public_planes": xp["derive_public_planes_ms"]}
+    # the measured int32 rate against the 64 IMAD per SM per clock bound()
+    # assumes: kernel I issues 2 of its 4 instructions a chain step on the
+    # multiply-add pipe (IMAD, IMAD.IADD), so that pipe's rate is 2 / 5 of
+    # the int32 operations' (40 per 8-chain step)
+    assumed = IMAD_PER_SM_PER_CLOCK * SMS * sm_clock_mhz * 1e6
+    imad_pipe = xp["ceiling"]["int32_ops_per_s"] * 2 / 5
+    ceiling = {**xp["ceiling"], "assumed_imad_per_s": assumed, "imad_pipe_per_s": imad_pipe,
+               "imad_pipe_ratio": imad_pipe / assumed,
+               "int32_ops_ratio": xp["ceiling"]["int32_ops_per_s"] / assumed}
+    print(f"int32 ceiling: measured {ceiling['int32_ops_per_s']:.4e} int32 ops/s "
+          f"({ceiling['imad_per_s']:.4e} multiplies/s, {imad_pipe:.4e} multiply-add-pipe "
+          f"instructions/s) against the assumed {assumed:.4e} IMAD/s (64 per SM per clock x {SMS} "
+          f"SMs x {sm_clock_mhz:.0f} MHz): multiply-add pipe at {ceiling['imad_pipe_ratio']:.4f} "
+          f"of it, int32 operations at {ceiling['int32_ops_ratio']:.4f} {card}", flush=True)
     print(json.dumps({"kernels": kernels, "card": smi,
                       "sm_clock_max_mhz": sm_clock_mhz, "batch": BATCH,
-                      "build_s": build.seconds, "api_ms": api_ms,
+                      "build_s": build.seconds, "api_ms": api_ms, "int32_ceiling": ceiling,
                       "wall_s": time.perf_counter() - t_start}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                             "count": torch.cuda.device_count()}}))

@@ -13,19 +13,23 @@ Layer map:
   ops.bignum / ops.mont   digit-plane carry add/sub, products, compares,
                           selects; CIOS Montgomery multiplication
   ops.solinas             multiply-free Solinas reduction (P-256)
-  field.GFp               prime-field value type (Solinas and Montgomery
-                          fields), inversion, square roots
+  ops.crandall            the Crandall fold (2^255 - 19, P-521)
+  field.GFp               prime-field value type (Solinas, Crandall and
+                          Montgomery fields), inversion, square roots
   curves.point / group    points, the co-Z group law, Jacobian doubling,
                           general and complete adds, decompression; plain
                           ladder
   glv                     the GLV endomorphism split (secp256k1)
   kernels                 hand-written CUDA kernels for sm_90a (csrc/) and
                           their wrappers: comb (k*G, P-256 and secp256k1,
-                          plain and strict), ladder, signed window and GLV
-                          (k*P), affine conversion, field probe;
+                          plain and strict; Wei25519), ladder, signed window
+                          and GLV (k*P), the x-only ladder and x / z
+                          (X25519), affine conversion, field probe;
                           glv.strict_varbase routes
   api, ecdh, ecdsa        batched scalar-multiplication entry points, ECDH,
                           ECDSA sign / verify / recover
+  x25519                  RFC 7748 X25519 exchange and keygen
+  bench.roofline          the int32 throughput calibration of the card
 
 Every public function runs on the device of its input tensors: a CUDA tensor
 goes through the CUDA kernel, a CPU tensor through the kernel's plain PyTorch
@@ -41,8 +45,12 @@ from ecsimd_tpu_torch.specs import (
     P256,
     P256_FIELD,
     P384,
+    P521,
+    P521_FIELD,
     SECP256K1,
     SECP256K1_FIELD,
+    W25519_FIELD,
+    WEI25519,
     CurveSpec,
     FieldSpec,
 )
@@ -56,8 +64,12 @@ __all__ = [
     "P256",
     "P256_FIELD",
     "P384",
+    "P521",
+    "P521_FIELD",
     "SECP256K1",
     "SECP256K1_FIELD",
+    "W25519_FIELD",
+    "WEI25519",
     "CurveSpec",
     "FieldSpec",
     "__version__",

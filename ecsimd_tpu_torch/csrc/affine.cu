@@ -1,5 +1,5 @@
-// Kernel D: Jacobian -> affine on P-256 and on secp256k1, one lane per
-// thread (NVIDIA Hopper, sm_90a).
+// Kernel D: Jacobian -> affine on P-256, on secp256k1 and on Wei25519, one
+// lane per thread (NVIDIA Hopper, sm_90a).
 //
 // Replaces the affine conversion at the end of the JAX package's API,
 // ecsimd_tpu/curves/point.py:JacobianPoint.to_affine, which runs as plain
@@ -14,12 +14,13 @@
 // agree bit for bit.
 //
 // What bounds it: 32-bit integer multiply-add throughput, about 387 field
-// multiplies per lane on P-256 and 510 on secp256k1 (p - 2 has 249 set
-// bits); memory traffic is five planes of 16 words per lane. Constant time
+// multiplies per lane on P-256, 510 on secp256k1 (p - 2 has 249 set bits)
+// and 270 on Wei25519 (the 2^255 - 19 addition chain); memory traffic is five planes of 16 words per lane. Constant time
 // per lane: the exponent is public and the same for every lane.
 
 #include "field_p256.cuh"
 #include "field_secp256k1.cuh"
+#include "field_w25519.cuh"
 
 namespace {
 
@@ -41,6 +42,7 @@ constexpr int kThreads = 128;
 
 EC_AFFINE_KERNEL(affine_p256_kernel, p256)
 EC_AFFINE_KERNEL(affine_secp256k1_kernel, secp256k1)
+EC_AFFINE_KERNEL(affine_w25519_kernel, w25519)
 
 template <class Kernel>
 int launch(Kernel kernel, const int32_t* xs, const int32_t* ys, const int32_t* zs, int32_t* ax,
@@ -65,4 +67,9 @@ extern "C" int ec_affine_p256(const int32_t* xs, const int32_t* ys, const int32_
 extern "C" int ec_affine_secp256k1(const int32_t* xs, const int32_t* ys, const int32_t* zs,
                                    int32_t* ax, int32_t* ay, int64_t B, void* stream) {
   return launch(affine_secp256k1_kernel, xs, ys, zs, ax, ay, B, stream);
+}
+
+extern "C" int ec_affine_w25519(const int32_t* xs, const int32_t* ys, const int32_t* zs,
+                                int32_t* ax, int32_t* ay, int64_t B, void* stream) {
+  return launch(affine_w25519_kernel, xs, ys, zs, ax, ay, B, stream);
 }

@@ -1,5 +1,5 @@
-// Kernel B: fixed-base comb k_i * B on P-256 and on secp256k1, one lane per
-// thread (NVIDIA Hopper, sm_90a).
+// Kernel B: fixed-base comb k_i * B on P-256, on secp256k1 and (non-strict,
+// X25519 keygen) on Wei25519, one lane per thread (NVIDIA Hopper, sm_90a).
 //
 // Replaces ecsimd_tpu/kernels/comb.py:_comb_kernel (serial chain, one
 // accumulator, unroll 1), both strict variants. Width-8 signed-odd comb
@@ -12,7 +12,10 @@
 // against the entry with z = 1, so prefix sums that hit an entry, its
 // opposite or infinity stay right, and k = n - 1 gives -B. Same order as
 // kernels/comb.comb_plain, so the Jacobian planes agree bit for bit
-// (Montgomery form on secp256k1, as the JAX package keeps it).
+// (Montgomery form on secp256k1, as the JAX package keeps it). Wei25519's
+// 2^255 - 19 field has the same 16-digit layout (nbits = 256), so
+// entry_index and the negbase offset hold for it unchanged; its clamped
+// scalars (near 2^254, above the order) take the same chain.
 //
 // Constant time, memory accesses included: no address depends on the
 // scalar. The TPU kernel reads every entry of a position through a one-hot
@@ -39,6 +42,7 @@
 
 #include "coz_p256.cuh"
 #include "coz_secp256k1.cuh"
+#include "coz_w25519.cuh"
 
 namespace comb {
 
@@ -109,6 +113,10 @@ namespace secp256k1 {
 #include "comb_lane.cuh"
 }  // namespace secp256k1
 
+namespace w25519 {
+#include "comb_lane.cuh"
+}  // namespace w25519
+
 namespace {
 
 using comb::kThreads;
@@ -130,6 +138,7 @@ EC_COMB_KERNEL(comb_p256_kernel, p256, false)
 EC_COMB_KERNEL(comb_strict_p256_kernel, p256, true)
 EC_COMB_KERNEL(comb_secp256k1_kernel, secp256k1, false)
 EC_COMB_KERNEL(comb_strict_secp256k1_kernel, secp256k1, true)
+EC_COMB_KERNEL(comb_w25519_kernel, w25519, false)
 
 template <class Kernel>
 int launch(Kernel kernel, const int32_t* scalars, const int32_t* tables, const int32_t* negbase,
@@ -170,4 +179,10 @@ extern "C" int ec_comb_secp256k1_strict(const int32_t* scalars, const int32_t* t
                                         const int32_t* negbase, int32_t* ax, int32_t* ay,
                                         int32_t* z, int64_t B, void* stream) {
   return launch(comb_strict_secp256k1_kernel, scalars, tables, negbase, ax, ay, z, B, stream);
+}
+
+extern "C" int ec_comb_w25519(const int32_t* scalars, const int32_t* tables,
+                              const int32_t* negbase, int32_t* ax, int32_t* ay, int32_t* z,
+                              int64_t B, void* stream) {
+  return launch(comb_w25519_kernel, scalars, tables, negbase, ax, ay, z, B, stream);
 }

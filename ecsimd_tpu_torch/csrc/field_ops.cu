@@ -1,6 +1,7 @@
 // Kernel C: field-operation probe, one lane per thread (NVIDIA Hopper,
-// sm_90a), on P-256 (field_p256.cuh, Solinas) and on secp256k1
-// (field_secp256k1.cuh, CIOS Montgomery).
+// sm_90a), on P-256 (field_p256.cuh, Solinas), on secp256k1
+// (field_secp256k1.cuh, CIOS Montgomery) and on 2^255 - 19
+// (field_w25519.cuh, Crandall fold).
 //
 // Runs mul, sqr, add, sub and opposite of a field layer on (16, B) digit
 // planes, so that a disagreement with the plain PyTorch GFp can be told
@@ -15,6 +16,7 @@
 
 #include "field_p256.cuh"
 #include "field_secp256k1.cuh"
+#include "field_w25519.cuh"
 
 namespace {
 
@@ -37,6 +39,7 @@ namespace {
 
 EC_FIELD_PROBE_KERNEL(field_probe_p256_kernel, p256)
 EC_FIELD_PROBE_KERNEL(field_probe_secp256k1_kernel, secp256k1)
+EC_FIELD_PROBE_KERNEL(field_probe_w25519_kernel, w25519)
 
 constexpr int kThreads = 256;
 
@@ -58,6 +61,16 @@ extern "C" int ec_field_probe_secp256k1(const int32_t* a, const int32_t* b, int3
   if (B > 0) {
     const int64_t blocks = (B + kThreads - 1) / kThreads;
     field_probe_secp256k1_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        a, b, out, B);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ec_field_probe_w25519(const int32_t* a, const int32_t* b, int32_t* out,
+                                     int64_t B, void* stream) {
+  if (B > 0) {
+    const int64_t blocks = (B + kThreads - 1) / kThreads;
+    field_probe_w25519_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
         a, b, out, B);
   }
   return (int)cudaGetLastError();

@@ -1,14 +1,14 @@
-"""L3: GF(p) prime-field value type over Solinas and Montgomery fields.
+"""L3: GF(p) prime-field value type over Solinas, Crandall and Montgomery
+fields.
 
 The port of ``ecsimd_tpu/field.py``'s ``GFp``: a dataclass around (D, *batch)
 int32 digit planes, values in [0, p), with operator sugar, constant powers,
-inversion and square roots. Solinas fields (P-256) store plain residues;
-Montgomery fields (secp256k1, every ECDSA order field) store x R mod p with
-R = 2^nbits, as the JAX package does, so the planes agree bit for bit. Each
-operation widens to int64 planes, runs the digit-plane ops of ``ops/`` and
-narrows back, so the stored planes keep the JAX package's int32 interface.
-Crandall fields are not ported yet and raise ``NotImplementedError``
-(ROADMAP A6-Crandall).
+inversion and square roots. Solinas fields (P-256) and Crandall fields
+(2^255 - 19, P-521) store plain residues; Montgomery fields (secp256k1,
+every ECDSA order field) store x R mod p with R = 2^nbits, as the JAX
+package does, so the planes agree bit for bit. Each operation widens to
+int64 planes, runs the digit-plane ops of ``ops/`` and narrows back, so the
+stored planes keep the JAX package's int32 interface.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ import torch
 
 from ecsimd_tpu_torch.specs import FieldSpec, int_to_digits
 from ecsimd_tpu_torch.ops import bignum as bn
-from ecsimd_tpu_torch.ops import mont, solinas
+from ecsimd_tpu_torch.ops import crandall, mont, solinas
 
 I32 = torch.int32
 I64 = torch.int64
@@ -29,9 +29,15 @@ def _wide(planes):
     return planes.to(I64)
 
 
-def _mul_planes(a, b, fs: FieldSpec):
+def _mul_planes(a, b, fs: FieldSpec, scale: int = 1):
+    """scale * a * b in the field's internal domain. The plain-domain fields
+    fuse the scale into their reduction; Montgomery fields scale by modular
+    adds (``_scale``)."""
     if fs.reduction == "solinas":
-        return solinas.fast_mul(a, b, fs)
+        return solinas.fast_mul(a, b, fs, scale)
+    if fs.reduction == "crandall":
+        return crandall.fast_mul(a, b, fs, scale)
+    assert scale == 1, "Montgomery fields scale by modular adds"
     return mont.mont_mul(a, b, fs)
 
 
@@ -58,13 +64,6 @@ class GFp:
 
     planes: torch.Tensor  # (D, *batch) int32, digits in [0, 2^16), value in [0, p)
     fs: FieldSpec
-
-    def __post_init__(self):
-        if self.fs.reduction == "crandall":
-            raise NotImplementedError(
-                f"{self.fs.name}: crandall reduction is not ported to PyTorch yet "
-                "(ROADMAP A6-Crandall, with X25519)"
-            )
 
     @classmethod
     def _of(cls, wide_planes, fs: FieldSpec) -> "GFp":
@@ -114,12 +113,11 @@ class GFp:
 
     def mul_scaled(self, o: "GFp", scale: int) -> "GFp":
         """scale * self * o for a small constant scale: fused into the
-        Solinas reduction, or doublings after a Montgomery multiply."""
-        if self.fs.reduction != "solinas":
-            return _scale(GFp._of(mont.mont_mul(_wide(self.planes), _wide(o.planes), self.fs),
-                                  self.fs), scale)
-        out = solinas.fast_mul(_wide(self.planes), _wide(o.planes), self.fs, scale)
-        return GFp._of(out, self.fs)
+        Solinas or Crandall reduction, or doublings after a Montgomery
+        multiply."""
+        if not self.fs.plain:
+            return _scale(self * o, scale)
+        return GFp._of(_mul_planes(_wide(self.planes), _wide(o.planes), self.fs, scale), self.fs)
 
     def sqr_scaled(self, scale: int) -> "GFp":
         return self.mul_scaled(self, scale)
@@ -199,7 +197,7 @@ class GFp:
 
           p = 3 (mod 4): x^((p+1)/4) — P-256 and secp256k1;
           p = 5 (mod 8): r = x^((p+3)/8), times sqrt(-1) where r^2 != x
-          (the toy GLV field);
+          (the toy GLV field, 2^255 - 19);
           otherwise: Tonelli-Shanks with a fixed round schedule and masked
           multiplies (no data-dependent trips)."""
         fs = self.fs

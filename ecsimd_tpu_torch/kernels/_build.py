@@ -29,9 +29,10 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ecsimd_tpu_torch"
-SOURCES = ("field_ops.cu", "ladder.cu", "comb.cu", "affine.cu", "window.cu", "glv.cu")
-HEADERS = ("limbs.cuh", "field_p256.cuh", "field_secp256k1.cuh", "jacobian.cuh", "coz_p256.cuh",
-           "coz_secp256k1.cuh", "comb_lane.cuh")
+SOURCES = ("field_ops.cu", "ladder.cu", "comb.cu", "affine.cu", "window.cu", "glv.cu",
+           "mladder.cu", "calib.cu")
+HEADERS = ("limbs.cuh", "field_p256.cuh", "field_secp256k1.cuh", "field_w25519.cuh",
+           "jacobian.cuh", "coz_p256.cuh", "coz_secp256k1.cuh", "coz_w25519.cuh", "comb_lane.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -42,12 +43,15 @@ NVCC_FLAGS = ARCH_FLAGS + (
 @dataclasses.dataclass
 class Kernel:
     """One CUDA kernel of the port: its C entry point, its source, the TPU
-    kernel it replaces, and the number of times it was launched."""
+    kernel it replaces, its arguments (``n_pointers`` tensors, then the
+    batch and ``n_ints`` more int64 values) and the number of times it
+    was launched."""
 
     symbol: str
     source: str
     replaces: str
     n_pointers: int
+    n_ints: int = 0
     launches: int = 0
 
 
@@ -119,9 +123,10 @@ def library() -> Build:
 
 
 @functools.cache
-def _entry(symbol: str, n_pointers: int):
+def _entry(symbol: str, n_pointers: int, n_ints: int):
     fn = getattr(library().lib, symbol)
-    fn.argtypes = [ctypes.c_void_p] * n_pointers + [ctypes.c_int64, ctypes.c_void_p]
+    ints = [ctypes.c_int64] * (1 + n_ints)  # the batch, then the kernel's own ints
+    fn.argtypes = [ctypes.c_void_p] * n_pointers + ints + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -137,14 +142,16 @@ def check_planes(name: str, t: torch.Tensor, shape: tuple[int, ...], device: tor
         raise ValueError(f"{name}: expected a contiguous tensor")
 
 
-def launch(kernel: Kernel, tensors: list[torch.Tensor], batch: int):
+def launch(kernel: Kernel, tensors: list[torch.Tensor], batch: int, *ints: int):
     """Call ``kernel``'s C entry on PyTorch's current stream of the tensors'
     card; raise if the launch was refused. The caller checks the tensors
     and counts the launch."""
+    assert len(tensors) == kernel.n_pointers and len(ints) == kernel.n_ints, kernel.symbol
     device = tensors[0].device
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = _entry(kernel.symbol, kernel.n_pointers)(*(t.data_ptr() for t in tensors), batch, stream)
+        fn = _entry(kernel.symbol, kernel.n_pointers, kernel.n_ints)
+        err = fn(*(t.data_ptr() for t in tensors), batch, *ints, stream)
     if err != 0:
         raise RuntimeError(f"{kernel.symbol}: CUDA error {err} at launch")
 

@@ -1,5 +1,5 @@
-"""Jacobian -> affine: kernel D (``csrc/affine.cu``, P-256 and secp256k1) and
-its wrapper.
+"""Jacobian -> affine: kernel D (``csrc/affine.cu``, P-256, secp256k1 and
+Wei25519) and its wrapper.
 
 The JAX package converts with plain XLA (``ecsimd_tpu/curves/point.py``
 ``JacobianPoint.to_affine``: one batch inversion through a product tree),
@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from ecsimd_tpu_torch.specs import P256, SECP256K1, CurveSpec
+from ecsimd_tpu_torch.specs import P256, SECP256K1, WEI25519, CurveSpec
 from ecsimd_tpu_torch.curves.point import AffinePoint, JacobianPoint
 from ecsimd_tpu_torch.kernels import _build
 
@@ -31,7 +31,13 @@ KERNEL_SECP256K1 = _build.Kernel(
     replaces="ecsimd_tpu/curves/point.py:50 JacobianPoint.to_affine (secp256k1; XLA, no Pallas kernel)",
     n_pointers=5,
 )
-KERNELS = {P256: KERNEL, SECP256K1: KERNEL_SECP256K1}
+KERNEL_W25519 = _build.Kernel(
+    symbol="ec_affine_w25519",
+    source="ecsimd_tpu_torch/csrc/affine.cu",
+    replaces="ecsimd_tpu/curves/point.py:50 JacobianPoint.to_affine (Wei25519; XLA, no Pallas kernel)",
+    n_pointers=5,
+)
+KERNELS = {P256: KERNEL, SECP256K1: KERNEL_SECP256K1, WEI25519: KERNEL_W25519}
 
 
 def affine_planes(x, y, z, curve: CurveSpec = P256):
@@ -41,7 +47,7 @@ def affine_planes(x, y, z, curve: CurveSpec = P256):
     kernel = KERNELS.get(curve)
     if kernel is None:
         raise NotImplementedError(
-            f"{curve.name}: the CUDA affine conversion covers P-256 and secp256k1 "
+            f"{curve.name}: the CUDA affine conversion covers P-256, secp256k1 and Wei25519 "
             "(ROADMAP B0, other fields)"
         )
     shape = (curve.field.ndigits, x.shape[-1])

@@ -1,5 +1,6 @@
-"""Fixed-base comb k_i * B: kernel B (``csrc/comb.cu``, P-256 and
-secp256k1), its wrapper, its plain PyTorch version and the host-built tables.
+"""Fixed-base comb k_i * B: kernel B (``csrc/comb.cu``, P-256, secp256k1
+and, non-strict, Wei25519), its wrapper, its plain PyTorch version and the
+host-built tables.
 
 Replaces ``ecsimd_tpu/kernels/comb.py`` (``comb_mont_planes`` with
 ``chain="serial"`` and its Pallas body ``_comb_kernel``). The tables are
@@ -41,7 +42,7 @@ from ecsimd_tpu_torch.curves.point import JacobianPoint
 from ecsimd_tpu_torch.field import GFp
 from ecsimd_tpu_torch.kernels import _build
 from ecsimd_tpu_torch.oracle import window as ow
-from ecsimd_tpu_torch.specs import DIGIT_BITS, P256, SECP256K1, CurveSpec, int_to_digits
+from ecsimd_tpu_torch.specs import DIGIT_BITS, P256, SECP256K1, WEI25519, CurveSpec, int_to_digits
 
 W = 8  # window width in bits; 2^(W-1) signed-odd magnitudes per position
 NENT = 1 << W  # table entries per position: d = 2e - (2^W - 1), e in [0, 2^W)
@@ -70,10 +71,17 @@ KERNEL_SECP256K1_STRICT = _build.Kernel(
     replaces="ecsimd_tpu/kernels/comb.py:213 _comb_kernel (secp256k1, strict=True)",
     n_pointers=6,
 )
+KERNEL_W25519 = _build.Kernel(
+    symbol="ec_comb_w25519",
+    source="ecsimd_tpu_torch/csrc/comb.cu",
+    replaces="ecsimd_tpu/kernels/comb.py:213 _comb_kernel (Wei25519, X25519 keygen)",
+    n_pointers=6,
+)
 # (curve, strict) -> kernel B instantiation
 KERNELS = {
     (P256, False): KERNEL, (P256, True): KERNEL_STRICT,
     (SECP256K1, False): KERNEL_SECP256K1, (SECP256K1, True): KERNEL_SECP256K1_STRICT,
+    (WEI25519, False): KERNEL_W25519,
 }
 
 
@@ -277,7 +285,8 @@ def comb_planes(scalars, tables, negbase_digits, curve: CurveSpec = P256, strict
     kernel = KERNELS.get((curve, strict))
     if kernel is None:
         raise NotImplementedError(
-            f"{curve.name}: the CUDA comb covers P-256 and secp256k1 (ROADMAP B0, other fields)"
+            f"{curve.name} (strict={strict}): the CUDA comb covers P-256 and secp256k1, both "
+            "modes, and Wei25519 non-strict (ROADMAP B0, other fields)"
         )
     d = curve.field.ndigits
     shape = (d, scalars.shape[-1])

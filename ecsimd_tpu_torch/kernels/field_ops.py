@@ -1,6 +1,6 @@
 """Field-operation probe: the device field layers (``csrc/field_p256.cuh``,
-``csrc/field_secp256k1.cuh``) run on digit planes by kernel C
-(``csrc/field_ops.cu``).
+``csrc/field_secp256k1.cuh``, ``csrc/field_w25519.cuh``) run on digit
+planes by kernel C (``csrc/field_ops.cu``).
 
 The device field layer replaces ``ecsimd_tpu/kernels/digits.py``, which has
 no ``pallas_call`` of its own; the JAX package tests it through an
@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from ecsimd_tpu_torch.specs import P256_FIELD, SECP256K1_FIELD, FieldSpec
+from ecsimd_tpu_torch.specs import P256_FIELD, SECP256K1_FIELD, W25519_FIELD, FieldSpec
 from ecsimd_tpu_torch.field import GFp
 from ecsimd_tpu_torch.kernels import _build
 
@@ -29,7 +29,13 @@ KERNEL_SECP256K1 = _build.Kernel(
     replaces="tests/test_kernels.py:30 _run_binop (kernels/digits.py field ops, Montgomery)",
     n_pointers=3,
 )
-KERNELS = {P256_FIELD: KERNEL, SECP256K1_FIELD: KERNEL_SECP256K1}
+KERNEL_W25519 = _build.Kernel(
+    symbol="ec_field_probe_w25519",
+    source="ecsimd_tpu_torch/csrc/field_ops.cu",
+    replaces="tests/test_kernels.py:30 _run_binop (kernels/digits.py field ops, Crandall)",
+    n_pointers=3,
+)
+KERNELS = {P256_FIELD: KERNEL, SECP256K1_FIELD: KERNEL_SECP256K1, W25519_FIELD: KERNEL_W25519}
 
 OPS = ("mul", "sqr", "add", "sub", "opposite")
 
@@ -52,7 +58,8 @@ def probe(a, b, fs: FieldSpec = P256_FIELD):
     kernel = KERNELS.get(fs)
     if kernel is None:
         raise NotImplementedError(
-            f"{fs.name}: the CUDA field layers cover P-256 and secp256k1 (ROADMAP B0, other fields)"
+            f"{fs.name}: the CUDA field layers cover P-256, secp256k1 and 2^255 - 19 "
+            "(ROADMAP B0, other fields)"
         )
     shape = (fs.ndigits, a.shape[-1])
     _build.check_planes("a", a, shape, a.device)

@@ -12,15 +12,16 @@ import numpy as np
 import pytest
 import torch
 
-from ecsimd_tpu_torch import api, convert, ecdh, ecdsa, glv
+from ecsimd_tpu_torch import api, convert, ecdh, ecdsa, glv, x25519
+from ecsimd_tpu_torch.bench import roofline
 from ecsimd_tpu_torch.curves import group
 from ecsimd_tpu_torch.curves.point import AffinePoint, JacobianPoint
 from ecsimd_tpu_torch.field import GFp
-from ecsimd_tpu_torch.kernels import affine, comb, field_ops, ladder, window
+from ecsimd_tpu_torch.kernels import affine, comb, field_ops, ladder, mladder, window
 from ecsimd_tpu_torch.kernels import glv as kglv
 from ecsimd_tpu_torch.oracle import coz
 from ecsimd_tpu_torch.oracle import window as ow
-from ecsimd_tpu_torch.specs import P256, SECP256K1
+from ecsimd_tpu_torch.specs import P256, SECP256K1, W25519_FIELD, WEI25519
 
 pytestmark = pytest.mark.cuda
 D = P256.field.ndigits
@@ -312,3 +313,102 @@ def test_ecdsa_on_the_card(cuda, curve):
                                            curve)
         found |= okr.bool() & (rx == q.x).all(0) & (ry == q.y).all(0)
     assert bool(found.all())
+
+
+# --- X25519 (2^255 - 19) and the calibration -------------------------------------
+
+P25519 = W25519_FIELD.p
+
+
+def _x25519_int(k, u):
+    """RFC 7748 §5 ladder on Python ints (clamped k, any u): the output u."""
+    p = P25519
+    x2, z2, x3, z3, swap = 1, 0, u % p, 1, 0
+    for t in range(254, -1, -1):
+        kt = (k >> t) & 1
+        if swap ^ kt:
+            x2, x3, z2, z3 = x3, x2, z3, z2
+        swap = kt
+        a, b, c, d = (x2 + z2) % p, (x2 - z2) % p, (x3 + z3) % p, (x3 - z3) % p
+        aa, bb, da, cb = a * a % p, b * b % p, d * a % p, c * b % p
+        e = (aa - bb) % p
+        x3, z3 = (da + cb) ** 2 % p, u * (da - cb) ** 2 % p
+        x2, z2 = aa * bb % p, e * (aa + x25519.A24 * e) % p
+    if swap:
+        x2, z2 = x3, z3
+    return x2 * pow(z2, p - 2, p) % p
+
+
+def _clamped(rng, n):
+    return [x25519.clamp(rng.bytes(32)) for _ in range(n)]
+
+
+def test_field_probe_kernel_w25519(cuda):
+    fs = W25519_FIELD
+    p = fs.p
+    rng = np.random.default_rng(80)
+    a = rand_ints(rng, p, 4096, edges=[0, 1, p - 1, p - 2, p - 19, 2**254])
+    b = rand_ints(rng, p, 4096, edges=[p - 1, p - 2, 0, 1, p - 1, 2**254])
+    ta, tb = _planes(a, cuda), _planes(b, cuda)
+    before = field_ops.KERNEL_W25519.launches
+    got = field_ops.probe(ta, tb, fs)
+    assert field_ops.KERNEL_W25519.launches == before + 1
+    assert torch.equal(got, field_ops.probe_plain(ta, tb, fs))
+    assert ints(got[0, :, :64]) == [x * y % p for x, y in zip(a[:64], b[:64])]
+    assert ints(got[1, :, :64]) == [x * x % p for x in a[:64]]
+
+
+def test_mladder_and_xdivz_kernels_match_plain_and_ints(cuda):
+    rng = np.random.default_rng(81)
+    ks = _clamped(rng, 1024)
+    us = rand_ints(rng, P25519, 1024, edges=[0, 1, P25519 - 1, 9])
+    k, u = _planes(ks, cuda), _planes(us, cuda)
+    before = (mladder.KERNEL.launches, mladder.KERNEL_XDIVZ.launches)
+    x2, z2 = mladder.mladder_planes(k, u, W25519_FIELD, x25519.A24, 255)
+    got = mladder.xdivz(x2, z2)
+    assert (mladder.KERNEL.launches, mladder.KERNEL_XDIVZ.launches) == (before[0] + 1,
+                                                                        before[1] + 1)
+    px, pz = mladder.mladder_plain(k, u, W25519_FIELD, x25519.A24, 255)
+    assert torch.equal(x2, px) and torch.equal(z2, pz)
+    assert torch.equal(got, mladder.xdivz_plain(x2, z2, W25519_FIELD))
+    assert ints(got[:, :32]) == [_x25519_int(kk, uu) for kk, uu in zip(ks[:32], us[:32])]
+    assert ints(got[:, :2]) == [0, 0]  # u = 0 and u = 1 are low order
+
+
+def test_x25519_keygen_and_exchange_on_the_card(cuda):
+    """Comb B and affine D on Wei25519 against their plain versions, then
+    derive_public and the exchange both ways against the int ladder."""
+    rng = np.random.default_rng(82)
+    ks = _clamped(rng, 512)
+    s = _planes(ks, cuda)
+    tables, negbase, nb, limbs = _comb_tables(WEI25519, cuda)
+    before = (comb.KERNEL_W25519.launches, affine.KERNEL_W25519.launches)
+    jac = comb.comb_planes(s, limbs, nb, WEI25519)
+    for kk, w in zip(jac, comb.comb_plain(s, tables, WEI25519, negbase)):
+        assert torch.equal(kk, w)
+    ax, ay = affine.affine_planes(*jac, WEI25519)
+    plain = JacobianPoint(*(GFp(t, W25519_FIELD) for t in jac), WEI25519).to_affine()
+    assert torch.equal(ax, plain.x) and torch.equal(ay, plain.y)
+    q = x25519.derive_public_planes(s)
+    assert (comb.KERNEL_W25519.launches, affine.KERNEL_W25519.launches) == (before[0] + 2,
+                                                                            before[1] + 2)
+    assert ints(q[:, :16]) == [_x25519_int(kk, 9) for kk in ks[:16]]
+    # lane i: k_i with Q_{i-1}, and k_{i-1} with Q_i
+    s12 = x25519.x25519_planes(s, torch.roll(q, 1, dims=1).contiguous())
+    s21 = x25519.x25519_planes(torch.roll(s, 1, dims=1).contiguous(), q)
+    assert torch.equal(s12, s21)
+    assert ints(s12[:, 1:9]) == [_x25519_int(kk, _x25519_int(kp, 9))
+                                 for kk, kp in zip(ks[1:9], ks[:8])]
+
+
+def test_calib_kernel_matches_plain(cuda):
+    rng = np.random.default_rng(83)
+    a, b = (torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, size=4096, dtype=np.int64)
+                             .astype(np.int32)).to(cuda) for _ in range(2))
+    before = roofline.KERNEL.launches
+    got = roofline.calib(a, b, 10)
+    assert roofline.KERNEL.launches == before + 1
+    assert torch.equal(got.cpu(), roofline.calib_plain(a.cpu(), b.cpu(), 10))
+    rate = roofline.measure_int32_ceiling(reps=1 << 10, iters=2)
+    assert rate["int32_ops_per_s"] > 0
+    assert rate["imad_per_s"] * 5 == pytest.approx(rate["int32_ops_per_s"])

@@ -146,11 +146,10 @@ def test_compares_match_jax_bignum():
 
 @pytest.mark.parametrize("fs", [SECP256K1_FIELD, W25519_FIELD, P521_FIELD], ids=lambda f: f.name)
 def test_unported_reductions_raise(fs):
-    """Crandall fields are not ported and raise; the Montgomery field of
-    secp256k1 is (tests/test_torch_mont.py) and builds."""
-    if fs.reduction != "crandall":
-        x = tfield.GFp.from_classical(tplanes([1, 2], fs.ndigits), port_spec(fs))
-        assert ints(x.to_classical()) == [1, 2]
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        tfield.GFp(tplanes([1], fs.ndigits), port_spec(fs))
+    """No reduction is left unported: the Crandall fields (2^255 - 19 and
+    P-521, ops/crandall.py, tests/test_torch_crandall.py) and the
+    Montgomery field of secp256k1 (tests/test_torch_mont.py) all build
+    GFp values, and a product round-trips through the classical domain."""
+    x = tfield.GFp.from_classical(tplanes([1, 2], fs.ndigits), port_spec(fs))
+    assert ints(x.to_classical()) == [1, 2]
+    assert ints((x * x).to_classical()) == [1, 4]

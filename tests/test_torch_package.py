@@ -13,17 +13,20 @@ import torch
 
 import ecsimd_tpu_torch
 from ecsimd_tpu.specs import P256, SECP256K1
+from ecsimd_tpu_torch.bench import roofline
 from ecsimd_tpu_torch.curves.point import AffinePoint
 from ecsimd_tpu_torch import ecdsa
-from ecsimd_tpu_torch.kernels import _build, affine, comb, field_ops, glv, ladder, window
-from tests.toy import TOY64, TOYGLV
+from ecsimd_tpu_torch.kernels import _build, affine, comb, field_ops, glv, ladder, mladder, window
+from tests.toy import CRAN64, TOY64, TOYGLV
 from tests.torch_helpers import ints, port_spec, rand_ints, tplanes
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = Path(ecsimd_tpu_torch.__file__).resolve().parent
 KERNELS = (comb.KERNEL, comb.KERNEL_STRICT, ladder.KERNEL, window.KERNEL, window.KERNEL_STRICT,
            field_ops.KERNEL, affine.KERNEL, comb.KERNEL_SECP256K1, comb.KERNEL_SECP256K1_STRICT,
-           field_ops.KERNEL_SECP256K1, affine.KERNEL_SECP256K1, glv.KERNEL, glv.KERNEL_STRICT)
+           field_ops.KERNEL_SECP256K1, affine.KERNEL_SECP256K1, glv.KERNEL, glv.KERNEL_STRICT,
+           comb.KERNEL_W25519, affine.KERNEL_W25519, field_ops.KERNEL_W25519, mladder.KERNEL,
+           mladder.KERNEL_XDIVZ, roofline.KERNEL)
 MODULES = sorted(
     "ecsimd_tpu_torch" + "".join("." + part for part in f.relative_to(PORT).with_suffix("").parts)
     for f in PORT.rglob("*.py")
@@ -35,18 +38,21 @@ def test_import_leaves_jax_out():
         "import importlib, sys\n"
         f"for m in {[m.removesuffix('.__init__') for m in MODULES]!r}:\n"
         "    importlib.import_module(m)\n"
-        "from ecsimd_tpu_torch.kernels import affine, comb, field_ops, glv, ladder, window\n"
+        "from ecsimd_tpu_torch.kernels import affine, comb, field_ops, glv, ladder, mladder, window\n"
+        "from ecsimd_tpu_torch.bench import roofline\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'ecsimd_tpu')))\n"
         "print([k.launches for k in (*comb.KERNELS.values(), ladder.KERNEL, window.KERNEL,"
         " window.KERNEL_STRICT, *field_ops.KERNELS.values(), *affine.KERNELS.values(),"
-        " glv.KERNEL, glv.KERNEL_STRICT)])\n"
+        " glv.KERNEL, glv.KERNEL_STRICT, mladder.KERNEL, mladder.KERNEL_XDIVZ, roofline.KERNEL)])\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, check=True, timeout=120).stdout.splitlines()
-    assert out == ["[]", str([0] * 13)]
+    assert out == ["[]", str([0] * len(KERNELS))]
     assert len(MODULES) > 20
     for m in ("ecsimd_tpu_torch.ecdsa", "ecsimd_tpu_torch.glv", "ecsimd_tpu_torch.kernels.glv",
-              "ecsimd_tpu_torch.oracle.field", "ecsimd_tpu_torch.ops.mont"):
+              "ecsimd_tpu_torch.oracle.field", "ecsimd_tpu_torch.ops.mont",
+              "ecsimd_tpu_torch.x25519", "ecsimd_tpu_torch.ops.crandall",
+              "ecsimd_tpu_torch.kernels.mladder", "ecsimd_tpu_torch.bench.roofline"):
         assert m in MODULES
 
 
@@ -101,6 +107,12 @@ def test_launch_counters_start_at_zero_and_cpu_paths_launch_nothing():
     glv.scalar_mult(tplanes([7, 9], 2), AffinePoint(*gg, tg))
     r, s, ok = ecdsa.sign_planes(*(tplanes(v, 2) for v in ([1, 2], [3, 4], [5, 6])), tg)
     assert ok.tolist() == [1, 1] and r.device.type == "cpu"
+    # the X25519-shaped paths: the x-only ladder and x / z on a toy Crandall
+    # field, and the calibration chains
+    cran = port_spec(CRAN64)
+    x2, z2 = mladder.mladder_planes(tplanes([7, 9], 4), tplanes([3, 4], 4), cran, 5, 8)
+    assert mladder.xdivz(x2, z2, cran).device.type == "cpu"
+    roofline.calib(torch.ones(4, dtype=torch.int32), torch.ones(4, dtype=torch.int32), 4)
     assert [k.launches for k in KERNELS] == before
     assert field_ops.probe(tplanes(a, 16), tplanes(a, 16)).device.type == "cpu"
     assert torch.equal(out, field_ops.probe_plain(tplanes(a, 16), tplanes(a[::-1], 16)))
