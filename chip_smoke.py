@@ -10,15 +10,17 @@ variable-base k_i * P_i through the co-Z ladder and through the signed
 window, each followed by the affine-conversion kernel — batched ECDH, and
 batched ECDSA sign / verify / recover on P-256 and secp256k1 (comb, strict
 window, strict GLV and affine kernels), batched X25519 keygen and exchange
-(Wei25519 comb, affine, x-only ladder and x / z kernels) and the int32
-calibration. Phases, one line each; any failed
-check raises and the script exits non-zero:
+(Wei25519 comb, affine, x-only ladder and x / z kernels), the int32
+calibration, and the comb's other schedules (tree, pipe, multi-chain and
+unrolled: kernels J, K, L). Phases, one line each; any failed check raises
+and the script exits non-zero:
 
   0. device: a CUDA card is required; prints its name, power limit and
      maximum SM clock.
   1. build: compiles every CUDA source of the port with nvcc (sm_90a), one
-     process per source, and prints the build seconds and each kernel's
-     registers, spills, stack frame and shared memory.
+     process per source, and prints the build seconds (in all and per
+     source) and each kernel's registers, spills, stack frame and shared
+     memory.
   2. field probe (kernel C) against the plain GFp: 65,536 lanes plus edge
      values, exact; 64 lanes also against Python ints.
   3. comb (kernel B, its masked shared-memory table scan) against
@@ -85,12 +87,25 @@ check raises and the script exits non-zero:
      reps, exact; then bench.roofline.measure_int32_ceiling at full reps:
      measured int32 operations and IMADs per second beside the 64 per SM
      per clock that bound() assumes.
+ 17. the comb's other schedules on P-256: kernels J (pairwise tree) and L
+     with chains 2 and 4 (unroll 1 and 2) against comb_tree_plain /
+     comb_chains_plain, K (pipe) and L with one chain (unroll 2, 4; strict,
+     n-1 included) against kernel B / B strict, on 65,536 lanes, exact; 512
+     lanes of each through kernel D against the oracle, lanes where the
+     schedule's composition on ints hits a degenerate add excluded and
+     counted. Then the path bench.py times under BENCH_CHAIN / BENCH_UNROLL
+     at B = 524,288 on phase 6's scalars: comb.scalar_mult_base(chain,
+     chains, unroll) and kernel D for each schedule, launch counts, 64
+     lanes against the oracle; each kernel exact against its plain version
+     or kernel B on the path's own inputs; CUDA-event times of each kernel,
+     of the entry point with D, and of the plain versions.
 
 Inputs come from numpy.random.default_rng(SEED). The line before the last
 is a JSON object with one entry per kernel; the last line is the device
 summary ``{"ok": true, "device": {...}}``.
 """
 
+import ctypes
 import functools
 import hashlib
 import json
@@ -109,6 +124,7 @@ from ecsimd_tpu_torch.field import GFp
 from ecsimd_tpu_torch.kernels import _build, affine, comb, field_ops, ladder, mladder, window
 from ecsimd_tpu_torch.kernels import glv as kglv
 from ecsimd_tpu_torch.ops import mont
+from ecsimd_tpu_torch.oracle import comb as ocomb
 from ecsimd_tpu_torch.oracle import coz
 from ecsimd_tpu_torch.oracle import field as ofield
 from ecsimd_tpu_torch.oracle import window as ow
@@ -122,8 +138,9 @@ MAIN_ORACLE_LANES = 64
 D = P256.field.ndigits
 N, P = P256.order, P256.p
 EDGE_SCALARS = [1, 2, 5, N - 2]
-# kernel name in the JSON line -> CUDA kernel name as -Xptxas -v reports it
-PTXAS_NAMES = {
+# kernel name in the JSON line -> the part of the CUDA kernel's (mangled)
+# name by which -Xptxas -v reports it
+PTXAS_NAMES = {k: f"{v}_kernel" for k, v in {
     "comb": "comb_p256", "comb_strict": "comb_strict_p256", "ladder": "ladder_p256",
     "window": "window_p256", "window_strict": "window_strict_p256", "affine": "affine_p256",
     "field_probe": "field_probe_p256", "comb_secp256k1": "comb_secp256k1",
@@ -132,8 +149,19 @@ PTXAS_NAMES = {
     "glv_strict": "glv_strict_secp256k1", "mladder": "mladder_w25519",
     "x25519_xdivz": "xdivz_w25519", "comb_w25519": "comb_w25519",
     "affine_w25519": "affine_w25519", "field_probe_w25519": "field_probe_w25519",
-    "calib": "calib",
+    "calib": "calib", "comb_tree": "comb_tree_p256", "comb_pipe": "comb_pipe_p256",
+}.items()}
+# kernel L, phase 17: JSON name -> (chains, unroll, strict), and the
+# entry point's keyword arguments
+SCHEDULES_L = {
+    "comb_chains2": (2, 1, False), "comb_chains2_unroll2": (2, 2, False),
+    "comb_chains4": (4, 1, False), "comb_unroll2": (1, 2, False), "comb_unroll4": (1, 4, False),
+    "comb_unroll2_strict": (1, 2, True), "comb_unroll4_strict": (1, 4, True),
 }
+PTXAS_NAMES |= {k: f"comb_chains_p256_kernelILi{c}ELi{u}ELb{int(st)}E"
+                for k, (c, u, st) in SCHEDULES_L.items()}
+SCHEDULES = {"comb_tree": {"chain": "tree"}, "comb_pipe": {"chain": "pipe"}} | {
+    k: {"chains": c, "unroll": u, "strict": st} for k, (c, u, st) in SCHEDULES_L.items()}
 
 # RFC 6979 A.2.5, P-256 with SHA-256: private key x, and (message, k, r, s)
 RFC6979_X = 0xC9AFA9D845BA75166B5C215767B1D6934E50C3DB36E89B127B8A622B120F6721
@@ -156,7 +184,7 @@ RFC6979_SHA256 = [
 # Every kernel is constant-time, so the count does not depend on the data.
 FORMULA_MS = {
     "add_z2_1": (7, 4), "zdau": (9, 7), "tplu": (6, 7), "jac_dbl": (3, 5),
-    "jac_add": (12, 4), "add_complete": (15, 9), "fe_inv": (12, 255),
+    "jac_add": (12, 4), "aff_add": (4, 2), "add_complete": (15, 9), "fe_inv": (12, 255),
     "affine_tail": (3, 1),  # z^-2, then x z^-2 and y z^-2 z^-1
     "probe": (1, 1),
     # secp256k1 (a = 0): dbl-2007-bl 1M + 7S; the complete add is jac_add
@@ -200,6 +228,13 @@ LANE_MS = {
     "comb_w25519": lane_ms((32, "add_z2_1")),
     "affine_w25519": lane_ms((1, "w_fe_inv"), (1, "affine_tail")),
     "field_probe_w25519": lane_ms((1, "probe")),
+    # phase 17: the tree's 16 affine adds, 15 general adds and the fix-up;
+    # c chains' 32 - c mixed adds, c - 1 general adds and the fix-up; the
+    # pipe and one chain at any unroll, the serial chain's 32 mixed adds
+    "comb_tree": lane_ms((16, "aff_add"), (15, "jac_add"), (1, "add_z2_1")),
+    "comb_pipe": lane_ms((32, "add_z2_1")),
+    **{k: lane_ms((33 - c, "add_z2_1"), (c - 1, "jac_add")) if not st
+       else lane_ms((32, "add_complete")) for k, (c, _, st) in SCHEDULES_L.items()},
 }
 # 32 x 32 -> 64-bit products, two 32-bit multiply-adds each. A multiply has
 # 8 x 8 products, a squaring 36 (8 squares, 28 cross products taken once).
@@ -228,6 +263,7 @@ BYTES_PER_LANE = {  # each input plane read once, each output plane written once
     "mladder": 4 * PLANE_BYTES, "x25519_xdivz": 3 * PLANE_BYTES,
     "comb_w25519": 4 * PLANE_BYTES, "affine_w25519": 5 * PLANE_BYTES,
     "field_probe_w25519": 7 * PLANE_BYTES, "calib": 3 * 4,  # per element: a, b, out
+    **{k: 4 * PLANE_BYTES for k in SCHEDULES},
 }
 COMB_TABLE_BYTES = (256 + 31 * 128) * 16 * 4  # kernel B's limb layout
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak memory bandwidth
@@ -238,6 +274,21 @@ SMS = 132
 def check(ok, what):
     if not ok:
         raise RuntimeError(f"check failed: {what}")
+
+
+def dynamic_smem(kernel):
+    """{"dynamic_smem_bytes": n}: the dynamic shared memory the runtime gives
+    a block of ``kernel`` (ptxas reports only the static part), read from
+    its source's ``<symbol>_smem`` query; {} for a kernel launched with
+    none, whose source has no such query."""
+    try:
+        fn = getattr(_build.library().lib, kernel.symbol + "_smem")
+    except AttributeError:
+        return {}
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    n = fn()
+    check(n > 0, f"{kernel.symbol}: dynamic shared memory query gave {n}")
+    return {"dynamic_smem_bytes": n}
 
 
 def random_planes(rng, n):
@@ -409,7 +460,7 @@ def resource_report(log):
     out, current = {}, None
     for line in log.splitlines():
         if "Compiling entry function" in line:
-            current = next((k for k, c in PTXAS_NAMES.items() if f"{c}_kernel" in line), None)
+            current = next((k for k, c in PTXAS_NAMES.items() if c in line), None)
         if current is None:
             continue
         words = line.replace(",", "").split()
@@ -685,6 +736,136 @@ def x25519_phases(rng, dev, card, counted):
     return out
 
 
+def schedule_args(kname):
+    return ", ".join(f"{a}={b!r}" for a, b in SCHEDULES[kname].items())
+
+
+def comb_degenerate(k, tables_np, negbase, kw):
+    """True where the composition of the schedule ``kw`` on Python ints
+    (oracle.comb) hits a degenerate add (equal or opposite x): the tree's
+    subset sums, the chains' prefix sums and their cross-chain sums, the
+    fix-up. Such lanes leave the oracle check only; kernel and plain
+    version agree on them bit for bit all the same."""
+    try:
+        if kw.get("chain") == "tree":
+            ocomb.tree(k, tables_np, negbase, P256)
+        else:
+            ocomb.chains(k, tables_np, negbase, P256, kw.get("chains", 1))
+    except ZeroDivisionError:
+        return True
+    return False
+
+
+def schedule_phase(rng, dev, card, counted, scalars, b_plain_ms):
+    """Phase 17: the comb's other schedules on P-256 — kernels J (tree), K
+    (pipe) and L (chains / unroll) — against their plain versions or kernel
+    B, the oracle, and on the path that bench.py times under BENCH_CHAIN /
+    BENCH_UNROLL: comb.scalar_mult_base(chain, chains, unroll) then kernel D,
+    at B = 524,288 on phase 6's scalars. ``b_plain_ms``: comb_plain's times
+    on those scalars (phases 6 and 9), the plain version of K and of L with
+    one chain. Returns the numbers of the kernels line."""
+    tables, negbase, nb = comb.device_tables(P256, P256.gx, P256.gy, dev)
+    limbs = comb.kernel_tables(P256, P256.gx, P256.gy, dev)
+    tables_np, negbase_ints = comb.base_tables(P256, P256.gx, P256.gy)
+    kernels = {"comb_tree": comb.KERNEL_TREE, "comb_pipe": comb.KERNEL_PIPE} | {
+        k: comb.KERNELS_CHAINS[v] for k, v in SCHEDULES_L.items()}
+
+    def run(kw, s):
+        if kw.get("chain") == "tree":
+            return comb.comb_tree_planes(s, limbs, nb)
+        if kw.get("chain") == "pipe":
+            return comb.comb_pipe_planes(s, limbs, nb)
+        return comb.comb_chains_planes(s, limbs, nb, P256, kw["chains"], kw["unroll"], kw["strict"])
+
+    def reference(kw, s):
+        """The plain version (J, L with chains > 1) or kernel B (K, L with
+        one chain) on the same inputs."""
+        if kw.get("chain") == "tree":
+            return comb.comb_tree_plain(s, tables, P256, negbase)
+        if kw.get("chains", 1) > 1:
+            return comb.comb_chains_plain(s, tables, P256, negbase, kw["chains"], kw["unroll"])
+        return comb.comb_planes(s, limbs, nb, strict=kw.get("strict", False))
+
+    out = {k: {} for k in SCHEDULES}
+    # -- 65,536 lanes against the plain versions / kernel B, 512 against the oracle
+    sets = {}
+    for strict in (False, True):
+        ks_np = scalar_planes(rng, CHECK_LANES, EDGE_SCALARS + ([N - 1] if strict else []))
+        ks = convert.planes_to_ints(ks_np[:, :ORACLE_LANES])
+        sets[strict] = (torch.from_numpy(ks_np).to(dev), ks, oracle_base(ks))
+    excluded = {}
+    for kname, kw in SCHEDULES.items():
+        s, ks, want = sets[kw.get("strict", False)]
+        got = run(kw, s)
+        out[kname]["check_err"] = max_abs_diff(got, reference(kw, s))
+        check(out[kname]["check_err"] == 0, f"{kname} kernel == its plain version / kernel B "
+                                             f"({CHECK_LANES} lanes)")
+        lanes = [i for i, k in enumerate(ks) if kw.get("strict") or not comb_degenerate(
+            k, tables_np, negbase_ints, kw)]
+        excluded[kname] = ORACLE_LANES - len(lanes)
+        aff = affine_ints(AffinePoint(*affine.affine_planes(*got), P256), ORACLE_LANES)
+        check([aff[i] for i in lanes] == [want[i] for i in lanes], f"{kname} vs oracle")
+    del got, sets
+    print(f"phase 17 comb schedules: J (tree), L (chains 2, 4) {CHECK_LANES} lanes exact vs "
+          f"comb_tree_plain / comb_chains_plain; K (pipe) and L with one chain (unroll 2, 4; "
+          f"strict, n-1 included) exact vs kernel B / B strict; {ORACLE_LANES} lanes of each "
+          f"through kernel D vs oracle (degenerate lanes excluded: {json.dumps(excluded)})",
+          flush=True)
+
+    # -- the path: entry point -> kernel J, K or L -> kernel D, at B = 524,288
+    ks = convert.planes_to_ints(scalars[:, :MAIN_ORACLE_LANES].cpu().numpy())
+    want = oracle_base(ks)
+    for k in counted:
+        k.launches = 0
+    results = {kname: affine.to_affine(comb.scalar_mult_base(scalars, P256, **kw))
+               for kname, kw in SCHEDULES.items()}
+    torch.cuda.synchronize()
+    launches17 = {k.symbol: k.launches for k in counted}
+    for kname in SCHEDULES:
+        check(launches17[kernels[kname].symbol] >= 1, f"phase 17 path launched {kname}")
+    check(launches17[affine.KERNEL.symbol] >= len(SCHEDULES), "phase 17 path launched affine")
+    main_excluded = {}
+    for kname, res in results.items():
+        check(res.x.shape == (D, BATCH) and res.y.shape == (D, BATCH), f"{kname} output shape")
+        check(res.x.dtype == torch.int32, f"{kname} output dtype")
+        check(bool(((res.x >= 0) & (res.x < 1 << 16)).all()), f"{kname} digits in range")
+        kw = SCHEDULES[kname]
+        lanes = [i for i, k in enumerate(ks) if kw.get("strict") or not comb_degenerate(
+            k, tables_np, negbase_ints, kw)]
+        main_excluded[kname] = MAIN_ORACLE_LANES - len(lanes)
+        got = affine_ints(res, MAIN_ORACLE_LANES)
+        check([got[i] for i in lanes] == [want[i] for i in lanes], f"{kname} path vs oracle")
+    del results
+
+    # -- each kernel against its plain version / kernel B on the path's inputs
+    # (these launches come after the counts were read)
+    b_out = {st: comb.comb_planes(scalars, limbs, nb, strict=st) for st in (False, True)}
+    for kname, kw in SCHEDULES.items():
+        got = run(kw, scalars)
+        if kw.get("chain") == "tree" or kw.get("chains", 1) > 1:
+            out[kname]["plain_ms"], want_planes = time_once_ms(lambda: reference(kw, scalars))
+        else:
+            out[kname]["plain_ms"] = b_plain_ms[kw.get("strict", False)]
+            want_planes = b_out[kw.get("strict", False)]
+        out[kname]["err"] = max_abs_diff(got, want_planes)
+        check(out[kname]["err"] == 0, f"{kname} kernel == its plain version / kernel B at "
+                                      f"B = {BATCH}")
+        del got, want_planes
+    del b_out
+    for kname, kw in SCHEDULES.items():
+        out[kname]["ms"] = time_ms(lambda: run(kw, scalars), 20)
+        out[kname]["api_ms"] = time_ms(
+            lambda: affine.to_affine(comb.scalar_mult_base(scalars, P256, **kw)), 10)
+    print(f"phase 17 comb schedules main path B={BATCH} (comb.scalar_mult_base -> kernel, then "
+          f"kernel D): launches {json.dumps(launches17)}; {MAIN_ORACLE_LANES} lanes of each vs "
+          f"oracle (degenerate lanes excluded: {json.dumps(main_excluded)}); each kernel exact vs "
+          f"its plain version or kernel B on the path's inputs; kernel ms "
+          f"{json.dumps({k: round(v['ms'], 3) for k, v in out.items()})}; entry point + D ms "
+          f"{json.dumps({k: round(v['api_ms'], 3) for k, v in out.items()})}; plain ms "
+          f"{json.dumps({k: round(v['plain_ms'], 1) for k, v in out.items()})} {card}", flush=True)
+    return {"launches17": launches17, "kernels": kernels, "by_kernel": out}
+
+
 def main():
     t_start = time.perf_counter()
     # -- phase 0: device ---------------------------------------------------------
@@ -777,7 +958,8 @@ def main():
     points = varbase_points(BATCH, dev)
     counted = (*comb.KERNELS.values(), ladder.KERNEL, window.KERNEL, window.KERNEL_STRICT,
                *affine.KERNELS.values(), *field_ops.KERNELS.values(), kglv.KERNEL,
-               kglv.KERNEL_STRICT, mladder.KERNEL, mladder.KERNEL_XDIVZ, roofline.KERNEL)
+               kglv.KERNEL_STRICT, mladder.KERNEL, mladder.KERNEL_XDIVZ, roofline.KERNEL,
+               comb.KERNEL_TREE, comb.KERNEL_PIPE, *comb.KERNELS_CHAINS.values())
     for k in counted:
         k.launches = 0
     out_base = api.scalar_mult_base(scalars)
@@ -1209,8 +1391,11 @@ def main():
           f"{CHECK_LANES} lanes {card}", flush=True)
 
     xp = x25519_phases(rng, dev, card, counted)
+    sp = schedule_phase(rng, dev, card, counted, scalars,
+                        {False: comb_plain_ms, True: comb_strict_plain_ms})
     paths = {"phase6": launches6, "phase9": launches9, "phase12": launches12,
-             "phase15": xp["launches15"], "phase16": xp["launches16"]}
+             "phase15": xp["launches15"], "phase16": xp["launches16"],
+             "phase17": sp["launches17"]}
 
     def entry(kernel, kname, err, ms, plain_ms, lanes=BATCH, reps=0):
         bound_ms, bound_by = bound(kname, lanes, sm_clock_mhz, reps)
@@ -1220,7 +1405,7 @@ def main():
             "launches_by_path": {k: v[kernel.symbol] for k, v in paths.items()},
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None, "lanes": lanes,
-            **res[kname],
+            **res[kname], **dynamic_smem(kernel),
         }
 
     ms_k1 = pk1["ms"]
@@ -1267,6 +1452,8 @@ def main():
         {**entry(roofline.KERNEL, "calib", xp["calib_err"], xp["ceiling"]["ms_per_launch"],
                  xp["calib_plain_ms"], lanes=xp["calib_elements"], reps=CALIB_REPS),
          "reps": CALIB_REPS, "plain_reps": CALIB_CHECK_REPS},
+        *(entry(sp["kernels"][k], k, max(v["err"], v["check_err"]), v["ms"], v["plain_ms"])
+          for k, v in sp["by_kernel"].items()),
     ]
     api_ms = {"scalar_mult_base": base_api_ms, "scalar_mult": var_api_ms,
               "scalar_mult_fast": fast_ms, "scalar_mult_fast_strict": fast_strict_ms,
@@ -1274,7 +1461,9 @@ def main():
               "ecdh.derive_public_planes": derive_ms, "ecdh.shared_secret_planes": shared_ms,
               **{f"ecdsa.{c}.{k}": v for c, pth in path12.items() for k, v in pth["ms"].items()},
               "x25519.x25519_planes": xp["x25519_planes_ms"],
-              "x25519.derive_public_planes": xp["derive_public_planes_ms"]}
+              "x25519.derive_public_planes": xp["derive_public_planes_ms"],
+              **{f"comb.scalar_mult_base({schedule_args(k)}) + affine": v["api_ms"]
+                 for k, v in sp["by_kernel"].items()}}
     # the measured int32 rate against the 64 IMAD per SM per clock bound()
     # assumes: kernel I issues 2 of its 4 instructions a chain step on the
     # multiply-add pipe (IMAD, IMAD.IADD), so that pipe's rate is 2 / 5 of

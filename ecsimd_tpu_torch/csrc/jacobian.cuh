@@ -5,15 +5,15 @@
 // after its own fe_* arithmetic and its curve's jac_dbl. So this file has no
 // include guard and includes nothing.
 //
-// Replace ecsimd_tpu/kernels/coz.py:add_z2_1_any, add_any (jac_add_generic)
-// and add_complete_any; plain twins: curves/group.py add_z2_1, jac_add and
-// add_complete. Each follows the JAX package's formula sequence operation
-// for operation; every field result is canonical, so the Jacobian planes
-// agree bit for bit. Inputs are taken by value so that callers may pass
-// outputs that alias inputs.
+// Replace ecsimd_tpu/kernels/coz.py:add_z2_1_any, add_any (jac_add_generic),
+// aff_add_any and add_complete_any; plain twins: curves/group.py add_z2_1,
+// jac_add, aff_add and add_complete. Each follows the JAX package's
+// formula sequence operation for operation; every field result is
+// canonical, so the Jacobian planes agree bit for bit. Inputs are taken
+// by value so that callers may pass outputs that alias inputs.
 //
 // Field multiplies (M) and squarings (S): add_z2_1 7M + 4S, jac_add
-// 12M + 4S, add_complete jac_add + jac_dbl.
+// 12M + 4S, aff_add 4M + 2S, add_complete jac_add + jac_dbl.
 
 // Mixed add with Z2 == 1: (x1, y1, z1) + (x2, y2, 1).
 __device__ __forceinline__ void add_z2_1(fe x1, fe y1, fe z1, fe x2, fe y2,
@@ -31,6 +31,21 @@ __device__ __forceinline__ void add_z2_1(fe x1, fe y1, fe z1, fe x2, fe y2,
   z3 = fe_sub(fe_sub(fe_sqr(fe_add(z1, h)), z1z1), hh);
   x3 = x;
   y3 = y;
+}
+
+// Affine + affine -> Jacobian (z1 = z2 = 1): H = x2 - x1, r = y2 - y1,
+// X3 = r^2 - H^3 - 2 x1 H^2, Y3 = r (x1 H^2 - X3) - y1 H^3, Z3 = H. The
+// comb tree's first level; degenerate when x1 == x2 (H == 0).
+__device__ __forceinline__ void aff_add(fe x1, fe y1, fe x2, fe y2, fe& x3, fe& y3, fe& z3) {
+  fe h = fe_sub(x2, x1);
+  fe r = fe_sub(y2, y1);
+  fe hh = fe_sqr(h);
+  fe hhh = fe_mul(h, hh);
+  fe v = fe_mul(x1, hh);
+  fe x = fe_sub(fe_sub(fe_sqr(r), hhh), fe_dbl(v));
+  y3 = fe_sub(fe_mul(r, fe_sub(v, x)), fe_mul(y1, hhh));
+  x3 = x;
+  z3 = h;
 }
 
 // General Jacobian add (add-2007-bl with Z3 = Z1 Z2 H, 12M + 4S), also

@@ -3,9 +3,9 @@
 The port of ``ecsimd_tpu/curves/group.py`` (co-Z arithmetic after
 Goundar-Joye-Miyaji, eprint 2010/309, point decompression), plus plain twins
 of the free-standing Jacobian formulas of ``ecsimd_tpu/kernels/coz.py`` that
-the window, GLV and strict comb kernels run (``dbl_am3``, ``jac_dbl``,
-``jac_add``, ``add_complete`` and the ``*_any`` dispatch over the curve's
-shape). ``scalar_mult`` here is the plain
+the window, GLV and comb kernels run (``dbl_am3``, ``jac_dbl``,
+``jac_add``, ``aff_add``, ``add_complete`` and the ``*_any`` dispatch over
+the curve's shape). ``scalar_mult`` here is the plain
 PyTorch version of the ladder kernel (``kernels/ladder.py``): the same
 formula sequence on GFp planes, one Python loop over the scalar bits, every
 step branch-free with per-lane swap masks. Since every field result is
@@ -215,6 +215,22 @@ def jac_add(x1: GFp, y1: GFp, z1: GFp, x2: GFp, y2: GFp, z2: GFp, with_hr: bool 
     if with_hr:
         return x3, y3, z3, h, r
     return x3, y3, z3
+
+
+def aff_add(x1: GFp, y1: GFp, x2: GFp, y2: GFp):
+    """Affine + affine -> Jacobian (the z1 = z2 = 1 add, 4M + 2S), the twin of
+    ``ecsimd_tpu/kernels/coz.py:aff_add_fused`` / ``aff_add_generic`` and of
+    ``aff_add`` in ``csrc/jacobian.cuh``: H = x2 - x1, r = y2 - y1,
+    X3 = r^2 - H^3 - 2 x1 H^2, Y3 = r (x1 H^2 - X3) - y1 H^3, Z3 = H.
+    Degenerate when x1 == x2 (H = 0). The comb tree's first level."""
+    h = x2 - x1
+    r = y2 - y1
+    hh = h.sqr()
+    hhh = h * hh
+    v = x1 * hh
+    x3 = r.sqr() - hhh - v.double()
+    y3 = r * (v - x3) - y1 * hhh
+    return x3, y3, h
 
 
 def add_complete(x1: GFp, y1: GFp, z1: GFp, x2: GFp, y2: GFp, z2: GFp, curve: CurveSpec):

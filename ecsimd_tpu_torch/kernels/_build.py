@@ -30,9 +30,11 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ecsimd_tpu_torch"
 SOURCES = ("field_ops.cu", "ladder.cu", "comb.cu", "affine.cu", "window.cu", "glv.cu",
-           "mladder.cu", "calib.cu")
+           "mladder.cu", "calib.cu", "comb_tree.cu", "comb_pipe.cu", "comb_chains.cu",
+           "comb_unroll.cu")
 HEADERS = ("limbs.cuh", "field_p256.cuh", "field_secp256k1.cuh", "field_w25519.cuh",
-           "jacobian.cuh", "coz_p256.cuh", "coz_secp256k1.cuh", "coz_w25519.cuh", "comb_lane.cuh")
+           "jacobian.cuh", "coz_p256.cuh", "coz_secp256k1.cuh", "coz_w25519.cuh", "comb_scan.cuh",
+           "comb_lane.cuh", "comb_chains.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",

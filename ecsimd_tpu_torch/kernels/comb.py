@@ -1,9 +1,14 @@
-"""Fixed-base comb k_i * B: kernel B (``csrc/comb.cu``, P-256, secp256k1
-and, non-strict, Wei25519), its wrapper, its plain PyTorch version and the
-host-built tables.
+"""Fixed-base comb k_i * B: the CUDA kernels of every schedule of the JAX
+package's ``comb_mont_planes`` — B (serial, ``csrc/comb.cu``; P-256,
+secp256k1 and, non-strict, Wei25519), J (pairwise tree,
+``csrc/comb_tree.cu``), K (pipelined serial chain, ``csrc/comb_pipe.cu``)
+and L (``chains`` independent chains / ``unroll`` positions a step,
+``csrc/comb_chains.cuh``), J, K and L on P-256 — their wrappers, their plain
+PyTorch versions and the host-built tables.
 
-Replaces ``ecsimd_tpu/kernels/comb.py`` (``comb_mont_planes`` with
-``chain="serial"`` and its Pallas body ``_comb_kernel``). The tables are
+Replaces ``ecsimd_tpu/kernels/comb.py`` (``comb_mont_planes`` and its
+Pallas bodies ``_comb_kernel``, ``_comb_kernel_tree`` and
+``_comb_kernel_pipe``). The tables are
 built once on the host with Python ints for the shared base: entry e of
 position i >= 1 holds the affine (2e - 255) * 2^(8i) * B, and position 0
 additionally folds in the recoding's constant top digit, so the scalar
@@ -13,21 +18,26 @@ beside it). ``_batch_inv``,
 ``_to_internal`` and ``base_tables`` are copies of the JAX package's
 pure-Python ones (a test asserts equal output); ``entry_indices`` and
 ``comb_plain`` are PyTorch ports of ``entry_indices`` and
-``comb_xla_planes``, and ``comb_plain`` is the kernel's plain version.
+``comb_xla_planes``, and ``comb_plain`` is the plain version of kernels B
+and K and of L with one chain; ``comb_tree_plain`` ports ``_tree_core`` /
+``comb_tree_host_planes`` (kernel J's plain version) and
+``comb_chains_plain`` follows ``_comb_kernel``'s multi-chain semantics
+(kernel L's).
 
 Scalar domain: k in [1, order-1), minus the measure-zero degenerate class
 of scalars whose prefix sums collide with a table entry's x line
-(``ecsimd_tpu/kernels/comb.py`` docstring); ``strict``: all of [1, order),
-k = order - 1 included (its chain ends at infinity and the fix-up resolves
-inf + (-B) = -B).
+(``ecsimd_tpu/kernels/comb.py`` docstring); the tree adds subset sums and
+multi-chain adds cross-chain sums, a wider class of the same measure;
+``strict`` (serial, one chain): all of [1, order), k = order - 1 included
+(its chain ends at infinity and the fix-up resolves inf + (-B) = -B).
 
-Kernel B reads no table word at an address that depends on the scalar, as
+No kernel reads a table word at an address that depends on the scalar, as
 the TPU kernel's one-hot read of the whole position does not: the block
 stages each position in shared memory and every lane scans all of it with
-masks. Its table layout (``kernel_tables``) keeps a position's entries as
+masks. Their table layout (``kernel_tables``) keeps a position's entries as
 32-bit limbs, and only the positive half of positions 1..31 (the sign is a
-masked negation). ``comb_plain`` keeps the indexed gather: it is the
-comparator, and runs on the main path only for CPU tensors.
+masked negation). The plain versions keep the indexed gather: they are the
+comparators, and run on the main path only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -83,6 +93,32 @@ KERNELS = {
     (SECP256K1, False): KERNEL_SECP256K1, (SECP256K1, True): KERNEL_SECP256K1_STRICT,
     (WEI25519, False): KERNEL_W25519,
 }
+KERNEL_TREE = _build.Kernel(
+    symbol="ec_comb_tree_p256",
+    source="ecsimd_tpu_torch/csrc/comb_tree.cu",
+    replaces="ecsimd_tpu/kernels/comb.py:416 _comb_kernel_tree",
+    n_pointers=6,
+)
+KERNEL_PIPE = _build.Kernel(
+    symbol="ec_comb_pipe_p256",
+    source="ecsimd_tpu_torch/csrc/comb_pipe.cu",
+    replaces="ecsimd_tpu/kernels/comb.py:337 _comb_kernel_pipe",
+    n_pointers=6,
+)
+# (chains, unroll, strict) -> kernel L instantiation on P-256; chains = unroll
+# = 1 is kernel B
+KERNELS_CHAINS = {
+    (c, u, st): _build.Kernel(
+        symbol=f"ec_comb_chains_p256_c{c}u{u}{'_strict' if st else ''}",
+        source=f"ecsimd_tpu_torch/csrc/{'comb_unroll.cu' if c == 1 else 'comb_chains.cu'}",
+        replaces=f"ecsimd_tpu/kernels/comb.py:213 _comb_kernel (chains={c}, unroll={u}"
+                 f"{', strict=True' if st else ''}; grid and permutation :624)",
+        n_pointers=6,
+    )
+    for c, u, st in ((2, 1, False), (2, 2, False), (4, 1, False), (1, 2, False), (1, 4, False),
+                     (1, 2, True), (1, 4, True))
+}
+CHAINS = ("serial", "tree", "pipe")
 
 
 def _npos(nbits: int) -> int:
@@ -179,13 +215,31 @@ def base_tables(curve: CurveSpec, bx: int, by: int):
 
 
 def tables_from_numpy(np_tables, device) -> torch.Tensor:
-    """A (npos, 256, 2D) int32 numpy table — this module's ``base_tables``
-    or the JAX package's ``ecsimd_tpu.kernels.comb.base_tables(...)[0]`` —
-    as a contiguous int32 tensor on ``device`` (a copy)."""
+    """Comb tables as (npos, 256, 2D) int32 digits on ``device`` (a copy).
+
+    Takes each table a JAX comb takes, as a numpy array (or anything
+    ``np.asarray`` reads): the int32 digits of this module's and the JAX
+    package's ``base_tables(...)[0]``; the JAX package's f32 digit tables
+    (``_device_tables``, what its tree and pipe read); and its int8
+    half-digit tables (``_device_tables8``, (npos, 256, 4D), byte 2k the low
+    byte of digit k and 2k+1 its high byte, each biased by -128)."""
     arr = np.asarray(np_tables)
-    if arr.dtype != np.int32 or arr.ndim != 3 or arr.shape[1] != NENT:
-        raise ValueError(f"expected int32 (npos, {NENT}, 2D) tables, got {arr.dtype} {arr.shape}")
-    return torch.tensor(arr, dtype=torch.int32, device=device)
+    if arr.ndim != 3 or arr.shape[1] != NENT:
+        raise ValueError(f"expected (npos, {NENT}, 2D) tables, got {arr.dtype} {arr.shape}")
+    if arr.dtype == np.float32:
+        digits = arr.astype(np.int32)
+        if not np.array_equal(digits, arr) or digits.min() < 0 or digits.max() >= 1 << DIGIT_BITS:
+            raise ValueError("f32 tables: expected integral 16-bit digits")
+    elif arr.dtype == np.int8:
+        if arr.shape[2] % 4:
+            raise ValueError(f"int8 half-digit tables: expected (npos, {NENT}, 4D), got {arr.shape}")
+        b = arr.astype(np.int32) + 128
+        digits = b[..., 0::2] | (b[..., 1::2] << 8)
+    elif arr.dtype == np.int32:
+        digits = arr
+    else:
+        raise ValueError(f"expected int32, f32 or int8 (half-digit) tables, got {arr.dtype}")
+    return torch.tensor(digits, dtype=torch.int32, device=device)
 
 
 @functools.cache
@@ -245,12 +299,8 @@ def entry_indices(scalars, curve: CurveSpec):
     return torch.stack(idx)
 
 
-def comb_plain(scalars, tables, curve: CurveSpec, negbase, strict: bool = False):
-    """Plain PyTorch comb on (D, B) planes, in the order of the JAX
-    package's ``comb_xla_planes``: seed from the position-0 entry with
-    z = 1, one ADD_Z2_1 per position 1..npos-1, then add -B on even lanes.
-    ``strict`` replaces every add with ``group.jac_add_complete`` against
-    the entry with z = 1. Returns Jacobian (ax, ay, z) int32 planes."""
+def _entry_fn(scalars, tables, curve: CurveSpec):
+    """i -> the (x, y) GFp of each lane's table entry at position i."""
     fs = curve.field
     d = fs.ndigits
     idx = entry_indices(scalars, curve)
@@ -258,6 +308,28 @@ def comb_plain(scalars, tables, curve: CurveSpec, negbase, strict: bool = False)
     def entry(i):
         e = tables[i][idx[i]].t()  # (2d, B)
         return GFp(e[:d], fs), GFp(e[d:], fs)
+
+    return entry
+
+
+def _fixup(scalars, x, y, z, negbase, add):
+    """The parity fix-up: even k computed (k + 1) B, so add -B on even lanes.
+    Returns Jacobian (ax, ay, z) int32 planes."""
+    sx, sy, sz = add(x, y, z, x.const_like(negbase[0]), x.const_like(negbase[1]))
+    meven = 1 - (scalars[0] & 1)
+    return sx.select(meven, x).planes, sy.select(meven, y).planes, sz.select(meven, z).planes
+
+
+def comb_plain(scalars, tables, curve: CurveSpec, negbase, strict: bool = False):
+    """Plain PyTorch comb on (D, B) planes, in the order of the JAX
+    package's ``comb_xla_planes``: seed from the position-0 entry with
+    z = 1, one ADD_Z2_1 per position 1..npos-1, then add -B on even lanes.
+    ``strict`` replaces every add with ``group.jac_add_complete`` against
+    the entry with z = 1. Returns Jacobian (ax, ay, z) int32 planes. The
+    plain version of kernels B and K, and of L with one chain (``unroll``
+    changes no value)."""
+    fs = curve.field
+    entry = _entry_fn(scalars, tables, curve)
 
     def add(x, y, z, ex, ey):
         if not strict:
@@ -270,10 +342,115 @@ def comb_plain(scalars, tables, curve: CurveSpec, negbase, strict: bool = False)
     z = GFp.one(fs, x.planes)
     for i in range(1, _npos(fs.nbits)):
         x, y, z = add(x, y, z, *entry(i))
+    return _fixup(scalars, x, y, z, negbase, add)
 
-    sx, sy, sz = add(x, y, z, x.const_like(negbase[0]), x.const_like(negbase[1]))
-    meven = 1 - (scalars[0] & 1)
-    return sx.select(meven, x).planes, sy.select(meven, y).planes, sz.select(meven, z).planes
+
+def comb_chains_plain(scalars, tables, curve: CurveSpec, negbase, chains: int,
+                      unroll: int = 1, strict: bool = False):
+    """Plain version of kernel L: ``chains`` independent serial chains, in
+    the order of the JAX package's ``_comb_kernel`` with ``chains > 1``.
+    Chain c sums positions c * (npos / chains) .. (c + 1) * (npos / chains)
+    - 1 in order, seeded from its first entry with z = 1 (only chain 0's
+    seed, position 0, carries the top digit), one ADD_Z2_1 per further
+    position; the chains are combined left to right with ``group.jac_add``
+    (acc_0 + acc_1, then + acc_2, ...), then the parity fix-up. ``unroll``
+    (positions a chain takes per staging step) changes no value; with one
+    chain this is ``comb_plain``, ``strict`` included. Returns Jacobian
+    (ax, ay, z) int32 planes."""
+    check_schedule(curve, "serial", chains, unroll, strict)
+    if chains == 1:
+        return comb_plain(scalars, tables, curve, negbase, strict)
+    fs = curve.field
+    entry = _entry_fn(scalars, tables, curve)
+    per = _npos(fs.nbits) // chains
+    accs = []
+    for c in range(chains):
+        x, y = entry(c * per)
+        z = GFp.one(fs, x.planes)
+        for i in range(c * per + 1, (c + 1) * per):
+            x, y, z = group.add_z2_1(x, y, z, *entry(i))
+        accs.append((x, y, z))
+    x, y, z = accs[0]
+    for acc in accs[1:]:
+        x, y, z = group.jac_add(x, y, z, *acc)
+    return _fixup(scalars, x, y, z, negbase, group.add_z2_1)
+
+
+def comb_tree_plain(scalars, tables, curve: CurveSpec, negbase):
+    """Plain version of kernel J: the JAX package's ``comb_tree_host_planes``
+    / ``_tree_core``, batched over a point axis as there. Level 1 adds entry
+    i to entry i + npos/2 (``group.aff_add``, affine + affine); each further
+    level adds node i to node i + n/2 of the n nodes left (``group.jac_add``,
+    the lower index first), an odd last node passing on unchanged; then the
+    parity fix-up. Returns Jacobian (ax, ay, z) int32 planes."""
+    fs = curve.field
+    d = fs.ndigits
+    npos = _npos(fs.nbits)
+    assert npos % 2 == 0
+    idx = entry_indices(scalars, curve)
+    ent = tables[torch.arange(npos, device=idx.device)[:, None], idx]  # (npos, B, 2d)
+    ent = ent.permute(2, 0, 1)  # (2d, npos, B): digit planes with a point axis
+
+    def part(g, a, b):
+        return GFp(g.planes[:, a:b], fs)
+
+    ex, ey = GFp(ent[:d], fs), GFp(ent[d:], fs)
+    half = npos // 2
+    x, y, z = group.aff_add(part(ex, 0, half), part(ey, 0, half),
+                            part(ex, half, npos), part(ey, half, npos))
+    while x.planes.shape[1] > 1:
+        n = x.planes.shape[1]
+        h = n // 2
+        nxt = group.jac_add(part(x, 0, h), part(y, 0, h), part(z, 0, h),
+                            part(x, h, 2 * h), part(y, h, 2 * h), part(z, h, 2 * h))
+        if n % 2:
+            nxt = [GFp(torch.cat([a.planes, b.planes[:, 2 * h:]], dim=1), fs)
+                   for a, b in zip(nxt, (x, y, z))]
+        x, y, z = nxt
+    x, y, z = (GFp(t.planes[:, 0], fs) for t in (x, y, z))
+    return _fixup(scalars, x, y, z, negbase, group.add_z2_1)
+
+
+def check_schedule(curve: CurveSpec, chain: str, chains: int, unroll: int, strict: bool):
+    """Raise ``ValueError`` on a schedule the JAX package's
+    ``comb_mont_planes`` rejects: ``chain`` not serial, tree or pipe;
+    ``npos % (unroll * chains) != 0``; ``strict`` other than with the serial
+    chain and one chain."""
+    if chain not in CHAINS:
+        raise ValueError(f"chain {chain!r}: expected one of {CHAINS}")
+    if not (isinstance(chains, int) and isinstance(unroll, int) and chains >= 1 and unroll >= 1):
+        raise ValueError(f"chains {chains!r}, unroll {unroll!r}: expected positive ints")
+    npos = _npos(curve.field.nbits)
+    if npos % (unroll * chains):
+        raise ValueError(f"npos {npos} not a multiple of unroll*chains {unroll * chains}")
+    if strict and (chain != "serial" or chains != 1):
+        raise ValueError("strict comb: serial single-chain only (tree/pipe/multi-chain keep "
+                         "the documented measure-zero degenerate class)")
+
+
+def _launch(kernel, scalars, tables, negbase_digits, curve: CurveSpec):
+    """Check the operands of a comb kernel (B, J, K or L) and launch it.
+    Returns Jacobian (ax, ay, z) planes (internal domain)."""
+    d = curve.field.ndigits
+    shape = (d, scalars.shape[-1])
+    dev = scalars.device
+    npos = _npos(curve.field.nbits)
+    _build.check_planes("scalars", scalars, shape, dev)
+    _build.check_planes("tables", tables, (NENT + (npos - 1) * NENT // 2, d), dev)
+    _build.check_planes("negbase", negbase_digits, (2 * d,), dev)
+    if tables.data_ptr() % 16:
+        raise ValueError("tables: the comb kernels stage entries as 16-byte words; need "
+                         "16-byte alignment")
+    ax, ay, z = (torch.empty(shape, dtype=torch.int32, device=dev) for _ in range(3))
+    _build.launch(kernel, [scalars, tables, negbase_digits, ax, ay, z], shape[1])
+    kernel.launches += 1
+    return ax, ay, z
+
+
+def _require_p256(curve: CurveSpec, what: str):
+    if curve != P256:
+        raise NotImplementedError(
+            f"{curve.name}: the CUDA {what} runs on P-256 only (ROADMAP B8, other curves)")
 
 
 def comb_planes(scalars, tables, negbase_digits, curve: CurveSpec = P256, strict: bool = False):
@@ -288,39 +465,80 @@ def comb_planes(scalars, tables, negbase_digits, curve: CurveSpec = P256, strict
             f"{curve.name} (strict={strict}): the CUDA comb covers P-256 and secp256k1, both "
             "modes, and Wei25519 non-strict (ROADMAP B0, other fields)"
         )
-    d = curve.field.ndigits
-    shape = (d, scalars.shape[-1])
-    dev = scalars.device
-    npos = _npos(curve.field.nbits)
-    _build.check_planes("scalars", scalars, shape, dev)
-    _build.check_planes("tables", tables, (NENT + (npos - 1) * NENT // 2, d), dev)
-    _build.check_planes("negbase", negbase_digits, (2 * d,), dev)
-    if tables.data_ptr() % 16:
-        raise ValueError("tables: kernel B stages entries as 16-byte words; need 16-byte alignment")
-    ax, ay, z = (torch.empty(shape, dtype=torch.int32, device=dev) for _ in range(3))
-    _build.launch(kernel, [scalars, tables, negbase_digits, ax, ay, z], shape[1])
-    kernel.launches += 1
-    return ax, ay, z
+    return _launch(kernel, scalars, tables, negbase_digits, curve)
+
+
+def comb_tree_planes(scalars, tables, negbase_digits, curve: CurveSpec = P256):
+    """Run kernel J, the pairwise tree, on CUDA planes (operands as
+    ``comb_planes``); bit-exact with ``comb_tree_plain``."""
+    _build.require_cuda(scalars, "comb tree")
+    _require_p256(curve, "comb tree")
+    return _launch(KERNEL_TREE, scalars, tables, negbase_digits, curve)
+
+
+def comb_pipe_planes(scalars, tables, negbase_digits, curve: CurveSpec = P256):
+    """Run kernel K, the pipelined serial chain, on CUDA planes (operands
+    as ``comb_planes``); bit-exact with kernel B and ``comb_plain``."""
+    _build.require_cuda(scalars, "comb pipe")
+    _require_p256(curve, "comb pipe")
+    return _launch(KERNEL_PIPE, scalars, tables, negbase_digits, curve)
+
+
+def comb_chains_planes(scalars, tables, negbase_digits, curve: CurveSpec = P256,
+                       chains: int = 2, unroll: int = 1, strict: bool = False):
+    """Run kernel L, ``chains`` independent chains taking ``unroll``
+    positions each per staging step, on CUDA planes (operands as
+    ``comb_planes``); bit-exact with ``comb_chains_plain`` (with one chain,
+    with kernel B)."""
+    _build.require_cuda(scalars, "comb chains")
+    check_schedule(curve, "serial", chains, unroll, strict)
+    _require_p256(curve, "comb chains")
+    kernel = KERNELS_CHAINS.get((chains, unroll, strict))
+    if kernel is None:
+        raise NotImplementedError(
+            f"chains={chains}, unroll={unroll}, strict={strict}: kernel L runs chains and unroll "
+            "in {1, 2, 4} with chains * unroll in {2, 4} (strict with one chain; chains = unroll "
+            "= 1 is kernel B); other schedules run on CPU tensors only (ROADMAP B9)")
+    return _launch(kernel, scalars, tables, negbase_digits, curve)
 
 
 def scalar_mult_base(
     scalars, curve: CurveSpec = P256, base: tuple[int, int] | None = None,
-    strict: bool = False, chains: int = 1, unroll: int = 1,
+    strict: bool = False, chain: str = "serial", chains: int = 1, unroll: int = 1,
 ) -> JacobianPoint:
     """k_i * B for a base shared by every lane (default: the generator).
 
-    scalars: (D, B) classical digit planes. Kernel B for CUDA tensors,
-    ``comb_plain`` for CPU tensors. ``strict`` uses complete additions
-    (scalar domain [1, order)). ``chains`` (independent accumulators) and
-    ``unroll`` are the JAX package's options; neither is ported yet."""
-    if chains != 1 or unroll != 1:
-        raise NotImplementedError("comb chains / unroll are not ported yet (ROADMAP B2)")
+    scalars: (D, B) classical digit planes. ``strict`` uses complete
+    additions (scalar domain [1, order); serial chain, one chain only).
+    ``chain``, ``chains`` and ``unroll`` are the JAX package's schedules:
+    ``chain="tree"`` sums the positions by a pairwise tree (kernel J),
+    ``chain="pipe"`` pipelines the serial chain (kernel K; its value is the
+    serial one), and the serial chain runs ``chains`` independent
+    accumulators taking ``unroll`` positions a step (kernel L; one chain
+    and unroll 1 is kernel B). The tree and the pipe ignore ``chains`` and
+    ``unroll`` once they are valid, as the JAX package does. CUDA tensors
+    go to the kernels, CPU tensors to the plain versions. Raises
+    ``ValueError`` on a schedule the JAX package rejects."""
+    check_schedule(curve, chain, chains, unroll, strict)
     fs = curve.field
     bx, by = (int(v) for v in (base if base is not None else (curve.gx, curve.gy)))
     tables, negbase, negbase_digits = device_tables(curve, bx, by, scalars.device)
     if scalars.device.type == "cpu":
-        ax, ay, z = comb_plain(scalars, tables, curve, negbase, strict)
+        if chain == "tree":
+            ax, ay, z = comb_tree_plain(scalars, tables, curve, negbase)
+        elif chain == "serial":
+            ax, ay, z = comb_chains_plain(scalars, tables, curve, negbase, chains, unroll, strict)
+        else:
+            ax, ay, z = comb_plain(scalars, tables, curve, negbase)
     else:
         limbs = kernel_tables(curve, bx, by, scalars.device)
-        ax, ay, z = comb_planes(scalars.contiguous(), limbs, negbase_digits, curve, strict)
+        s = scalars.contiguous()
+        if chain == "tree":
+            ax, ay, z = comb_tree_planes(s, limbs, negbase_digits, curve)
+        elif chain == "pipe":
+            ax, ay, z = comb_pipe_planes(s, limbs, negbase_digits, curve)
+        elif chains == unroll == 1:
+            ax, ay, z = comb_planes(s, limbs, negbase_digits, curve, strict)
+        else:
+            ax, ay, z = comb_chains_planes(s, limbs, negbase_digits, curve, chains, unroll, strict)
     return JacobianPoint(GFp(ax, fs), GFp(ay, fs), GFp(z, fs), curve)

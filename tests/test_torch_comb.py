@@ -127,11 +127,26 @@ def test_kernel_tables_hold_every_signed_entry(curve):
                        torch.from_numpy(tcomb.limb_layout(tables)))
 
 
-@pytest.mark.parametrize("kw", [{"chains": 2}, {"unroll": 2}], ids=lambda kw: next(iter(kw)))
+@pytest.mark.parametrize("kw", [
+    {"strict": True, "chain": "tree"}, {"strict": True, "chain": "pipe"},
+    {"strict": True, "chains": 2}, {"chains": 3}, {"unroll": 3}, {"chains": 4, "unroll": 16},
+    {"chain": "ladder"}, {"chains": 0},
+], ids=lambda kw: "-".join(f"{k}{v}" for k, v in kw.items()))
 def test_unported_options_raise(kw):
+    """Every schedule the JAX package's comb_mont_planes rejects raises
+    ValueError before any work: strict off the serial single chain, chains
+    * unroll not dividing the 32 positions, an unknown chain."""
     s = api.scalars_from_ints([3], TP256, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP B2"):
+    with pytest.raises(ValueError):
         tcomb.scalar_mult_base(s, TP256, **kw)
+
+
+@pytest.mark.parametrize("entry", [tcomb.comb_tree_planes, tcomb.comb_pipe_planes,
+                                   tcomb.comb_chains_planes], ids=lambda f: f.__name__)
+def test_schedule_kernel_entries_take_cuda_tensors_only(entry):
+    tables, _, nb = tcomb.device_tables(TP256, P256.gx, P256.gy, CPU)
+    with pytest.raises(ValueError, match="CUDA"):
+        entry(api.scalars_from_ints([3], TP256, device="cpu"), tables, nb)
 
 
 @pytest.mark.parametrize("strict", [False, True])

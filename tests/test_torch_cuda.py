@@ -8,6 +8,8 @@ also runs on a machine without JAX (tests/conftest.py imports JAX, hence
     python -m pytest tests/test_torch_cuda.py -q --noconftest -p no:cacheprovider
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -17,7 +19,7 @@ from ecsimd_tpu_torch.bench import roofline
 from ecsimd_tpu_torch.curves import group
 from ecsimd_tpu_torch.curves.point import AffinePoint, JacobianPoint
 from ecsimd_tpu_torch.field import GFp
-from ecsimd_tpu_torch.kernels import affine, comb, field_ops, ladder, mladder, window
+from ecsimd_tpu_torch.kernels import _build, affine, comb, field_ops, ladder, mladder, window
 from ecsimd_tpu_torch.kernels import glv as kglv
 from ecsimd_tpu_torch.oracle import coz
 from ecsimd_tpu_torch.oracle import window as ow
@@ -169,6 +171,91 @@ def test_strict_comb_kernel_matches_plain_and_oracle(cuda):
     for k, w in zip(got, comb.comb_plain(s, tables, P256, negbase, strict=True)):
         assert torch.equal(k, w)
     assert _affine(got, 16) == _neg_or_oracle(ks[:16], [(P256.gx, P256.gy)] * 16)
+
+
+def _jacobian_planes(out):
+    return out.x.planes, out.y.planes, out.z.planes
+
+
+@pytest.mark.parametrize("kw", [{"chain": "tree"}, {"chains": 2}, {"chains": 2, "unroll": 2},
+                                {"chains": 4}],
+                         ids=lambda kw: "-".join(f"{k}{v}" for k, v in kw.items()))
+def test_comb_schedule_kernels_match_plain_and_oracle(cuda, kw):
+    """Kernels J (tree) and L (chains 2, 4) through comb.scalar_mult_base on
+    65,536 lanes against comb_tree_plain / comb_chains_plain (exact), and 16
+    lanes against the oracle."""
+    ks, s = _scalars(65536, 90, cuda)
+    tables, negbase, _, _ = _comb_tables(P256, cuda)
+    if "chain" in kw:
+        kernel, want = comb.KERNEL_TREE, comb.comb_tree_plain(s, tables, P256, negbase)
+    else:
+        c, u = kw["chains"], kw.get("unroll", 1)
+        kernel = comb.KERNELS_CHAINS[(c, u, False)]
+        want = comb.comb_chains_plain(s, tables, P256, negbase, c, u)
+    before = kernel.launches
+    out = comb.scalar_mult_base(s, P256, **kw)
+    assert kernel.launches == before + 1
+    for k, w in zip(_jacobian_planes(out), want):
+        assert torch.equal(k, w)
+    assert _affine(_jacobian_planes(out), 16) == [
+        coz.scalar_mult_affine(k, P256.gx, P256.gy, P256) for k in ks[:16]]
+
+
+@pytest.mark.parametrize("kw", [{"chain": "pipe"}, {"unroll": 2}, {"unroll": 4},
+                                {"unroll": 2, "strict": True}, {"unroll": 4, "strict": True}],
+                         ids=lambda kw: "-".join(f"{k}{v}" for k, v in kw.items()))
+def test_comb_one_chain_kernels_match_kernel_b(cuda, kw):
+    """Kernel K (pipe) and kernel L with one chain give kernel B's Jacobian
+    planes bit for bit on 65,536 lanes (strict: kernel B strict, k = n - 1
+    on lane 4)."""
+    strict = kw.get("strict", False)
+    ks, _ = _scalars(65536, 91, cuda)
+    if strict:
+        ks[4] = P256.order - 1
+    s = _planes(ks, cuda)
+    _, _, nb, limbs = _comb_tables(P256, cuda)
+    want = comb.comb_planes(s, limbs, nb, strict=strict)
+    kernel = (comb.KERNEL_PIPE if "chain" in kw
+              else comb.KERNELS_CHAINS[(1, kw["unroll"], strict)])
+    before = kernel.launches
+    out = comb.scalar_mult_base(s, P256, **kw)
+    assert kernel.launches == before + 1
+    for k, w in zip(_jacobian_planes(out), want):
+        assert torch.equal(k, w)
+
+
+def test_comb_schedule_dynamic_smem_queries(cuda):
+    """After a launch, each of J's and L's ``<entry>_smem`` queries gives the
+    dynamic shared memory the runtime holds for it: positive, within the
+    227 KiB a Hopper block may have, and larger with four positions staged
+    a step than with two."""
+    _, s = _scalars(256, 93, cuda)
+    comb.scalar_mult_base(s, P256, chain="tree")
+    for c, u, strict in comb.KERNELS_CHAINS:
+        comb.scalar_mult_base(s, P256, chains=c, unroll=u, strict=strict)
+    torch.cuda.synchronize()
+
+    def smem(kernel):
+        fn = getattr(_build.library().lib, kernel.symbol + "_smem")
+        fn.argtypes, fn.restype = [], ctypes.c_int
+        return fn()
+
+    got = {key: smem(k) for key, k in comb.KERNELS_CHAINS.items()}
+    got["tree"] = smem(comb.KERNEL_TREE)
+    assert all(0 < v <= 227 * 1024 for v in got.values()), got
+    assert got[(1, 4, False)] > got[(1, 2, False)] and got[(4, 1, False)] > got[(2, 1, False)]
+
+
+@pytest.mark.parametrize("kw", [{"chains": 8}, {"chains": 2, "unroll": 4}, {"unroll": 8},
+                                {"chains": 4, "unroll": 2}],
+                         ids=lambda kw: "-".join(f"{k}{v}" for k, v in kw.items()))
+def test_comb_schedules_beyond_kernel_l_raise(cuda, kw):
+    """Valid schedules with chains * unroll > 4 have no kernel: on CUDA
+    tensors they raise (they run on CPU tensors, through the plain
+    version)."""
+    _, s = _scalars(256, 92, cuda)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        comb.scalar_mult_base(s, P256, **kw)
 
 
 def test_ecdh_on_the_card(cuda):

@@ -26,7 +26,8 @@ KERNELS = (comb.KERNEL, comb.KERNEL_STRICT, ladder.KERNEL, window.KERNEL, window
            field_ops.KERNEL, affine.KERNEL, comb.KERNEL_SECP256K1, comb.KERNEL_SECP256K1_STRICT,
            field_ops.KERNEL_SECP256K1, affine.KERNEL_SECP256K1, glv.KERNEL, glv.KERNEL_STRICT,
            comb.KERNEL_W25519, affine.KERNEL_W25519, field_ops.KERNEL_W25519, mladder.KERNEL,
-           mladder.KERNEL_XDIVZ, roofline.KERNEL)
+           mladder.KERNEL_XDIVZ, roofline.KERNEL, comb.KERNEL_TREE, comb.KERNEL_PIPE,
+           *comb.KERNELS_CHAINS.values())
 MODULES = sorted(
     "ecsimd_tpu_torch" + "".join("." + part for part in f.relative_to(PORT).with_suffix("").parts)
     for f in PORT.rglob("*.py")
@@ -43,7 +44,8 @@ def test_import_leaves_jax_out():
         "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'ecsimd_tpu')))\n"
         "print([k.launches for k in (*comb.KERNELS.values(), ladder.KERNEL, window.KERNEL,"
         " window.KERNEL_STRICT, *field_ops.KERNELS.values(), *affine.KERNELS.values(),"
-        " glv.KERNEL, glv.KERNEL_STRICT, mladder.KERNEL, mladder.KERNEL_XDIVZ, roofline.KERNEL)])\n"
+        " glv.KERNEL, glv.KERNEL_STRICT, mladder.KERNEL, mladder.KERNEL_XDIVZ, roofline.KERNEL,"
+        " comb.KERNEL_TREE, comb.KERNEL_PIPE, *comb.KERNELS_CHAINS.values())])\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, check=True, timeout=120).stdout.splitlines()
@@ -52,7 +54,8 @@ def test_import_leaves_jax_out():
     for m in ("ecsimd_tpu_torch.ecdsa", "ecsimd_tpu_torch.glv", "ecsimd_tpu_torch.kernels.glv",
               "ecsimd_tpu_torch.oracle.field", "ecsimd_tpu_torch.ops.mont",
               "ecsimd_tpu_torch.x25519", "ecsimd_tpu_torch.ops.crandall",
-              "ecsimd_tpu_torch.kernels.mladder", "ecsimd_tpu_torch.bench.roofline"):
+              "ecsimd_tpu_torch.kernels.mladder", "ecsimd_tpu_torch.bench.roofline",
+              "ecsimd_tpu_torch.oracle.comb"):
         assert m in MODULES
 
 
@@ -99,6 +102,10 @@ def test_launch_counters_start_at_zero_and_cpu_paths_launch_nothing():
     for strict in (False, True):
         comb.scalar_mult_base(tplanes([7, 9], 4), toy, strict=strict)
         window.scalar_mult(tplanes([7, 9], 4), AffinePoint(*g, toy), strict=strict)
+    # the comb's other schedules (kernels J, K, L on CUDA tensors)
+    for kw in ({"chain": "tree"}, {"chain": "pipe"}, {"chains": 2}, {"chains": 4, "unroll": 2},
+               {"unroll": 4, "strict": True}):
+        comb.scalar_mult_base(tplanes([7, 9], 4), toy, **kw)
     # the secp256k1-shaped paths: CIOS probe, GLV chain, ECDSA on the toy GLV curve
     k1 = port_spec(SECP256K1.field)
     assert ints(field_ops.probe(tplanes(a, 16), tplanes(a, 16), k1)[2]) == [2 * x % k1.p for x in a]
