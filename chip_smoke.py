@@ -18,11 +18,13 @@ and the script exits non-zero:
   0. device: a CUDA card is required; prints its name, power limit and
      maximum SM clock.
   1. build: compiles every CUDA source of the port with nvcc (sm_90a), one
-     process per source, and prints the build seconds (in all and per
-     source) and each kernel's registers, spills, stack frame and shared
-     memory.
-  2. field probe (kernel C) against the plain GFp: 65,536 lanes plus edge
-     values, exact; 64 lanes also against Python ints.
+     process per source, and prints the build seconds, each kernel's
+     registers, spills, stack frame and shared memory, and the SASS of
+     kernels E and F by instruction class (bench/sass.py: cuobjdump -sass,
+     each loop's body times its runs).
+  2. field probe (kernel C) against the plain GFp: 65,536 lanes, the pairs
+     of carry_edges (p - 1, p - 2^32, all-ones words, ...) first, exact; 64
+     lanes also against Python ints.
   3. comb (kernel B, its masked shared-memory table scan) against
      comb_plain: Jacobian planes, exact, 65,536 lanes; 512 lanes (edge
      scalars 1, 2, 5, n-2 first) against the oracle.
@@ -49,8 +51,9 @@ and the script exits non-zero:
      oracle; launch counts; kernels E, E strict and B strict exact against
      their plain versions on the path's own inputs; CUDA-event times of
      each kernel, its plain version and the end-to-end call.
- 10. secp256k1 field (kernel C on the CIOS Montgomery field) against the
-     plain CIOS GFp on 65,536 lanes, and 64 lanes against Python ints.
+ 10. secp256k1 field (kernel C on the Montgomery field) against the plain
+     CIOS GFp on 65,536 lanes, carry_edges pairs first, and 64 lanes
+     against Python ints.
  11. secp256k1 kernels: GLV (kernel F), plain and strict, against glv_plain
      on 65,536 lanes, and strict against the oracle on 512 lanes with
      distinct points (i+1)G and the lambda-class scalars (1, 2, lambda,
@@ -117,7 +120,7 @@ import numpy as np
 import torch
 
 from ecsimd_tpu_torch import api, convert, ecdh, ecdsa, glv, x25519
-from ecsimd_tpu_torch.bench import roofline
+from ecsimd_tpu_torch.bench import roofline, sass
 from ecsimd_tpu_torch.curves import group
 from ecsimd_tpu_torch.curves.point import AffinePoint, JacobianPoint
 from ecsimd_tpu_torch.field import GFp
@@ -239,7 +242,7 @@ LANE_MS = {
 # 32 x 32 -> 64-bit products, two 32-bit multiply-adds each. A multiply has
 # 8 x 8 products, a squaring 36 (8 squares, 28 cross products taken once).
 # The reduction: none on P-256 (Solinas: adds only); on secp256k1 the least
-# the function needs, not the kernels' CIOS (8 x (1 + 8) products): p =
+# the function needs, not the kernels' word-by-word REDC (8 x 2 products): p =
 # 2^256 - 2^32 - 977, so the high half folds in as hi * 977 (8 products)
 # plus a shift, and the fold's carry word once more (1 product).
 # On 2^255 - 19 the same: the high half folds in as hi * 38 (8 products)
@@ -289,6 +292,18 @@ def dynamic_smem(kernel):
     n = fn()
     check(n > 0, f"{kernel.symbol}: dynamic shared memory query gave {n}")
     return {"dynamic_smem_bytes": n}
+
+
+def carry_edges(p):
+    """Field values that take the field layer's carry paths: 0, 1, 2, p - 1,
+    p - 2, p - 2^32, a top word of all ones over zeros, all-ones words
+    under a top word of 0xFFFFFFFE, alternating all-ones words, 2^255 and
+    2^255 - 1. Every pair goes through the probe's mul, add and sub, and
+    each value through its sqr (the squares of top words 0xFFFFFFFF)."""
+    ones = (1 << 256) - 1
+    vals = [0, 1, 2, p - 1, p - 2, p - (1 << 32), 0xFFFFFFFF << 224, ones - (1 << 224),
+            sum(0xFFFFFFFF << (64 * i) for i in range(4)), 1 << 255, (1 << 255) - 1]
+    return [v for v in vals if v < p]
 
 
 def random_planes(rng, n):
@@ -455,23 +470,11 @@ def time_once_ms(fn):
 
 
 def resource_report(log):
-    """Registers, spills, stack frame and shared memory per kernel from
-    nvcc's -Xptxas -v output."""
-    out, current = {}, None
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            current = next((k for k, c in PTXAS_NAMES.items() if c in line), None)
-        if current is None:
-            continue
-        words = line.replace(",", "").split()
-        if "stack frame" in line and "spill stores" in line:
-            out.setdefault(current, {})["stack_frame_bytes"] = int(words[words.index("stack") - 2])
-            out[current]["spill_stores"] = int(words[words.index("spill") - 2])
-            out[current]["spill_loads"] = int(words[words.index("loads") - 3])
-        if "Used" in line and "registers" in line:
-            out.setdefault(current, {})["registers"] = int(words[words.index("registers") - 1])
-            out[current]["smem_bytes"] = int(words[words.index("smem") - 2]) if "smem" in words else 0
-    return out
+    """Registers, spills, stack frame and shared memory per kernel (by its
+    name in the JSON line) from nvcc's -Xptxas -v output."""
+    rep = sass.ptxas(log)
+    found = {k: sass.resources(rep, part) for k, part in PTXAS_NAMES.items()}
+    return {k: v for k, v in found.items() if v is not None}
 
 
 def bound(name, lanes, sm_clock_mhz, reps=0):
@@ -888,12 +891,20 @@ def main():
           f"parallel); ptxas {json.dumps(res)}", flush=True)
     for kname in PTXAS_NAMES:
         check(kname in res and "registers" in res[kname], f"ptxas report for {kname}")
+    print("phase 1 ptxas, kernels E and F (registers / spill bytes stored / loaded): " + ", ".join(
+        f"{k} {res[k]['registers']} / {res[k]['spill_stores']} / {res[k]['spill_loads']}"
+        for k in ("window", "window_strict", "glv", "glv_strict")), flush=True)
+    sass_mix = sass.report(build.path)
+    for kname, mix in sass_mix.items():
+        check(mix is not None, f"cuobjdump -sass found {kname}")
+    print("phase 1 SASS of kernels E and F, instructions a lane issues by class (cuobjdump "
+          "-sass, loop bodies times their runs): " + json.dumps(
+              {k: v["per_lane"] for k, v in sass_mix.items()}), flush=True)
 
     # -- phase 2: field probe ----------------------------------------------------
     a = random_planes(rng, CHECK_LANES)
     b = random_planes(rng, CHECK_LANES)
-    edges = [0, 1, P - 1, P - 2]
-    pairs = [(x, y) for x in edges for y in edges]
+    pairs = [(x, y) for x in carry_edges(P) for y in carry_edges(P)]
     a[:, : len(pairs)] = convert.ints_to_planes([x for x, _ in pairs], D)
     b[:, : len(pairs)] = convert.ints_to_planes([y for _, y in pairs], D)
     a_dev, b_dev = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
@@ -911,7 +922,8 @@ def main():
     check(ints[4] == [(-x) % P for x in ai], "probe opposite vs ints")
     probe_ms = time_ms(lambda: field_ops.probe(a_dev, b_dev), 20)
     probe_plain_ms = time_ms(lambda: field_ops.probe_plain(a_dev, b_dev), 3)
-    print(f"phase 2 field probe: {CHECK_LANES} lanes exact vs plain GFp and 64 vs ints; "
+    print(f"phase 2 field probe: {CHECK_LANES} lanes exact vs plain GFp (carry_edges pairs "
+          f"first) and 64 vs ints; "
           f"kernel {probe_ms:.3f} ms, plain {probe_plain_ms:.3f} ms {card}", flush=True)
 
     # -- phase 3: comb -----------------------------------------------------------
@@ -1145,13 +1157,12 @@ def main():
           f"{shared_ms:.3f} ms ({rate(shared_ms):.0f} secrets/s); plain times at the same shape, "
           f"one run each {card}", flush=True)
 
-    # -- phase 10: the secp256k1 field (kernel C on the CIOS field) ------------------
+    # -- phase 10: the secp256k1 field (kernel C on the Montgomery field) ------------
     fs_k1 = SECP256K1.field
     pk = fs_k1.p
     a = random_planes(rng, CHECK_LANES)
     b = random_planes(rng, CHECK_LANES)
-    edges = [0, 1, pk - 1, pk - 2]
-    pairs = [(x, y) for x in edges for y in edges]
+    pairs = [(x, y) for x in carry_edges(pk) for y in carry_edges(pk)]
     a[:, : len(pairs)] = convert.ints_to_planes([x for x, _ in pairs], D)
     b[:, : len(pairs)] = convert.ints_to_planes([y for _, y in pairs], D)
     a_dev, b_dev = torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
@@ -1171,7 +1182,8 @@ def main():
     check(ints[4] == [ofield.mont_opposite(x, fs_k1) for x in ai], "k1 probe opposite vs ints")
     probe_k1_ms = time_ms(lambda: field_ops.probe(a_dev, b_dev, fs_k1), 20)
     probe_k1_plain_ms = time_ms(lambda: field_ops.probe_plain(a_dev, b_dev, fs_k1), 3)
-    print(f"phase 10 secp256k1 field probe: {CHECK_LANES} lanes exact vs plain CIOS GFp and 64 vs "
+    print(f"phase 10 secp256k1 field probe: {CHECK_LANES} lanes exact vs plain CIOS GFp "
+          f"(carry_edges pairs first) and 64 vs "
           f"ints; kernel {probe_k1_ms:.3f} ms, plain {probe_k1_plain_ms:.3f} ms {card}", flush=True)
 
     # -- phase 11: the secp256k1 kernels: GLV (F), comb (B), affine (D) -------------

@@ -2,7 +2,7 @@
 //
 // Replaces ecsimd_tpu/kernels/coz.py:jac_dbl_general_a (the doubling that
 // dbl_any picks for a != -3) for a = 0, and instantiates the shared adds of
-// jacobian.cuh over the CIOS field. Plain twin: curves/group.py jac_dbl
+// jacobian.cuh over the Montgomery field. Plain twin: curves/group.py jac_dbl
 // (general a; the a term vanishes for a = 0). Same formula sequence, so the
 // canonical Montgomery-form planes agree bit for bit.
 //

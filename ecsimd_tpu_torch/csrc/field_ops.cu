@@ -1,6 +1,6 @@
 // Kernel C: field-operation probe, one lane per thread (NVIDIA Hopper,
 // sm_90a), on P-256 (field_p256.cuh, Solinas), on secp256k1
-// (field_secp256k1.cuh, CIOS Montgomery) and on 2^255 - 19
+// (field_secp256k1.cuh, Montgomery, R = 2^256) and on 2^255 - 19
 // (field_w25519.cuh, Crandall fold).
 //
 // Runs mul, sqr, add, sub and opposite of a field layer on (16, B) digit

@@ -27,58 +27,33 @@
 // both its add and its doubling; nothing is indexed or branched on by the
 // secret scalar.
 //
-// The per-lane table is kernel E's (window.cu): 8 entries x (x, y, z) x 8
-// words = 768 bytes in shared memory, one column per thread, 48 KiB for a
-// block of 64 threads. phi's x is formed after the lookup (one field
-// multiply by beta per window) instead of kept in a second table: that would
-// add 256 bytes a lane and push the block to 64 KiB.
+// The per-lane table is kernel E's (window_table.cuh): 768 bytes in shared
+// memory, read with 16-byte loads, 48 KiB for a block of 64 threads, four
+// blocks per SM. phi's x is formed after the lookup (one field multiply by
+// beta per window, beta read from device memory where it is used) instead
+// of kept in a second table: that would add 256 bytes a lane and push the
+// block to 64 KiB. The two lookup-and-adds of a window are one rolled loop,
+// so that the second lookup is not scheduled beside the first add: under
+// __launch_bounds__(64, 4) the plain chain then fits the register file and
+// the strict one spills a few words, in the parity fix-ups after the loops
+// only (ptxas -v in phase 1 of chip_smoke.py).
 //
-// What bounds it: 32-bit integer multiply-adds — per lane about 1,230 field
-// multiplies and 1,900 squarings (strict), each a CIOS multiply of 64 + 72
-// products (field_secp256k1.cuh), against 384 shared-memory words read per
-// window and 68 words of device memory per lane.
+// What bounds it: the integer pipes. A lane issues about 0.62 million
+// instructions (0.77 million strict), 55 % on the ALU pipe and 44 % on the
+// multiply-add pipe (bench/sass.py): the secp256k1 layer's sparse
+// reduction (field_secp256k1.cuh) leaves the products a larger share than
+// on P-256. 72 lookups a lane are 3,456 16-byte shared loads; device memory
+// is 68 words a lane. Tensor cores and TMA do not apply (lane-specific
+// operands, no stream of data to copy).
 
 #include "coz_secp256k1.cuh"
+#include "window_table.cuh"
 
 namespace secp256k1 {
 
-constexpr int kGlvThreads = 64;
 constexpr int kDigits = 9;  // digits of |k1| and |k2| (glv_params(SECP256K1).dk)
-constexpr int kTableEntries = 8;
-constexpr int kTableEntryWords = 24;  // x, y, z
-constexpr int kTableRows = kTableEntries * kTableEntryWords;
 
-typedef uint32_t GlvTable[kTableRows][kGlvThreads];
-
-__device__ __forceinline__ void table_put(GlvTable& tbl, int t, const fe& x, const fe& y,
-                                          const fe& z) {
-  const int j = threadIdx.x;
-#pragma unroll
-  for (int w = 0; w < 8; ++w) {
-    tbl[t * kTableEntryWords + w][j] = x.v[w];
-    tbl[t * kTableEntryWords + 8 + w][j] = y.v[w];
-    tbl[t * kTableEntryWords + 16 + w][j] = z.v[w];
-  }
-}
-
-// Entry idx of this thread's table, reading every entry: constant time.
-__device__ __forceinline__ void table_get(const GlvTable& tbl, uint32_t idx, fe& x, fe& y,
-                                          fe& z) {
-  const int j = threadIdx.x;
-  x = fe_zero();
-  y = fe_zero();
-  z = fe_zero();
-#pragma unroll
-  for (int t = 0; t < kTableEntries; ++t) {
-    const uint32_t mask = 0u - (uint32_t)(idx == (uint32_t)t);
-#pragma unroll
-    for (int w = 0; w < 8; ++w) {
-      x.v[w] |= tbl[t * kTableEntryWords + w][j] & mask;
-      y.v[w] |= tbl[t * kTableEntryWords + 8 + w][j] & mask;
-      z.v[w] |= tbl[t * kTableEntryWords + 16 + w][j] & mask;
-    }
-  }
-}
+using wtable::Table;
 
 // Signed-odd digit of the 4-bit window at bit `off` of a 16-bit digit
 // (`next` is the digit above it): table index (|d| - 1) / 2 and sign.
@@ -104,35 +79,51 @@ __device__ __forceinline__ void glv_add(fe x1, fe y1, fe z1, fe x2, fe y2, fe z2
   }
 }
 
+// beta (Montgomery form) from its 16 base-2^16 digits in device memory,
+// read where it is used: the loads are volatile, so the compiler does not
+// hoist them and keep beta in 8 registers across the loop.
+__device__ __forceinline__ fe load_beta(const int32_t* digits) {
+  uint32_t d[16];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    asm volatile("ld.global.nc.v4.u32 {%0, %1, %2, %3}, [%4];"
+                 : "=r"(d[4 * q]), "=r"(d[4 * q + 1]), "=r"(d[4 * q + 2]), "=r"(d[4 * q + 3])
+                 : "l"(digits + 4 * q));
+  }
+  fe r;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) r.v[j] = (d[2 * j] & 0xFFFFu) | (d[2 * j + 1] << 16);
+  return r;
+}
+
 template <bool kStrict>
 __device__ __forceinline__ void glv_lane(const int32_t* packed, const int32_t* xs,
                                          const int32_t* ys, const int32_t* beta_digits,
                                          int32_t* ax_out, int32_t* ay_out, int32_t* z_out,
-                                         int64_t B, int64_t i, GlvTable& tbl) {
-  const fe one = fe_one();
-  const fe beta = fe_from_digits(beta_digits);
-  const fe x = fe_load(xs, B, i);
-  const fe y = fe_load(ys, B, i);
-  const fe opp_y = fe_neg(y);
+                                         int64_t B, int64_t i, Table& tbl) {
   const uint32_t neg1 = (uint32_t)packed[(2 * kDigits) * B + i] & 1u;
   const uint32_t neg2 = (uint32_t)packed[(2 * kDigits + 1) * B + i] & 1u;
 
-  // table of odd multiples: T[0] = P, T[t] = T[t-1] + 2P
-  fe dx, dy, dz, tx = x, ty = y, tz = one;
-  jac_dbl(x, y, one, dx, dy, dz);
-  table_put(tbl, 0, tx, ty, tz);
-#pragma unroll 1
-  for (int t = 1; t < kTableEntries; ++t) {
-    fe h, r;
-    jac_add(tx, ty, tz, dx, dy, dz, tx, ty, tz, h, r);
-    table_put(tbl, t, tx, ty, tz);
-  }
-
-  // acc = s1 P + s2 phi(P)
-  const fe x2 = fe_mul(beta, x);
   fe accx, accy, accz;
-  glv_add<kStrict>(x, fe_select(neg1, opp_y, y), one, x2, fe_select(neg2, opp_y, y), one, accx,
-                   accy, accz);
+  {
+    // table of odd multiples: T[0] = P, T[t] = T[t-1] + 2P
+    const fe one = fe_one();
+    const fe x = fe_load(xs, B, i);
+    const fe y = fe_load(ys, B, i);
+    fe dx, dy, dz, tx = x, ty = y, tz = one;
+    jac_dbl(x, y, one, dx, dy, dz);
+    wtable::put(tbl, 0, tx, ty, tz);
+#pragma unroll 1
+    for (int t = 1; t < wtable::kEntries; ++t) {
+      fe h, r;
+      jac_add(tx, ty, tz, dx, dy, dz, tx, ty, tz, h, r);
+      wtable::put(tbl, t, tx, ty, tz);
+    }
+    // acc = s1 P + s2 phi(P)
+    const fe opp_y = fe_neg(y);
+    glv_add<kStrict>(x, fe_select(neg1, opp_y, y), one, fe_mul(load_beta(beta_digits), x),
+                     fe_select(neg2, opp_y, y), one, accx, accy, accz);
+  }
 
 #pragma unroll 1
   for (int dig = kDigits - 1; dig >= 0; --dig) {
@@ -142,24 +133,33 @@ __device__ __forceinline__ void glv_lane(const int32_t* packed, const int32_t* x
     const uint32_t p2n = dig + 1 < kDigits ? (uint32_t)packed[(kDigits + dig + 1) * B + i] : 0u;
 #pragma unroll 1
     for (int off = 12; off >= 0; off -= 4) {
-      uint32_t i1, s1, i2, s2;
-      recode(p1, p1n, off, i1, s1);
-      recode(p2, p2n, off, i2, s2);
 #pragma unroll 1
       for (int s = 0; s < 4; ++s) jac_dbl(accx, accy, accz, accx, accy, accz);
-      // looked up after the doublings, so the entries are not live across them
-      fe ex, ey, ez;
-      table_get(tbl, i1, ex, ey, ez);
-      ey = fe_select(s1 ^ neg1, fe_neg(ey), ey);
-      glv_add<kStrict>(accx, accy, accz, ex, ey, ez, accx, accy, accz);
-      table_get(tbl, i2, ex, ey, ez);
-      ex = fe_mul(beta, ex);
-      ey = fe_select(s2 ^ neg2, fe_neg(ey), ey);
-      glv_add<kStrict>(accx, accy, accz, ex, ey, ez, accx, accy, accz);
+      // +-T[i1], then +-phi(T[i2]): one recoding, lookup and add an
+      // iteration, so that the second lookup is not scheduled beside the
+      // first add (two entries and an add's temporaries do not fit in 255
+      // registers). The branches are on the loop counter, never on the
+      // scalar.
+#pragma unroll 1
+      for (int half = 0; half < 2; ++half) {
+        uint32_t idx, sgn;
+        recode(half ? p2 : p1, half ? p2n : p1n, off, idx, sgn);
+        fe ex, ey, ez;
+        wtable::get(tbl, idx, ex, ey, ez);
+        if (half) ex = fe_mul(load_beta(beta_digits), ex);
+        ey = fe_select(sgn ^ (half ? neg2 : neg1), fe_neg(ey), ey);
+        glv_add<kStrict>(accx, accy, accz, ex, ey, ez, accx, accy, accz);
+      }
     }
   }
 
-  // parity fix-ups: an even |k_i| was computed as |k_i| + 1; add -s_i base_i
+  // parity fix-ups: an even |k_i| was computed as |k_i| + 1; add -s_i base_i.
+  // P and phi(P) are formed again here rather than kept live across the loop.
+  const fe one = fe_one();
+  const fe x = fe_load(xs, B, i);
+  const fe y = fe_load(ys, B, i);
+  const fe opp_y = fe_neg(y);
+  const fe x2 = fe_mul(load_beta(beta_digits), x);
 #pragma unroll 1
   for (int half = 0; half < 2; ++half) {
     const fe bx = half ? x2 : x;
@@ -185,16 +185,17 @@ __device__ __forceinline__ void glv_lane(const int32_t* packed, const int32_t* x
 
 namespace {
 
-using secp256k1::kGlvThreads;
+using wtable::kThreads;
 
-// No barrier is needed: each thread reads only its own table column.
+// No barrier is needed: each thread reads only its own table column. Four
+// blocks of 64 threads an SM, as kernel E.
 #define EC_GLV_KERNEL(NAME, STRICT)                                                         \
-  __global__ void __launch_bounds__(kGlvThreads)                                            \
+  __global__ void __launch_bounds__(kThreads, 4)                                            \
   NAME(const int32_t* __restrict__ packed, const int32_t* __restrict__ xs,                  \
        const int32_t* __restrict__ ys, const int32_t* __restrict__ beta,                    \
        int32_t* __restrict__ ax, int32_t* __restrict__ ay, int32_t* __restrict__ z,         \
        int64_t B) {                                                                         \
-    __shared__ secp256k1::GlvTable tbl;                                                     \
+    __shared__ wtable::Table tbl;                                                           \
     const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;                       \
     if (i >= B) return;                                                                     \
     secp256k1::glv_lane<STRICT>(packed, xs, ys, beta, ax, ay, z, B, i, tbl);                \
@@ -207,8 +208,8 @@ template <class Kernel>
 int launch(Kernel kernel, const int32_t* packed, const int32_t* xs, const int32_t* ys,
            const int32_t* beta, int32_t* ax, int32_t* ay, int32_t* z, int64_t B, void* stream) {
   if (B > 0) {
-    const int64_t blocks = (B + kGlvThreads - 1) / kGlvThreads;
-    kernel<<<(unsigned)blocks, kGlvThreads, 0, (cudaStream_t)stream>>>(packed, xs, ys, beta, ax,
+    const int64_t blocks = (B + kThreads - 1) / kThreads;
+    kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(packed, xs, ys, beta, ax,
                                                                         ay, z, B);
   }
   return (int)cudaGetLastError();

@@ -79,12 +79,17 @@ __device__ __forceinline__ void jac_add(fe x1, fe y1, fe z1, fe x2, fe y2, fe z2
 // computed, so the time does not depend on which case a lane is in.
 __device__ __forceinline__ void add_complete(fe x1, fe y1, fe z1, fe x2, fe y2, fe z2,
                                              fe& x3, fe& y3, fe& z3) {
-  fe ax, ay, az, h, r, dx, dy, dz;
-  jac_add(x1, y1, z1, x2, y2, z2, ax, ay, az, h, r);
-  jac_dbl(x1, y1, z1, dx, dy, dz);
   const uint32_t inf1 = fe_is_zero(z1);
-  const uint32_t hz = fe_is_zero(h);
-  const uint32_t rz = fe_is_zero(r);
+  fe ax, ay, az, dx, dy, dz;
+  uint32_t hz, rz;
+  {
+    // h and r end here: only their zero tests stay live across the doubling
+    fe h, r;
+    jac_add(x1, y1, z1, x2, y2, z2, ax, ay, az, h, r);
+    hz = fe_is_zero(h);
+    rz = fe_is_zero(r);
+  }
+  jac_dbl(x1, y1, z1, dx, dy, dz);
   const uint32_t same = hz & rz & (inf1 ^ 1u);
   const uint32_t opp = hz & (rz ^ 1u) & (inf1 ^ 1u);
   az = fe_select(same, dz, fe_select(opp, fe_zero(), az));

@@ -5,8 +5,13 @@
 // package's: (16, B) int32 planes of base-2^16 digits, digit k of lane i at
 // planes[k * B + i], so neighbouring threads read neighbouring words.
 // fe_load / fe_store convert at the edges. Every field header
-// (field_p256.cuh, field_secp256k1.cuh) brings these names into its own
-// namespace, beside its modular arithmetic.
+// (field_p256.cuh, field_secp256k1.cuh, field_w25519.cuh) brings these
+// names into its own namespace, beside its modular arithmetic.
+//
+// The modular add, sub, opposite and conditional subtract are PTX carry
+// chains, one add.cc / sub.cc a word and a masked select (a 64-bit ripple
+// costs the integer ALU an add, a shift and an extract a word). What
+// bounds them: the integer ALU pipe, about 20 instructions an add or sub.
 
 #pragma once
 
@@ -96,67 +101,99 @@ __device__ __forceinline__ uint32_t fe_is_zero(const fe& a) {
   return o == 0u ? 1u : 0u;
 }
 
-// a - P if (carry or a >= P), else a. Needs a + carry * 2^256 < 2P.
+// The modular add, sub, opposite and conditional subtract below are PTX
+// carry chains on the 32-bit words: add.cc / addc and sub.cc / subc, each
+// chain inside one asm statement (the carry flag does not live from one asm
+// statement to the next). The choice at the end of each is a mask, so no
+// branch depends on the values. tests/test_torch_field_words.py
+// transcribes them instruction for instruction.
+
+// r = a + b mod 2^256; returns the carry out (0 or 1).
+__device__ __forceinline__ uint32_t add8(fe& r, const fe& a, const fe& b) {
+  uint32_t c;
+  asm("add.cc.u32 %0, %9, %17;\n\t"
+      "addc.cc.u32 %1, %10, %18;\n\t"
+      "addc.cc.u32 %2, %11, %19;\n\t"
+      "addc.cc.u32 %3, %12, %20;\n\t"
+      "addc.cc.u32 %4, %13, %21;\n\t"
+      "addc.cc.u32 %5, %14, %22;\n\t"
+      "addc.cc.u32 %6, %15, %23;\n\t"
+      "addc.cc.u32 %7, %16, %24;\n\t"
+      "addc.u32 %8, 0, 0;"
+      : "=r"(r.v[0]), "=r"(r.v[1]), "=r"(r.v[2]), "=r"(r.v[3]), "=r"(r.v[4]), "=r"(r.v[5]),
+        "=r"(r.v[6]), "=r"(r.v[7]), "=r"(c)
+      : "r"(a.v[0]), "r"(a.v[1]), "r"(a.v[2]), "r"(a.v[3]), "r"(a.v[4]), "r"(a.v[5]),
+        "r"(a.v[6]), "r"(a.v[7]), "r"(b.v[0]), "r"(b.v[1]), "r"(b.v[2]), "r"(b.v[3]),
+        "r"(b.v[4]), "r"(b.v[5]), "r"(b.v[6]), "r"(b.v[7]));
+  return c;
+}
+
+// r = a - b mod 2^256; returns x - borrow for a carry word x of a (0 or
+// 1): all ones where a + x 2^256 < b. With x = 0 that is the borrow mask.
+__device__ __forceinline__ uint32_t sub8(fe& r, const fe& a, const fe& b, uint32_t x) {
+  uint32_t m;
+  asm("sub.cc.u32 %0, %9, %17;\n\t"
+      "subc.cc.u32 %1, %10, %18;\n\t"
+      "subc.cc.u32 %2, %11, %19;\n\t"
+      "subc.cc.u32 %3, %12, %20;\n\t"
+      "subc.cc.u32 %4, %13, %21;\n\t"
+      "subc.cc.u32 %5, %14, %22;\n\t"
+      "subc.cc.u32 %6, %15, %23;\n\t"
+      "subc.cc.u32 %7, %16, %24;\n\t"
+      "subc.u32 %8, %25, 0;"
+      : "=r"(r.v[0]), "=r"(r.v[1]), "=r"(r.v[2]), "=r"(r.v[3]), "=r"(r.v[4]), "=r"(r.v[5]),
+        "=r"(r.v[6]), "=r"(r.v[7]), "=r"(m)
+      : "r"(a.v[0]), "r"(a.v[1]), "r"(a.v[2]), "r"(a.v[3]), "r"(a.v[4]), "r"(a.v[5]),
+        "r"(a.v[6]), "r"(a.v[7]), "r"(b.v[0]), "r"(b.v[1]), "r"(b.v[2]), "r"(b.v[3]),
+        "r"(b.v[4]), "r"(b.v[5]), "r"(b.v[6]), "r"(b.v[7]), "r"(x));
+  return m;
+}
+
+__device__ __forceinline__ fe fe_words(const uint32_t P[8]) {
+  fe r;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) r.v[j] = P[j];
+  return r;
+}
+
+// a - P if (carry or a >= P), else a: a is kept only where carry - borrow
+// is -1 (no carry, a < P); its sign bit spread over the word is the mask.
+// The result is canonical when a + carry * 2^256 < 2P.
 __device__ __forceinline__ fe fe_cond_sub(const fe& a, uint32_t carry, const uint32_t P[8]) {
   fe t;
-  int64_t acc = 0;
+  const uint32_t keep_a = (uint32_t)((int32_t)sub8(t, a, fe_words(P), carry) >> 31);
+  fe r;
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    acc += (int64_t)a.v[j] - (int64_t)P[j];
-    t.v[j] = (uint32_t)acc;
-    acc >>= 32;  // 0 or -1
-  }
-  const uint32_t no_borrow = (uint32_t)(acc + 1);  // 1 when a >= P
-  return fe_select(carry | no_borrow, t, a);
+  for (int j = 0; j < 8; ++j) r.v[j] = (a.v[j] & keep_a) | (t.v[j] & ~keep_a);
+  return r;
 }
 
 // (a + b) mod P for a, b in [0, P).
 __device__ __forceinline__ fe fe_add_mod(const fe& a, const fe& b, const uint32_t P[8]) {
   fe s;
-  uint64_t acc = 0;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    acc += (uint64_t)a.v[j] + b.v[j];
-    s.v[j] = (uint32_t)acc;
-    acc >>= 32;
-  }
-  return fe_cond_sub(s, (uint32_t)acc, P);
+  const uint32_t c = add8(s, a, b);
+  return fe_cond_sub(s, c, P);
 }
 
-// (a - b) mod P for a, b in [0, P).
+// (a - b) mod P for a, b in [0, P): a - b, then P added back where it
+// borrowed (P & mask).
 __device__ __forceinline__ fe fe_sub_mod(const fe& a, const fe& b, const uint32_t P[8]) {
-  fe d;
-  int64_t acc = 0;
+  fe d, pm, r;
+  const uint32_t m = sub8(d, a, b, 0u);
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    acc += (int64_t)a.v[j] - (int64_t)b.v[j];
-    d.v[j] = (uint32_t)acc;
-    acc >>= 32;
-  }
-  // a < b: add P back (mod 2^256)
-  const uint32_t mask = (uint32_t)acc;  // 0 or 0xFFFFFFFF
-  fe r;
-  uint64_t c = 0;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    c += (uint64_t)d.v[j] + (P[j] & mask);
-    r.v[j] = (uint32_t)c;
-    c >>= 32;
-  }
+  for (int j = 0; j < 8; ++j) pm.v[j] = P[j] & m;
+  add8(r, d, pm);
   return r;
 }
 
-// (-a) mod P for a in [0, P); -0 = 0.
+// (-a) mod P for a in [0, P); -0 = 0: P - a, masked to 0 where a == 0.
 __device__ __forceinline__ fe fe_neg_mod(const fe& a, const uint32_t P[8]) {
   fe d;
-  int64_t acc = 0;
+  sub8(d, fe_words(P), a, 0u);
+  const uint32_t nz = fe_is_zero(a) - 1u;  // all ones where a != 0
 #pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    acc += (int64_t)P[j] - (int64_t)a.v[j];
-    d.v[j] = (uint32_t)acc;
-    acc >>= 32;
-  }
-  return fe_select(fe_is_zero(a), a, d);
+  for (int j = 0; j < 8; ++j) d.v[j] &= nz;
+  return d;
 }
 
 }  // namespace ec

@@ -18,66 +18,34 @@
 // computes both its add and its doubling; nothing is indexed or branched on
 // by the secret scalar.
 //
-// The per-lane table is 8 entries x (x, y, z) x 8 words = 768 bytes. It
-// cannot sit in registers beside the accumulator and the field temporaries
-// (255 at most). It lives in shared memory, one column per thread (word w of
-// entry t of thread j at tbl[t * 24 + w][j], so a warp's 32 loads of one word
-// hit 32 banks): 48 KiB for a block of 64 threads, four blocks (256
-// threads) per SM. Local memory would hold it per thread too, but 768 bytes
-// for each of ~400 resident threads does not fit the L1 beside shared
-// memory, and every window re-reads the whole table (192 words), so it
-// would stream from L2.
+// The per-lane table (768 bytes) lives in shared memory and is read with
+// 16-byte loads (window_table.cuh): 48 KiB for a block of 64 threads, four
+// blocks per SM; __launch_bounds__(64, 4) holds the registers to that
+// occupancy, and both variants fit it without spilling (ptxas -v in phase 1
+// of chip_smoke.py).
 //
-// What bounds it: 32-bit integer multiply-add throughput — about 3,200
-// field multiplies per lane (3,700 strict), against 192 shared-memory words
-// read per window and 48 words of device memory per lane.
+// What bounds it: the integer ALU pipe. A lane issues about 0.86 million
+// instructions (1.0 million strict), 73 % of them on the ALU pipe (carry
+// chains, the Solinas reduction, selects) and 26 % on the multiply-add
+// pipe (bench/sass.py); the 64 table lookups are 3,072 16-byte shared
+// loads and the device memory 48 words a lane. The design: one multiply
+// core with a dedicated squaring (mul256.cuh), the reduction and the
+// modular adds on 32-bit carry chains, the 16-byte table scan, and a live
+// set that fits the register file. The tensor cores and TMA do not apply
+// (lane-specific operands, no stream of data to copy).
 
 #include "coz_p256.cuh"
+#include "window_table.cuh"
 
 namespace p256 {
 
-constexpr int kWindowThreads = 64;
-constexpr int kTableEntries = 8;
-constexpr int kTableEntryWords = 24;  // x, y, z
-constexpr int kTableRows = kTableEntries * kTableEntryWords;
-
-typedef uint32_t WindowTable[kTableRows][kWindowThreads];
-
-__device__ __forceinline__ void table_put(WindowTable& tbl, int t, const fe& x, const fe& y,
-                                          const fe& z) {
-  const int j = threadIdx.x;
-#pragma unroll
-  for (int w = 0; w < 8; ++w) {
-    tbl[t * kTableEntryWords + w][j] = x.v[w];
-    tbl[t * kTableEntryWords + 8 + w][j] = y.v[w];
-    tbl[t * kTableEntryWords + 16 + w][j] = z.v[w];
-  }
-}
-
-// Entry idx of this thread's table, reading every entry: constant time.
-__device__ __forceinline__ void table_get(const WindowTable& tbl, uint32_t idx, fe& x, fe& y,
-                                          fe& z) {
-  const int j = threadIdx.x;
-  x = fe_zero();
-  y = fe_zero();
-  z = fe_zero();
-#pragma unroll
-  for (int t = 0; t < kTableEntries; ++t) {
-    const uint32_t mask = 0u - (uint32_t)(idx == (uint32_t)t);
-#pragma unroll
-    for (int w = 0; w < 8; ++w) {
-      x.v[w] |= tbl[t * kTableEntryWords + w][j] & mask;
-      y.v[w] |= tbl[t * kTableEntryWords + 8 + w][j] & mask;
-      z.v[w] |= tbl[t * kTableEntryWords + 16 + w][j] & mask;
-    }
-  }
-}
+using wtable::Table;
 
 template <bool kStrict>
 __device__ __forceinline__ void window_lane(const int32_t* scalars, const int32_t* xs,
                                             const int32_t* ys, int32_t* ax_out,
                                             int32_t* ay_out, int32_t* z_out, int64_t B,
-                                            int64_t i, WindowTable& tbl) {
+                                            int64_t i, Table& tbl) {
   const fe one = fe_from_u32(1u);
   fe accx = fe_load(xs, B, i);
   fe accy = fe_load(ys, B, i);
@@ -86,12 +54,12 @@ __device__ __forceinline__ void window_lane(const int32_t* scalars, const int32_
   // table of odd multiples: T[0] = P, T[t] = T[t-1] + 2P
   fe dx, dy, dz, tx = accx, ty = accy, tz = one;
   jac_dbl(accx, accy, one, dx, dy, dz);
-  table_put(tbl, 0, tx, ty, tz);
+  wtable::put(tbl, 0, tx, ty, tz);
 #pragma unroll 1
-  for (int t = 1; t < kTableEntries; ++t) {
+  for (int t = 1; t < wtable::kEntries; ++t) {
     fe h, r;
     jac_add(tx, ty, tz, dx, dy, dz, tx, ty, tz, h, r);
-    table_put(tbl, t, tx, ty, tz);
+    wtable::put(tbl, t, tx, ty, tz);
   }
 
 #pragma unroll 1
@@ -109,7 +77,7 @@ __device__ __forceinline__ void window_lane(const int32_t* scalars, const int32_
       for (int s = 0; s < 4; ++s) jac_dbl(accx, accy, accz, accx, accy, accz);
       // looked up after the doublings, so the entry is not live across them
       fe ex, ey, ez;
-      table_get(tbl, (mag - 1u) >> 1, ex, ey, ez);
+      wtable::get(tbl, (mag - 1u) >> 1, ex, ey, ez);
       ey = fe_select(neg, fe_neg(ey), ey);
       if constexpr (kStrict) {
         add_complete(accx, accy, accz, ex, ey, ez, accx, accy, accz);
@@ -139,24 +107,26 @@ __device__ __forceinline__ void window_lane(const int32_t* scalars, const int32_
 
 namespace {
 
-using p256::kWindowThreads;
+using wtable::kThreads;
 
-// No barrier is needed: each thread reads only its own table column.
-__global__ void __launch_bounds__(kWindowThreads)
+// No barrier is needed: each thread reads only its own table column. Four
+// blocks of 64 threads an SM: the tables' 4 x 48 KiB of shared memory and
+// the register file (255 a thread) both allow no more.
+__global__ void __launch_bounds__(kThreads, 4)
 window_p256_kernel(const int32_t* __restrict__ scalars, const int32_t* __restrict__ xs,
                    const int32_t* __restrict__ ys, int32_t* __restrict__ ax,
                    int32_t* __restrict__ ay, int32_t* __restrict__ z, int64_t B) {
-  __shared__ p256::WindowTable tbl;
+  __shared__ wtable::Table tbl;
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= B) return;
   p256::window_lane<false>(scalars, xs, ys, ax, ay, z, B, i, tbl);
 }
 
-__global__ void __launch_bounds__(kWindowThreads)
+__global__ void __launch_bounds__(kThreads, 4)
 window_strict_p256_kernel(const int32_t* __restrict__ scalars, const int32_t* __restrict__ xs,
                           const int32_t* __restrict__ ys, int32_t* __restrict__ ax,
                           int32_t* __restrict__ ay, int32_t* __restrict__ z, int64_t B) {
-  __shared__ p256::WindowTable tbl;
+  __shared__ wtable::Table tbl;
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= B) return;
   p256::window_lane<true>(scalars, xs, ys, ax, ay, z, B, i, tbl);
@@ -170,8 +140,8 @@ extern "C" int ec_window_p256(const int32_t* scalars, const int32_t* xs, const i
                               int32_t* ax, int32_t* ay, int32_t* z, int64_t B,
                               void* stream) {
   if (B > 0) {
-    const int64_t blocks = (B + kWindowThreads - 1) / kWindowThreads;
-    window_p256_kernel<<<(unsigned)blocks, kWindowThreads, 0, (cudaStream_t)stream>>>(
+    const int64_t blocks = (B + kThreads - 1) / kThreads;
+    window_p256_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
         scalars, xs, ys, ax, ay, z, B);
   }
   return (int)cudaGetLastError();
@@ -181,8 +151,8 @@ extern "C" int ec_window_p256_strict(const int32_t* scalars, const int32_t* xs,
                                      const int32_t* ys, int32_t* ax, int32_t* ay, int32_t* z,
                                      int64_t B, void* stream) {
   if (B > 0) {
-    const int64_t blocks = (B + kWindowThreads - 1) / kWindowThreads;
-    window_strict_p256_kernel<<<(unsigned)blocks, kWindowThreads, 0, (cudaStream_t)stream>>>(
+    const int64_t blocks = (B + kThreads - 1) / kThreads;
+    window_strict_p256_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
         scalars, xs, ys, ax, ay, z, B);
   }
   return (int)cudaGetLastError();

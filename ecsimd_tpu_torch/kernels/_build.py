@@ -32,9 +32,10 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ecsimd_tpu_torch"
 SOURCES = ("field_ops.cu", "ladder.cu", "comb.cu", "affine.cu", "window.cu", "glv.cu",
            "mladder.cu", "calib.cu", "comb_tree.cu", "comb_pipe.cu", "comb_chains.cu",
            "comb_unroll.cu")
-HEADERS = ("limbs.cuh", "field_p256.cuh", "field_secp256k1.cuh", "field_w25519.cuh",
-           "jacobian.cuh", "coz_p256.cuh", "coz_secp256k1.cuh", "coz_w25519.cuh", "comb_scan.cuh",
-           "comb_lane.cuh", "comb_chains.cuh")
+HEADERS = ("limbs.cuh", "mul256.cuh", "field_p256.cuh", "field_secp256k1.cuh",
+           "field_w25519.cuh", "jacobian.cuh", "coz_p256.cuh", "coz_secp256k1.cuh",
+           "coz_w25519.cuh", "comb_scan.cuh", "comb_lane.cuh", "comb_chains.cuh",
+           "window_table.cuh")
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -59,10 +60,12 @@ class Kernel:
 
 @dataclasses.dataclass(frozen=True)
 class Build:
-    """A loaded kernel library, the seconds its build took (0.0 when it was
-    already built) and the compiler's per-kernel resource report."""
+    """A loaded kernel library, its file, the seconds its build took (0.0
+    when it was already built) and the compiler's per-kernel resource
+    report."""
 
     lib: ctypes.CDLL
+    path: Path
     seconds: float
     log: str
 
@@ -80,35 +83,36 @@ def _nvcc() -> str:
     return found
 
 
-def _digest() -> str:
+def _digest(csrc: Path, names) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in HEADERS + SOURCES:
+    for name in names:
         h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
+        h.update((csrc / name).read_bytes())
     return h.hexdigest()[:16]
 
 
-@functools.cache
-def library() -> Build:
-    """Build (if needed) and load the kernel library. Cached per process."""
-    digest = _digest()
-    so = BUILD_DIR / f"libecsimd_{digest}.so"
-    log = BUILD_DIR / f"libecsimd_{digest}.log"
+def compile_library(csrc: Path, build_dir: Path, sources=SOURCES, headers=HEADERS) -> Build:
+    """Build (if needed) and load the library of ``sources`` in ``csrc``
+    into ``build_dir``, the file named by a hash of the sources, the
+    ``headers`` and the flags."""
+    digest = _digest(csrc, tuple(headers) + tuple(sources))
+    so = build_dir / f"libecsimd_{digest}.so"
+    log = build_dir / f"libecsimd_{digest}.log"
     seconds = 0.0
     if not so.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        build_dir.mkdir(parents=True, exist_ok=True)
         # build in a private directory and rename, so that a concurrent or
         # interrupted build never leaves a partial library under the final name
-        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
             nvcc = _nvcc()
             t0 = time.perf_counter()
-            objs = [str(Path(tmp) / f"{src}.o") for src in SOURCES]
+            objs = [str(Path(tmp) / f"{src}.o") for src in sources]
             procs = [
-                subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(CSRC / src)],
+                subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(csrc / src)],
                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-                for src, obj in zip(SOURCES, objs)
+                for src, obj in zip(sources, objs)
             ]
-            outs = [(src, proc, *proc.communicate()) for src, proc in zip(SOURCES, procs)]
+            outs = [(src, proc, *proc.communicate()) for src, proc in zip(sources, procs)]
             failed = [f"{src}:\n{err}" for src, proc, _, err in outs if proc.returncode != 0]
             if failed:
                 raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
@@ -121,16 +125,28 @@ def library() -> Build:
             log.write_text("".join(out + err for _, _, out, err in outs))
             os.replace(lib_tmp, so)
     lib = ctypes.CDLL(str(so))
-    return Build(lib, seconds, log.read_text() if log.exists() else "")
+    return Build(lib, so, seconds, log.read_text() if log.exists() else "")
 
 
 @functools.cache
-def _entry(symbol: str, n_pointers: int, n_ints: int):
-    fn = getattr(library().lib, symbol)
+def library() -> Build:
+    """Build (if needed) and load this package's kernel library. Cached per
+    process."""
+    return compile_library(CSRC, BUILD_DIR)
+
+
+def entry(lib: ctypes.CDLL, symbol: str, n_pointers: int, n_ints: int):
+    """The C entry point ``symbol`` of ``lib`` with its argument types set."""
+    fn = getattr(lib, symbol)
     ints = [ctypes.c_int64] * (1 + n_ints)  # the batch, then the kernel's own ints
     fn.argtypes = [ctypes.c_void_p] * n_pointers + ints + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _entry(symbol: str, n_pointers: int, n_ints: int):
+    return entry(library().lib, symbol, n_pointers, n_ints)
 
 
 def check_planes(name: str, t: torch.Tensor, shape: tuple[int, ...], device: torch.device):

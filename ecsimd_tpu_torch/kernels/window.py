@@ -3,7 +3,7 @@ wrapper, the recoding and the plain PyTorch version.
 
 Replaces ``ecsimd_tpu/kernels/window.py`` (``window_mont_planes`` and its
 Pallas body ``_window_kernel``, both ``strict`` variants). Each lane builds
-its own table T[t] = (2t+1) P, t < 8 (one ``dbl_am3`` and seven
+its own table T[t] = (2t+1) P, t < 8 (one ``dbl_any`` and seven
 ``jac_add``), seeds the accumulator with P (the recoding's top digit is 1),
 then for each 4-bit window, MSB first: four doublings and one add of
 +-T[idx] (``jac_add``, or ``add_complete`` when ``strict``). Even scalars get
@@ -72,13 +72,15 @@ def recode(scalars, curve: CurveSpec):
 
 def window_plain(scalars, x, y, curve: CurveSpec, strict: bool = False):
     """Plain PyTorch signed window on (D, B) int32 planes: classical scalars
-    and affine point coordinates. Returns Jacobian (ax, ay, z) int32 planes,
-    in the order of ``ecsimd_tpu/kernels/window.py:_window_core``."""
+    and internal-domain affine point coordinates (Montgomery form on the
+    Montgomery fields, as ``window_mont_planes`` takes them). Returns
+    Jacobian (ax, ay, z) internal-domain int32 planes, in the order of
+    ``ecsimd_tpu/kernels/window.py:_window_core``."""
     fs = curve.field
     x, y = GFp(x, fs), GFp(y, fs)
     one = x.const_like(1)
 
-    two = group.dbl_am3(x, y, one, curve)
+    two = group.dbl_any(x, y, one, curve)
     table = [(x, y, one)]
     for _ in range(TABLE - 1):
         table.append(group.jac_add(*table[-1], *two))
@@ -93,7 +95,7 @@ def window_plain(scalars, x, y, curve: CurveSpec, strict: bool = False):
             tx, ty, tz = ex.select(m, tx), ey.select(m, ty), ez.select(m, tz)
         ty = ty.opposite().select(neg[i], ty)
         for _ in range(W):
-            ax, ay, az = group.dbl_am3(ax, ay, az, curve)
+            ax, ay, az = group.dbl_any(ax, ay, az, curve)
         if strict:
             ax, ay, az = group.add_complete(ax, ay, az, tx, ty, tz, curve)
         else:
@@ -127,11 +129,15 @@ def window_planes(scalars, x, y, curve: CurveSpec = P256, strict: bool = False):
 
 
 def scalar_mult(scalars, pt: AffinePoint, strict: bool = False) -> JacobianPoint:
-    """k_i * P_i for an affine batch: kernel E for CUDA tensors,
-    ``window_plain`` for CPU tensors. Returns Jacobian planes."""
+    """k_i * P_i for an affine batch (classical planes, converted to the
+    field's internal domain here): kernel E for CUDA tensors,
+    ``window_plain`` for CPU tensors. Returns Jacobian internal-domain
+    planes."""
     curve = pt.curve
     fs = curve.field
-    args = (scalars.contiguous(), pt.x.contiguous(), pt.y.contiguous(), curve)
+    xm = GFp.from_classical(pt.x, fs).planes.contiguous()
+    ym = GFp.from_classical(pt.y, fs).planes.contiguous()
+    args = (scalars.contiguous(), xm, ym, curve)
     if scalars.device.type == "cpu":
         ax, ay, z = window_plain(*args, strict=strict)
     else:

@@ -1,0 +1,73 @@
+"""The SASS and ptxas readers of ecsimd_tpu_torch/bench/sass.py and the
+kernel-name mapping of bench/ab.py, on made-up cuobjdump and ptxas output
+(the tools themselves need the CUDA toolkit)."""
+
+from ecsimd_tpu_torch.bench import ab, sass
+
+LISTING = """
+	code for sm_90a
+		Function : _ZN12_GLOBAL__N_118window_p256_kernelEPKiS1_S1_PiS2_S2_l
+	.headerflags	@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;     /* 0x00000a00ff017b82 */
+                                                              /* 0x000fe40000000800 */
+        /*0010*/                   S2R R0, SR_TID.X ;
+        /*0020*/                   IMAD.WIDE.U32 R2, R4, R5, R2 ;
+        /*0030*/                   IADD3.X R6, RZ, R6, RZ, P0, !PT ;
+        /*0040*/                   IMAD.MOV.U32 R7, RZ, RZ, R6 ;
+        /*0050*/                   STL [R1], R7 ;
+        /*0060*/              @!P0 BRA 0x20 ;
+        /*0070*/                   LDS.128 R8, [R3] ;
+        /*0080*/                   LDS R12, [R3+0x10] ;
+        /*0090*/               @P1 BRA 0x70 ;
+        /*00a0*/                   EXIT ;
+        /*00b0*/                   BRA 0xb0;
+		Function : _ZN12_GLOBAL__N_126glv_strict_secp256k1_kernelEPKiS1_
+        /*0000*/                   EXIT ;
+"""
+
+
+def test_classify():
+    assert sass.classify("IMAD.WIDE.U32") == "imad"
+    assert sass.classify("IMAD.HI.U32") == "imad"
+    assert sass.classify("IMAD.MOV.U32") == "imad_move"
+    assert sass.classify("IADD3.X") == "alu"
+    assert sass.classify("LOP3.LUT") == "alu"
+    assert sass.classify("LDS.128") == "lds128"
+    assert sass.classify("LDL.64") == "ldl"
+    assert sass.classify("ULDC.64") == "uniform"
+    assert sass.classify("BRA") == "control"
+
+
+def test_parse_loops_and_per_lane_counts():
+    funcs = sass.parse(LISTING)
+    assert sorted(funcs) == ["_ZN12_GLOBAL__N_118window_p256_kernelEPKiS1_S1_PiS2_S2_l",
+                             "_ZN12_GLOBAL__N_126glv_strict_secp256k1_kernelEPKiS1_"]
+    instrs = funcs["_ZN12_GLOBAL__N_118window_p256_kernelEPKiS1_S1_PiS2_S2_l"]
+    assert len(instrs) == 12
+    tree = sass.loops(instrs)
+    assert [(n["start"], n["end"]) for n in tree] == [(0x20, 0x60), (0x70, 0x90)]
+    assert tree[0]["mix"] == {"imad": 1, "alu": 1, "imad_move": 1, "stl": 1, "control": 1,
+                              "total": 5}
+    assert tree[1]["mix"] == {"lds128": 1, "lds": 2, "control": 1, "total": 3}
+    per_lane = sass.dynamic(instrs, tree, [("a", 3, []), ("b", 2, [])])
+    # outside the loops: LDC, S2R, EXIT, BRA; then 3 x 5 and 2 x 3
+    assert per_lane["total"] == 4 + 15 + 6
+    assert per_lane["imad"] == 3 and per_lane["stl"] == 3 and per_lane["lds"] == 4
+    assert sass.dynamic(instrs, tree, [("a", 3, [("inner", 2, [])])]) is None
+
+
+def test_ab_kernel_names():
+    assert ab._kernel_part("ec_window_p256") == "window_p256_kernel"
+    assert ab._kernel_part("ec_window_p256_strict") == "window_strict_p256_kernel"
+    assert ab._kernel_part("ec_glv_secp256k1_strict") == "glv_strict_secp256k1_kernel"
+    assert ab._kernel_part("ec_comb_chains_p256_c1u4_strict") == (
+        "comb_chains_p256_kernelILi1ELi4ELb1E")
+    log = ("ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118window_p256_kernelEv' "
+           "for 'sm_90a'\nptxas info    : Function properties for _ZN12_GLOBAL__N_118window_"
+           "p256_kernelEv\n    320 bytes stack frame, 160 bytes spill stores, 160 bytes spill "
+           "loads\nptxas info    : Used 255 registers, 49152 bytes smem, 400 bytes cmem[0]\n")
+    rep = sass.ptxas(log)
+    assert sass.resources(rep, "window_p256_kernel") == {
+        "stack_frame_bytes": 320, "spill_stores": 160, "spill_loads": 160, "registers": 255,
+        "smem_bytes": 49152}
+    assert sass.resources(rep, "glv_secp256k1_kernel") is None

@@ -3,8 +3,10 @@ window_plain, the plain version of kernel E, in both strict modes — against
 the JAX package's eager twin (kernels/window.window_xla_planes, the same
 compute graph as its Pallas kernel) on TOY64, and the strict variant against
 the Python-int oracle on P-256, including the adversarial scalars n - 2 and
-n - 1. The JAX P-256 twin takes minutes on the CPU and is not run.
-Tolerance: exact."""
+n - 1. The JAX P-256 twin takes minutes on the CPU and is not run. Curves
+with a != -3 (the general-a doubling, Montgomery-form inputs) meet the
+port's own oracle with no JAX call: TOYA5, and api.scalar_mult_fast on
+secp256k1 and Wei25519. Tolerance: exact."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -13,15 +15,18 @@ import pytest
 from ecsimd_tpu.kernels import window as jwindow
 from ecsimd_tpu.oracle import coz as ocoz
 from ecsimd_tpu.oracle import window as owindow
-from ecsimd_tpu.specs import P256
+from ecsimd_tpu.specs import P256, SECP256K1, WEI25519
 from ecsimd_tpu_torch import api
+from ecsimd_tpu_torch.field import GFp
+from ecsimd_tpu_torch.oracle import coz as tcoz
+from ecsimd_tpu_torch.oracle import window as tow
 from ecsimd_tpu_torch.kernels import glv as tglv
 from ecsimd_tpu_torch.kernels import window as twindow
-from tests.toy import TOY64, TOYGLV
+from tests.toy import TOY64, TOYA5, TOYGLV
 from tests.torch_helpers import ints, multiples, planes, port_spec, rand_ints, tplanes
 
 N = 8
-TTOY64, TP256 = port_spec(TOY64), port_spec(P256)
+TTOY64, TP256, TTOYA5 = port_spec(TOY64), port_spec(P256), port_spec(TOYA5)
 
 
 def _affine(out, curve):
@@ -119,3 +124,42 @@ def test_kernel_entry_takes_cuda_tensors_only(strict):
     with pytest.raises(ValueError, match="CUDA"):
         twindow.window_planes(api.scalars_from_ints([3], TP256, device="cpu"), g.x, g.y,
                               strict=strict)
+
+
+@pytest.mark.parametrize("strict", [False, True], ids=["plain", "strict"])
+def test_window_plain_general_a_toya5(strict):
+    """window_plain on an a != -3 curve over a Montgomery field: the
+    general-a doubling (group.dbl_any) on Montgomery-form planes, against
+    the port's oracle window (oracle/window.scalar_mult, generic in a).
+    The plain chain's table and doublings give the oracle's Jacobian
+    representative; the strict chain's complete adds another one, so it is
+    compared in affine form."""
+    fs = TTOYA5.field
+    p, d = fs.p, fs.ndigits
+    ks = [1, 2] + [k + 1 for k in rand_ints(np.random.default_rng(93), TOYA5.order - 2, 4)] + [
+        TOYA5.order - 1]
+    pts = multiples(TOYA5, len(ks))
+    xs, ys = [x for x, _ in pts], [y for _, y in pts]
+    xm, ym = (GFp.from_classical(tplanes(v, d), fs).planes for v in (xs, ys))
+    got = twindow.window_plain(tplanes(ks, d), xm, ym, TTOYA5, strict)
+    r_inv = pow(fs.R, -1, p)
+    jac = list(zip(*([v * r_inv % p for v in ints(t)] for t in got)))
+    want = [tow.scalar_mult(k, (x, y, 1), TTOYA5) for k, (x, y) in zip(ks, pts)]
+    if not strict:
+        assert jac == want
+    assert [tcoz.jacobian_to_affine(j, TTOYA5) for j in jac] == [
+        tcoz.jacobian_to_affine(w, TTOYA5) for w in want]
+
+
+@pytest.mark.parametrize("curve", [SECP256K1, WEI25519], ids=["secp256k1", "wei25519"])
+def test_api_scalar_mult_fast_general_a(curve):
+    """api.scalar_mult_fast on CPU tensors of the two a != -3 curves with a
+    kernel-backed comb (secp256k1: a = 0, Montgomery field; Wei25519:
+    general a, Crandall field), against the oracle's k * P."""
+    tc = port_spec(curve)
+    ks = [2, 3 + rand_ints(np.random.default_rng(94), curve.order - 4, 1)[0]]
+    pts = multiples(curve, len(ks))
+    out = api.scalar_mult_fast(api.scalars_from_ints(ks, tc, device="cpu"),
+                               api.points_from_ints(*zip(*pts), tc, device="cpu"))
+    assert list(zip(ints(out.x), ints(out.y))) == [
+        tcoz.scalar_mult_affine(k, x, y, tc) for k, (x, y) in zip(ks, pts)]
