@@ -11,17 +11,19 @@ window, each followed by the affine-conversion kernel — batched ECDH, and
 batched ECDSA sign / verify / recover on P-256 and secp256k1 (comb, strict
 window, strict GLV and affine kernels), batched X25519 keygen and exchange
 (Wei25519 comb, affine, x-only ladder and x / z kernels), the int32
-calibration, and the comb's other schedules (tree, pipe, multi-chain and
-unrolled: kernels J, K, L). Phases, one line each; any failed check raises
-and the script exits non-zero:
+calibration, the comb's other schedules (tree, pipe, multi-chain and
+unrolled: kernels J, K, L), and the variable-base kernels and the comb's
+schedules on secp256k1 and Wei25519. Phases, one line each; any failed
+check raises and the script exits non-zero:
 
   0. device: a CUDA card is required; prints its name, power limit and
      maximum SM clock.
   1. build: compiles every CUDA source of the port with nvcc (sm_90a), one
      process per source, and prints the build seconds, each kernel's
-     registers, spills, stack frame and shared memory, and the SASS of
-     kernels E and F by instruction class (bench/sass.py: cuobjdump -sass,
-     each loop's body times its runs).
+     registers, spills, stack frame and shared memory, each source's nvcc
+     seconds, and the SASS of kernels E (on the three curves) and F by
+     instruction class (bench/sass.py: cuobjdump -sass, each loop's body
+     times its runs).
   2. field probe (kernel C) against the plain GFp: 65,536 lanes, the pairs
      of carry_edges (p - 1, p - 2^32, all-ones words, ...) first, exact; 64
      lanes also against Python ints.
@@ -60,7 +62,8 @@ and the script exits non-zero:
      lambda +- 1, n-1, n-2, splits with k1 = 0 or k2 = 0); comb (B) and
      strict comb on secp256k1 against comb_plain on 65,536 lanes and the
      oracle on 512; affine (D) on secp256k1 against to_affine the same way.
- 12. the third main path at B = 524,288, on P-256 and on secp256k1: keys
+ 12. the third main path at B = 131,072 (ECDSA_BATCH, a quarter of the
+     deployment size: its time is plain PyTorch), on P-256 and on secp256k1: keys
      Q = d G (api.scalar_mult_base), ecdsa.sign_planes, verify_planes on the
      honest batch (every lane valid) and on a tampered one (r + 1, s = 0,
      s = n, r = 0, an off-curve Q, a hash = n lane, and on secp256k1 a
@@ -102,6 +105,24 @@ and the script exits non-zero:
      lanes against the oracle; each kernel exact against its plain version
      or kernel B on the path's own inputs; CUDA-event times of each kernel,
      of the entry point with D, and of the plain versions.
+ 18. the main path on secp256k1 and on Wei25519 at B = 524,288 (edge
+     scalars 1, 2, 5, n-2, n-1 first; points (i+1)G, lane 0 and every lane
+     from 512 on the generator itself): api.scalar_mult (kernel A),
+     api.scalar_mult_fast plain and strict (E, E strict),
+     api.scalar_mult_shared_fast, and comb.scalar_mult_base with each of
+     phase 17's schedules (J, K, L), each followed by kernel D; on Wei25519
+     also ECDH (two parties' keys, shared secrets both ways with a zero
+     scalar, scalar = n, an off-curve peer and x = p: E strict) and
+     api.scalar_mult_base(strict=True) (B strict). ECDSA is not run there:
+     the JAX package and the port refuse it on Wei25519, whose order n has
+     253 bits (ecdsa.curve_order_big_enough: a 256-bit hash is reduced mod
+     n by one subtraction, so 2n > 2^256 is required). Launch counts; 512 lanes
+     of each result against the oracle (each schedule's and the plain
+     window's degenerate lanes, and n-1 on the ladder, excluded and
+     counted); masks exact; each new kernel exact against its plain
+     version, or kernel B for K and one-chain L, on the path's own 524,288
+     lanes; CUDA-event times of each kernel, of the entry points and of the
+     plain versions.
 
 Inputs come from numpy.random.default_rng(SEED). The line before the last
 is a JSON object with one entry per kernel; the last line is the device
@@ -135,6 +156,10 @@ from ecsimd_tpu_torch.specs import P256, SECP256K1, W25519_FIELD, WEI25519
 
 SEED = 0xEC51
 BATCH = 524288  # bench.py's deployment size
+# phase 12, ECDSA: its calls are 94-99 % plain PyTorch whose time grows with
+# the batch; run at a quarter of the deployment size since phase 18 was
+# added, to keep the whole run near half its time limit
+ECDSA_BATCH = BATCH // 4
 CHECK_LANES = 65536  # kernel against plain version, exact
 ORACLE_LANES = 512  # against the Python-int oracle, as bench.py verifies
 MAIN_ORACLE_LANES = 64
@@ -165,6 +190,29 @@ PTXAS_NAMES |= {k: f"comb_chains_p256_kernelILi{c}ELi{u}ELb{int(st)}E"
                 for k, (c, u, st) in SCHEDULES_L.items()}
 SCHEDULES = {"comb_tree": {"chain": "tree"}, "comb_pipe": {"chain": "pipe"}} | {
     k: {"chains": c, "unroll": u, "strict": st} for k, (c, u, st) in SCHEDULES_L.items()}
+# phase 18: the curves beyond P-256 and their tag in the C names
+CURVES18 = {c: tag for c, (tag, _) in _build.CURVE_TAGS.items() if c != P256}
+
+
+def curve_kernels(curve):
+    """Phase 18's kernels on ``curve``: JSON name -> kernel."""
+    tag = CURVES18[curve]
+    out = {f"ladder_{tag}": ladder.KERNELS[curve], f"window_{tag}": window.KERNELS[(curve, False)],
+           f"window_strict_{tag}": window.KERNELS[(curve, True)]}
+    if curve == WEI25519:
+        out["comb_strict_w25519"] = comb.KERNELS[(curve, True)]
+    out[f"comb_tree_{tag}"] = comb.KERNELS_TREE[curve]
+    out[f"comb_pipe_{tag}"] = comb.KERNELS_PIPE[curve]
+    out |= {f"{k}_{tag}": comb.KERNELS_CHAINS[(curve, *v)] for k, v in SCHEDULES_L.items()}
+    return out
+
+
+for _tag in CURVES18.values():
+    PTXAS_NAMES |= {f"{k}_{_tag}": f"{k}_{_tag}_kernel"
+                    for k in ("ladder", "window", "window_strict", "comb_tree", "comb_pipe")}
+    PTXAS_NAMES |= {f"{k}_{_tag}": f"comb_chains_{_tag}_kernelILi{c}ELi{u}ELb{int(st)}E"
+                    for k, (c, u, st) in SCHEDULES_L.items()}
+PTXAS_NAMES["comb_strict_w25519"] = "comb_strict_w25519_kernel"
 
 # RFC 6979 A.2.5, P-256 with SHA-256: private key x, and (message, k, r, s)
 RFC6979_X = 0xC9AFA9D845BA75166B5C215767B1D6934E50C3DB36E89B127B8A622B120F6721
@@ -180,8 +228,10 @@ RFC6979_SHA256 = [
 # The least time the card could take for a kernel's work (bound_ms): the
 # larger of its bytes over the memory rate and its 32-bit multiply-adds over
 # the IMAD rate. Field multiplies (M) and squarings (S) per formula, counted
-# in csrc/coz_p256.cuh, coz_secp256k1.cuh, jacobian.cuh and the field
-# headers. An inversion z^(p - 2) is charged the shortest known addition
+# in csrc/coz.cuh, coz_p256.cuh, coz_secp256k1.cuh, coz_w25519.cuh,
+# jacobian.cuh and the field headers; each curve is charged its own doubling
+# (a = -3: 3M + 5S; secp256k1, a = 0: 1M + 7S; Wei25519, general a:
+# 2M + 8S) and the complete add that calls it. An inversion z^(p - 2) is charged the shortest known addition
 # chain, not the kernels' square-and-multiply: 255 S + 12 M on P-256 (runs
 # of 32, 1 and 94 ones), 255 S + 15 M on secp256k1 (libsecp256k1's chain).
 # Every kernel is constant-time, so the count does not depend on the data.
@@ -195,9 +245,14 @@ FORMULA_MS = {
     "k1_jac_dbl": (1, 7), "k1_add_complete": (13, 11), "k1_fe_inv": (15, 255),
     "k1_affine_tail": (5, 1), "beta": (1, 0),
     # 2^255 - 19: the ladder step (5M + 4S, a24 e counted apart), the
-    # addition chain z^(p - 2) (254 S + 11 M) and kernel H's x z^-1
+    # addition chain z^(p - 2) (254 S + 11 M) and kernel H's x z^-1;
+    # Wei25519's doubling (general a) and complete add
     "ladder_step": (5, 4), "w_fe_inv": (11, 254), "xdivz": (12, 254),
+    "w_jac_dbl": (2, 8), "w_add_complete": (14, 12),
 }
+# curve tag -> its doubling and complete add in FORMULA_MS
+CURVE_FORMULAS = {"p256": ("jac_dbl", "add_complete"), "secp256k1": ("k1_jac_dbl",
+                  "k1_add_complete"), "w25519": ("w_jac_dbl", "w_add_complete")}
 
 
 def lane_ms(*terms):
@@ -205,13 +260,31 @@ def lane_ms(*terms):
     return tuple(sum(n * FORMULA_MS[f][i] for n, f in terms) for i in (0, 1))
 
 
+def schedule_ms(tag):
+    """(M, S) per lane of the variable-base kernels and the comb's
+    schedules on the curve ``tag``, by JSON name without the tag."""
+    dbl, add_c = CURVE_FORMULAS[tag]
+    return {
+        "ladder": lane_ms((1, "tplu"), (254, "zdau"), (1, "add_z2_1")),
+        "window": lane_ms((257, dbl), (71, "jac_add"), (1, "add_z2_1")),
+        "window_strict": lane_ms((257, dbl), (7, "jac_add"), (65, add_c)),
+        "comb_strict": lane_ms((32, add_c)),
+        # the tree's 16 affine adds, 15 general adds and the fix-up; c
+        # chains' 32 - c mixed adds, c - 1 general adds and the fix-up; the
+        # pipe and one chain at any unroll, the serial chain's 32 mixed adds
+        "comb_tree": lane_ms((16, "aff_add"), (15, "jac_add"), (1, "add_z2_1")),
+        "comb_pipe": lane_ms((32, "add_z2_1")),
+        **{k: lane_ms((33 - c, "add_z2_1"), (c - 1, "jac_add")) if not st
+           else lane_ms((32, add_c)) for k, (c, _, st) in SCHEDULES_L.items()},
+    }
+
+
 GLV_WINDOWS = 4 * kglv.KERNEL_DIGITS  # 36 windows of 4 doublings and two adds
 LANE_MS = {
     "comb": lane_ms((32, "add_z2_1")),
     "comb_strict": lane_ms((32, "add_complete")),
-    "ladder": lane_ms((1, "tplu"), (254, "zdau"), (1, "add_z2_1")),
-    "window": lane_ms((257, "jac_dbl"), (71, "jac_add"), (1, "add_z2_1")),
-    "window_strict": lane_ms((257, "jac_dbl"), (7, "jac_add"), (65, "add_complete")),
+    **{k: v for k, v in schedule_ms("p256").items()
+       if k in ("ladder", "window", "window_strict")},
     "affine": lane_ms((1, "fe_inv"), (1, "affine_tail")),
     "field_probe": lane_ms((1, "probe")),
     "comb_secp256k1": lane_ms((32, "add_z2_1")),
@@ -231,13 +304,11 @@ LANE_MS = {
     "comb_w25519": lane_ms((32, "add_z2_1")),
     "affine_w25519": lane_ms((1, "w_fe_inv"), (1, "affine_tail")),
     "field_probe_w25519": lane_ms((1, "probe")),
-    # phase 17: the tree's 16 affine adds, 15 general adds and the fix-up;
-    # c chains' 32 - c mixed adds, c - 1 general adds and the fix-up; the
-    # pipe and one chain at any unroll, the serial chain's 32 mixed adds
-    "comb_tree": lane_ms((16, "aff_add"), (15, "jac_add"), (1, "add_z2_1")),
-    "comb_pipe": lane_ms((32, "add_z2_1")),
-    **{k: lane_ms((33 - c, "add_z2_1"), (c - 1, "jac_add")) if not st
-       else lane_ms((32, "add_complete")) for k, (c, _, st) in SCHEDULES_L.items()},
+    # phase 17
+    **{k: v for k, v in schedule_ms("p256").items() if k in SCHEDULES},
+    # phase 18: every kernel of curve_kernels, on its own curve's formulas
+    **{f"{k}_{tag}": v for tag in CURVES18.values() for k, v in schedule_ms(tag).items()
+       if k != "comb_strict" or tag == "w25519"},
 }
 # 32 x 32 -> 64-bit products, two 32-bit multiply-adds each. A multiply has
 # 8 x 8 products, a squaring 36 (8 squares, 28 cross products taken once).
@@ -250,9 +321,8 @@ LANE_MS = {
 # 8 products and that 1-product fold, once per bit.
 IMADS_PER_MUL, IMADS_PER_SQR = 2 * 64, 2 * 36
 FOLD_IMADS = 2 * (8 + 1)
-FOLD_FIELD = {"comb_secp256k1", "comb_strict_secp256k1", "affine_secp256k1",
-              "field_probe_secp256k1", "glv", "glv_strict", "mladder", "x25519_xdivz",
-              "comb_w25519", "affine_w25519", "field_probe_w25519"}
+FOLD_FIELD = {"glv", "glv_strict", "mladder", "x25519_xdivz"} | {
+    k for k in LANE_MS if k.endswith(tuple(CURVES18.values()))}
 SMALL_IMADS = {"mladder": 255 * 2 * (8 + 1)}
 PLANE_BYTES = D * 4  # one (16,) int32 digit column per lane
 BYTES_PER_LANE = {  # each input plane read once, each output plane written once
@@ -267,6 +337,8 @@ BYTES_PER_LANE = {  # each input plane read once, each output plane written once
     "comb_w25519": 4 * PLANE_BYTES, "affine_w25519": 5 * PLANE_BYTES,
     "field_probe_w25519": 7 * PLANE_BYTES, "calib": 3 * 4,  # per element: a, b, out
     **{k: 4 * PLANE_BYTES for k in SCHEDULES},
+    **{f"{k}_{tag}": (6 if k.startswith(("ladder", "window")) else 4) * PLANE_BYTES
+       for tag in CURVES18.values() for k in schedule_ms(tag)},
 }
 COMB_TABLE_BYTES = (256 + 31 * 128) * 16 * 4  # kernel B's limb layout
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak memory bandwidth
@@ -384,12 +456,12 @@ def oracle_varbase(ks, curve=P256):
     return oracle_base([k * (i + 1) % curve.order for i, k in enumerate(ks)], curve)
 
 
-def window_degenerate(k, i):
+def window_degenerate(k, i, curve=P256):
     """True where the plain window's formulas degenerate for k * (i+1)G
     (the window oracle raises), as bench.py's _window_degenerate."""
-    x, y = multiples_of_g(ORACLE_LANES)[i]
+    x, y = multiples_of_g(ORACLE_LANES, curve)[i]
     try:
-        ow.scalar_mult(k, (x, y, 1), P256)
+        ow.scalar_mult(k, (x, y, 1), curve)
         return False
     except ZeroDivisionError:
         return True
@@ -743,17 +815,17 @@ def schedule_args(kname):
     return ", ".join(f"{a}={b!r}" for a, b in SCHEDULES[kname].items())
 
 
-def comb_degenerate(k, tables_np, negbase, kw):
+def comb_degenerate(k, tables_np, negbase, kw, curve=P256):
     """True where the composition of the schedule ``kw`` on Python ints
-    (oracle.comb) hits a degenerate add (equal or opposite x): the tree's
-    subset sums, the chains' prefix sums and their cross-chain sums, the
-    fix-up. Such lanes leave the oracle check only; kernel and plain
-    version agree on them bit for bit all the same."""
+    (oracle.comb, on classical tables) hits a degenerate add (equal or
+    opposite x): the tree's subset sums, the chains' prefix sums and their
+    cross-chain sums, the fix-up. Such lanes leave the oracle check only;
+    kernel and plain version agree on them bit for bit all the same."""
     try:
         if kw.get("chain") == "tree":
-            ocomb.tree(k, tables_np, negbase, P256)
+            ocomb.tree(k, tables_np, negbase, curve)
         else:
-            ocomb.chains(k, tables_np, negbase, P256, kw.get("chains", 1))
+            ocomb.chains(k, tables_np, negbase, curve, kw.get("chains", 1))
     except ZeroDivisionError:
         return True
     return False
@@ -770,8 +842,8 @@ def schedule_phase(rng, dev, card, counted, scalars, b_plain_ms):
     tables, negbase, nb = comb.device_tables(P256, P256.gx, P256.gy, dev)
     limbs = comb.kernel_tables(P256, P256.gx, P256.gy, dev)
     tables_np, negbase_ints = comb.base_tables(P256, P256.gx, P256.gy)
-    kernels = {"comb_tree": comb.KERNEL_TREE, "comb_pipe": comb.KERNEL_PIPE} | {
-        k: comb.KERNELS_CHAINS[v] for k, v in SCHEDULES_L.items()}
+    kernels = {"comb_tree": comb.KERNELS_TREE[P256], "comb_pipe": comb.KERNELS_PIPE[P256]} | {
+        k: comb.KERNELS_CHAINS[(P256, *v)] for k, v in SCHEDULES_L.items()}
 
     def run(kw, s):
         if kw.get("chain") == "tree":
@@ -869,6 +941,211 @@ def schedule_phase(rng, dev, card, counted, scalars, b_plain_ms):
     return {"launches17": launches17, "kernels": kernels, "by_kernel": out}
 
 
+def ecdh_w25519(rng, dev, card):
+    """Phase 18's protocol path on Wei25519, inside its launch count: ECDH
+    (two parties' keys, then shared secrets both ways with a zero scalar,
+    scalar = n, an off-curve peer and x = p in the batch) and
+    api.scalar_mult_base(strict=True) with k = n - 1 on lane 4. Returns the
+    times of the calls."""
+    curve = WEI25519
+    n, p = curve.order, curve.p
+    d1 = scalar_ints(rng, BATCH, [1, 2, 5, n - 2], curve)
+    d2 = scalar_ints(rng, BATCH, [3, n - 2], curve)
+    bad = BATCH - 4  # lanes bad..bad+3
+    d1[bad], d1[bad + 1] = 0, n
+    d1_dev, d2_dev = to_dev(d1, dev), to_dev(d2, dev)
+    q1x, q1y, ok1 = ecdh.derive_public_planes(d1_dev, curve)
+    q2x, q2y, ok2 = ecdh.derive_public_planes(d2_dev, curve)
+    q2x_bad, q2y_bad = q2x.clone(), q2y.clone()
+    y_off = (convert.planes_to_ints(q2y[:, bad + 2:bad + 3].cpu().numpy())[0] + 1) % p
+    q2y_bad[:, bad + 2] = to_dev([y_off], dev)[:, 0]
+    q2x_bad[:, bad + 3] = to_dev([p], dev)[:, 0]
+    s12, ok12 = ecdh.shared_secret_planes(d1_dev, q2x_bad, q2y_bad, curve)
+    s21, ok21 = ecdh.shared_secret_planes(d2_dev, q1x, q1y, curve)
+    k_ints = scalar_ints(rng, BATCH, [1, 2, 5, n - 2, n - 1], curve)
+    k_dev = to_dev(k_ints, dev)
+    base_strict = api.scalar_mult_base(k_dev, curve, strict=True)
+    torch.cuda.synchronize()
+
+    ones = torch.ones(BATCH, dtype=torch.int32, device=dev)
+    want1 = ones.clone()
+    want1[bad:bad + 2] = 0
+    check(torch.equal(ok1, want1) and torch.equal(ok2, ones), "Wei25519 derive_public masks")
+    want12 = ones.clone()
+    want12[bad:] = 0
+    check(torch.equal(ok12, want12), "Wei25519 shared_secret mask: the four invalid lanes")
+    # Q1 on the two bad-scalar lanes is whatever the comb made of 0 and n;
+    # the mask must say what an independent on-curve check of it says
+    q1_bad = affine_ints(AffinePoint(q1x[:, bad:bad + 2], q1y[:, bad:bad + 2], curve), 2)
+    host_ok = [int(x < p and y < p and (x, y) != (0, 0)
+                   and (y * y - x**3 - curve.a * x - curve.b) % p == 0) for x, y in q1_bad]
+    want21 = ones.clone()
+    want21[bad:bad + 2] = torch.tensor(host_ok, dtype=torch.int32)
+    check(torch.equal(ok21, want21), "Wei25519 shared_secret mask on the comb's outputs of 0, n")
+    both = (ok12 & ok21).bool()
+    check(int(both.sum()) == BATCH - 4, "Wei25519 ECDH valid lanes")
+    check(torch.equal(s12[:, both], s21[:, both]), "Wei25519 d1*Q2 == d2*Q1 on every valid lane")
+    sx = convert.planes_to_ints(s21[:, :MAIN_ORACLE_LANES].cpu().numpy())
+    check(sx == [x for x, _ in oracle_base([a * b % n for a, b in zip(d1, d2[:MAIN_ORACLE_LANES])],
+                                           curve)], "Wei25519 shared secrets vs oracle")
+    check(affine_ints(base_strict, ORACLE_LANES) == oracle_base(k_ints[:ORACLE_LANES], curve),
+          "Wei25519 scalar_mult_base(strict) vs oracle (n - 1 on lane 4)")
+    ms = {"ecdh.derive_public_planes": time_ms(
+              lambda: ecdh.derive_public_planes(d2_dev, curve), 10),
+          "ecdh.shared_secret_planes": time_ms(
+              lambda: ecdh.shared_secret_planes(d2_dev, q1x, q1y, curve), 5),
+          "scalar_mult_base_strict": time_ms(
+              lambda: api.scalar_mult_base(k_dev, curve, strict=True), 10)}
+    print(f"phase 18 Wei25519 ECDH and strict keygen B={BATCH}: masks exact (4 invalid lanes), "
+          f"d1*Q2 == d2*Q1 on {BATCH - 4} lanes, {MAIN_ORACLE_LANES} secrets vs oracle; "
+          f"scalar_mult_base(strict) {ORACLE_LANES} lanes vs oracle (1, 2, 5, n-2, n-1 first); "
+          f"ms {json.dumps({k: round(v, 3) for k, v in ms.items()})} {card}", flush=True)
+    return ms
+
+
+def curve_phase(rng, dev, card, counted, curve):
+    """Phase 18 on ``curve`` (secp256k1 or Wei25519): the main path through
+    the entry points at B = 524,288, its checks, then each new kernel
+    against its plain version (K and one-chain L: kernel B, itself held to
+    comb_plain) on the path's own inputs, and the times. Returns the
+    numbers of the kernels line."""
+    tag = CURVES18[curve]
+    fs, n = curve.field, curve.order
+    kern = curve_kernels(curve)
+    ks = scalar_ints(rng, BATCH, [1, 2, 5, n - 2, n - 1], curve)
+    scalars = to_dev(ks, dev)
+    points = varbase_points(BATCH, dev, curve)
+    xm = GFp.from_classical(points.x, fs).planes.contiguous()
+    ym = GFp.from_classical(points.y, fs).planes.contiguous()
+    k_shared = scalar_ints(rng, 1, [], curve)[0]
+    tables, negbase, nb = comb.device_tables(curve, curve.gx, curve.gy, dev)
+    limbs = comb.kernel_tables(curve, curve.gx, curve.gy, dev)
+    tables_np, negbase_ints = comb.base_tables(curve, curve.gx, curve.gy)
+    classical = ocomb.classical_tables(tables_np, fs)
+
+    # -- the path: every entry point of this slice on this curve
+    for k in counted:
+        k.launches = 0
+    res = {"scalar_mult": api.scalar_mult(scalars, points),
+           "scalar_mult_fast": api.scalar_mult_fast(scalars, points),
+           "scalar_mult_fast_strict": api.scalar_mult_fast(scalars, points, strict=True),
+           "scalar_mult_shared_fast": api.scalar_mult_shared_fast(k_shared, points)}
+    for kname, kw in SCHEDULES.items():
+        res[kname] = affine.to_affine(comb.scalar_mult_base(scalars, curve, **kw))
+    proto_ms = ecdh_w25519(rng, dev, card) if curve == WEI25519 else {}
+    torch.cuda.synchronize()
+    launches = {k.symbol: k.launches for k in counted}
+    for kname, kernel in kern.items():
+        check(launches[kernel.symbol] >= 1, f"phase 18 path on {curve.name} launched {kname}")
+    check(launches[affine.KERNELS[curve].symbol] >= len(res), f"phase 18 {curve.name} affine")
+
+    # -- 512 lanes of each result against the oracle
+    want_var = oracle_varbase(ks[:ORACLE_LANES], curve)
+    want_base = oracle_base(ks[:ORACLE_LANES], curve)
+    want_shared = oracle_varbase([k_shared] * ORACLE_LANES, curve)
+    degenerate = {"window": [i for i, k in enumerate(ks[:ORACLE_LANES])
+                             if window_degenerate(k, i, curve)],
+                  "shared": [i for i in range(ORACLE_LANES)
+                             if window_degenerate(k_shared, i, curve)],
+                  "ladder": [i for i, k in enumerate(ks[:ORACLE_LANES]) if k == n - 1]}
+    for kname, kw in SCHEDULES.items():
+        degenerate[kname] = [] if kw.get("strict") else [
+            i for i, k in enumerate(ks[:ORACLE_LANES])
+            if comb_degenerate(k, classical, negbase_ints, kw, curve)]
+    excl = {"scalar_mult": "ladder", "scalar_mult_fast": "window",
+            "scalar_mult_shared_fast": "shared"}
+    for name, out in res.items():
+        check(out.x.shape == (D, BATCH) and out.x.dtype == torch.int32, f"{name} output shape")
+        check(bool(((out.x >= 0) & (out.x < 1 << 16)).all()), f"{name} digits in range")
+        want = (want_shared if name == "scalar_mult_shared_fast" else want_base
+                if name in SCHEDULES else want_var)
+        skip = set(degenerate.get(excl.get(name, name), []))
+        lanes = [i for i in range(ORACLE_LANES) if i not in skip]
+        got = affine_ints(out, ORACLE_LANES)
+        check([got[i] for i in lanes] == [want[i] for i in lanes],
+              f"phase 18 {curve.name} {name} vs oracle")
+    check(degenerate["ladder"] == [4], "n - 1, outside the ladder's domain, on lane 4")
+    del res
+    excluded = {k: len(v) for k, v in degenerate.items()}
+    print(f"phase 18 {curve.name} main path B={BATCH}: launches {json.dumps(launches)}; "
+          f"{ORACLE_LANES} lanes of each result vs oracle (edge scalars 1, 2, 5, n-2, n-1; "
+          f"points (i+1)G; excluded lanes: {json.dumps(excluded)})", flush=True)
+
+    # -- each new kernel against its plain version (or kernel B) on the path's
+    # inputs, and the times (these launches come after the counts were read)
+    out = {k: {} for k in kern}
+
+    def plain_check(kname, run, plain):
+        out[kname]["plain_ms"], want = time_once_ms(plain)
+        out[kname]["err"] = max_abs_diff(run(), want)
+        check(out[kname]["err"] == 0, f"{kname} kernel == its plain version at B = {BATCH}")
+
+    runs = {f"ladder_{tag}": lambda: ladder.ladder_planes(scalars, xm, ym, curve),
+            f"window_{tag}": lambda: window.window_planes(scalars, xm, ym, curve),
+            f"window_strict_{tag}": lambda: window.window_planes(scalars, xm, ym, curve, True)}
+    def ladder_plain():
+        jac = group.scalar_mult(scalars, JacobianPoint.from_affine(points))
+        return jac.x.planes, jac.y.planes, jac.z.planes
+
+    plain_check(f"ladder_{tag}", runs[f"ladder_{tag}"], ladder_plain)
+    for st in (False, True):
+        kname = f"window{'_strict' if st else ''}_{tag}"
+        plain_check(kname, runs[kname], lambda: window.window_plain(scalars, xm, ym, curve, st))
+    # kernel B, both modes (on Wei25519 strict is new), against comb_plain:
+    # K and one-chain L are then held to kernel B, as in phase 17
+    b_out, b_plain_ms = {}, {}
+    for st in (False, True):
+        b_plain_ms[st], want = time_once_ms(
+            lambda: comb.comb_plain(scalars, tables, curve, negbase, st))
+        b_out[st] = comb.comb_planes(scalars, limbs, nb, curve, st)
+        err = max_abs_diff(b_out[st], want)
+        check(err == 0, f"{curve.name} comb (strict={st}) kernel == comb_plain at B = {BATCH}")
+    if curve == WEI25519:
+        runs["comb_strict_w25519"] = lambda: comb.comb_planes(scalars, limbs, nb, curve, True)
+        out["comb_strict_w25519"] |= {"plain_ms": b_plain_ms[True], "err": err}
+    for kname, kw in SCHEDULES.items():
+        name = f"{kname}_{tag}"
+        if kw.get("chain") == "tree":
+            runs[name] = lambda: comb.comb_tree_planes(scalars, limbs, nb, curve)
+            plain_check(name, runs[name],
+                        lambda: comb.comb_tree_plain(scalars, tables, curve, negbase))
+        elif kw.get("chain") == "pipe" or kw["chains"] == 1:
+            st = kw.get("strict", False)
+            runs[name] = ((lambda: comb.comb_pipe_planes(scalars, limbs, nb, curve))
+                          if kw.get("chain") == "pipe" else
+                          (lambda kw=kw: comb.comb_chains_planes(
+                              scalars, limbs, nb, curve, 1, kw["unroll"], kw["strict"])))
+            out[name]["plain_ms"] = b_plain_ms[st]
+            out[name]["err"] = max_abs_diff(runs[name](), b_out[st])
+            check(out[name]["err"] == 0, f"{name} kernel == kernel B at B = {BATCH}")
+        else:
+            c, u = kw["chains"], kw["unroll"]
+            runs[name] = (lambda c=c, u=u: comb.comb_chains_planes(
+                scalars, limbs, nb, curve, c, u, False))
+            plain_check(name, runs[name], lambda c=c, u=u: comb.comb_chains_plain(
+                scalars, tables, curve, negbase, c, u))
+    del b_out
+    for name, run in runs.items():
+        out[name]["ms"] = time_ms(run, 5 if name.startswith(("ladder", "window")) else 20)
+    api_ms = {"scalar_mult": time_ms(lambda: api.scalar_mult(scalars, points), 5),
+              "scalar_mult_fast": time_ms(lambda: api.scalar_mult_fast(scalars, points), 5),
+              "scalar_mult_fast_strict": time_ms(
+                  lambda: api.scalar_mult_fast(scalars, points, strict=True), 5),
+              "scalar_mult_shared_fast": time_ms(
+                  lambda: api.scalar_mult_shared_fast(k_shared, points), 5),
+              **{f"comb.scalar_mult_base({schedule_args(k)}) + affine": time_ms(
+                  lambda kw=kw: affine.to_affine(comb.scalar_mult_base(scalars, curve, **kw)),
+                  10) for k, kw in SCHEDULES.items()},
+              **proto_ms}
+    print(f"phase 18 {curve.name} kernels exact vs their plain versions (K, one-chain L: kernel "
+          f"B, itself exact vs comb_plain) on the path's {BATCH} lanes; kernel ms "
+          f"{json.dumps({k: round(v['ms'], 3) for k, v in out.items()})}; plain ms "
+          f"{json.dumps({k: round(v['plain_ms'], 1) for k, v in out.items()})}; entry points ms "
+          f"{json.dumps({k: round(v, 3) for k, v in api_ms.items()})} {card}", flush=True)
+    return {"launches": launches, "kernels": kern, "by_kernel": out,
+            "api_ms": {f"{curve.name} {k}": v for k, v in api_ms.items()}}
+
+
 def main():
     t_start = time.perf_counter()
     # -- phase 0: device ---------------------------------------------------------
@@ -891,14 +1168,18 @@ def main():
           f"parallel); ptxas {json.dumps(res)}", flush=True)
     for kname in PTXAS_NAMES:
         check(kname in res and "registers" in res[kname], f"ptxas report for {kname}")
+    print(f"phase 1 nvcc seconds by source: "
+          f"{json.dumps({k: round(v, 1) for k, v in build.source_seconds.items()})}", flush=True)
     print("phase 1 ptxas, kernels E and F (registers / spill bytes stored / loaded): " + ", ".join(
         f"{k} {res[k]['registers']} / {res[k]['spill_stores']} / {res[k]['spill_loads']}"
-        for k in ("window", "window_strict", "glv", "glv_strict")), flush=True)
+        for k in ("window", "window_strict", "glv", "glv_strict",
+                  *(f"window{st}_{tag}" for tag in CURVES18.values() for st in ("", "_strict")))),
+          flush=True)
     sass_mix = sass.report(build.path)
     for kname, mix in sass_mix.items():
         check(mix is not None, f"cuobjdump -sass found {kname}")
-    print("phase 1 SASS of kernels E and F, instructions a lane issues by class (cuobjdump "
-          "-sass, loop bodies times their runs): " + json.dumps(
+    print("phase 1 SASS of kernels E (three curves) and F, instructions a lane issues by class "
+          "(cuobjdump -sass, loop bodies times their runs): " + json.dumps(
               {k: v["per_lane"] for k, v in sass_mix.items()}), flush=True)
 
     # -- phase 2: field probe ----------------------------------------------------
@@ -968,10 +1249,11 @@ def main():
     s_np = scalar_planes(rng, BATCH)
     scalars = torch.from_numpy(s_np).to(dev)
     points = varbase_points(BATCH, dev)
-    counted = (*comb.KERNELS.values(), ladder.KERNEL, window.KERNEL, window.KERNEL_STRICT,
+    counted = (*comb.KERNELS.values(), *ladder.KERNELS.values(), *window.KERNELS.values(),
                *affine.KERNELS.values(), *field_ops.KERNELS.values(), kglv.KERNEL,
                kglv.KERNEL_STRICT, mladder.KERNEL, mladder.KERNEL_XDIVZ, roofline.KERNEL,
-               comb.KERNEL_TREE, comb.KERNEL_PIPE, *comb.KERNELS_CHAINS.values())
+               *comb.KERNELS_TREE.values(), *comb.KERNELS_PIPE.values(),
+               *comb.KERNELS_CHAINS.values())
     for k in counted:
         k.launches = 0
     out_base = api.scalar_mult_base(scalars)
@@ -1251,9 +1533,9 @@ def main():
     def ecdsa_path(curve):
         n, p = curve.order, curve.p
         fs_n = ecdsa.order_field(curve)
-        d_ints = scalar_ints(rng, BATCH, [1, 2, 5, n - 2], curve)
-        k_ints = scalar_ints(rng, BATCH, [n - 2, 5, 2, 1], curve)
-        z_ints = [int.from_bytes(rng.bytes(32), "big") for _ in range(BATCH)]
+        d_ints = scalar_ints(rng, ECDSA_BATCH, [1, 2, 5, n - 2], curve)
+        k_ints = scalar_ints(rng, ECDSA_BATCH, [n - 2, 5, 2, 1], curve)
+        z_ints = [int.from_bytes(rng.bytes(32), "big") for _ in range(ECDSA_BATCH)]
         z_ints[4] = n  # e == 0 mod n: u1 == 0 in verification
         rfc = curve == P256
         if rfc:  # lanes 8..15: RFC 6979 A.2.5 keys, hashes and nonces
@@ -1264,7 +1546,7 @@ def main():
                 k_ints[i] = ecdsa.rfc6979_nonce(h1, RFC6979_X, curve)
                 check(k_ints[i] == k_rfc, "RFC 6979 A.2.5 nonce")
         d_dev, k_dev, z_dev = (to_dev(v, dev) for v in (d_ints, k_ints, z_ints))
-        vid = [torch.full((BATCH,), v, dtype=torch.int32, device=dev) for v in (0, 1)]
+        vid = [torch.full((ECDSA_BATCH,), v, dtype=torch.int32, device=dev) for v in (0, 1)]
 
         # the tampered batch: lanes 500..505 r + 1, s = 0, s = n, r = 0, an
         # off-curve Q and (secp256k1) a valid signature with u2 = lambda
@@ -1321,7 +1603,7 @@ def main():
         tampered_lanes = want_t[t:t + 6]
         check(tampered_lanes == [0] * 5 + [1], f"{curve.name}: tampered lanes {tampered_lanes}")
         check(bool((v_t[ORACLE_LANES:] == 1).all()), f"{curve.name}: untouched lanes verify")
-        found = torch.zeros(BATCH, dtype=torch.bool, device=dev)
+        found = torch.zeros(ECDSA_BATCH, dtype=torch.bool, device=dev)
         for qx_r, qy_r, ok_r in rec:
             found |= ok_r.bool() & (qx_r == q.x).all(0) & (qy_r == q.y).all(0)
         check(bool(found.all()), f"{curve.name}: v = 0 or v = 1 recovers Q on every lane")
@@ -1355,7 +1637,7 @@ def main():
         out = {"launches": launches, "ms": t, "d": d_dev, "q": q, "jac": jac}
         if curve == SECP256K1:
             out.update(packed=packed, qxm=qxm, qym=qym)
-        print(f"phase 12 ECDSA {curve.name} B={BATCH}: launches {json.dumps(launches)}; every "
+        print(f"phase 12 ECDSA {curve.name} B={ECDSA_BATCH}: launches {json.dumps(launches)}; every "
               f"lane signed and verified; {ORACLE_LANES} lanes of the tampered batch exact vs "
               f"oracle (r+1, s=0, s=n, r=0, off-curve Q rejected; "
               f"{'u2 = lambda' if curve == SECP256K1 else 'an honest'} lane accepted); hash = n "
@@ -1396,7 +1678,7 @@ def main():
     check(comb_k1_strict_err == 0, "secp256k1 strict comb kernel == comb_plain at B = 524,288")
     del plain
     glv_ms = time_ms(lambda: kglv.glv_planes(packed11, xm, ym, k1, strict=False), 5)
-    print(f"phase 12 secp256k1 kernels exact vs their plain versions at B = {BATCH}: "
+    print(f"phase 12 secp256k1 kernels exact vs their plain versions at B = {ECDSA_BATCH}: "
           f"glv_strict plain {glv_strict_plain_ms:.1f} ms, comb plain {comb_k1_plain_ms:.1f} ms, "
           f"strict comb {comb_k1_strict_ms:.3f} ms (plain {comb_k1_strict_plain_ms:.1f} ms), "
           f"affine plain {affine_k1_plain_ms:.1f} ms; glv (plain chain) {glv_ms:.3f} ms at "
@@ -1405,9 +1687,11 @@ def main():
     xp = x25519_phases(rng, dev, card, counted)
     sp = schedule_phase(rng, dev, card, counted, scalars,
                         {False: comb_plain_ms, True: comb_strict_plain_ms})
+    p18 = {c: curve_phase(rng, dev, card, counted, c) for c in CURVES18}
+    launches18 = {k.symbol: sum(p["launches"][k.symbol] for p in p18.values()) for k in counted}
     paths = {"phase6": launches6, "phase9": launches9, "phase12": launches12,
              "phase15": xp["launches15"], "phase16": xp["launches16"],
-             "phase17": sp["launches17"]}
+             "phase17": sp["launches17"], "phase18": launches18}
 
     def entry(kernel, kname, err, ms, plain_ms, lanes=BATCH, reps=0):
         bound_ms, bound_by = bound(kname, lanes, sm_clock_mhz, reps)
@@ -1427,10 +1711,10 @@ def main():
               comb_strict_ms, comb_strict_plain_ms),
         entry(comb.KERNEL_SECP256K1, "comb_secp256k1",
               max(comb_k1_err, comb_k1_check["comb_secp256k1"]), ms_k1["kernel_comb"],
-              comb_k1_plain_ms),
+              comb_k1_plain_ms, lanes=ECDSA_BATCH),
         entry(comb.KERNEL_SECP256K1_STRICT, "comb_strict_secp256k1",
               max(comb_k1_strict_err, comb_k1_check["comb_strict_secp256k1"]), comb_k1_strict_ms,
-              comb_k1_strict_plain_ms),
+              comb_k1_strict_plain_ms, lanes=ECDSA_BATCH),
         entry(ladder.KERNEL, "ladder", ladder_err, ladder_ms, ladder_plain_ms),
         *(entry(k, kname, max(window_err[kname], window_check[kname]), ms,
                 window_plain_ms[kname])
@@ -1439,11 +1723,11 @@ def main():
         entry(kglv.KERNEL, "glv", glv_check["glv"], glv_ms, glv_plain_check_ms["glv"],
               lanes=CHECK_LANES),
         entry(kglv.KERNEL_STRICT, "glv_strict", max(glv_strict_err, glv_check["glv_strict"]),
-              ms_k1["kernel_glv_strict"], glv_strict_plain_ms),
+              ms_k1["kernel_glv_strict"], glv_strict_plain_ms, lanes=ECDSA_BATCH),
         entry(affine.KERNEL, "affine", max(affine_err, affine_check_err), affine_ms,
               affine_plain_ms),
         entry(affine.KERNEL_SECP256K1, "affine_secp256k1", max(affine_k1_err, affine_k1_check),
-              ms_k1["kernel_affine"], affine_k1_plain_ms),
+              ms_k1["kernel_affine"], affine_k1_plain_ms, lanes=ECDSA_BATCH),
         entry(field_ops.KERNEL, "field_probe", probe_err, probe_ms, probe_plain_ms,
               lanes=CHECK_LANES),
         entry(field_ops.KERNEL_SECP256K1, "field_probe_secp256k1", probe_k1_err, probe_k1_ms,
@@ -1466,6 +1750,8 @@ def main():
          "reps": CALIB_REPS, "plain_reps": CALIB_CHECK_REPS},
         *(entry(sp["kernels"][k], k, max(v["err"], v["check_err"]), v["ms"], v["plain_ms"])
           for k, v in sp["by_kernel"].items()),
+        *(entry(p["kernels"][k], k, v["err"], v["ms"], v["plain_ms"])
+          for p in p18.values() for k, v in p["by_kernel"].items()),
     ]
     api_ms = {"scalar_mult_base": base_api_ms, "scalar_mult": var_api_ms,
               "scalar_mult_fast": fast_ms, "scalar_mult_fast_strict": fast_strict_ms,
@@ -1475,7 +1761,8 @@ def main():
               "x25519.x25519_planes": xp["x25519_planes_ms"],
               "x25519.derive_public_planes": xp["derive_public_planes_ms"],
               **{f"comb.scalar_mult_base({schedule_args(k)}) + affine": v["api_ms"]
-                 for k, v in sp["by_kernel"].items()}}
+                 for k, v in sp["by_kernel"].items()},
+              **{k: v for p in p18.values() for k, v in p["api_ms"].items()}}
     # the measured int32 rate against the 64 IMAD per SM per clock bound()
     # assumes: kernel I issues 2 of its 4 instructions a chain step on the
     # multiply-add pipe (IMAD, IMAD.IADD), so that pipe's rate is 2 / 5 of

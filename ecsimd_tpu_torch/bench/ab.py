@@ -213,9 +213,9 @@ def _kernel_part(symbol: str) -> str:
     name that ptxas reports: <name>[_strict]_kernel, the strict word moved
     to where the sources put it."""
     base = symbol.removeprefix("ec_")
-    m = re.fullmatch(r"comb_chains_p256_c(\d)u(\d)(_strict)?", base)
-    if m:  # the template instantiation comb_chains_p256_kernel<c, u, strict>
-        return f"comb_chains_p256_kernelILi{m[1]}ELi{m[2]}ELb{int(bool(m[3]))}E"
+    m = re.fullmatch(r"comb_chains_(\w+?)_c(\d)u(\d)(_strict)?", base)
+    if m:  # the template instantiation comb_chains_<curve>_kernel<c, u, strict>
+        return f"comb_chains_{m[1]}_kernelILi{m[2]}ELi{m[3]}ELb{int(bool(m[4]))}E"
     if base.endswith("_strict"):
         stem = base.removesuffix("_strict")
         head, _, curve = stem.rpartition("_")

@@ -3,7 +3,8 @@
     python -m ecsimd_tpu_torch.bench.sass [--lib PATH] [KERNEL_SUBSTRING ...]
 
 prints one JSON object: for each kernel whose (mangled) name contains one of
-the given substrings (default: kernels E and F, plain and strict), its
+the given substrings (default: kernels E, on its three curves, and F,
+plain and strict), its
 static count of SASS instructions by class, the loops (the address ranges
 of backward branches) with the classes of the instructions each holds
 outside its inner loops, and, where the loop nest has the shape the source
@@ -32,18 +33,21 @@ import subprocess
 from pathlib import Path
 
 DEFAULT_KERNELS = ("window_p256_kernel", "window_strict_p256_kernel", "glv_secp256k1_kernel",
-                   "glv_strict_secp256k1_kernel")
+                   "glv_strict_secp256k1_kernel", "window_secp256k1_kernel",
+                   "window_strict_secp256k1_kernel", "window_w25519_kernel",
+                   "window_strict_w25519_kernel")
 
 # Loop nests as the sources write them, outermost first, loops in address
 # order: (name, iterations each time the loop is entered, inner loops).
-# window.cu: the table's 7 adds; the 8 words of k, 8 windows each, 4
-# doublings each. glv.cu: the table's 7 adds; 9 digits, 4 windows each, 4
+# window*.cu (E on every curve): the table's 7 adds; the 8 words of k, 8
+# windows each, 4 doublings each. glv.cu: the table's 7 adds; 9 digits, 4 windows each, 4
 # doublings and 2 lookup-and-adds each; the 2 fix-ups.
 _E = [("table", 7, []), ("word", 8, [("window", 8, [("dbl", 4, [])])])]
 _F = [("table", 7, []), ("digit", 9, [("window", 4, [("dbl", 4, []), ("add", 2, [])])]),
       ("fixup", 2, [])]
-TRIPS = {"window_p256_kernel": _E, "window_strict_p256_kernel": _E,
-         "glv_secp256k1_kernel": _F, "glv_strict_secp256k1_kernel": _F}
+TRIPS = {"glv_secp256k1_kernel": _F, "glv_strict_secp256k1_kernel": _F} | {
+    f"window{st}_{tag}_kernel": _E for st in ("", "_strict")
+    for tag in ("p256", "secp256k1", "w25519")}
 
 _LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)\s*([^;]*);")
 _FUNC = re.compile(r"Function\s*:\s*(\S+)")
@@ -185,8 +189,11 @@ def ptxas(log: str) -> dict[str, dict[str, int]]:
 
 def resources(report: dict, part: str) -> dict | None:
     """The ptxas entry of the kernel whose mangled name contains ``part``
-    (the shortest such name), or None."""
-    hits = sorted((k for k in report if part in k), key=len)
+    after a non-identifier character (the mangling's length digits: so
+    ``ladder_w25519_kernel`` does not match ``mladder_w25519_kernel``), the
+    shortest such name, or None."""
+    pat = re.compile(r"(?<![A-Za-z_])" + re.escape(part))
+    hits = sorted((k for k in report if pat.search(k)), key=len)
     return report[hits[0]] if hits else None
 
 

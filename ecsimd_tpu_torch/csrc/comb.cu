@@ -1,5 +1,5 @@
-// Kernel B: fixed-base comb k_i * B on P-256, on secp256k1 and (non-strict,
-// X25519 keygen) on Wei25519, one lane per thread (NVIDIA Hopper, sm_90a).
+// Kernel B: fixed-base comb k_i * B on P-256, secp256k1 and Wei25519 (X25519
+// keygen), plain and strict, one lane per thread (NVIDIA Hopper, sm_90a).
 //
 // Replaces ecsimd_tpu/kernels/comb.py:_comb_kernel (serial chain, one
 // accumulator, unroll 1), both strict variants. Width-8 signed-odd comb
@@ -38,7 +38,7 @@
 // 16-byte broadcast load and four masked ORs per 4 words), beside the
 // chain's 32-bit multiply-adds (31 + 1 mixed adds of 7 field multiplies
 // and 4 squarings; strict: complete adds of 15 + 9 on P-256, 13 + 11 on
-// secp256k1).
+// secp256k1, 14 + 12 on Wei25519).
 
 #include "coz_p256.cuh"
 #include "coz_secp256k1.cuh"
@@ -79,6 +79,7 @@ EC_COMB_KERNEL(comb_strict_p256_kernel, p256, true)
 EC_COMB_KERNEL(comb_secp256k1_kernel, secp256k1, false)
 EC_COMB_KERNEL(comb_strict_secp256k1_kernel, secp256k1, true)
 EC_COMB_KERNEL(comb_w25519_kernel, w25519, false)
+EC_COMB_KERNEL(comb_strict_w25519_kernel, w25519, true)
 
 template <class Kernel>
 int launch(Kernel kernel, const int32_t* scalars, const int32_t* tables, const int32_t* negbase,
@@ -125,4 +126,10 @@ extern "C" int ec_comb_w25519(const int32_t* scalars, const int32_t* tables,
                               const int32_t* negbase, int32_t* ax, int32_t* ay, int32_t* z,
                               int64_t B, void* stream) {
   return launch(comb_w25519_kernel, scalars, tables, negbase, ax, ay, z, B, stream);
+}
+
+extern "C" int ec_comb_w25519_strict(const int32_t* scalars, const int32_t* tables,
+                                     const int32_t* negbase, int32_t* ax, int32_t* ay,
+                                     int32_t* z, int64_t B, void* stream) {
+  return launch(comb_strict_w25519_kernel, scalars, tables, negbase, ax, ay, z, B, stream);
 }

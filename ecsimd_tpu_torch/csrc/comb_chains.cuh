@@ -1,6 +1,6 @@
 // Kernel L: the fixed-base comb with `chains` independent serial chains,
-// each taking `unroll` positions per staging step, on P-256, one lane per
-// thread (NVIDIA Hopper, sm_90a).
+// each taking `unroll` positions per staging step, on P-256, secp256k1 and
+// Wei25519, one lane per thread (NVIDIA Hopper, sm_90a).
 //
 // Replaces ecsimd_tpu/kernels/comb.py:_comb_kernel with chains > 1 and/or
 // unroll > 1 (the grid of comb_mont_planes and its position permutation).
@@ -35,32 +35,33 @@
 // the masked scan (~68 K shared-memory words per lane); the chains hold
 // 24 words of accumulator each in registers.
 //
-// The instantiations are split over two sources so that their builds run
-// side by side: comb_chains.cu (chains 2 and 4) and comb_unroll.cu (one
-// chain: unroll 2 and 4, strict too). This header holds the lane code and
-// the launcher; it is included once by each.
+// The instantiations are split over two sources a curve so that their
+// builds run side by side: comb_chains.cu (chains 2 and 4) and
+// comb_unroll.cu (one chain: unroll 2 and 4, strict too) on P-256, and
+// comb_chains_<curve>.cu, comb_unroll_<curve>.cu on secp256k1 and Wei25519.
+// This header holds the field-independent staging, the kernel template
+// (EC_COMB_CHAINS_KERNEL, one a namespace) and the launcher; the lane is
+// comb_chains_lane.cuh's, included inside the field's namespace.
 
 #pragma once
 
-#include "coz_p256.cuh"
 #include "comb_scan.cuh"
 
-namespace p256 {
-#include "comb_lane.cuh"
+namespace chains {
 
 constexpr int kSlotVecs = comb::kHalfEntries * comb::kEntryVecs;  // a position 1..31, 8 KiB
 constexpr int kSlot0Vecs = comb::kBufVecs;                        // position 0, 16 KiB
 
 // Slot q of buffer b (see the header).
 template <int kG>
-__device__ __forceinline__ uint4* chains_slot(uint4* smem, int b, int q) {
+__device__ __forceinline__ uint4* slot(uint4* smem, int b, int q) {
   if (b == 0) return smem + (q == 0 ? 0 : kSlot0Vecs + (q - 1) * kSlotVecs);
   return smem + kSlot0Vecs + (kG - 1) * kSlotVecs + q * kSlotVecs;
 }
 
 // Position of slot q = c * kUnroll + u at step s.
 template <int kChains, int kUnroll>
-__device__ __forceinline__ int chains_position(int s, int c, int u) {
+__device__ __forceinline__ int position(int s, int c, int u) {
   return c * (comb::kPositions / kChains) + s * kUnroll + u;
 }
 
@@ -71,69 +72,14 @@ __device__ __forceinline__ void stage_step(const uint4* tables, int s, uint4* sm
   for (int c = 0; c < kChains; ++c) {
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
-      comb::stage_copy(tables, chains_position<kChains, kUnroll>(s, c, u),
-                       chains_slot<kG>(smem, s & 1, c * kUnroll + u));
+      comb::stage_copy(tables, position<kChains, kUnroll>(s, c, u),
+                       slot<kG>(smem, s & 1, c * kUnroll + u));
     }
   }
   comb::commit_staged();
 }
 
-// One lane of kernel L; every thread takes part in the block's staging and
-// barriers, and only active lanes store.
-template <int kChains, int kUnroll, bool kStrict>
-__device__ __forceinline__ void comb_chains_lane(const int32_t* scalars, const uint4* tables,
-                                                 const int32_t* negbase, int32_t* ax_out,
-                                                 int32_t* ay_out, int32_t* z_out, int64_t B,
-                                                 int64_t i, bool active, uint4* smem) {
-  constexpr int kG = kChains * kUnroll;
-  constexpr int kSteps = comb::kPositions / kG;
-  static_assert(comb::kPositions % kG == 0, "chains * unroll must divide the 32 positions");
-  fe ax[kChains], ay[kChains], az[kChains];
-  stage_step<kChains, kUnroll>(tables, 0, smem);
-#pragma unroll 1
-  for (int s = 0; s < kSteps; ++s) {
-    if (s + 1 < kSteps) {
-      stage_step<kChains, kUnroll>(tables, s + 1, smem);
-      comb::wait_staged<1>();
-    } else {
-      comb::wait_staged<0>();
-    }
-    __syncthreads();
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-#pragma unroll
-      for (int c = 0; c < kChains; ++c) {
-        const int j = chains_position<kChains, kUnroll>(s, c, u);
-        const uint4* slot = chains_slot<kG>(smem, s & 1, c * kUnroll + u);
-        const uint32_t e = comb::entry_index(scalars, B, i, j);
-        fe ex, ey;
-        if (c == 0 && u == 0) {  // position 0 at step 0, position s * kUnroll after
-          read_entry(slot, j, e, ex, ey);
-        } else {
-          read_signed_entry(slot, e, ex, ey);
-        }
-        if (s == 0 && u == 0) {  // the chain's first position seeds it
-          ax[c] = ex;
-          ay[c] = ey;
-          az[c] = fe_one();
-        } else {
-          comb_add<kStrict>(ax[c], ay[c], az[c], ex, ey, ax[c], ay[c], az[c]);
-        }
-      }
-    }
-    __syncthreads();  // the next step stages into the buffer just read
-  }
-  // combine the chains left to right
-  fe x = ax[0], y = ay[0], z = az[0];
-#pragma unroll
-  for (int c = 1; c < kChains; ++c) {
-    fe h, r;
-    jac_add(x, y, z, ax[c], ay[c], az[c], x, y, z, h, r);
-  }
-  comb_finish<kStrict>(x, y, z, scalars, negbase, ax_out, ay_out, z_out, B, i, active);
-}
-
-}  // namespace p256
+}  // namespace chains
 
 namespace {
 
@@ -146,28 +92,30 @@ constexpr int kMinBlocks = 3;
 
 template <int kChains, int kUnroll>
 constexpr int smem_bytes() {
-  constexpr int vecs = p256::kSlot0Vecs + (2 * kChains * kUnroll - 1) * p256::kSlotVecs;
+  constexpr int vecs = chains::kSlot0Vecs + (2 * kChains * kUnroll - 1) * chains::kSlotVecs;
   return vecs * (int)sizeof(uint4);
 }
 
 // Lanes past the end of the batch run the chains on the last lane and store
 // nothing: every thread takes part in the block's staging and barriers.
-template <int kChains, int kUnroll, bool kStrict>
-__global__ void __launch_bounds__(kThreads, kMinBlocks)
-comb_chains_p256_kernel(const int32_t* __restrict__ scalars, const uint4* __restrict__ tables,
-                        const int32_t* __restrict__ negbase, int32_t* __restrict__ ax,
-                        int32_t* __restrict__ ay, int32_t* __restrict__ z, int64_t B) {
-  extern __shared__ uint4 smem[];
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  p256::comb_chains_lane<kChains, kUnroll, kStrict>(scalars, tables, negbase, ax, ay, z, B,
-                                                    i < B ? i : B - 1, i < B, smem);
-}
+#define EC_COMB_CHAINS_KERNEL(NS)                                                          \
+  template <int kChains, int kUnroll, bool kStrict>                                        \
+  __global__ void __launch_bounds__(kThreads, kMinBlocks) comb_chains_##NS##_kernel(       \
+      const int32_t* __restrict__ scalars, const uint4* __restrict__ tables,               \
+      const int32_t* __restrict__ negbase, int32_t* __restrict__ ax,                       \
+      int32_t* __restrict__ ay, int32_t* __restrict__ z, int64_t B) {                      \
+    extern __shared__ uint4 smem[];                                                        \
+    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;                      \
+    NS::comb_chains_lane<kChains, kUnroll, kStrict>(scalars, tables, negbase, ax, ay, z, B, \
+                                                    i < B ? i : B - 1, i < B, smem);      \
+  }
 
-template <int kChains, int kUnroll, bool kStrict>
-int launch(const int32_t* scalars, const int32_t* tables, const int32_t* negbase, int32_t* ax,
-           int32_t* ay, int32_t* z, int64_t B, void* stream) {
+// Launch `kernel`, an instantiation of EC_COMB_CHAINS_KERNEL's template at
+// kChains and kUnroll, on `stream`; return cudaGetLastError().
+template <int kChains, int kUnroll, class Kernel>
+int launch(Kernel kernel, const int32_t* scalars, const int32_t* tables, const int32_t* negbase,
+           int32_t* ax, int32_t* ay, int32_t* z, int64_t B, void* stream) {
   if (B > 0) {
-    auto kernel = comb_chains_p256_kernel<kChains, kUnroll, kStrict>;
     constexpr int bytes = smem_bytes<kChains, kUnroll>();
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -179,14 +127,13 @@ int launch(const int32_t* scalars, const int32_t* tables, const int32_t* negbase
   return (int)cudaGetLastError();
 }
 
-// The dynamic shared memory the runtime gives a block of the instantiation,
-// as `launch` set it (cudaFuncAttributes::maxDynamicSharedSizeBytes), or
-// minus the CUDA error if the query fails.
-template <int kChains, int kUnroll, bool kStrict>
-int smem_granted() {
+// The dynamic shared memory the runtime gives a block of `kernel`, as
+// `launch` set it (cudaFuncAttributes::maxDynamicSharedSizeBytes), or minus
+// the CUDA error if the query fails.
+template <class Kernel>
+int smem_granted(Kernel kernel) {
   cudaFuncAttributes attr;
-  const cudaError_t err =
-      cudaFuncGetAttributes(&attr, comb_chains_p256_kernel<kChains, kUnroll, kStrict>);
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   return err == cudaSuccess ? attr.maxDynamicSharedSizeBytes : -(int)err;
 }
 

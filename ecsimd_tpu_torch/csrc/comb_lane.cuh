@@ -1,9 +1,9 @@
 // The comb's per-lane entry read and fix-up, and kernel B's per-lane chain,
-// over the field of the including namespace (sm_90a). comb.cu includes this file
-// inside namespaces p256, secp256k1 and w25519, and comb_tree.cu,
-// comb_pipe.cu and comb_chains.cuh inside namespace p256, each after the
-// field's coz header and comb_scan.cuh, so the code is written once; the
-// file has no include guard and includes nothing. The table staging and
+// over the field of the including namespace (sm_90a). comb.cu, comb_tree.cu,
+// comb_pipe.cu and kernel L's sources include this file inside namespaces
+// p256, secp256k1 and w25519, each after the field's coz header and
+// comb_scan.cuh, so the code is written once; the file has no include
+// guard and includes nothing. The table staging and
 // the masked scan are field-independent (comb_scan.cuh, namespace comb).
 
 // Entry e of a position j >= 1 staged in `buf`: +-(2m+1) 2^(8j) B, its

@@ -1,5 +1,7 @@
 // Kernel K: the fixed-base comb's serial chain, software-pipelined, on
-// P-256, one lane per thread (NVIDIA Hopper, sm_90a).
+// P-256, secp256k1 and Wei25519, one lane per thread (NVIDIA Hopper,
+// sm_90a); the lane is comb_pipe_lane.cuh's, written once over the field's
+// namespace.
 //
 // Replaces ecsimd_tpu/kernels/comb.py:_comb_kernel_pipe (chain="pipe"). The
 // TPU kernel gathers entry j + 1 on its matrix unit (a one-hot product)
@@ -26,57 +28,24 @@
 // registers than kernel B.
 
 #include "coz_p256.cuh"
+#include "coz_secp256k1.cuh"
+#include "coz_w25519.cuh"
 #include "comb_scan.cuh"
 
 namespace p256 {
 #include "comb_lane.cuh"
-
-// One lane of the pipelined comb; every thread takes part in the block's
-// staging and barriers, and only active lanes store.
-__device__ __forceinline__ void comb_pipe_lane(const int32_t* scalars, const uint4* tables,
-                                               const int32_t* negbase, int32_t* ax_out,
-                                               int32_t* ay_out, int32_t* z_out, int64_t B,
-                                               int64_t i, bool active,
-                                               uint4 (*buf)[comb::kBufVecs]) {
-  constexpr int kPos = comb::kPositions;
-  fe x, y, z, ex, ey;
-  // prologue: position 0 seeds the accumulator, position 1 is read ahead
-  comb::stage_position(tables, 0, buf[0]);
-  comb::stage_position(tables, 1, buf[1]);
-  comb::wait_staged<1>();
-  __syncthreads();
-  read_entry(buf[0], 0, comb::entry_index(scalars, B, i, 0), x, y);
-  z = fe_one();
-  __syncthreads();
-  comb::stage_position(tables, 2, buf[0]);
-  comb::wait_staged<1>();
-  __syncthreads();
-  read_signed_entry(buf[1], comb::entry_index(scalars, B, i, 1), ex, ey);
-  __syncthreads();
-  // step j holds entry j in (ex, ey); position j + 1 is staged or in flight
-  // in buf[(j + 1) & 1], and buf[j & 1] is free
-#pragma unroll 1
-  for (int j = 1; j < kPos; ++j) {
-    fe nx = ex, ny = ey;
-    if (j + 1 < kPos) {
-      if (j + 2 < kPos) {
-        comb::stage_position(tables, j + 2, buf[j & 1]);
-        comb::wait_staged<1>();
-      } else {
-        comb::wait_staged<0>();
-      }
-      __syncthreads();
-      read_signed_entry(buf[(j + 1) & 1], comb::entry_index(scalars, B, i, j + 1), nx, ny);
-    }
-    add_z2_1(x, y, z, ex, ey, x, y, z);
-    __syncthreads();  // the next step stages into the buffer just read
-    ex = nx;
-    ey = ny;
-  }
-  comb_finish<false>(x, y, z, scalars, negbase, ax_out, ay_out, z_out, B, i, active);
-}
-
+#include "comb_pipe_lane.cuh"
 }  // namespace p256
+
+namespace secp256k1 {
+#include "comb_lane.cuh"
+#include "comb_pipe_lane.cuh"
+}  // namespace secp256k1
+
+namespace w25519 {
+#include "comb_lane.cuh"
+#include "comb_pipe_lane.cuh"
+}  // namespace w25519
 
 namespace {
 
@@ -84,27 +53,52 @@ using comb::kThreads;
 
 // Lanes past the end of the batch run the chain on the last lane and store
 // nothing: every thread takes part in the block's staging and barriers.
-__global__ void __launch_bounds__(kThreads)
-comb_pipe_p256_kernel(const int32_t* __restrict__ scalars, const uint4* __restrict__ tables,
-                      const int32_t* __restrict__ negbase, int32_t* __restrict__ ax,
-                      int32_t* __restrict__ ay, int32_t* __restrict__ z, int64_t B) {
-  __shared__ uint4 buf[2][comb::kBufVecs];
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  p256::comb_pipe_lane(scalars, tables, negbase, ax, ay, z, B, i < B ? i : B - 1, i < B, buf);
+#define EC_COMB_PIPE_KERNEL(NAME, NS)                                                      \
+  __global__ void __launch_bounds__(kThreads)                                              \
+  NAME(const int32_t* __restrict__ scalars, const uint4* __restrict__ tables,              \
+       const int32_t* __restrict__ negbase, int32_t* __restrict__ ax,                      \
+       int32_t* __restrict__ ay, int32_t* __restrict__ z, int64_t B) {                     \
+    __shared__ uint4 buf[2][comb::kBufVecs];                                               \
+    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;                      \
+    NS::comb_pipe_lane(scalars, tables, negbase, ax, ay, z, B, i < B ? i : B - 1, i < B,   \
+                       buf);                                                               \
+  }
+
+EC_COMB_PIPE_KERNEL(comb_pipe_p256_kernel, p256)
+EC_COMB_PIPE_KERNEL(comb_pipe_secp256k1_kernel, secp256k1)
+EC_COMB_PIPE_KERNEL(comb_pipe_w25519_kernel, w25519)
+
+template <class Kernel>
+int launch(Kernel kernel, const int32_t* scalars, const int32_t* tables, const int32_t* negbase,
+           int32_t* ax, int32_t* ay, int32_t* z, int64_t B, void* stream) {
+  if (B > 0) {
+    const int64_t blocks = (B + kThreads - 1) / kThreads;
+    kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        scalars, reinterpret_cast<const uint4*>(tables), negbase, ax, ay, z, B);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // scalars: (16, B) int32 digit planes; tables: (4224, 16) int32 limbs,
-// 16-byte aligned; negbase: 32 int32 digits (x then y) of -B; ax, ay, z:
-// (16, B) outputs. Launches on `stream` and returns cudaGetLastError().
+// 16-byte aligned; negbase: 32 int32 digits (x then y) of -B, internal form;
+// ax, ay, z: (16, B) outputs. Launches on `stream` and returns
+// cudaGetLastError().
 extern "C" int ec_comb_pipe_p256(const int32_t* scalars, const int32_t* tables,
                                  const int32_t* negbase, int32_t* ax, int32_t* ay, int32_t* z,
                                  int64_t B, void* stream) {
-  if (B > 0) {
-    const int64_t blocks = (B + kThreads - 1) / kThreads;
-    comb_pipe_p256_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        scalars, reinterpret_cast<const uint4*>(tables), negbase, ax, ay, z, B);
-  }
-  return (int)cudaGetLastError();
+  return launch(comb_pipe_p256_kernel, scalars, tables, negbase, ax, ay, z, B, stream);
+}
+
+extern "C" int ec_comb_pipe_secp256k1(const int32_t* scalars, const int32_t* tables,
+                                      const int32_t* negbase, int32_t* ax, int32_t* ay,
+                                      int32_t* z, int64_t B, void* stream) {
+  return launch(comb_pipe_secp256k1_kernel, scalars, tables, negbase, ax, ay, z, B, stream);
+}
+
+extern "C" int ec_comb_pipe_w25519(const int32_t* scalars, const int32_t* tables,
+                                   const int32_t* negbase, int32_t* ax, int32_t* ay, int32_t* z,
+                                   int64_t B, void* stream) {
+  return launch(comb_pipe_w25519_kernel, scalars, tables, negbase, ax, ay, z, B, stream);
 }

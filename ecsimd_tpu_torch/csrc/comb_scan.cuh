@@ -1,6 +1,6 @@
 // Staging and masked scan of the comb's table positions, shared by kernels
 // B (comb.cu), J (comb_tree.cu), K (comb_pipe.cu) and L (comb_chains.cuh)
-// (sm_90a). Field-independent: an entry is 16 32-bit words, the x limbs then
+// on every curve (sm_90a). Field-independent: an entry is 16 32-bit words, the x limbs then
 // the y limbs (kernels/comb.kernel_tables). The sign of an entry of
 // positions 1..31 and the choice of scan per position are in comb_lane.cuh,
 // inside each field's namespace.

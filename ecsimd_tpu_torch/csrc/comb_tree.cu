@@ -1,5 +1,6 @@
-// Kernel J: the fixed-base comb summed by a pairwise tree on P-256, one
-// lane per thread (NVIDIA Hopper, sm_90a).
+// Kernel J: the fixed-base comb summed by a pairwise tree on P-256,
+// secp256k1 and Wei25519, one lane per thread (NVIDIA Hopper, sm_90a); the
+// lane is comb_tree_lane.cuh's, written once over the field's namespace.
 //
 // Replaces ecsimd_tpu/kernels/comb.py:_comb_kernel_tree (chain="tree") and
 // its _tree_core. The TPU kernel gathers all 32 entries of a lane, then adds
@@ -36,10 +37,11 @@
 // of shared memory allow two blocks of 128 threads per SM.
 
 #include "coz_p256.cuh"
+#include "coz_secp256k1.cuh"
+#include "coz_w25519.cuh"
 #include "comb_scan.cuh"
 
-namespace p256 {
-#include "comb_lane.cuh"
+namespace tree {
 
 constexpr int kPairs = comb::kPositions / 2;      // level-1 pairs (i, i + 16)
 constexpr int kLevels = 4;                         // log2(kPairs): pending sums
@@ -49,21 +51,22 @@ constexpr int kStageVecs = comb::kBufVecs + 3 * kSlotVecs;       // 40 KiB
 constexpr int kStackWords = kLevels * kPointWords * comb::kThreads;  // 48 KiB
 
 // Slot of position i (`hi` = 0) or i + 16 (`hi` = 1) in buffer b.
-__device__ __forceinline__ uint4* tree_slot(uint4* smem, int b, int hi) {
-  return smem + (b == 0 ? (hi ? comb::kBufVecs : 0) : comb::kBufVecs + (1 + hi) * kSlotVecs);
+__device__ __forceinline__ uint4* slot(uint4* smem, int b, int hi) {
+  return smem + (b == 0 ? (hi ? comb::kBufVecs : 0)
+                        : comb::kBufVecs + (1 + hi) * kSlotVecs);
 }
 
-__device__ __forceinline__ int tree_leaf(int k) { return (int)(__brev((unsigned)k) >> 28); }
+__device__ __forceinline__ int leaf(int k) { return (int)(__brev((unsigned)k) >> 28); }
 
 __device__ __forceinline__ void stage_pair(const uint4* tables, int k, uint4* smem) {
-  const int i = tree_leaf(k);
-  comb::stage_copy(tables, i, tree_slot(smem, k & 1, 0));
-  comb::stage_copy(tables, i + kPairs, tree_slot(smem, k & 1, 1));
+  const int i = leaf(k);
+  comb::stage_copy(tables, i, slot(smem, k & 1, 0));
+  comb::stage_copy(tables, i + kPairs, slot(smem, k & 1, 1));
   comb::commit_staged();
 }
 
-__device__ __forceinline__ void stack_put(uint32_t* stack, int level, const fe& x, const fe& y,
-                                          const fe& z) {
+__device__ __forceinline__ void stack_put(uint32_t* stack, int level, const ec::fe& x,
+                                          const ec::fe& y, const ec::fe& z) {
   uint32_t* s = stack + level * kPointWords * comb::kThreads + threadIdx.x;
 #pragma unroll
   for (int w = 0; w < 8; ++w) {
@@ -73,8 +76,8 @@ __device__ __forceinline__ void stack_put(uint32_t* stack, int level, const fe& 
   }
 }
 
-__device__ __forceinline__ void stack_get(const uint32_t* stack, int level, fe& x, fe& y,
-                                          fe& z) {
+__device__ __forceinline__ void stack_get(const uint32_t* stack, int level, ec::fe& x,
+                                          ec::fe& y, ec::fe& z) {
   const uint32_t* s = stack + level * kPointWords * comb::kThreads + threadIdx.x;
 #pragma unroll
   for (int w = 0; w < 8; ++w) {
@@ -84,90 +87,96 @@ __device__ __forceinline__ void stack_get(const uint32_t* stack, int level, fe& 
   }
 }
 
-// One lane of the tree; every thread takes part in the block's staging and
-// barriers, and only active lanes store.
-__device__ __forceinline__ void comb_tree_lane(const int32_t* scalars, const uint4* tables,
-                                               const int32_t* negbase, int32_t* ax_out,
-                                               int32_t* ay_out, int32_t* z_out, int64_t B,
-                                               int64_t i, bool active, uint4* smem) {
-  uint32_t* stack = reinterpret_cast<uint32_t*>(smem + kStageVecs);
-  fe x, y, z;
-  stage_pair(tables, 0, smem);
-#pragma unroll 1
-  for (int k = 0; k < kPairs; ++k) {
-    if (k + 1 < kPairs) {
-      stage_pair(tables, k + 1, smem);
-      comb::wait_staged<1>();
-    } else {
-      comb::wait_staged<0>();
-    }
-    __syncthreads();
-    const int lo = tree_leaf(k);
-    fe ax, ay, bx, by;
-    read_entry(tree_slot(smem, k & 1, 0), lo, comb::entry_index(scalars, B, i, lo), ax, ay);
-    read_signed_entry(tree_slot(smem, k & 1, 1), comb::entry_index(scalars, B, i, lo + kPairs),
-                      bx, by);
-    __syncthreads();  // the next step stages into the buffer just read
-    aff_add(ax, ay, bx, by, x, y, z);  // node lo of level 1
-    // add the pending node of each level whose bit of k is set (it has the
-    // lower index), and leave the new node pending at the first clear bit
-#pragma unroll 1
-    for (int l = 0; l < kLevels; ++l) {
-      if (((k >> l) & 1) == 0) {
-        stack_put(stack, l, x, y, z);
-        break;
-      }
-      fe px, py, pz, h, r;
-      stack_get(stack, l, px, py, pz);
-      jac_add(px, py, pz, x, y, z, x, y, z, h, r);
-    }
-  }
-  // k = 15 set every bit: (x, y, z) is the root
-  comb_finish<false>(x, y, z, scalars, negbase, ax_out, ay_out, z_out, B, i, active);
-}
+}  // namespace tree
 
+namespace p256 {
+#include "comb_lane.cuh"
+#include "comb_tree_lane.cuh"
 }  // namespace p256
+
+namespace secp256k1 {
+#include "comb_lane.cuh"
+#include "comb_tree_lane.cuh"
+}  // namespace secp256k1
+
+namespace w25519 {
+#include "comb_lane.cuh"
+#include "comb_tree_lane.cuh"
+}  // namespace w25519
 
 namespace {
 
 using comb::kThreads;
-constexpr int kSmemBytes = (p256::kStageVecs * (int)sizeof(uint4)) + p256::kStackWords * 4;
+constexpr int kSmemBytes = (tree::kStageVecs * (int)sizeof(uint4)) + tree::kStackWords * 4;
 
 // Lanes past the end of the batch run the tree on the last lane and store
 // nothing: every thread takes part in the block's staging and barriers.
-__global__ void __launch_bounds__(kThreads)
-comb_tree_p256_kernel(const int32_t* __restrict__ scalars, const uint4* __restrict__ tables,
-                      const int32_t* __restrict__ negbase, int32_t* __restrict__ ax,
-                      int32_t* __restrict__ ay, int32_t* __restrict__ z, int64_t B) {
-  extern __shared__ uint4 smem[];
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  p256::comb_tree_lane(scalars, tables, negbase, ax, ay, z, B, i < B ? i : B - 1, i < B, smem);
-}
+#define EC_COMB_TREE_KERNEL(NAME, NS)                                                      \
+  __global__ void __launch_bounds__(kThreads)                                              \
+  NAME(const int32_t* __restrict__ scalars, const uint4* __restrict__ tables,              \
+       const int32_t* __restrict__ negbase, int32_t* __restrict__ ax,                      \
+       int32_t* __restrict__ ay, int32_t* __restrict__ z, int64_t B) {                     \
+    extern __shared__ uint4 smem[];                                                        \
+    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;                      \
+    NS::comb_tree_lane(scalars, tables, negbase, ax, ay, z, B, i < B ? i : B - 1, i < B,   \
+                       smem);                                                              \
+  }
 
-}  // namespace
+EC_COMB_TREE_KERNEL(comb_tree_p256_kernel, p256)
+EC_COMB_TREE_KERNEL(comb_tree_secp256k1_kernel, secp256k1)
+EC_COMB_TREE_KERNEL(comb_tree_w25519_kernel, w25519)
 
-// scalars: (16, B) int32 digit planes; tables: (4224, 16) int32 limbs,
-// 16-byte aligned; negbase: 32 int32 digits (x then y) of -B; ax, ay, z:
-// (16, B) outputs. Launches on `stream` and returns cudaGetLastError().
-extern "C" int ec_comb_tree_p256(const int32_t* scalars, const int32_t* tables,
-                                 const int32_t* negbase, int32_t* ax, int32_t* ay, int32_t* z,
-                                 int64_t B, void* stream) {
+template <class Kernel>
+int launch(Kernel kernel, const int32_t* scalars, const int32_t* tables, const int32_t* negbase,
+           int32_t* ax, int32_t* ay, int32_t* z, int64_t B, void* stream) {
   if (B > 0) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        comb_tree_p256_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
     if (err != cudaSuccess) return (int)err;
     const int64_t blocks = (B + kThreads - 1) / kThreads;
-    comb_tree_p256_kernel<<<(unsigned)blocks, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
+    kernel<<<(unsigned)blocks, kThreads, kSmemBytes, (cudaStream_t)stream>>>(
         scalars, reinterpret_cast<const uint4*>(tables), negbase, ax, ay, z, B);
   }
   return (int)cudaGetLastError();
 }
 
-// The dynamic shared memory the runtime gives a block of kernel J, as
-// ec_comb_tree_p256 set it (cudaFuncAttributes::maxDynamicSharedSizeBytes),
-// or minus the CUDA error if the query fails.
-extern "C" int ec_comb_tree_p256_smem(void) {
+// The dynamic shared memory the runtime gives a block of the kernel, as
+// `launch` set it (cudaFuncAttributes::maxDynamicSharedSizeBytes), or minus
+// the CUDA error if the query fails.
+template <class Kernel>
+int smem_granted(Kernel kernel) {
   cudaFuncAttributes attr;
-  const cudaError_t err = cudaFuncGetAttributes(&attr, comb_tree_p256_kernel);
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   return err == cudaSuccess ? attr.maxDynamicSharedSizeBytes : -(int)err;
 }
+
+}  // namespace
+
+// scalars: (16, B) int32 digit planes; tables: (4224, 16) int32 limbs,
+// 16-byte aligned; negbase: 32 int32 digits (x then y) of -B, internal form;
+// ax, ay, z: (16, B) outputs. Launches on `stream` and returns
+// cudaGetLastError(). <entry>_smem returns the dynamic shared memory of its
+// block (smem_granted).
+extern "C" int ec_comb_tree_p256(const int32_t* scalars, const int32_t* tables,
+                                 const int32_t* negbase, int32_t* ax, int32_t* ay, int32_t* z,
+                                 int64_t B, void* stream) {
+  return launch(comb_tree_p256_kernel, scalars, tables, negbase, ax, ay, z, B, stream);
+}
+
+extern "C" int ec_comb_tree_secp256k1(const int32_t* scalars, const int32_t* tables,
+                                      const int32_t* negbase, int32_t* ax, int32_t* ay,
+                                      int32_t* z, int64_t B, void* stream) {
+  return launch(comb_tree_secp256k1_kernel, scalars, tables, negbase, ax, ay, z, B, stream);
+}
+
+extern "C" int ec_comb_tree_w25519(const int32_t* scalars, const int32_t* tables,
+                                   const int32_t* negbase, int32_t* ax, int32_t* ay, int32_t* z,
+                                   int64_t B, void* stream) {
+  return launch(comb_tree_w25519_kernel, scalars, tables, negbase, ax, ay, z, B, stream);
+}
+
+extern "C" int ec_comb_tree_p256_smem(void) { return smem_granted(comb_tree_p256_kernel); }
+extern "C" int ec_comb_tree_secp256k1_smem(void) {
+  return smem_granted(comb_tree_secp256k1_kernel);
+}
+extern "C" int ec_comb_tree_w25519_smem(void) { return smem_granted(comb_tree_w25519_kernel); }

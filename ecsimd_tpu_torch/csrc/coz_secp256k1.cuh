@@ -2,9 +2,10 @@
 //
 // Replaces ecsimd_tpu/kernels/coz.py:jac_dbl_general_a (the doubling that
 // dbl_any picks for a != -3) for a = 0, and instantiates the shared adds of
-// jacobian.cuh over the Montgomery field. Plain twin: curves/group.py jac_dbl
-// (general a; the a term vanishes for a = 0). Same formula sequence, so the
-// canonical Montgomery-form planes agree bit for bit.
+// jacobian.cuh and the co-Z formulas of coz.cuh over the Montgomery field.
+// Plain twin: curves/group.py jac_dbl (general a; the a term vanishes for
+// a = 0). Same formula sequence, so the canonical Montgomery-form planes
+// agree bit for bit.
 //
 // What bounds it: field multiplies — the doubling is 1M + 7S, jac_add
 // 12M + 4S, add_complete 13M + 11S, add_z2_1 7M + 4S.
@@ -14,6 +15,15 @@
 #include "field_secp256k1.cuh"
 
 namespace secp256k1 {
+
+// a = 0, in Montgomery form 0 too
+#define SECP256K1_A \
+  {0u, 0u, 0u, 0u, 0u, 0u, 0u, 0u}
+
+__device__ __forceinline__ fe curve_a() {
+  const fe a = {SECP256K1_A};
+  return a;
+}
 
 // dbl-2007-bl for a = 0 (1M + 7S): M = 3 X^2. Doubling of infinity stays at
 // infinity (z3 = 2 y1 z1).
@@ -30,7 +40,9 @@ __device__ __forceinline__ void jac_dbl(fe x1, fe y1, fe z1, fe& x3, fe& y3, fe&
   x3 = t;
 }
 
-// add_z2_1, jac_add and add_complete, written once for every field.
+// add_z2_1, jac_add and add_complete, and the co-Z formulas, written once
+// for every field.
 #include "jacobian.cuh"
+#include "coz.cuh"
 
 }  // namespace secp256k1

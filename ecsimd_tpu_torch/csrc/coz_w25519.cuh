@@ -3,14 +3,13 @@
 //
 // Replaces ecsimd_tpu/kernels/coz.py:jac_dbl_general_a (the doubling that
 // dbl_any picks for a != -3) on Wei25519, the short-Weierstrass lift of
-// Curve25519, and instantiates the shared adds of jacobian.cuh over the
-// 2^255 - 19 field. Plain twin: curves/group.py jac_dbl. Same formula
-// sequence, so the canonical planes agree bit for bit. Only kernel B's
-// non-strict chain (add_z2_1) runs on this curve; add_complete, which
-// calls jac_dbl, is compiled and not launched.
+// Curve25519, and instantiates the shared adds of jacobian.cuh and the co-Z
+// formulas of coz.cuh over the 2^255 - 19 field. Plain twin:
+// curves/group.py jac_dbl. Same formula sequence, so the canonical planes
+// agree bit for bit.
 //
 // What bounds it: field multiplies — the doubling is 2M + 8S, add_z2_1
-// 7M + 4S.
+// 7M + 4S, add_complete 14M + 12S.
 
 #pragma once
 
@@ -18,14 +17,19 @@
 
 namespace w25519 {
 
-// Wei25519's a
+// Wei25519's a (the Crandall field's internal form is the classical one)
 #define WEI25519_A \
   {0x4914A144u, 0xAAAAAA98u, 0xAAAAAAAAu, 0xAAAAAAAAu, 0xAAAAAAAAu, 0xAAAAAAAAu, 0xAAAAAAAAu, 0x2AAAAAAAu}
+
+__device__ __forceinline__ fe curve_a() {
+  const fe a = {WEI25519_A};
+  return a;
+}
 
 // dbl-2007-bl for any a (2M + 8S): M = 3 X^2 + a Z^4. Doubling of infinity
 // stays at infinity (z3 = 2 y1 z1).
 __device__ __forceinline__ void jac_dbl(fe x1, fe y1, fe z1, fe& x3, fe& y3, fe& z3) {
-  const fe a = {WEI25519_A};
+  const fe a = curve_a();
   fe xx = fe_sqr(x1);
   fe yy = fe_sqr(y1);
   fe yyyy = fe_sqr(yy);
@@ -38,7 +42,9 @@ __device__ __forceinline__ void jac_dbl(fe x1, fe y1, fe z1, fe& x3, fe& y3, fe&
   x3 = t;
 }
 
-// add_z2_1, jac_add and add_complete, written once for every field.
+// add_z2_1, jac_add and add_complete, and the co-Z formulas, written once
+// for every field.
 #include "jacobian.cuh"
+#include "coz.cuh"
 
 }  // namespace w25519

@@ -1,8 +1,8 @@
 // Jacobian adds over the field of the including namespace (sm_90a).
 //
-// Written once for every field: coz_p256.cuh includes this file inside
-// namespace p256 and coz_secp256k1.cuh inside namespace secp256k1, each
-// after its own fe_* arithmetic and its curve's jac_dbl. So this file has no
+// Written once for every field: coz_p256.cuh, coz_secp256k1.cuh and
+// coz_w25519.cuh include this file inside their namespaces, each after its
+// own fe_* arithmetic and its curve's jac_dbl. So this file has no
 // include guard and includes nothing.
 //
 // Replace ecsimd_tpu/kernels/coz.py:add_z2_1_any, add_any (jac_add_generic),

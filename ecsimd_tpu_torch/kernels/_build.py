@@ -14,6 +14,7 @@ and returns ``cudaGetLastError()``; ``launch`` raises if that is not 0.
 
 from __future__ import annotations
 
+import concurrent.futures
 import ctypes
 import dataclasses
 import functools
@@ -27,15 +28,24 @@ from pathlib import Path
 
 import torch
 
+from ecsimd_tpu_torch.specs import P256, SECP256K1, WEI25519
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ecsimd_tpu_torch"
-SOURCES = ("field_ops.cu", "ladder.cu", "comb.cu", "affine.cu", "window.cu", "glv.cu",
-           "mladder.cu", "calib.cu", "comb_tree.cu", "comb_pipe.cu", "comb_chains.cu",
-           "comb_unroll.cu")
+SOURCES = ("field_ops.cu", "ladder.cu", "comb.cu", "affine.cu", "window.cu",
+           "window_secp256k1.cu", "window_w25519.cu", "glv.cu", "mladder.cu", "calib.cu",
+           "comb_tree.cu", "comb_pipe.cu", "comb_chains.cu", "comb_unroll.cu",
+           "comb_chains_secp256k1.cu", "comb_unroll_secp256k1.cu", "comb_chains_w25519.cu",
+           "comb_unroll_w25519.cu")
 HEADERS = ("limbs.cuh", "mul256.cuh", "field_p256.cuh", "field_secp256k1.cuh",
-           "field_w25519.cuh", "jacobian.cuh", "coz_p256.cuh", "coz_secp256k1.cuh",
-           "coz_w25519.cuh", "comb_scan.cuh", "comb_lane.cuh", "comb_chains.cuh",
-           "window_table.cuh")
+           "field_w25519.cuh", "jacobian.cuh", "coz.cuh", "coz_p256.cuh", "coz_secp256k1.cuh",
+           "coz_w25519.cuh", "ladder_lane.cuh", "window.cuh", "window_lane.cuh",
+           "window_table.cuh", "comb_scan.cuh", "comb_lane.cuh", "comb_tree_lane.cuh",
+           "comb_pipe_lane.cuh", "comb_chains.cuh", "comb_chains_lane.cuh")
+# curve -> (the tag of its kernels' C names, the curve as a kernel's
+# ``replaces`` names it; none for P-256, the first curve ported)
+CURVE_TAGS = {P256: ("p256", None), SECP256K1: ("secp256k1", "secp256k1"),
+              WEI25519: ("w25519", "Wei25519")}
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -61,6 +71,7 @@ class Kernel:
 @dataclasses.dataclass(frozen=True)
 class Build:
     """A loaded kernel library, its file, the seconds its build took (0.0
+    when it was already built), the seconds each source's nvcc took (empty
     when it was already built) and the compiler's per-kernel resource
     report."""
 
@@ -68,6 +79,7 @@ class Build:
     path: Path
     seconds: float
     log: str
+    source_seconds: dict[str, float] = dataclasses.field(default_factory=dict)
 
 
 def _nvcc() -> str:
@@ -98,7 +110,7 @@ def compile_library(csrc: Path, build_dir: Path, sources=SOURCES, headers=HEADER
     digest = _digest(csrc, tuple(headers) + tuple(sources))
     so = build_dir / f"libecsimd_{digest}.so"
     log = build_dir / f"libecsimd_{digest}.log"
-    seconds = 0.0
+    seconds, source_seconds = 0.0, {}
     if not so.exists():
         build_dir.mkdir(parents=True, exist_ok=True)
         # build in a private directory and rename, so that a concurrent or
@@ -112,7 +124,14 @@ def compile_library(csrc: Path, build_dir: Path, sources=SOURCES, headers=HEADER
                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
                 for src, obj in zip(sources, objs)
             ]
-            outs = [(src, proc, *proc.communicate()) for src, proc in zip(sources, procs)]
+
+            def finish(src, proc):
+                out, err = proc.communicate()
+                source_seconds[src] = time.perf_counter() - t0
+                return src, proc, out, err
+
+            with concurrent.futures.ThreadPoolExecutor(len(procs)) as pool:
+                outs = list(pool.map(finish, sources, procs))
             failed = [f"{src}:\n{err}" for src, proc, _, err in outs if proc.returncode != 0]
             if failed:
                 raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
@@ -125,7 +144,7 @@ def compile_library(csrc: Path, build_dir: Path, sources=SOURCES, headers=HEADER
             log.write_text("".join(out + err for _, _, out, err in outs))
             os.replace(lib_tmp, so)
     lib = ctypes.CDLL(str(so))
-    return Build(lib, so, seconds, log.read_text() if log.exists() else "")
+    return Build(lib, so, seconds, log.read_text() if log.exists() else "", source_seconds)
 
 
 @functools.cache

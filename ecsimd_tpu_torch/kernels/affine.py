@@ -48,7 +48,7 @@ def affine_planes(x, y, z, curve: CurveSpec = P256):
     if kernel is None:
         raise NotImplementedError(
             f"{curve.name}: the CUDA affine conversion covers P-256, secp256k1 and Wei25519 "
-            "(ROADMAP B0, other fields)"
+            "(ROADMAP B0b, P-384 and P-521)"
         )
     shape = (curve.field.ndigits, x.shape[-1])
     for name, t in (("x", x), ("y", y), ("z", z)):

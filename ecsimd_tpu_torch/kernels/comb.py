@@ -1,10 +1,10 @@
 """Fixed-base comb k_i * B: the CUDA kernels of every schedule of the JAX
-package's ``comb_mont_planes`` — B (serial, ``csrc/comb.cu``; P-256,
-secp256k1 and, non-strict, Wei25519), J (pairwise tree,
-``csrc/comb_tree.cu``), K (pipelined serial chain, ``csrc/comb_pipe.cu``)
-and L (``chains`` independent chains / ``unroll`` positions a step,
-``csrc/comb_chains.cuh``), J, K and L on P-256 — their wrappers, their plain
-PyTorch versions and the host-built tables.
+package's ``comb_mont_planes`` — B (serial, ``csrc/comb.cu``), J (pairwise
+tree, ``csrc/comb_tree.cu``), K (pipelined serial chain,
+``csrc/comb_pipe.cu``) and L (``chains`` independent chains / ``unroll``
+positions a step, ``csrc/comb_chains.cuh``), each on P-256, secp256k1 and
+Wei25519 — their wrappers, their plain PyTorch versions and the host-built
+tables.
 
 Replaces ``ecsimd_tpu/kernels/comb.py`` (``comb_mont_planes`` and its
 Pallas bodies ``_comb_kernel``, ``_comb_kernel_tree`` and
@@ -87,36 +87,54 @@ KERNEL_W25519 = _build.Kernel(
     replaces="ecsimd_tpu/kernels/comb.py:213 _comb_kernel (Wei25519, X25519 keygen)",
     n_pointers=6,
 )
+KERNEL_W25519_STRICT = _build.Kernel(
+    symbol="ec_comb_w25519_strict",
+    source="ecsimd_tpu_torch/csrc/comb.cu",
+    replaces="ecsimd_tpu/kernels/comb.py:213 _comb_kernel (Wei25519, strict=True)",
+    n_pointers=6,
+)
 # (curve, strict) -> kernel B instantiation
 KERNELS = {
     (P256, False): KERNEL, (P256, True): KERNEL_STRICT,
     (SECP256K1, False): KERNEL_SECP256K1, (SECP256K1, True): KERNEL_SECP256K1_STRICT,
-    (WEI25519, False): KERNEL_W25519,
+    (WEI25519, False): KERNEL_W25519, (WEI25519, True): KERNEL_W25519_STRICT,
 }
-KERNEL_TREE = _build.Kernel(
-    symbol="ec_comb_tree_p256",
-    source="ecsimd_tpu_torch/csrc/comb_tree.cu",
-    replaces="ecsimd_tpu/kernels/comb.py:416 _comb_kernel_tree",
-    n_pointers=6,
-)
-KERNEL_PIPE = _build.Kernel(
-    symbol="ec_comb_pipe_p256",
-    source="ecsimd_tpu_torch/csrc/comb_pipe.cu",
-    replaces="ecsimd_tpu/kernels/comb.py:337 _comb_kernel_pipe",
-    n_pointers=6,
-)
-# (chains, unroll, strict) -> kernel L instantiation on P-256; chains = unroll
-# = 1 is kernel B
-KERNELS_CHAINS = {
-    (c, u, st): _build.Kernel(
-        symbol=f"ec_comb_chains_p256_c{c}u{u}{'_strict' if st else ''}",
-        source=f"ecsimd_tpu_torch/csrc/{'comb_unroll.cu' if c == 1 else 'comb_chains.cu'}",
-        replaces=f"ecsimd_tpu/kernels/comb.py:213 _comb_kernel (chains={c}, unroll={u}"
-                 f"{', strict=True' if st else ''}; grid and permutation :624)",
+# kernel L's (chains, unroll, strict) instantiations on every curve; chains
+# = unroll = 1 is kernel B
+SCHEDULES_L = ((2, 1, False), (2, 2, False), (4, 1, False), (1, 2, False), (1, 4, False),
+               (1, 2, True), (1, 4, True))
+
+
+def _schedule_kernel(curve: CurveSpec, stem: str, source: str, replaces: str,
+                     opts: str = "") -> _build.Kernel:
+    """Kernel J, K or L on ``curve``. ``{tag}`` in ``stem``, its C name,
+    becomes the curve's tag; in ``source`` it becomes ``_<tag>``, or
+    nothing on P-256."""
+    tag, name = _build.CURVE_TAGS[curve]
+    opts = ", ".join(o for o in (name, opts) if o)
+    return _build.Kernel(
+        symbol=f"ec_{stem.format(tag=tag)}",
+        source=f"ecsimd_tpu_torch/csrc/{source.format(tag='' if curve == P256 else '_' + tag)}",
+        replaces=replaces + (f" ({opts})" if opts else ""),
         n_pointers=6,
     )
-    for c, u, st in ((2, 1, False), (2, 2, False), (4, 1, False), (1, 2, False), (1, 4, False),
-                     (1, 2, True), (1, 4, True))
+
+
+# curve -> kernel J / K instantiation
+KERNELS_TREE = {c: _schedule_kernel(c, "comb_tree_{tag}", "comb_tree.cu",
+                                    "ecsimd_tpu/kernels/comb.py:416 _comb_kernel_tree")
+                for c in _build.CURVE_TAGS}
+KERNELS_PIPE = {c: _schedule_kernel(c, "comb_pipe_{tag}", "comb_pipe.cu",
+                                    "ecsimd_tpu/kernels/comb.py:337 _comb_kernel_pipe")
+                for c in _build.CURVE_TAGS}
+# (curve, chains, unroll, strict) -> kernel L instantiation
+KERNELS_CHAINS = {
+    (curve, c, u, st): _schedule_kernel(
+        curve, f"comb_chains_{{tag}}_c{c}u{u}{'_strict' if st else ''}",
+        f"{'comb_unroll' if c == 1 else 'comb_chains'}{{tag}}.cu",
+        "ecsimd_tpu/kernels/comb.py:213 _comb_kernel",
+        f"chains={c}, unroll={u}{', strict=True' if st else ''}; grid and permutation :624")
+    for curve in _build.CURVE_TAGS for c, u, st in SCHEDULES_L
 }
 CHAINS = ("serial", "tree", "pipe")
 
@@ -447,10 +465,11 @@ def _launch(kernel, scalars, tables, negbase_digits, curve: CurveSpec):
     return ax, ay, z
 
 
-def _require_p256(curve: CurveSpec, what: str):
-    if curve != P256:
+def _require_curve(curve: CurveSpec, what: str):
+    if curve not in _build.CURVE_TAGS:
         raise NotImplementedError(
-            f"{curve.name}: the CUDA {what} runs on P-256 only (ROADMAP B8, other curves)")
+            f"{curve.name}: the CUDA {what} covers P-256, secp256k1 and Wei25519 "
+            "(ROADMAP B0b, P-384 and P-521)")
 
 
 def comb_planes(scalars, tables, negbase_digits, curve: CurveSpec = P256, strict: bool = False):
@@ -459,29 +478,24 @@ def comb_planes(scalars, tables, negbase_digits, curve: CurveSpec = P256, strict
     of ``device_tables``. Returns Jacobian (ax, ay, z) planes (internal
     domain)."""
     _build.require_cuda(scalars, "comb")
-    kernel = KERNELS.get((curve, strict))
-    if kernel is None:
-        raise NotImplementedError(
-            f"{curve.name} (strict={strict}): the CUDA comb covers P-256 and secp256k1, both "
-            "modes, and Wei25519 non-strict (ROADMAP B0, other fields)"
-        )
-    return _launch(kernel, scalars, tables, negbase_digits, curve)
+    _require_curve(curve, "comb")
+    return _launch(KERNELS[(curve, bool(strict))], scalars, tables, negbase_digits, curve)
 
 
 def comb_tree_planes(scalars, tables, negbase_digits, curve: CurveSpec = P256):
     """Run kernel J, the pairwise tree, on CUDA planes (operands as
     ``comb_planes``); bit-exact with ``comb_tree_plain``."""
     _build.require_cuda(scalars, "comb tree")
-    _require_p256(curve, "comb tree")
-    return _launch(KERNEL_TREE, scalars, tables, negbase_digits, curve)
+    _require_curve(curve, "comb tree")
+    return _launch(KERNELS_TREE[curve], scalars, tables, negbase_digits, curve)
 
 
 def comb_pipe_planes(scalars, tables, negbase_digits, curve: CurveSpec = P256):
     """Run kernel K, the pipelined serial chain, on CUDA planes (operands
     as ``comb_planes``); bit-exact with kernel B and ``comb_plain``."""
     _build.require_cuda(scalars, "comb pipe")
-    _require_p256(curve, "comb pipe")
-    return _launch(KERNEL_PIPE, scalars, tables, negbase_digits, curve)
+    _require_curve(curve, "comb pipe")
+    return _launch(KERNELS_PIPE[curve], scalars, tables, negbase_digits, curve)
 
 
 def comb_chains_planes(scalars, tables, negbase_digits, curve: CurveSpec = P256,
@@ -492,8 +506,8 @@ def comb_chains_planes(scalars, tables, negbase_digits, curve: CurveSpec = P256,
     with kernel B)."""
     _build.require_cuda(scalars, "comb chains")
     check_schedule(curve, "serial", chains, unroll, strict)
-    _require_p256(curve, "comb chains")
-    kernel = KERNELS_CHAINS.get((chains, unroll, strict))
+    _require_curve(curve, "comb chains")
+    kernel = KERNELS_CHAINS.get((curve, chains, unroll, bool(strict)))
     if kernel is None:
         raise NotImplementedError(
             f"chains={chains}, unroll={unroll}, strict={strict}: kernel L runs chains and unroll "

@@ -59,7 +59,7 @@ def probe(a, b, fs: FieldSpec = P256_FIELD):
     if kernel is None:
         raise NotImplementedError(
             f"{fs.name}: the CUDA field layers cover P-256, secp256k1 and 2^255 - 19 "
-            "(ROADMAP B0, other fields)"
+            "(ROADMAP B0b, the P-384 and P-521 fields)"
         )
     shape = (fs.ndigits, a.shape[-1])
     _build.check_planes("a", a, shape, a.device)

@@ -149,7 +149,7 @@ def glv_planes(packed, xm, ym, curve: CurveSpec = SECP256K1, strict: bool = True
     _build.require_cuda(packed, "glv")
     if curve != SECP256K1:
         raise NotImplementedError(
-            f"{curve.name}: the CUDA GLV kernel covers secp256k1 only (ROADMAP B0, other fields)"
+            f"{curve.name}: the CUDA GLV kernel covers secp256k1 only, the one GLV curve shipped"
         )
     assert glv.glv_params(curve).dk == KERNEL_DIGITS
     d = curve.field.ndigits

@@ -1,5 +1,6 @@
-"""Signed fixed-window (w = 4) k_i * P_i: kernel E (``csrc/window.cu``), its
-wrapper, the recoding and the plain PyTorch version.
+"""Signed fixed-window (w = 4) k_i * P_i: kernel E (``csrc/window.cu``,
+``window_secp256k1.cu``, ``window_w25519.cu``: P-256, secp256k1 and
+Wei25519), its wrapper, the recoding and the plain PyTorch version.
 
 Replaces ``ecsimd_tpu/kernels/window.py`` (``window_mont_planes`` and its
 Pallas body ``_window_kernel``, both ``strict`` variants). Each lane builds
@@ -15,8 +16,8 @@ operation; every field result is canonical, so the kernel's Jacobian
 planes equal it bit for bit.
 
 Scalar domain: non-strict k in [1, order-1) minus the measure-zero class
-whose prefix sums collide with a table entry (k = order-2 is one, for any
-P); strict: all of [1, order).
+whose prefix sums collide with a table entry (k = order-2 is one on P-256,
+for any P, and not on secp256k1 or Wei25519); strict: all of [1, order).
 """
 
 from __future__ import annotations
@@ -32,19 +33,21 @@ from ecsimd_tpu_torch.specs import DIGIT_BITS, P256, CurveSpec
 W = 4  # window width in bits
 TABLE = 1 << (W - 1)  # odd multiples P, 3P, .., 15P
 
-KERNEL = _build.Kernel(
-    symbol="ec_window_p256",
-    source="ecsimd_tpu_torch/csrc/window.cu",
-    replaces="ecsimd_tpu/kernels/window.py:160 _window_kernel",
-    n_pointers=6,
-)
-KERNEL_STRICT = _build.Kernel(
-    symbol="ec_window_p256_strict",
-    source="ecsimd_tpu_torch/csrc/window.cu",
-    replaces="ecsimd_tpu/kernels/window.py:160 _window_kernel (strict=True)",
-    n_pointers=6,
-)
+def _kernel(curve: CurveSpec, strict: bool) -> _build.Kernel:
+    tag, name = _build.CURVE_TAGS[curve]
+    opts = ", ".join(o for o in (name, "strict=True" if strict else None) if o)
+    return _build.Kernel(
+        symbol=f"ec_window_{tag}{'_strict' if strict else ''}",
+        source=f"ecsimd_tpu_torch/csrc/{'window.cu' if curve == P256 else f'window_{tag}.cu'}",
+        replaces="ecsimd_tpu/kernels/window.py:160 _window_kernel" + (f" ({opts})" if opts else ""),
+        n_pointers=6,
+    )
 
+
+# (curve, strict) -> kernel E instantiation
+KERNELS = {(curve, strict): _kernel(curve, strict) for curve in _build.CURVE_TAGS
+           for strict in (False, True)}
+KERNEL, KERNEL_STRICT = KERNELS[(P256, False)], KERNELS[(P256, True)]
 
 def recode(scalars, curve: CurveSpec):
     """(D, B) scalar planes -> (idx, neg), each (nbits / 4, B) int64, in the
@@ -111,17 +114,19 @@ def window_plain(scalars, x, y, curve: CurveSpec, strict: bool = False):
 
 
 def window_planes(scalars, x, y, curve: CurveSpec = P256, strict: bool = False):
-    """Run kernel E on (D, B) int32 CUDA planes: classical scalars and affine
-    point coordinates. Returns Jacobian (ax, ay, z) planes."""
+    """Run kernel E on (D, B) int32 CUDA planes: classical scalars and the
+    affine point's coordinates in the field's internal form (as
+    ``window_plain``). Returns Jacobian (ax, ay, z) internal-form planes."""
     _build.require_cuda(scalars, "window")
-    if curve != P256:
+    kernel = KERNELS.get((curve, bool(strict)))
+    if kernel is None:
         raise NotImplementedError(
-            f"{curve.name}: the CUDA window covers P-256 only (ROADMAP B0, other fields)"
+            f"{curve.name}: the CUDA window covers P-256, secp256k1 and Wei25519 "
+            "(ROADMAP B0b, P-384 and P-521)"
         )
     shape = (curve.field.ndigits, scalars.shape[-1])
     for name, t in (("scalars", scalars), ("x", x), ("y", y)):
         _build.check_planes(name, t, shape, scalars.device)
-    kernel = KERNEL_STRICT if strict else KERNEL
     ax, ay, z = (torch.empty(shape, dtype=torch.int32, device=scalars.device) for _ in range(3))
     _build.launch(kernel, [scalars, x, y, ax, ay, z], shape[1])
     kernel.launches += 1

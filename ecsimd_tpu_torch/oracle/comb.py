@@ -7,11 +7,15 @@ planes can be held to it bit for bit and the lanes where a schedule meets a
 degenerate add (equal or opposite x) can be found: every add here raises
 ``ZeroDivisionError`` there. ``tables`` and ``negbase`` are what
 ``kernels.comb.base_tables`` returns, on a field whose internal form is the
-plain value (``fs.plain``: P-256, the toy curves).
+plain value (``fs.plain``: P-256, Wei25519, the toy curves); on a
+Montgomery field (secp256k1), through ``classical_tables``.
 """
 
 from __future__ import annotations
 
+import numpy as np
+
+from ecsimd_tpu_torch import convert
 from ecsimd_tpu_torch.oracle import coz
 from ecsimd_tpu_torch.oracle.window import _jac_add
 from ecsimd_tpu_torch.specs import CurveSpec
@@ -30,6 +34,18 @@ def entry_ints(k: int, tables) -> list[tuple[int, int]]:
 
     return [(value(tables[i, e, :d]), value(tables[i, e, d:]))
             for i, e in ((i, ((k >> (8 * i)) & 0x1FF) >> 1) for i in range(tables.shape[0]))]
+
+
+def classical_tables(tables, fs):
+    """(npos, 256, 2D) digit tables in the field's internal form -> the same
+    entries as classical residues (x R mod p -> x on a Montgomery field;
+    the tables themselves on a plain one), as this module reads them."""
+    if fs.plain:
+        return tables
+    d = fs.ndigits
+    rows = np.asarray(tables).reshape(-1, d)
+    vals = [int(v) * fs.R_inv % fs.p for v in convert.planes_to_ints(rows.T)]
+    return convert.ints_to_planes(vals, d).T.reshape(np.shape(tables))
 
 
 def add_z2_1(acc: Jac, pt: Jac, curve: CurveSpec) -> Jac:

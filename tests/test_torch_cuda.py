@@ -21,6 +21,7 @@ from ecsimd_tpu_torch.curves.point import AffinePoint, JacobianPoint
 from ecsimd_tpu_torch.field import GFp
 from ecsimd_tpu_torch.kernels import _build, affine, comb, field_ops, ladder, mladder, window
 from ecsimd_tpu_torch.kernels import glv as kglv
+from ecsimd_tpu_torch.oracle import comb as ocomb
 from ecsimd_tpu_torch.oracle import coz
 from ecsimd_tpu_torch.oracle import window as ow
 from ecsimd_tpu_torch.specs import P256, SECP256K1, W25519_FIELD, WEI25519
@@ -187,10 +188,10 @@ def test_comb_schedule_kernels_match_plain_and_oracle(cuda, kw):
     ks, s = _scalars(65536, 90, cuda)
     tables, negbase, _, _ = _comb_tables(P256, cuda)
     if "chain" in kw:
-        kernel, want = comb.KERNEL_TREE, comb.comb_tree_plain(s, tables, P256, negbase)
+        kernel, want = comb.KERNELS_TREE[P256], comb.comb_tree_plain(s, tables, P256, negbase)
     else:
         c, u = kw["chains"], kw.get("unroll", 1)
-        kernel = comb.KERNELS_CHAINS[(c, u, False)]
+        kernel = comb.KERNELS_CHAINS[(P256, c, u, False)]
         want = comb.comb_chains_plain(s, tables, P256, negbase, c, u)
     before = kernel.launches
     out = comb.scalar_mult_base(s, P256, **kw)
@@ -215,8 +216,8 @@ def test_comb_one_chain_kernels_match_kernel_b(cuda, kw):
     s = _planes(ks, cuda)
     _, _, nb, limbs = _comb_tables(P256, cuda)
     want = comb.comb_planes(s, limbs, nb, strict=strict)
-    kernel = (comb.KERNEL_PIPE if "chain" in kw
-              else comb.KERNELS_CHAINS[(1, kw["unroll"], strict)])
+    kernel = (comb.KERNELS_PIPE[P256] if "chain" in kw
+              else comb.KERNELS_CHAINS[(P256, 1, kw["unroll"], strict)])
     before = kernel.launches
     out = comb.scalar_mult_base(s, P256, **kw)
     assert kernel.launches == before + 1
@@ -231,7 +232,7 @@ def test_comb_schedule_dynamic_smem_queries(cuda):
     a step than with two."""
     _, s = _scalars(256, 93, cuda)
     comb.scalar_mult_base(s, P256, chain="tree")
-    for c, u, strict in comb.KERNELS_CHAINS:
+    for c, u, strict in comb.SCHEDULES_L:
         comb.scalar_mult_base(s, P256, chains=c, unroll=u, strict=strict)
     torch.cuda.synchronize()
 
@@ -240,8 +241,8 @@ def test_comb_schedule_dynamic_smem_queries(cuda):
         fn.argtypes, fn.restype = [], ctypes.c_int
         return fn()
 
-    got = {key: smem(k) for key, k in comb.KERNELS_CHAINS.items()}
-    got["tree"] = smem(comb.KERNEL_TREE)
+    got = {key: smem(comb.KERNELS_CHAINS[(P256, *key)]) for key in comb.SCHEDULES_L}
+    got["tree"] = smem(comb.KERNELS_TREE[P256])
     assert all(0 < v <= 227 * 1024 for v in got.values()), got
     assert got[(1, 4, False)] > got[(1, 2, False)] and got[(4, 1, False)] > got[(2, 1, False)]
 
@@ -499,3 +500,149 @@ def test_calib_kernel_matches_plain(cuda):
     rate = roofline.measure_int32_ceiling(reps=1 << 10, iters=2)
     assert rate["int32_ops_per_s"] > 0
     assert rate["imad_per_s"] * 5 == pytest.approx(rate["int32_ops_per_s"])
+
+
+# --- secp256k1 and Wei25519: kernels A, E, B strict (Wei25519), J, K, L ------------
+
+OTHER = [SECP256K1, WEI25519]
+
+
+def _curve_affine(out, lanes, curve):
+    jac = JacobianPoint(*(GFp(t[:, :lanes].contiguous(), curve.field) for t in out), curve)
+    aff = jac.to_affine()
+    return list(zip(ints(aff.x), ints(aff.y)))
+
+
+def _curve_oracle(ks, pts, curve):
+    """k * P by the oracle for any k: (n - 1) P = -P, 0 P = infinity (0, 0)."""
+    n, p = curve.order, curve.p
+    out = []
+    for k, (x, y) in zip(ks, pts):
+        k %= n
+        out.append((x, (p - y) % p) if k == n - 1 else (0, 0) if k == 0
+                   else coz.scalar_mult_affine(k, x, y, curve))
+    return out
+
+
+def _varbase(curve, n, seed, dev, last=None):
+    """Scalars (edges 1, 2, 5, n - 2; lane 4 set to ``last``) and the
+    points (i+1)G, lane 0 the generator itself (z = 1 through its table)."""
+    ks, _ = _scalars(n, seed, dev, curve)
+    if last is not None:
+        ks[4] = last
+    pts = multiples(curve, n)
+    pt = AffinePoint(_planes([x for x, _ in pts], dev), _planes([y for _, y in pts], dev), curve)
+    return ks, _planes(ks, dev), pts, pt
+
+
+@pytest.mark.parametrize("curve", OTHER, ids=lambda c: c.name)
+def test_ladder_kernel_other_curves(cuda, curve):
+    """Kernel A through ladder.scalar_mult (coordinates converted to the
+    field's internal form) against the plain ladder on 1,024 lanes, and
+    api.scalar_mult against the oracle on 16."""
+    ks, s, pts, pt = _varbase(curve, 1024, 94, cuda)
+    kernel = ladder.KERNELS[curve]
+    before = kernel.launches
+    got = ladder.scalar_mult(s, pt)
+    assert kernel.launches == before + 1
+    want = group.scalar_mult(s, JacobianPoint.from_affine(pt))
+    for k, w in zip((got.x, got.y, got.z), (want.x, want.y, want.z)):
+        assert torch.equal(k.planes, w.planes)
+    out = api.scalar_mult(s[:, :16].contiguous(), AffinePoint(
+        pt.x[:, :16].contiguous(), pt.y[:, :16].contiguous(), curve))
+    assert list(zip(ints(out.x), ints(out.y))) == _curve_oracle(ks[:16], pts[:16], curve)
+
+
+@pytest.mark.parametrize("strict", [False, True], ids=["plain", "strict"])
+@pytest.mark.parametrize("curve", OTHER, ids=lambda c: c.name)
+def test_window_kernel_other_curves(cuda, curve, strict):
+    """Kernel E (strict: k = n - 1 on lane 4) through window.scalar_mult
+    against window_plain on 1,024 lanes, and 16 lanes against the oracle
+    (the plain window's degenerate lanes excluded, as the window oracle
+    finds them)."""
+    ks, s, pts, pt = _varbase(curve, 1024, 95, cuda, curve.order - 1 if strict else None)
+    kernel = window.KERNELS[(curve, strict)]
+    before = kernel.launches
+    got = window.scalar_mult(s, pt, strict=strict)
+    assert kernel.launches == before + 1
+    xm = GFp.from_classical(pt.x, curve.field).planes.contiguous()
+    ym = GFp.from_classical(pt.y, curve.field).planes.contiguous()
+    for k, w in zip((got.x, got.y, got.z), window.window_plain(s, xm, ym, curve, strict)):
+        assert torch.equal(k.planes, w)
+
+    def degenerate(k, pt):
+        try:
+            ow.scalar_mult(k, (*pt, 1), curve)
+            return False
+        except ZeroDivisionError:
+            return True
+
+    lanes = [i for i in range(16) if strict or not degenerate(ks[i], pts[i])]
+    aff = _curve_affine((got.x.planes, got.y.planes, got.z.planes), 16, curve)
+    want = _curve_oracle(ks[:16], pts[:16], curve)
+    assert [aff[i] for i in lanes] == [want[i] for i in lanes]
+
+
+def test_strict_comb_kernel_w25519(cuda):
+    ks, _ = _scalars(1024, 96, cuda, WEI25519)
+    ks[4] = WEI25519.order - 1
+    s = _planes(ks, cuda)
+    tables, negbase, nb, limbs = _comb_tables(WEI25519, cuda)
+    kernel = comb.KERNELS[(WEI25519, True)]
+    before = kernel.launches
+    got = comb.comb_planes(s, limbs, nb, WEI25519, strict=True)
+    assert kernel.launches == before + 1
+    for k, w in zip(got, comb.comb_plain(s, tables, WEI25519, negbase, strict=True)):
+        assert torch.equal(k, w)
+    g = [(WEI25519.gx, WEI25519.gy)] * 16
+    assert _curve_affine(got, 16, WEI25519) == _curve_oracle(ks[:16], g, WEI25519)
+
+
+SCHEDULES = [{"chain": "tree"}, {"chain": "pipe"}] + [
+    {"chains": c, "unroll": u, "strict": st} for c, u, st in comb.SCHEDULES_L]
+
+
+@pytest.mark.parametrize("kw", SCHEDULES, ids=lambda kw: "-".join(f"{k}{v}" for k, v in kw.items()))
+@pytest.mark.parametrize("curve", OTHER, ids=lambda c: c.name)
+def test_comb_schedule_kernels_other_curves(cuda, curve, kw):
+    """Kernels J, K and L through comb.scalar_mult_base on 1,024 lanes
+    against their plain versions (K and one-chain L: comb_plain, strict with
+    k = n - 1 on lane 4), and 16 lanes against the oracle (lanes where the
+    schedule's composition on ints meets a degenerate add excluded)."""
+    strict = kw.get("strict", False)
+    ks, _ = _scalars(1024, 97, cuda, curve)
+    if strict:
+        ks[4] = curve.order - 1
+    s = _planes(ks, cuda)
+    tables, negbase, _, _ = _comb_tables(curve, cuda)
+    chains, unroll = kw.get("chains", 1), kw.get("unroll", 1)
+    if kw.get("chain") == "tree":
+        kernel, want = comb.KERNELS_TREE[curve], comb.comb_tree_plain(s, tables, curve, negbase)
+    elif kw.get("chain") == "pipe":
+        kernel, want = comb.KERNELS_PIPE[curve], comb.comb_plain(s, tables, curve, negbase)
+    else:
+        kernel = comb.KERNELS_CHAINS[(curve, chains, unroll, strict)]
+        want = comb.comb_chains_plain(s, tables, curve, negbase, chains, unroll, strict)
+    before = kernel.launches
+    out = comb.scalar_mult_base(s, curve, **kw)
+    assert kernel.launches == before + 1
+    for k, w in zip(_jacobian_planes(out), want):
+        assert torch.equal(k, w)
+    tables_np, negbase_ints = comb.base_tables(curve, curve.gx, curve.gy)
+    classical = ocomb.classical_tables(tables_np, curve.field)
+
+    def degenerate(k):
+        try:
+            if kw.get("chain") == "tree":
+                ocomb.tree(k, classical, negbase_ints, curve)
+            else:
+                ocomb.chains(k, classical, negbase_ints, curve, chains)
+            return False
+        except ZeroDivisionError:
+            return True
+
+    lanes = [i for i in range(16) if strict or not degenerate(ks[i])]
+    aff = _curve_affine(_jacobian_planes(out), 16, curve)
+    want = _curve_oracle(ks[:16], [(curve.gx, curve.gy)] * 16, curve)
+    assert [aff[i] for i in lanes] == [want[i] for i in lanes]
+    assert len(lanes) >= 12

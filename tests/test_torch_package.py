@@ -22,12 +22,10 @@ from tests.torch_helpers import ints, port_spec, rand_ints, tplanes
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = Path(ecsimd_tpu_torch.__file__).resolve().parent
-KERNELS = (comb.KERNEL, comb.KERNEL_STRICT, ladder.KERNEL, window.KERNEL, window.KERNEL_STRICT,
-           field_ops.KERNEL, affine.KERNEL, comb.KERNEL_SECP256K1, comb.KERNEL_SECP256K1_STRICT,
-           field_ops.KERNEL_SECP256K1, affine.KERNEL_SECP256K1, glv.KERNEL, glv.KERNEL_STRICT,
-           comb.KERNEL_W25519, affine.KERNEL_W25519, field_ops.KERNEL_W25519, mladder.KERNEL,
-           mladder.KERNEL_XDIVZ, roofline.KERNEL, comb.KERNEL_TREE, comb.KERNEL_PIPE,
-           *comb.KERNELS_CHAINS.values())
+KERNELS = (*comb.KERNELS.values(), *ladder.KERNELS.values(), *window.KERNELS.values(),
+           *field_ops.KERNELS.values(), *affine.KERNELS.values(), glv.KERNEL, glv.KERNEL_STRICT,
+           mladder.KERNEL, mladder.KERNEL_XDIVZ, roofline.KERNEL, *comb.KERNELS_TREE.values(),
+           *comb.KERNELS_PIPE.values(), *comb.KERNELS_CHAINS.values())
 MODULES = sorted(
     "ecsimd_tpu_torch" + "".join("." + part for part in f.relative_to(PORT).with_suffix("").parts)
     for f in PORT.rglob("*.py")
@@ -42,10 +40,11 @@ def test_import_leaves_jax_out():
         "from ecsimd_tpu_torch.kernels import affine, comb, field_ops, glv, ladder, mladder, window\n"
         "from ecsimd_tpu_torch.bench import roofline\n"
         "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'ecsimd_tpu')))\n"
-        "print([k.launches for k in (*comb.KERNELS.values(), ladder.KERNEL, window.KERNEL,"
-        " window.KERNEL_STRICT, *field_ops.KERNELS.values(), *affine.KERNELS.values(),"
+        "print([k.launches for k in (*comb.KERNELS.values(), *ladder.KERNELS.values(),"
+        " *window.KERNELS.values(), *field_ops.KERNELS.values(), *affine.KERNELS.values(),"
         " glv.KERNEL, glv.KERNEL_STRICT, mladder.KERNEL, mladder.KERNEL_XDIVZ, roofline.KERNEL,"
-        " comb.KERNEL_TREE, comb.KERNEL_PIPE, *comb.KERNELS_CHAINS.values())])\n"
+        " *comb.KERNELS_TREE.values(), *comb.KERNELS_PIPE.values(),"
+        " *comb.KERNELS_CHAINS.values())])\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, check=True, timeout=120).stdout.splitlines()

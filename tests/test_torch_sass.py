@@ -62,6 +62,10 @@ def test_ab_kernel_names():
     assert ab._kernel_part("ec_glv_secp256k1_strict") == "glv_strict_secp256k1_kernel"
     assert ab._kernel_part("ec_comb_chains_p256_c1u4_strict") == (
         "comb_chains_p256_kernelILi1ELi4ELb1E")
+    assert ab._kernel_part("ec_comb_chains_secp256k1_c2u1") == (
+        "comb_chains_secp256k1_kernelILi2ELi1ELb0E")
+    assert ab._kernel_part("ec_window_w25519_strict") == "window_strict_w25519_kernel"
+    assert ab._kernel_part("ec_comb_w25519_strict") == "comb_strict_w25519_kernel"
     log = ("ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118window_p256_kernelEv' "
            "for 'sm_90a'\nptxas info    : Function properties for _ZN12_GLOBAL__N_118window_"
            "p256_kernelEv\n    320 bytes stack frame, 160 bytes spill stores, 160 bytes spill "
@@ -71,3 +75,11 @@ def test_ab_kernel_names():
         "stack_frame_bytes": 320, "spill_stores": 160, "spill_loads": 160, "registers": 255,
         "smem_bytes": 49152}
     assert sass.resources(rep, "glv_secp256k1_kernel") is None
+    # a name inside a longer one: the x-only ladder's kernel is not kernel A's
+    two = sass.ptxas(
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_121mladder_w25519_kernelEv' "
+        "for 'sm_90a'\nptxas info    : Used 96 registers, 0 bytes smem\n"
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120ladder_w25519_kernelEPKiS1_S1_"
+        "PiS2_S2_l' for 'sm_90a'\nptxas info    : Used 168 registers, 0 bytes smem\n")
+    assert sass.resources(two, "ladder_w25519_kernel")["registers"] == 168
+    assert sass.resources(two, "mladder_w25519_kernel")["registers"] == 96
