@@ -120,19 +120,40 @@ check raises and the script exits non-zero:
      of each result against the oracle (each schedule's and the plain
      window's degenerate lanes, and n-1 on the ladder, excluded and
      counted); masks exact; each new kernel exact against its plain
-     version, or kernel B for K and one-chain L, on the path's own 524,288
-     lanes; CUDA-event times of each kernel, of the entry points and of the
-     plain versions.
+     version, or kernel B for K and one-chain L, on the first 65,536 lanes
+     of the path's own inputs (all 524,288 before phase 19 was added);
+     CUDA-event times of each kernel at 524,288 lanes, of the entry points
+     and of the plain versions.
+ 19. the main path on P-384 and on P-521 at B = 524,288 (edge scalars 1, 2,
+     5, n-2, n-1 first; points (i+1)G, lane 0 and every lane from 512 on
+     G): api.scalar_mult (kernel A), api.scalar_mult_fast plain and strict
+     (E, E strict), api.scalar_mult_shared_fast, api.scalar_mult_base plain
+     and strict (B, B strict), each followed by kernel D, and ECDH (two
+     parties' keys, shared secrets both ways with a zero scalar, scalar =
+     n, an off-curve peer and x = p); on P-384 also ECDSA sign / verify /
+     recover at 131,072 lanes with 384-bit hashes (phase 12's checks). P-521
+     ECDSA is refused by the JAX package and the port alike (its n has 521
+     bits of the planes' 528: ROADMAP C7). Launch counts; 512 lanes of each
+     result against the oracle (the plain window's and the serial comb's
+     degenerate lanes, and n-1 on the ladder, excluded and counted); masks
+     exact; kernels A, B, B strict, D, E and E strict exact against their
+     plain versions on the first 65,536 lanes of the path's own inputs,
+     kernel C against probe_plain (edge pairs first) and 64 lanes against
+     ints; CUDA-event times of each kernel at 524,288 lanes, of the entry
+     points, and of the plain versions.
 
 Inputs come from numpy.random.default_rng(SEED). The line before the last
 is a JSON object with one entry per kernel; the last line is the device
 summary ``{"ok": true, "device": {...}}``.
 """
 
+import concurrent.futures
 import ctypes
 import functools
 import hashlib
 import json
+import multiprocessing
+import os
 import subprocess
 import sys
 import time
@@ -152,7 +173,7 @@ from ecsimd_tpu_torch.oracle import comb as ocomb
 from ecsimd_tpu_torch.oracle import coz
 from ecsimd_tpu_torch.oracle import field as ofield
 from ecsimd_tpu_torch.oracle import window as ow
-from ecsimd_tpu_torch.specs import P256, SECP256K1, W25519_FIELD, WEI25519
+from ecsimd_tpu_torch.specs import P256, P384, SECP256K1, W25519_FIELD, WEI25519
 
 SEED = 0xEC51
 BATCH = 524288  # bench.py's deployment size
@@ -191,7 +212,7 @@ PTXAS_NAMES |= {k: f"comb_chains_p256_kernelILi{c}ELi{u}ELb{int(st)}E"
 SCHEDULES = {"comb_tree": {"chain": "tree"}, "comb_pipe": {"chain": "pipe"}} | {
     k: {"chains": c, "unroll": u, "strict": st} for k, (c, u, st) in SCHEDULES_L.items()}
 # phase 18: the curves beyond P-256 and their tag in the C names
-CURVES18 = {c: tag for c, (tag, _) in _build.CURVE_TAGS.items() if c != P256}
+CURVES18 = {c: _build.CURVE_TAGS[c][0] for c in _build.CURVES_256 if c != P256}
 
 
 def curve_kernels(curve):
@@ -213,6 +234,25 @@ for _tag in CURVES18.values():
     PTXAS_NAMES |= {f"{k}_{_tag}": f"comb_chains_{_tag}_kernelILi{c}ELi{u}ELb{int(st)}E"
                     for k, (c, u, st) in SCHEDULES_L.items()}
 PTXAS_NAMES["comb_strict_w25519"] = "comb_strict_w25519_kernel"
+# phase 19: P-384 and P-521 and their tag in the C names
+CURVES19 = {c: _build.CURVE_TAGS[c][0] for c in _build.WIDE_CURVES}
+WIDE_KINDS = ("ladder", "window", "window_strict", "comb", "comb_strict", "affine", "field_probe",
+              "field_consts")
+for _tag in CURVES19.values():
+    PTXAS_NAMES |= {f"{k}_{_tag}": f"{k}_{_tag}_kernel" for k in WIDE_KINDS}
+
+
+def wide_kernels(curve):
+    """Phase 19's kernels on ``curve``: JSON name -> kernel."""
+    tag = CURVES19[curve]
+    return {f"ladder_{tag}": ladder.KERNELS[curve],
+            f"window_{tag}": window.KERNELS[(curve, False)],
+            f"window_strict_{tag}": window.KERNELS[(curve, True)],
+            f"comb_{tag}": comb.KERNELS[(curve, False)],
+            f"comb_strict_{tag}": comb.KERNELS[(curve, True)],
+            f"affine_{tag}": affine.KERNELS[curve],
+            f"field_probe_{tag}": field_ops.KERNELS[curve.field],
+            f"field_consts_{tag}": field_ops.KERNELS_CONSTS[curve.field]}
 
 # RFC 6979 A.2.5, P-256 with SHA-256: private key x, and (message, k, r, s)
 RFC6979_X = 0xC9AFA9D845BA75166B5C215767B1D6934E50C3DB36E89B127B8A622B120F6721
@@ -249,6 +289,9 @@ FORMULA_MS = {
     # Wei25519's doubling (general a) and complete add
     "ladder_step": (5, 4), "w_fe_inv": (11, 254), "xdivz": (12, 254),
     "w_jac_dbl": (2, 8), "w_add_complete": (14, 12),
+    # P-384 and P-521 (a = -3, the P-256 formulas): the addition chains of
+    # field_p384.cuh and field_p521.cuh
+    "p384_fe_inv": (14, 385), "p521_fe_inv": (13, 524),
 }
 # curve tag -> its doubling and complete add in FORMULA_MS
 CURVE_FORMULAS = {"p256": ("jac_dbl", "add_complete"), "secp256k1": ("k1_jac_dbl",
@@ -310,6 +353,32 @@ LANE_MS = {
     **{f"{k}_{tag}": v for tag in CURVES18.values() for k, v in schedule_ms(tag).items()
        if k != "comb_strict" or tag == "w25519"},
 }
+
+
+def wide_ms(tag, d):
+    """(M, S) per lane of phase 19's kernels on P-384 / P-521 (``d``
+    digits, 16 d bits): the ladder's 16 d - 2 ZDAU steps, the window's 4 d
+    windows (4 doublings and an add each; the table's doubling and 7 adds),
+    the comb's 2 d positions (the fix-up included), the inversion chain."""
+    windows = 4 * d
+    return {
+        f"ladder_{tag}": lane_ms((1, "tplu"), (16 * d - 2, "zdau"), (1, "add_z2_1")),
+        f"window_{tag}": lane_ms((1 + 4 * windows, "jac_dbl"), (7 + windows, "jac_add"),
+                                 (1, "add_z2_1")),
+        f"window_strict_{tag}": lane_ms((1 + 4 * windows, "jac_dbl"), (7, "jac_add"),
+                                        (windows + 1, "add_complete")),
+        f"comb_{tag}": lane_ms((2 * d, "add_z2_1")),
+        f"comb_strict_{tag}": lane_ms((2 * d, "add_complete")),
+        f"affine_{tag}": lane_ms((1, f"{tag}_fe_inv"), (1, "affine_tail")),
+        f"field_probe_{tag}": lane_ms((1, "probe")),
+        # kernel C's constant-operand form: one lane, 2 multiplies, 2 squarings
+        f"field_consts_{tag}": lane_ms((2, "probe")),
+    }
+
+
+for _c, _tag in CURVES19.items():
+    LANE_MS |= wide_ms(_tag, _c.field.ndigits)
+
 # 32 x 32 -> 64-bit products, two 32-bit multiply-adds each. A multiply has
 # 8 x 8 products, a squaring 36 (8 squares, 28 cross products taken once).
 # The reduction: none on P-256 (Solinas: adds only); on secp256k1 the least
@@ -341,6 +410,20 @@ BYTES_PER_LANE = {  # each input plane read once, each output plane written once
        for tag in CURVES18.values() for k in schedule_ms(tag)},
 }
 COMB_TABLE_BYTES = (256 + 31 * 128) * 16 * 4  # kernel B's limb layout
+# P-384 and P-521: a multiply has N^2 products, a squaring N (N + 1) / 2 (N =
+# 12, 17 words), two multiply-adds each; both reductions are adds and
+# shifts. Each input plane of D digits read once, each output written once;
+# the comb's tables in their padded limb layout.
+WIDE_IMADS = {}
+for _c, _tag in CURVES19.items():
+    _d = _c.field.ndigits
+    _w = (_d + 1) // 2
+    WIDE_IMADS[_tag] = (2 * _w * _w, _w * (_w + 1))
+    BYTES_PER_LANE |= {f"{k}_{_tag}": n * _d * 4 for k, n in (
+        ("ladder", 6), ("window", 6), ("window_strict", 6), ("comb", 4), ("comb_strict", 4),
+        ("affine", 5), ("field_probe", 7), ("field_consts", len(field_ops.CONST_OPS)))}
+    BYTES_PER_LANE[f"comb_table_{_tag}"] = (
+        (comb.NENT + (2 * _d - 1) * comb.NENT // 2) * 2 * comb.coord_words(_d) * 4)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak memory bandwidth
 IMAD_PER_SM_PER_CLOCK = 64  # CUDA C++ Programming Guide, compute capability 9.0
 SMS = 132
@@ -349,6 +432,78 @@ SMS = 132
 def check(ok, what):
     if not ok:
         raise RuntimeError(f"check failed: {what}")
+
+
+# The oracle's Python-int work (512 lanes of each result, the degenerate-lane
+# searches) runs on the host's cores, in a pool of spawned processes that
+# main() starts before the build and shuts down at its end; without one
+# (an import of this module) it runs in this process.
+ORACLE_WORKERS = min(8, os.cpu_count() or 1)
+_POOL = None
+# Phase 19's plain versions are launch-bound Python (the plain P-521 ladder
+# takes a minute at any width), so each runs in a process of its own with
+# its own CUDA context, beside the phase's path and checks: a second pool.
+PLAIN_WORKERS = 6
+_PLAIN_POOL = None
+_T0 = time.perf_counter()
+
+
+def pmap(fn, args):
+    """[fn(*a) for a in args], in order, on the oracle pool if there is one."""
+    args = list(args)
+    if _POOL is None or len(args) < 2:
+        return [fn(*a) for a in args]
+    chunk = max(1, len(args) // (4 * ORACLE_WORKERS))
+    return list(_POOL.map(fn, *zip(*args), chunksize=chunk))
+
+
+def plain_job(kind, curve, strict, arrays, device):
+    """One plain version on ``device`` (a pool process): ``kind`` ladder,
+    window, comb or affine on the int32 numpy planes ``arrays``. Returns
+    its output planes as numpy and its milliseconds (CUDA events)."""
+    dev = torch.device(device)
+    fs = curve.field
+    ts = [torch.from_numpy(a).to(dev) for a in arrays]
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(dev)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+    t0 = time.perf_counter()
+    if kind == "ladder":
+        s, x, y = ts
+        jac = group.scalar_mult(s, JacobianPoint(GFp(x, fs), GFp(y, fs), GFp.one(fs, x), curve))
+        out = (jac.x.planes, jac.y.planes, jac.z.planes)
+    elif kind == "window":
+        out = window.window_plain(*ts, curve, strict)
+    elif kind == "comb":
+        tables, negbase, _ = comb.device_tables(curve, curve.gx, curve.gy, dev)
+        out = comb.comb_plain(ts[0], tables, curve, negbase, strict)
+    else:
+        pt = JacobianPoint(*(GFp(v, fs) for v in ts), curve).to_affine()
+        out = (pt.x, pt.y)
+    if cuda:
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end)
+    else:
+        ms = (time.perf_counter() - t0) * 1e3
+    return [o.cpu().numpy() for o in out], ms
+
+
+def plain_submit(*args):
+    """plain_job on the plain pool (in this process, when there is none): a
+    future."""
+    if _PLAIN_POOL is None:
+        done = concurrent.futures.Future()
+        done.set_result(plain_job(*args))
+        return done
+    return _PLAIN_POOL.submit(plain_job, *args)
+
+
+def say(msg):
+    """A phase's line, with the seconds since the script started."""
+    print(f"{msg} [t = {time.perf_counter() - _T0:.1f} s]", flush=True)
 
 
 def dynamic_smem(kernel):
@@ -386,8 +541,12 @@ def random_planes(rng, n):
 
 
 def scalar_ints(rng, n, edges=EDGE_SCALARS, curve=P256):
-    """bench.py's draw: uniform mod n (0 -> 1), edge scalars in the first lanes."""
-    ks = [int.from_bytes(rng.bytes(32), "little") % curve.order or 1 for _ in range(n)]
+    """bench.py's draw: uniform mod n (0 -> 1), edge scalars in the first lanes
+    (32 random bytes a scalar on the 256-bit curves, 8 more than n's on
+    P-384 and P-521)."""
+    bits = curve.order.bit_length()
+    nbytes = 32 if bits <= 256 else (bits + 7) // 8 + 8
+    ks = [int.from_bytes(rng.bytes(nbytes), "little") % curve.order or 1 for _ in range(n)]
     ks[: len(edges)] = edges
     return ks
 
@@ -396,8 +555,8 @@ def scalar_planes(rng, n, edges=EDGE_SCALARS, curve=P256):
     return convert.ints_to_planes(scalar_ints(rng, n, edges, curve), D)
 
 
-def to_dev(ints, dev):
-    return torch.from_numpy(convert.ints_to_planes(ints, D)).to(dev)
+def to_dev(ints, dev, d=D):
+    return torch.from_numpy(convert.ints_to_planes(ints, d)).to(dev)
 
 
 @functools.cache
@@ -418,8 +577,9 @@ def varbase_points(n, device, curve=P256):
     pts = multiples_of_g(ORACLE_LANES, curve)
     g = api.generator_batch(curve, n, device)
     xs, ys = g.x.clone(), g.y.clone()
-    xs[:, :ORACLE_LANES] = torch.from_numpy(convert.ints_to_planes([x for x, _ in pts], D))
-    ys[:, :ORACLE_LANES] = torch.from_numpy(convert.ints_to_planes([y for _, y in pts], D))
+    d = curve.field.ndigits
+    xs[:, :ORACLE_LANES] = torch.from_numpy(convert.ints_to_planes([x for x, _ in pts], d))
+    ys[:, :ORACLE_LANES] = torch.from_numpy(convert.ints_to_planes([y for _, y in pts], d))
     return AffinePoint(xs, ys, curve)
 
 
@@ -448,7 +608,7 @@ def oracle_mult(k, pt, curve=P256):
 
 
 def oracle_base(ks, curve=P256):
-    return [oracle_mult(k, (curve.gx, curve.gy), curve) for k in ks]
+    return pmap(oracle_mult, [(k, (curve.gx, curve.gy), curve) for k in ks])
 
 
 def oracle_varbase(ks, curve=P256):
@@ -465,6 +625,13 @@ def window_degenerate(k, i, curve=P256):
         return False
     except ZeroDivisionError:
         return True
+
+
+def window_degenerate_lanes(ks, curve=P256):
+    """The lanes i of ``ks`` where the plain window degenerates for
+    k_i * (i+1)G."""
+    flags = pmap(window_degenerate, [(k, i, curve) for i, k in enumerate(ks)])
+    return [i for i, f in enumerate(flags) if f]
 
 
 def _jac_mult(k, pt, curve):
@@ -562,9 +729,12 @@ def bound(name, lanes, sm_clock_mhz, reps=0):
     else:
         muls, sqrs = LANE_MS[name]
         extra = FOLD_IMADS if name in FOLD_FIELD else 0
-        ops = (muls * (IMADS_PER_MUL + extra) + sqrs * (IMADS_PER_SQR + extra)
+        per_mul, per_sqr = WIDE_IMADS.get(name.rpartition("_")[2], (IMADS_PER_MUL, IMADS_PER_SQR))
+        ops = (muls * (per_mul + extra) + sqrs * (per_sqr + extra)
                + SMALL_IMADS.get(name, 0)) * lanes
-    nbytes = BYTES_PER_LANE[name] * lanes + (COMB_TABLE_BYTES if name.startswith("comb") else 0)
+    tag = name.rpartition("_")[2]
+    table = (BYTES_PER_LANE[f"comb_table_{tag}"] if tag in WIDE_IMADS else COMB_TABLE_BYTES)
+    nbytes = BYTES_PER_LANE[name] * lanes + (table if name.startswith("comb") else 0)
     op_ms = ops / (IMAD_PER_SM_PER_CLOCK * SMS * sm_clock_mhz * 1e6) * 1e3
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return (op_ms, "operations") if op_ms >= byte_ms else (byte_ms, "bytes")
@@ -656,9 +826,9 @@ def x25519_phases(rng, dev, card, counted):
     check(ints[4] == [(-x) % pw for x in ai], "w25519 probe opposite vs ints")
     out["probe_ms"] = time_ms(lambda: field_ops.probe(a_dev, b_dev, fs), 20)
     out["probe_plain_ms"] = time_ms(lambda: field_ops.probe_plain(a_dev, b_dev, fs), 3)
-    print(f"phase 13 w25519 field probe: {CHECK_LANES} lanes exact vs plain GFp (edge pairs of "
+    say(f"phase 13 w25519 field probe: {CHECK_LANES} lanes exact vs plain GFp (edge pairs of "
           f"0, 1, 2, p-1, p-2, p-19, 2^254, 2^255-2^32) and 64 vs ints; kernel "
-          f"{out['probe_ms']:.3f} ms, plain {out['probe_plain_ms']:.3f} ms {card}", flush=True)
+          f"{out['probe_ms']:.3f} ms, plain {out['probe_plain_ms']:.3f} ms {card}")
 
     # -- phase 14: kernels G, H, B, D on 2^255 - 19 / Wei25519 ----------------------
     k_bytes = split32(rng.bytes(32 * CHECK_LANES))
@@ -676,7 +846,7 @@ def x25519_phases(rng, dev, card, counted):
     out["xdivz_check_err"] = max_abs_diff([h], [mladder.xdivz_plain(x2, z2, fs)])
     check(out["xdivz_check_err"] == 0, "xdivz kernel == plain batch-inverse x / z")
     u_ints = convert.planes_to_ints(u14_np[:, :ORACLE_LANES])
-    want = [x25519_int(k, u) for k, u in zip(k_ints, u_ints)]
+    want = pmap(x25519_int, list(zip(k_ints, u_ints)))
     check(convert.planes_to_ints(h[:, :ORACLE_LANES].cpu().numpy()) == want,
           "mladder + xdivz vs the RFC 7748 int ladder")
     check(want[:2] == [0, 0], "u = 0 and u = 1 give 0")
@@ -701,11 +871,11 @@ def x25519_phases(rng, dev, card, counted):
     check([(x - x25519.A_OVER_3) % pw for x in xs] == [x25519_int(k, 9) for k in k_ints],
           "comb + affine keys vs the int ladder X25519(k, 9)")
     del x2, z2, h, jac, jx, jy, jz, got, plain
-    print(f"phase 14 X25519 kernels: G (x-only ladder) and H (x / z) {CHECK_LANES} lanes exact vs "
+    say(f"phase 14 X25519 kernels: G (x-only ladder) and H (x / z) {CHECK_LANES} lanes exact vs "
           f"mladder_plain / batch-inverse x / z, {ORACLE_LANES} lanes vs the int ladder (u = 0, 1, "
           f"p-1, 9 first); RFC 7748 §5.2 vectors and iteration 1; Wei25519 comb (B) and affine "
           f"(D) {CHECK_LANES} lanes exact vs comb_plain / to_affine (one lane at infinity), "
-          f"{ORACLE_LANES} keys vs the int ladder", flush=True)
+          f"{ORACLE_LANES} keys vs the int ladder")
 
     # -- phase 15: the fourth main path, batched X25519 at B = 524,288 --------------
     ka = split32(rng.bytes(32 * BATCH))
@@ -736,7 +906,7 @@ def x25519_phases(rng, dev, card, counted):
     ca = [x25519.clamp(k) for k in ka[:ORACLE_LANES]]
     check([int.from_bytes(q, "little") for q in qa[:ORACLE_LANES]]
           == [x25519_int(k, 9) for k in ca], "derive_public_batch vs the int ladder")
-    want = [x25519_int(k, x25519.decode_u(u)) for k, u in zip(ca, peers[:ORACLE_LANES])]
+    want = pmap(x25519_int, [(k, x25519.decode_u(u)) for k, u in zip(ca, peers[:ORACLE_LANES])])
     check([int.from_bytes(v, "little") for v in s_ab[:ORACLE_LANES]] == want,
           "x25519_batch vs the int ladder, special lanes included")
     check([s_ab[i] for i in sorted(low - {sp + 5})] == [bytes(32)] * 4, "u = 0, 1, p, p + 1 give 0")
@@ -774,7 +944,7 @@ def x25519_phases(rng, dev, card, counted):
     out["derive_public_planes_ms"] = time_ms(lambda: x25519.derive_public_planes(kpa), 10)
     out["launches15"] = launches15
     rate = BATCH / (out["x25519_planes_ms"] / 1e3)
-    print(f"phase 15 X25519 main path B={BATCH}: launches {json.dumps(launches15)}; "
+    say(f"phase 15 X25519 main path B={BATCH}: launches {json.dumps(launches15)}; "
           f"derive_public_batch and x25519_batch both ways equal on every lane but the special "
           f"peers (u = 0, 1, p, p+1 give 0; twist and masked-bit lanes right), {ORACLE_LANES} "
           f"lanes vs the int ladder; G, H, B, D exact vs their plain versions; mladder kernel "
@@ -783,7 +953,7 @@ def x25519_phases(rng, dev, card, counted):
           f"{out['comb_ms']:.3f} ms, plain {out['comb_plain_ms']:.1f} ms; affine "
           f"{out['affine_ms']:.3f} ms, plain {out['affine_plain_ms']:.1f} ms; "
           f"x25519.x25519_planes {out['x25519_planes_ms']:.3f} ms ({rate:.0f} exchanges/s), "
-          f"x25519.derive_public_planes {out['derive_public_planes_ms']:.3f} ms {card}", flush=True)
+          f"x25519.derive_public_planes {out['derive_public_planes_ms']:.3f} ms {card}")
     del x2, z2, jac, kpa, upb, upb_raw
 
     # -- phase 16: the calibration (kernel I) --------------------------------------
@@ -803,11 +973,10 @@ def x25519_phases(rng, dev, card, counted):
     check(out["launches16"][roofline.KERNEL.symbol] >= 1, "calibration launched ec_calib")
     out["ceiling"] = ceiling
     out["calib_elements"] = n
-    print(f"phase 16 calibration: kernel I exact vs calib_plain ({n} elements, "
+    say(f"phase 16 calibration: kernel I exact vs calib_plain ({n} elements, "
           f"{CALIB_CHECK_REPS} reps; plain {out['calib_plain_ms']:.1f} ms); measure_int32_ceiling "
           f"({CALIB_REPS} reps, {n} elements): {ceiling['int32_ops_per_s']:.4e} int32 ops/s, "
-          f"{ceiling['imad_per_s']:.4e} IMAD/s, {ceiling['ms_per_launch']:.3f} ms a launch {card}",
-          flush=True)
+          f"{ceiling['imad_per_s']:.4e} IMAD/s, {ceiling['ms_per_launch']:.3f} ms a launch {card}")
     return out
 
 
@@ -881,11 +1050,10 @@ def schedule_phase(rng, dev, card, counted, scalars, b_plain_ms):
         aff = affine_ints(AffinePoint(*affine.affine_planes(*got), P256), ORACLE_LANES)
         check([aff[i] for i in lanes] == [want[i] for i in lanes], f"{kname} vs oracle")
     del got, sets
-    print(f"phase 17 comb schedules: J (tree), L (chains 2, 4) {CHECK_LANES} lanes exact vs "
+    say(f"phase 17 comb schedules: J (tree), L (chains 2, 4) {CHECK_LANES} lanes exact vs "
           f"comb_tree_plain / comb_chains_plain; K (pipe) and L with one chain (unroll 2, 4; "
           f"strict, n-1 included) exact vs kernel B / B strict; {ORACLE_LANES} lanes of each "
-          f"through kernel D vs oracle (degenerate lanes excluded: {json.dumps(excluded)})",
-          flush=True)
+          f"through kernel D vs oracle (degenerate lanes excluded: {json.dumps(excluded)})")
 
     # -- the path: entry point -> kernel J, K or L -> kernel D, at B = 524,288
     ks = convert.planes_to_ints(scalars[:, :MAIN_ORACLE_LANES].cpu().numpy())
@@ -931,49 +1099,49 @@ def schedule_phase(rng, dev, card, counted, scalars, b_plain_ms):
         out[kname]["ms"] = time_ms(lambda: run(kw, scalars), 20)
         out[kname]["api_ms"] = time_ms(
             lambda: affine.to_affine(comb.scalar_mult_base(scalars, P256, **kw)), 10)
-    print(f"phase 17 comb schedules main path B={BATCH} (comb.scalar_mult_base -> kernel, then "
+    say(f"phase 17 comb schedules main path B={BATCH} (comb.scalar_mult_base -> kernel, then "
           f"kernel D): launches {json.dumps(launches17)}; {MAIN_ORACLE_LANES} lanes of each vs "
           f"oracle (degenerate lanes excluded: {json.dumps(main_excluded)}); each kernel exact vs "
           f"its plain version or kernel B on the path's inputs; kernel ms "
           f"{json.dumps({k: round(v['ms'], 3) for k, v in out.items()})}; entry point + D ms "
           f"{json.dumps({k: round(v['api_ms'], 3) for k, v in out.items()})}; plain ms "
-          f"{json.dumps({k: round(v['plain_ms'], 1) for k, v in out.items()})} {card}", flush=True)
+          f"{json.dumps({k: round(v['plain_ms'], 1) for k, v in out.items()})} {card}")
     return {"launches17": launches17, "kernels": kernels, "by_kernel": out}
 
 
-def ecdh_w25519(rng, dev, card):
-    """Phase 18's protocol path on Wei25519, inside its launch count: ECDH
-    (two parties' keys, then shared secrets both ways with a zero scalar,
-    scalar = n, an off-curve peer and x = p in the batch) and
-    api.scalar_mult_base(strict=True) with k = n - 1 on lane 4. Returns the
-    times of the calls."""
-    curve = WEI25519
-    n, p = curve.order, curve.p
+def ecdh_path(rng, dev, card, curve=WEI25519, phase=18):
+    """The protocol path of phase 18 (Wei25519) and 19 (P-384, P-521),
+    inside its launch count: ECDH (two parties' keys, then shared secrets
+    both ways with a zero scalar, scalar = n, an off-curve peer and x = p in
+    the batch) and api.scalar_mult_base(strict=True) with k = n - 1 on lane
+    4. Returns the times of the calls."""
+    n, p, d = curve.order, curve.p, curve.field.ndigits
+    name = curve.name
     d1 = scalar_ints(rng, BATCH, [1, 2, 5, n - 2], curve)
     d2 = scalar_ints(rng, BATCH, [3, n - 2], curve)
     bad = BATCH - 4  # lanes bad..bad+3
     d1[bad], d1[bad + 1] = 0, n
-    d1_dev, d2_dev = to_dev(d1, dev), to_dev(d2, dev)
+    d1_dev, d2_dev = to_dev(d1, dev, d), to_dev(d2, dev, d)
     q1x, q1y, ok1 = ecdh.derive_public_planes(d1_dev, curve)
     q2x, q2y, ok2 = ecdh.derive_public_planes(d2_dev, curve)
     q2x_bad, q2y_bad = q2x.clone(), q2y.clone()
     y_off = (convert.planes_to_ints(q2y[:, bad + 2:bad + 3].cpu().numpy())[0] + 1) % p
-    q2y_bad[:, bad + 2] = to_dev([y_off], dev)[:, 0]
-    q2x_bad[:, bad + 3] = to_dev([p], dev)[:, 0]
+    q2y_bad[:, bad + 2] = to_dev([y_off], dev, d)[:, 0]
+    q2x_bad[:, bad + 3] = to_dev([p], dev, d)[:, 0]
     s12, ok12 = ecdh.shared_secret_planes(d1_dev, q2x_bad, q2y_bad, curve)
     s21, ok21 = ecdh.shared_secret_planes(d2_dev, q1x, q1y, curve)
     k_ints = scalar_ints(rng, BATCH, [1, 2, 5, n - 2, n - 1], curve)
-    k_dev = to_dev(k_ints, dev)
+    k_dev = to_dev(k_ints, dev, d)
     base_strict = api.scalar_mult_base(k_dev, curve, strict=True)
     torch.cuda.synchronize()
 
     ones = torch.ones(BATCH, dtype=torch.int32, device=dev)
     want1 = ones.clone()
     want1[bad:bad + 2] = 0
-    check(torch.equal(ok1, want1) and torch.equal(ok2, ones), "Wei25519 derive_public masks")
+    check(torch.equal(ok1, want1) and torch.equal(ok2, ones), f"{name} derive_public masks")
     want12 = ones.clone()
     want12[bad:] = 0
-    check(torch.equal(ok12, want12), "Wei25519 shared_secret mask: the four invalid lanes")
+    check(torch.equal(ok12, want12), f"{name} shared_secret mask: the four invalid lanes")
     # Q1 on the two bad-scalar lanes is whatever the comb made of 0 and n;
     # the mask must say what an independent on-curve check of it says
     q1_bad = affine_ints(AffinePoint(q1x[:, bad:bad + 2], q1y[:, bad:bad + 2], curve), 2)
@@ -981,25 +1149,25 @@ def ecdh_w25519(rng, dev, card):
                    and (y * y - x**3 - curve.a * x - curve.b) % p == 0) for x, y in q1_bad]
     want21 = ones.clone()
     want21[bad:bad + 2] = torch.tensor(host_ok, dtype=torch.int32)
-    check(torch.equal(ok21, want21), "Wei25519 shared_secret mask on the comb's outputs of 0, n")
+    check(torch.equal(ok21, want21), f"{name} shared_secret mask on the comb's outputs of 0, n")
     both = (ok12 & ok21).bool()
-    check(int(both.sum()) == BATCH - 4, "Wei25519 ECDH valid lanes")
-    check(torch.equal(s12[:, both], s21[:, both]), "Wei25519 d1*Q2 == d2*Q1 on every valid lane")
+    check(int(both.sum()) == BATCH - 4, f"{name} ECDH valid lanes")
+    check(torch.equal(s12[:, both], s21[:, both]), f"{name} d1*Q2 == d2*Q1 on every valid lane")
     sx = convert.planes_to_ints(s21[:, :MAIN_ORACLE_LANES].cpu().numpy())
     check(sx == [x for x, _ in oracle_base([a * b % n for a, b in zip(d1, d2[:MAIN_ORACLE_LANES])],
-                                           curve)], "Wei25519 shared secrets vs oracle")
+                                           curve)], f"{name} shared secrets vs oracle")
     check(affine_ints(base_strict, ORACLE_LANES) == oracle_base(k_ints[:ORACLE_LANES], curve),
-          "Wei25519 scalar_mult_base(strict) vs oracle (n - 1 on lane 4)")
+          f"{name} scalar_mult_base(strict) vs oracle (n - 1 on lane 4)")
     ms = {"ecdh.derive_public_planes": time_ms(
               lambda: ecdh.derive_public_planes(d2_dev, curve), 10),
           "ecdh.shared_secret_planes": time_ms(
               lambda: ecdh.shared_secret_planes(d2_dev, q1x, q1y, curve), 5),
           "scalar_mult_base_strict": time_ms(
               lambda: api.scalar_mult_base(k_dev, curve, strict=True), 10)}
-    print(f"phase 18 Wei25519 ECDH and strict keygen B={BATCH}: masks exact (4 invalid lanes), "
+    say(f"phase {phase} {name} ECDH and strict keygen B={BATCH}: masks exact (4 invalid lanes), "
           f"d1*Q2 == d2*Q1 on {BATCH - 4} lanes, {MAIN_ORACLE_LANES} secrets vs oracle; "
           f"scalar_mult_base(strict) {ORACLE_LANES} lanes vs oracle (1, 2, 5, n-2, n-1 first); "
-          f"ms {json.dumps({k: round(v, 3) for k, v in ms.items()})} {card}", flush=True)
+          f"ms {json.dumps({k: round(v, 3) for k, v in ms.items()})} {card}")
     return ms
 
 
@@ -1032,7 +1200,7 @@ def curve_phase(rng, dev, card, counted, curve):
            "scalar_mult_shared_fast": api.scalar_mult_shared_fast(k_shared, points)}
     for kname, kw in SCHEDULES.items():
         res[kname] = affine.to_affine(comb.scalar_mult_base(scalars, curve, **kw))
-    proto_ms = ecdh_w25519(rng, dev, card) if curve == WEI25519 else {}
+    proto_ms = ecdh_path(rng, dev, card) if curve == WEI25519 else {}
     torch.cuda.synchronize()
     launches = {k.symbol: k.launches for k in counted}
     for kname, kernel in kern.items():
@@ -1043,15 +1211,13 @@ def curve_phase(rng, dev, card, counted, curve):
     want_var = oracle_varbase(ks[:ORACLE_LANES], curve)
     want_base = oracle_base(ks[:ORACLE_LANES], curve)
     want_shared = oracle_varbase([k_shared] * ORACLE_LANES, curve)
-    degenerate = {"window": [i for i, k in enumerate(ks[:ORACLE_LANES])
-                             if window_degenerate(k, i, curve)],
-                  "shared": [i for i in range(ORACLE_LANES)
-                             if window_degenerate(k_shared, i, curve)],
+    degenerate = {"window": window_degenerate_lanes(ks[:ORACLE_LANES], curve),
+                  "shared": window_degenerate_lanes([k_shared] * ORACLE_LANES, curve),
                   "ladder": [i for i, k in enumerate(ks[:ORACLE_LANES]) if k == n - 1]}
     for kname, kw in SCHEDULES.items():
-        degenerate[kname] = [] if kw.get("strict") else [
-            i for i, k in enumerate(ks[:ORACLE_LANES])
-            if comb_degenerate(k, classical, negbase_ints, kw, curve)]
+        flags = [] if kw.get("strict") else pmap(comb_degenerate, [
+            (k, classical, negbase_ints, kw, curve) for k in ks[:ORACLE_LANES]])
+        degenerate[kname] = [i for i, f in enumerate(flags) if f]
     excl = {"scalar_mult": "ladder", "scalar_mult_fast": "window",
             "scalar_mult_shared_fast": "shared"}
     for name, out in res.items():
@@ -1067,64 +1233,76 @@ def curve_phase(rng, dev, card, counted, curve):
     check(degenerate["ladder"] == [4], "n - 1, outside the ladder's domain, on lane 4")
     del res
     excluded = {k: len(v) for k, v in degenerate.items()}
-    print(f"phase 18 {curve.name} main path B={BATCH}: launches {json.dumps(launches)}; "
+    say(f"phase 18 {curve.name} main path B={BATCH}: launches {json.dumps(launches)}; "
           f"{ORACLE_LANES} lanes of each result vs oracle (edge scalars 1, 2, 5, n-2, n-1; "
-          f"points (i+1)G; excluded lanes: {json.dumps(excluded)})", flush=True)
+          f"points (i+1)G; excluded lanes: {json.dumps(excluded)})")
 
-    # -- each new kernel against its plain version (or kernel B) on the path's
-    # inputs, and the times (these launches come after the counts were read)
-    out = {k: {} for k in kern}
+    # -- each new kernel against its plain version (or kernel B) on the first
+    # CHECK_LANES lanes of the path's inputs (since phase 19 was added: the
+    # plain versions at full width took ~200 s), and the times at full width
+    # (these launches come after the counts were read)
+    out = {k: {"plain_lanes": CHECK_LANES} for k in kern}
+    m = CHECK_LANES
+    sc, xc, yc = (t[:, :m].contiguous() for t in (scalars, xm, ym))
+    pc = AffinePoint(points.x[:, :m].contiguous(), points.y[:, :m].contiguous(), curve)
 
-    def plain_check(kname, run, plain):
+    def kernel_runs(s, x, y):
+        """JSON name -> one call of each new kernel on scalars s, points (x, y)."""
+        r = {f"ladder_{tag}": lambda: ladder.ladder_planes(s, x, y, curve),
+             f"window_{tag}": lambda: window.window_planes(s, x, y, curve),
+             f"window_strict_{tag}": lambda: window.window_planes(s, x, y, curve, True)}
+        if curve == WEI25519:
+            r["comb_strict_w25519"] = lambda: comb.comb_planes(s, limbs, nb, curve, True)
+        for kname, kw in SCHEDULES.items():
+            if kw.get("chain") == "tree":
+                r[f"{kname}_{tag}"] = lambda: comb.comb_tree_planes(s, limbs, nb, curve)
+            elif kw.get("chain") == "pipe":
+                r[f"{kname}_{tag}"] = lambda: comb.comb_pipe_planes(s, limbs, nb, curve)
+            else:
+                r[f"{kname}_{tag}"] = (lambda kw=kw: comb.comb_chains_planes(
+                    s, limbs, nb, curve, kw["chains"], kw["unroll"], kw["strict"]))
+        return r
+
+    runs, chk = kernel_runs(scalars, xm, ym), kernel_runs(sc, xc, yc)
+
+    def plain_check(kname, plain):
         out[kname]["plain_ms"], want = time_once_ms(plain)
-        out[kname]["err"] = max_abs_diff(run(), want)
-        check(out[kname]["err"] == 0, f"{kname} kernel == its plain version at B = {BATCH}")
+        out[kname]["err"] = max_abs_diff(chk[kname](), want)
+        check(out[kname]["err"] == 0, f"{kname} kernel == its plain version on {m} lanes")
 
-    runs = {f"ladder_{tag}": lambda: ladder.ladder_planes(scalars, xm, ym, curve),
-            f"window_{tag}": lambda: window.window_planes(scalars, xm, ym, curve),
-            f"window_strict_{tag}": lambda: window.window_planes(scalars, xm, ym, curve, True)}
     def ladder_plain():
-        jac = group.scalar_mult(scalars, JacobianPoint.from_affine(points))
+        jac = group.scalar_mult(sc, JacobianPoint.from_affine(pc))
         return jac.x.planes, jac.y.planes, jac.z.planes
 
-    plain_check(f"ladder_{tag}", runs[f"ladder_{tag}"], ladder_plain)
+    plain_check(f"ladder_{tag}", ladder_plain)
     for st in (False, True):
         kname = f"window{'_strict' if st else ''}_{tag}"
-        plain_check(kname, runs[kname], lambda: window.window_plain(scalars, xm, ym, curve, st))
+        plain_check(kname, lambda st=st: window.window_plain(sc, xc, yc, curve, st))
     # kernel B, both modes (on Wei25519 strict is new), against comb_plain:
     # K and one-chain L are then held to kernel B, as in phase 17
     b_out, b_plain_ms = {}, {}
     for st in (False, True):
         b_plain_ms[st], want = time_once_ms(
-            lambda: comb.comb_plain(scalars, tables, curve, negbase, st))
-        b_out[st] = comb.comb_planes(scalars, limbs, nb, curve, st)
+            lambda: comb.comb_plain(sc, tables, curve, negbase, st))
+        b_out[st] = comb.comb_planes(sc, limbs, nb, curve, st)
         err = max_abs_diff(b_out[st], want)
-        check(err == 0, f"{curve.name} comb (strict={st}) kernel == comb_plain at B = {BATCH}")
+        check(err == 0, f"{curve.name} comb (strict={st}) kernel == comb_plain on {m} lanes")
     if curve == WEI25519:
-        runs["comb_strict_w25519"] = lambda: comb.comb_planes(scalars, limbs, nb, curve, True)
         out["comb_strict_w25519"] |= {"plain_ms": b_plain_ms[True], "err": err}
     for kname, kw in SCHEDULES.items():
         name = f"{kname}_{tag}"
         if kw.get("chain") == "tree":
-            runs[name] = lambda: comb.comb_tree_planes(scalars, limbs, nb, curve)
-            plain_check(name, runs[name],
-                        lambda: comb.comb_tree_plain(scalars, tables, curve, negbase))
+            plain_check(name, lambda: comb.comb_tree_plain(sc, tables, curve, negbase))
         elif kw.get("chain") == "pipe" or kw["chains"] == 1:
             st = kw.get("strict", False)
-            runs[name] = ((lambda: comb.comb_pipe_planes(scalars, limbs, nb, curve))
-                          if kw.get("chain") == "pipe" else
-                          (lambda kw=kw: comb.comb_chains_planes(
-                              scalars, limbs, nb, curve, 1, kw["unroll"], kw["strict"])))
             out[name]["plain_ms"] = b_plain_ms[st]
-            out[name]["err"] = max_abs_diff(runs[name](), b_out[st])
-            check(out[name]["err"] == 0, f"{name} kernel == kernel B at B = {BATCH}")
+            out[name]["err"] = max_abs_diff(chk[name](), b_out[st])
+            check(out[name]["err"] == 0, f"{name} kernel == kernel B on {m} lanes")
         else:
             c, u = kw["chains"], kw["unroll"]
-            runs[name] = (lambda c=c, u=u: comb.comb_chains_planes(
-                scalars, limbs, nb, curve, c, u, False))
-            plain_check(name, runs[name], lambda c=c, u=u: comb.comb_chains_plain(
-                scalars, tables, curve, negbase, c, u))
-    del b_out
+            plain_check(name, lambda c=c, u=u: comb.comb_chains_plain(
+                sc, tables, curve, negbase, c, u))
+    del b_out, chk
     for name, run in runs.items():
         out[name]["ms"] = time_ms(run, 5 if name.startswith(("ladder", "window")) else 20)
     api_ms = {"scalar_mult": time_ms(lambda: api.scalar_mult(scalars, points), 5),
@@ -1137,16 +1315,333 @@ def curve_phase(rng, dev, card, counted, curve):
                   lambda kw=kw: affine.to_affine(comb.scalar_mult_base(scalars, curve, **kw)),
                   10) for k, kw in SCHEDULES.items()},
               **proto_ms}
-    print(f"phase 18 {curve.name} kernels exact vs their plain versions (K, one-chain L: kernel "
-          f"B, itself exact vs comb_plain) on the path's {BATCH} lanes; kernel ms "
+    say(f"phase 18 {curve.name} kernels exact vs their plain versions (K, one-chain L: kernel "
+          f"B, itself exact vs comb_plain) on the path's first {CHECK_LANES} lanes; kernel ms "
           f"{json.dumps({k: round(v['ms'], 3) for k, v in out.items()})}; plain ms "
           f"{json.dumps({k: round(v['plain_ms'], 1) for k, v in out.items()})}; entry points ms "
-          f"{json.dumps({k: round(v, 3) for k, v in api_ms.items()})} {card}", flush=True)
+          f"{json.dumps({k: round(v, 3) for k, v in api_ms.items()})} {card}")
+    return {"launches": launches, "kernels": kern, "by_kernel": out,
+            "api_ms": {f"{curve.name} {k}": v for k, v in api_ms.items()}}
+
+
+def ecdsa_path(rng, dev, card, counted, curve, phase=12):
+    """ECDSA on ``curve`` at ECDSA_BATCH lanes (phase 12: P-256, secp256k1;
+    phase 19: P-384, its z planes as wide as its field, a SHA-384-sized
+    hash): keys, sign, verify of the honest and a tampered batch, recover
+    with v = 0 and 1, their checks and times. Resets the launch counts of
+    ``counted`` first and returns them with the times and the path's
+    tensors."""
+    n, p, nd = curve.order, curve.p, curve.field.ndigits
+    fs_n = ecdsa.order_field(curve)
+    d_ints = scalar_ints(rng, ECDSA_BATCH, [1, 2, 5, n - 2], curve)
+    k_ints = scalar_ints(rng, ECDSA_BATCH, [n - 2, 5, 2, 1], curve)
+    z_ints = [int.from_bytes(rng.bytes(curve.field.nbits // 8), "big")
+              for _ in range(ECDSA_BATCH)]
+    z_ints[4] = n  # e == 0 mod n: u1 == 0 in verification
+    rfc = curve == P256
+    if rfc:  # lanes 8..15: RFC 6979 A.2.5 keys, hashes and nonces
+        for i in range(8, 16):
+            msg, k_rfc, _, _ = RFC6979_SHA256[i % 2]
+            h1 = hashlib.sha256(msg).digest()
+            d_ints[i], z_ints[i] = RFC6979_X, ecdsa._bits2int(h1, 256)
+            k_ints[i] = ecdsa.rfc6979_nonce(h1, RFC6979_X, curve)
+            check(k_ints[i] == k_rfc, "RFC 6979 A.2.5 nonce")
+    d_dev, k_dev, z_dev = (to_dev(v, dev, nd) for v in (d_ints, k_ints, z_ints))
+    vid = [torch.full((ECDSA_BATCH,), v, dtype=torch.int32, device=dev) for v in (0, 1)]
+
+    # the tampered batch: lanes 500..505 r + 1, s = 0, s = n, r = 0, an
+    # off-curve Q and (secp256k1) a valid signature with u2 = lambda
+    t = ORACLE_LANES - 12
+
+    def tampered(r, s, q):
+        z_t, r_t, s_t, qx_t, qy_t = z_dev.clone(), r.clone(), s.clone(), q.x.clone(), q.y.clone()
+        r_t[:, t] = to_dev([(convert.planes_to_ints(r[:, t:t + 1].cpu().numpy())[0] + 1) % n],
+                           dev, nd)[:, 0]
+        s_t[:, t + 1] = 0
+        s_t[:, t + 2] = to_dev([n], dev, nd)[:, 0]
+        r_t[:, t + 3] = 0
+        y_off = (convert.planes_to_ints(q.y[:, t + 4:t + 5].cpu().numpy())[0] + 1) % p
+        qy_t[:, t + 4] = to_dev([y_off], dev, nd)[:, 0]
+        if curve == SECP256K1:
+            lam = glv.glv_params(curve).lam
+            dd, kk = d_ints[t + 5], k_ints[t + 5]
+            rr = oracle_sign(0, dd, kk, curve)[0]
+            ss = rr * pow(lam, -1, n) % n
+            zz = ss * (kk - lam * dd) % n
+            qq = coz.scalar_mult_affine(dd, curve.gx, curve.gy, curve)
+            for tens, v in ((z_t, zz), (r_t, rr), (s_t, ss), (qx_t, qq[0]), (qy_t, qq[1])):
+                tens[:, t + 5] = to_dev([v], dev)[:, 0]
+        return z_t, r_t, s_t, qx_t, qy_t
+
+    for k in counted:
+        k.launches = 0
+    q = api.scalar_mult_base(d_dev, curve)
+    r, s, ok = ecdsa.sign_planes(z_dev, d_dev, k_dev, curve)
+    v_ok = ecdsa.verify_planes(z_dev, r, s, q.x, q.y, curve)
+    z_t, r_t, s_t, qx_t, qy_t = tampered(r, s, q)
+    v_t = ecdsa.verify_planes(z_t, r_t, s_t, qx_t, qy_t, curve)
+    rec = [ecdsa.recover_planes(z_dev, r, s, v, curve) for v in vid]
+    torch.cuda.synchronize()
+    launches = {k.symbol: k.launches for k in counted}
+    varbase_kernel = kglv.KERNEL_STRICT if curve == SECP256K1 else window.KERNELS[(curve, True)]
+    for k in (comb.KERNELS[(curve, False)], affine.KERNELS[curve], varbase_kernel):
+        check(launches[k.symbol] >= 1, f"ECDSA path on {curve.name} launched {k.symbol}")
+
+    check(bool(ok.all()), f"{curve.name}: every lane signed")
+    check(bool(v_ok.all()), f"{curve.name}: every honest signature verifies")
+    ri = convert.planes_to_ints(r[:, :ORACLE_LANES].cpu().numpy())
+    si = convert.planes_to_ints(s[:, :ORACLE_LANES].cpu().numpy())
+    check(list(zip(ri, si))[:MAIN_ORACLE_LANES] == [
+        oracle_sign(z, d, k, curve) for z, d, k in
+        zip(z_ints[:MAIN_ORACLE_LANES], d_ints, k_ints)], f"{curve.name}: sign vs oracle")
+    if rfc:
+        got = zip(*(convert.planes_to_ints(v[:, 8:16].cpu().numpy()) for v in (r, s)))
+        check(list(got) == [RFC6979_SHA256[i % 2][2:] for i in range(8, 16)],
+              "8 RFC 6979 A.2.5 signatures")
+    cols = [convert.planes_to_ints(t[:, :ORACLE_LANES].cpu().numpy())
+            for t in (z_t, r_t, s_t, qx_t, qy_t)]
+    want_t = pmap(oracle_verify, [(*lane, curve) for lane in zip(*cols)])
+    check(v_t[:ORACLE_LANES].tolist() == want_t, f"{curve.name}: tampered masks vs oracle")
+    tampered_lanes = want_t[t:t + 6]
+    check(tampered_lanes == [0] * 5 + [1], f"{curve.name}: tampered lanes {tampered_lanes}")
+    check(bool((v_t[ORACLE_LANES:] == 1).all()), f"{curve.name}: untouched lanes verify")
+    found = torch.zeros(ECDSA_BATCH, dtype=torch.bool, device=dev)
+    for qx_r, qy_r, ok_r in rec:
+        found |= ok_r.bool() & (qx_r == q.x).all(0) & (qy_r == q.y).all(0)
+    check(bool(found.all()), f"{curve.name}: v = 0 or v = 1 recovers Q on every lane")
+    del v_t, rec, found
+
+    # times: the calls, their kernels, and their plain-PyTorch parts; the
+    # calls and the plain parts take seconds and ran above, so one warm
+    # run each
+    t = {"sign": time_once_ms(lambda: ecdsa.sign_planes(z_dev, d_dev, k_dev, curve))[0],
+         "verify": time_once_ms(lambda: ecdsa.verify_planes(z_dev, r, s, q.x, q.y, curve))[0],
+         "recover": time_once_ms(lambda: ecdsa.recover_planes(z_dev, r, s, vid[0], curve))[0]}
+    limbs_c = comb.kernel_tables(curve, curve.gx, curve.gy, dev)
+    nb_c = comb.device_tables(curve, curve.gx, curve.gy, dev)[2]
+    jac = comb.comb_planes(d_dev, limbs_c, nb_c, curve)
+    t["kernel_comb"] = time_ms(lambda: comb.comb_planes(d_dev, limbs_c, nb_c, curve), 10)
+    t["kernel_affine"] = time_ms(lambda: affine.affine_planes(*jac, curve), 10)
+    if curve == SECP256K1:
+        packed = kglv.pack_scalars(d_dev, curve)
+        qxm = GFp.from_classical(q.x, curve.field).planes.contiguous()
+        qym = GFp.from_classical(q.y, curve.field).planes.contiguous()
+        t["kernel_glv_strict"] = time_ms(
+            lambda: kglv.glv_planes(packed, qxm, qym, curve, strict=True), 3)
+        t["plain_glv_split"] = time_ms(lambda: kglv.pack_scalars(d_dev, curve), 3)
+    else:
+        t["kernel_window_strict"] = time_ms(
+            lambda: window.window_planes(d_dev, q.x, q.y, curve, strict=True), 3)
+    km = mont.mont_from_classical(k_dev.to(torch.int64), fs_n)
+    t["plain_batch_inverse_mod_n"] = time_once_ms(
+        lambda: ecdsa._batch_inverse_mont(km, fs_n))[0]
+    t["plain_recovery_sqrt"] = time_once_ms(lambda: group.affine_from_x(r, curve))[0]
+    out = {"launches": launches, "ms": t, "d": d_dev, "q": q, "jac": jac}
+    if curve == SECP256K1:
+        out.update(packed=packed, qxm=qxm, qym=qym)
+    say(f"phase {phase} ECDSA {curve.name} B={ECDSA_BATCH}: launches {json.dumps(launches)}; every "
+          f"lane signed and verified; {ORACLE_LANES} lanes of the tampered batch exact vs "
+          f"oracle (r+1, s=0, s=n, r=0, off-curve Q rejected; "
+          f"{'u2 = lambda' if curve == SECP256K1 else 'an honest'} lane accepted); hash = n "
+          f"lane; recovery gives Q on every lane{'; RFC 6979 A.2.5 on 8 lanes' if rfc else ''}; "
+          f"ms {json.dumps({k: round(v, 3) for k, v in t.items()})} {card}")
+    return out
+
+
+def wide_edges(p, words):
+    """Field values that take the wide field layers' carry paths: 0, 1, 2,
+    p - 1, p - 2, p - 2^32, a word of all ones in every place (reduced),
+    p // 2 and its neighbour, 2^(32 words - 17) (reduced), and on P-521 the
+    9-bit top word full and alone."""
+    ones = (1 << (32 * words)) - 1
+    vals = [0, 1, 2, p - 1, p - 2, p - (1 << 32), ones % p, p >> 1, (p >> 1) + 1,
+            (1 << (32 * words - 17)) % p, (p - 1) // 3]
+    if p.bit_length() == 521:
+        vals += [0x1FF << 512, 1 << 512, (1 << 512) - 1]
+    return sorted({v % p for v in vals})
+
+
+def wide_phase(rng, dev, card, counted, curve):
+    """Phase 19 on ``curve`` (P-384 or P-521): the main path through the
+    entry points at B = 524,288 (and on P-384 ECDSA at 131,072 lanes,
+    ``ecdsa_path``), its checks, then each kernel against its plain
+    version on the first CHECK_LANES lanes of the path's own inputs (the
+    plain P-521 ladder at full width would take minutes), kernel C against
+    probe_plain, and the times. The plain versions of A, B, D and E run in
+    the plain pool beside the path (plain_ms is timed there, six processes
+    sharing the card and the host). Returns the numbers of the kernels
+    line."""
+    tag = CURVES19[curve]
+    fs, n, p, d = curve.field, curve.order, curve.p, curve.field.ndigits
+    kern = wide_kernels(curve)
+    ks = scalar_ints(rng, BATCH, [1, 2, 5, n - 2, n - 1], curve)
+    scalars = to_dev(ks, dev, d)
+    points = varbase_points(BATCH, dev, curve)
+    xm = GFp.from_classical(points.x, fs).planes.contiguous()
+    ym = GFp.from_classical(points.y, fs).planes.contiguous()
+    k_shared = scalar_ints(rng, 1, [], curve)[0]
+    tables, negbase, nb = comb.device_tables(curve, curve.gx, curve.gy, dev)
+    limbs = comb.kernel_tables(curve, curve.gx, curve.gy, dev)
+    tables_np, negbase_ints = comb.base_tables(curve, curve.gx, curve.gy)
+    classical = ocomb.classical_tables(tables_np, fs)
+
+    # the plain versions of the kernel checks below, on the first CHECK_LANES
+    # lanes of the path's inputs, start now in the plain pool; kernel B's
+    # output (one lane at infinity) is kernel D's input (launched before the
+    # counts are reset, so not counted)
+    m = CHECK_LANES
+    s_c, x_c, y_c = (t[:, :m].contiguous() for t in (scalars, xm, ym))
+    jx, jy, jz = (t.clone() for t in comb.comb_planes(s_c, limbs, nb, curve))
+    jz[:, -1] = 0  # a lane at infinity maps to (0, 0)
+    host = [t.cpu().numpy() for t in (s_c, x_c, y_c, jx, jy, jz)]
+    plain = {f"ladder_{tag}": plain_submit("ladder", curve, False, host[:3], dev.type),
+             f"affine_{tag}": plain_submit("affine", curve, False, host[3:], dev.type)}
+    for st in (False, True):
+        sfx = "_strict" if st else ""
+        plain[f"window{sfx}_{tag}"] = plain_submit("window", curve, st, host[:3], dev.type)
+        plain[f"comb{sfx}_{tag}"] = plain_submit("comb", curve, st, host[:1], dev.type)
+
+    # -- the path: every entry point of this slice on this curve
+    for k in counted:
+        k.launches = 0
+    res = {"scalar_mult": api.scalar_mult(scalars, points),
+           "scalar_mult_fast": api.scalar_mult_fast(scalars, points),
+           "scalar_mult_fast_strict": api.scalar_mult_fast(scalars, points, strict=True),
+           "scalar_mult_shared_fast": api.scalar_mult_shared_fast(k_shared, points),
+           "scalar_mult_base": api.scalar_mult_base(scalars, curve),
+           "scalar_mult_base_strict": api.scalar_mult_base(scalars, curve, strict=True)}
+    proto_ms = ecdh_path(rng, dev, card, curve, 19)
+    torch.cuda.synchronize()
+    launches = {k.symbol: k.launches for k in counted}
+    if curve == P384:  # ECDSA resets the counts and returns its own
+        pe = ecdsa_path(rng, dev, card, counted, curve, 19)
+        launches = {s: v + pe["launches"][s] for s, v in launches.items()}
+        proto_ms |= {f"ecdsa.{k}": v for k, v in pe["ms"].items()}
+    for kname, kernel in kern.items():
+        if not kname.startswith("field_"):
+            check(launches[kernel.symbol] >= 1, f"phase 19 path on {curve.name} launched {kname}")
+
+    # -- 512 lanes of each result against the oracle
+    want_var = oracle_varbase(ks[:ORACLE_LANES], curve)
+    want_base = oracle_base(ks[:ORACLE_LANES], curve)
+    want_shared = oracle_varbase([k_shared] * ORACLE_LANES, curve)
+    degenerate = {"window": window_degenerate_lanes(ks[:ORACLE_LANES], curve),
+                  "shared": window_degenerate_lanes([k_shared] * ORACLE_LANES, curve),
+                  "ladder": [i for i, k in enumerate(ks[:ORACLE_LANES]) if k == n - 1],
+                  "comb": [i for i, f in enumerate(pmap(comb_degenerate, [
+                      (k, classical, negbase_ints, {}, curve) for k in ks[:ORACLE_LANES]])) if f]}
+    excl = {"scalar_mult": "ladder", "scalar_mult_fast": "window",
+            "scalar_mult_shared_fast": "shared", "scalar_mult_base": "comb"}
+    for name, out in res.items():
+        check(out.x.shape == (d, BATCH) and out.x.dtype == torch.int32, f"{name} output shape")
+        check(bool(((out.x >= 0) & (out.x < 1 << 16)).all()), f"{name} digits in range")
+        want = (want_shared if name == "scalar_mult_shared_fast" else want_base
+                if name.startswith("scalar_mult_base") else want_var)
+        skip = set(degenerate.get(excl.get(name), []))
+        lanes = [i for i in range(ORACLE_LANES) if i not in skip]
+        got = affine_ints(out, ORACLE_LANES)
+        check([got[i] for i in lanes] == [want[i] for i in lanes],
+              f"phase 19 {curve.name} {name} vs oracle")
+    check(degenerate["ladder"] == [4], "n - 1, outside the ladder's domain, on lane 4")
+    del res
+    excluded = {k: len(v) for k, v in degenerate.items()}
+    say(f"phase 19 {curve.name} main path B={BATCH}: launches {json.dumps(launches)}; "
+          f"{ORACLE_LANES} lanes of each result vs oracle (edge scalars 1, 2, 5, n-2, n-1; "
+          f"points (i+1)G; excluded lanes: {json.dumps(excluded)})")
+
+    # -- each kernel against its plain version on the first CHECK_LANES lanes
+    # of the path's inputs (the plain pool's results), and the times (these
+    # launches come after the counts were read)
+    out = {k: {"plain_lanes": m} for k in kern}
+
+    def check_against(kname, run, want_np, ms):
+        out[kname]["plain_ms"] = ms
+        out[kname]["err"] = max_abs_diff(run(), [torch.from_numpy(w).to(dev) for w in want_np])
+        check(out[kname]["err"] == 0, f"{kname} kernel == its plain version on {m} lanes")
+
+    def plain_check(kname, run, plain):
+        out[kname]["plain_ms"], want = time_once_ms(plain)
+        out[kname]["err"] = max_abs_diff(run(), want)
+        check(out[kname]["err"] == 0, f"{kname} kernel == its plain version on {m} lanes")
+
+    runs_c = {f"ladder_{tag}": lambda: ladder.ladder_planes(s_c, x_c, y_c, curve),
+              f"affine_{tag}": lambda: affine.affine_planes(jx, jy, jz, curve)}
+    for st in (False, True):
+        sfx = "_strict" if st else ""
+        runs_c[f"window{sfx}_{tag}"] = lambda st=st: window.window_planes(s_c, x_c, y_c, curve, st)
+        runs_c[f"comb{sfx}_{tag}"] = lambda st=st: comb.comb_planes(s_c, limbs, nb, curve, st)
+    for kname, job in plain.items():
+        check_against(kname, runs_c[kname], *job.result())
+    # kernel C: the edge pairs first, then draws below p
+    edges = wide_edges(p, (d + 1) // 2)
+    pairs = [(x, y) for x in edges for y in edges]
+    av = [x for x, _ in pairs] + [int.from_bytes(rng.bytes(80), "little") % p
+                                  for _ in range(m - len(pairs))]
+    bv = [y for _, y in pairs] + [int.from_bytes(rng.bytes(80), "little") % p
+                                  for _ in range(m - len(pairs))]
+    a_dev, b_dev = to_dev(av, dev, d), to_dev(bv, dev, d)
+    pname = f"field_probe_{tag}"
+    plain_check(pname, lambda: field_ops.probe(a_dev, b_dev, fs),
+                lambda: field_ops.probe_plain(a_dev, b_dev, fs))
+    got = field_ops.probe(a_dev, b_dev, fs)
+    ints = [convert.planes_to_ints(got[k, :, :64].cpu().numpy()) for k in range(5)]
+    check(ints == [[x * y % p for x, y in zip(av, bv[:64])], [x * x % p for x in av[:64]],
+                   [(x + y) % p for x, y in zip(av, bv[:64])],
+                   [(x - y) % p for x, y in zip(av, bv[:64])], [(-x) % p for x in av[:64]]],
+          f"{pname} vs ints on 64 lanes")
+    out[pname]["ms"] = time_ms(lambda: field_ops.probe(a_dev, b_dev, fs), 20)
+    out[pname]["lanes"] = m
+    # its constant-operand form: 1, 2, p - 1 and 0 as compile-time constants
+    cname = f"field_consts_{tag}"
+    plain_check(cname, lambda: field_ops.constants(fs, dev),
+                lambda: field_ops.constants_plain(fs, dev))
+    out[cname] |= {"ms": time_ms(lambda: field_ops.constants(fs, dev), 20), "lanes": 1,
+                   "plain_lanes": 1}
+    del jx, jy, jz
+
+    jac = comb.comb_planes(scalars, limbs, nb, curve)
+    runs = {f"ladder_{tag}": lambda: ladder.ladder_planes(scalars, xm, ym, curve),
+            f"window_{tag}": lambda: window.window_planes(scalars, xm, ym, curve),
+            f"window_strict_{tag}": lambda: window.window_planes(scalars, xm, ym, curve, True),
+            f"comb_{tag}": lambda: comb.comb_planes(scalars, limbs, nb, curve),
+            f"comb_strict_{tag}": lambda: comb.comb_planes(scalars, limbs, nb, curve, True),
+            f"affine_{tag}": lambda: affine.affine_planes(*jac, curve)}
+    for name, run in runs.items():
+        out[name]["ms"] = time_ms(run, 3 if name.startswith(("ladder", "window")) else 10)
+    del jac
+    api_ms = {"scalar_mult": time_ms(lambda: api.scalar_mult(scalars, points), 3),
+              "scalar_mult_fast": time_ms(lambda: api.scalar_mult_fast(scalars, points), 3),
+              "scalar_mult_fast_strict": time_ms(
+                  lambda: api.scalar_mult_fast(scalars, points, strict=True), 3),
+              "scalar_mult_shared_fast": time_ms(
+                  lambda: api.scalar_mult_shared_fast(k_shared, points), 3),
+              "scalar_mult_base": time_ms(lambda: api.scalar_mult_base(scalars, curve), 10),
+              **proto_ms}
+    say(f"phase 19 {curve.name} kernels exact vs their plain versions on the path's first {m} "
+          f"lanes (C on {len(pairs)} edge pairs and draws, 64 lanes vs ints, and on compile-time "
+          f"constants); kernel ms at B={BATCH} "
+          f"{json.dumps({k: round(v['ms'], 3) for k, v in out.items()})}; plain ms at {m} lanes "
+          f"{json.dumps({k: round(v['plain_ms'], 1) for k, v in out.items()})}; entry points ms "
+          f"{json.dumps({k: round(v, 3) for k, v in api_ms.items()})} {card}")
     return {"launches": launches, "kernels": kern, "by_kernel": out,
             "api_ms": {f"{curve.name} {k}": v for k, v in api_ms.items()}}
 
 
 def main():
+    """Run the phases with the oracle pool (pmap) and the plain pool
+    (plain_submit) up, and shut them down."""
+    global _POOL, _PLAIN_POOL
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(ORACLE_WORKERS, mp_context=ctx) as pool, \
+            concurrent.futures.ProcessPoolExecutor(PLAIN_WORKERS, mp_context=ctx) as plain:
+        _POOL, _PLAIN_POOL = pool, plain
+        try:
+            return run()
+        finally:
+            _POOL = _PLAIN_POOL = None
+
+
+def run():
     t_start = time.perf_counter()
     # -- phase 0: device ---------------------------------------------------------
     if not torch.cuda.is_available():
@@ -1156,31 +1651,31 @@ def main():
     smi = nvidia_smi("name,power.limit")
     sm_clock_mhz = float(nvidia_smi("clocks.max.sm").split()[0])
     card = f"[{smi}]"
-    print(f"phase 0 device: {name}; nvidia-smi: {smi}; max SM clock {sm_clock_mhz:.0f} MHz; "
-          f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    say(f"phase 0 device: {name}; nvidia-smi: {smi}; max SM clock {sm_clock_mhz:.0f} MHz; "
+          f"torch {torch.__version__} cuda {torch.version.cuda}")
     print(smi, flush=True)
     rng = np.random.default_rng(SEED)
 
     # -- phase 1: build ----------------------------------------------------------
     build = _build.library()
+    for _ in range(ORACLE_WORKERS):  # start the oracle pool's processes beside phases 1-2
+        _POOL.submit(int)
     res = resource_report(build.log)
-    print(f"phase 1 build: {build.seconds:.1f} s nvcc ({len(_build.SOURCES)} sources in "
-          f"parallel); ptxas {json.dumps(res)}", flush=True)
+    say(f"phase 1 build: {build.seconds:.1f} s nvcc ({len(_build.SOURCES)} sources in "
+          f"parallel); ptxas {json.dumps(res)}")
     for kname in PTXAS_NAMES:
         check(kname in res and "registers" in res[kname], f"ptxas report for {kname}")
-    print(f"phase 1 nvcc seconds by source: "
-          f"{json.dumps({k: round(v, 1) for k, v in build.source_seconds.items()})}", flush=True)
-    print("phase 1 ptxas, kernels E and F (registers / spill bytes stored / loaded): " + ", ".join(
+    say(f"phase 1 nvcc seconds by source: "
+          f"{json.dumps({k: round(v, 1) for k, v in build.source_seconds.items()})}")
+    say("phase 1 ptxas, kernels E and F (registers / spill bytes stored / loaded; E on P-384 "
+          "and P-521 too, kernels A, B, C, D of phase 19 in the line above): " + ", ".join(
         f"{k} {res[k]['registers']} / {res[k]['spill_stores']} / {res[k]['spill_loads']}"
         for k in ("window", "window_strict", "glv", "glv_strict",
-                  *(f"window{st}_{tag}" for tag in CURVES18.values() for st in ("", "_strict")))),
-          flush=True)
-    sass_mix = sass.report(build.path)
-    for kname, mix in sass_mix.items():
-        check(mix is not None, f"cuobjdump -sass found {kname}")
-    print("phase 1 SASS of kernels E (three curves) and F, instructions a lane issues by class "
-          "(cuobjdump -sass, loop bodies times their runs): " + json.dumps(
-              {k: v["per_lane"] for k, v in sass_mix.items()}), flush=True)
+                  *(f"window{st}_{tag}" for tag in (*CURVES18.values(), *CURVES19.values())
+                    for st in ("", "_strict")))))
+    # the SASS mix is host work (cuobjdump and its parse): a pool process
+    # does it beside the phases, and its line follows phase 19's
+    sass_job = _POOL.submit(sass.report, build.path)
 
     # -- phase 2: field probe ----------------------------------------------------
     a = random_planes(rng, CHECK_LANES)
@@ -1203,9 +1698,9 @@ def main():
     check(ints[4] == [(-x) % P for x in ai], "probe opposite vs ints")
     probe_ms = time_ms(lambda: field_ops.probe(a_dev, b_dev), 20)
     probe_plain_ms = time_ms(lambda: field_ops.probe_plain(a_dev, b_dev), 3)
-    print(f"phase 2 field probe: {CHECK_LANES} lanes exact vs plain GFp (carry_edges pairs "
+    say(f"phase 2 field probe: {CHECK_LANES} lanes exact vs plain GFp (carry_edges pairs "
           f"first) and 64 vs ints; "
-          f"kernel {probe_ms:.3f} ms, plain {probe_plain_ms:.3f} ms {card}", flush=True)
+          f"kernel {probe_ms:.3f} ms, plain {probe_plain_ms:.3f} ms {card}")
 
     # -- phase 3: comb -----------------------------------------------------------
     tables, negbase, negbase_digits = comb.device_tables(P256, P256.gx, P256.gy, dev)
@@ -1220,8 +1715,8 @@ def main():
     ks = convert.planes_to_ints(s_np[:, :ORACLE_LANES])
     want_base = oracle_base(ks)
     check(jacobian_affine_ints(comb_got, ORACLE_LANES) == want_base, "comb vs oracle")
-    print(f"phase 3 comb: {CHECK_LANES} lanes exact vs comb_plain; {ORACLE_LANES} lanes "
-          f"vs oracle (edge scalars 1, 2, 5, n-2)", flush=True)
+    say(f"phase 3 comb: {CHECK_LANES} lanes exact vs comb_plain; {ORACLE_LANES} lanes "
+          f"vs oracle (edge scalars 1, 2, 5, n-2)")
 
     # -- phase 4: ladder ---------------------------------------------------------
     # its plain version (~25 s, launch-bound at any width) runs once, on the
@@ -1229,8 +1724,8 @@ def main():
     pts = varbase_points(CHECK_LANES, dev)
     got = ladder.ladder_planes(s_dev, pts.x, pts.y)
     check(jacobian_affine_ints(got, ORACLE_LANES) == oracle_varbase(ks), "ladder vs oracle")
-    print(f"phase 4 ladder: {ORACLE_LANES} lanes with points (i+1)G vs oracle (against "
-          f"group.scalar_mult in phase 6)", flush=True)
+    say(f"phase 4 ladder: {ORACLE_LANES} lanes with points (i+1)G vs oracle (against "
+          f"group.scalar_mult in phase 6)")
 
     # -- phase 5: affine conversion ----------------------------------------------
     jx, jy, jz = (t.clone() for t in comb_got)
@@ -1242,15 +1737,16 @@ def main():
     check(affine_check_err == 0, "affine kernel == JacobianPoint.to_affine")
     check(not bool(got[0][:, -1].any() or got[1][:, -1].any()), "lane at infinity -> (0, 0)")
     check(affine_ints(AffinePoint(*got, P256), ORACLE_LANES) == want_base, "affine vs oracle")
-    print(f"phase 5 affine: {CHECK_LANES} comb results exact vs JacobianPoint.to_affine "
-          f"(one lane at infinity); {ORACLE_LANES} lanes vs oracle", flush=True)
+    say(f"phase 5 affine: {CHECK_LANES} comb results exact vs JacobianPoint.to_affine "
+          f"(one lane at infinity); {ORACLE_LANES} lanes vs oracle")
 
     # -- phase 6: the first main path at B = 524,288 ------------------------------
     s_np = scalar_planes(rng, BATCH)
     scalars = torch.from_numpy(s_np).to(dev)
     points = varbase_points(BATCH, dev)
     counted = (*comb.KERNELS.values(), *ladder.KERNELS.values(), *window.KERNELS.values(),
-               *affine.KERNELS.values(), *field_ops.KERNELS.values(), kglv.KERNEL,
+               *affine.KERNELS.values(), *field_ops.KERNELS.values(),
+               *field_ops.KERNELS_CONSTS.values(), kglv.KERNEL,
                kglv.KERNEL_STRICT, mladder.KERNEL, mladder.KERNEL_XDIVZ, roofline.KERNEL,
                *comb.KERNELS_TREE.values(), *comb.KERNELS_PIPE.values(),
                *comb.KERNELS_CHAINS.values())
@@ -1295,14 +1791,14 @@ def main():
     base_api_ms = time_ms(lambda: api.scalar_mult_base(scalars), 10)
     var_api_ms = time_ms(lambda: api.scalar_mult(scalars, points), 5)
     rate = lambda ms: BATCH / (ms / 1e3)  # noqa: E731
-    print(f"phase 6 main path B={BATCH}: launches {json.dumps(launches6)}; 64 lanes of each vs "
+    say(f"phase 6 main path B={BATCH}: launches {json.dumps(launches6)}; 64 lanes of each vs "
           f"oracle; k*G comb kernel {comb_ms:.3f} ms ({rate(comb_ms):.0f} mults/s), plain "
           f"{comb_plain_ms:.1f} ms; k*P ladder kernel {ladder_ms:.3f} ms "
           f"({rate(ladder_ms):.0f} mults/s), plain {ladder_plain_ms:.1f} ms; affine kernel "
           f"{affine_ms:.3f} ms, plain {affine_plain_ms:.1f} ms; api.scalar_mult_base "
           f"{base_api_ms:.3f} ms ({rate(base_api_ms):.0f} mults/s), api.scalar_mult "
           f"{var_api_ms:.3f} ms ({rate(var_api_ms):.0f} mults/s); plain times at the same "
-          f"shape, one run each {card}", flush=True)
+          f"shape, one run each {card}")
 
     # -- phase 7: signed window (kernel E), plain and strict ------------------------
     pts = varbase_points(CHECK_LANES, dev)
@@ -1316,16 +1812,16 @@ def main():
         err = max_abs_diff(got, window.window_plain(s7, pts.x, pts.y, P256, strict))
         check(err == 0, f"{kname} kernel == window_plain (Jacobian)")
         ks7 = convert.planes_to_ints(s7_np[:, :ORACLE_LANES])
-        lanes = [i for i, k in enumerate(ks7) if strict or not window_degenerate(k, i)]
+        bad = [] if strict else window_degenerate_lanes(ks7)
+        lanes = [i for i in range(len(ks7)) if i not in bad]
         check(strict or 3 not in lanes, "n-2 is a degenerate lane of the plain window")
         gaff, waff = jacobian_affine_ints(got, ORACLE_LANES), oracle_varbase(ks7)
         check([gaff[i] for i in lanes] == [waff[i] for i in lanes], f"{kname} vs oracle")
         window_check[kname] = err
-        print(f"phase 7 {kname}: {CHECK_LANES} lanes exact vs window_plain; "
+        say(f"phase 7 {kname}: {CHECK_LANES} lanes exact vs window_plain; "
               f"{len(lanes)} of {ORACLE_LANES} lanes with points (i+1)G vs oracle "
               f"(edge scalars {'1, 2, 5, n-2, n-1' if strict else '1, 2, 5; degenerate lanes '}"
-              f"{'' if strict else str(sorted(set(range(ORACLE_LANES)) - set(lanes)))})",
-              flush=True)
+              f"{'' if strict else str(sorted(set(range(ORACLE_LANES)) - set(lanes)))})")
     del got
 
     # -- phase 8: strict comb (kernel B strict) -----------------------------------
@@ -1338,8 +1834,8 @@ def main():
     ks8 = convert.planes_to_ints(s8_np[:, :ORACLE_LANES])
     check(jacobian_affine_ints(got, ORACLE_LANES) == oracle_base(ks8), "strict comb vs oracle")
     check(jacobian_affine_ints(got, 5)[4] == (P256.gx, P - P256.gy), "strict comb (n-1) G = -G")
-    print(f"phase 8 comb_strict: {CHECK_LANES} lanes exact vs strict comb_plain; "
-          f"{ORACLE_LANES} lanes vs oracle (edge scalars 1, 2, 5, n-2, n-1)", flush=True)
+    say(f"phase 8 comb_strict: {CHECK_LANES} lanes exact vs strict comb_plain; "
+          f"{ORACLE_LANES} lanes vs oracle (edge scalars 1, 2, 5, n-2, n-1)")
     del got
 
     # -- phase 9: the second main path at B = 524,288 -----------------------------
@@ -1390,7 +1886,8 @@ def main():
     check(sx == [x for x, _ in oracle_base([a * b % N for a, b in zip(d1, d2[:MAIN_ORACLE_LANES])])],
           "shared secrets vs oracle")
     ks = convert.planes_to_ints(s_np[:, :MAIN_ORACLE_LANES])
-    fast_lanes = [i for i, k in enumerate(ks) if not window_degenerate(k, i)]
+    bad = window_degenerate_lanes(ks)
+    fast_lanes = [i for i in range(len(ks)) if i not in bad]
     check([affine_ints(fast, MAIN_ORACLE_LANES)[i] for i in fast_lanes]
           == [oracle_varbase(ks)[i] for i in fast_lanes], "scalar_mult_fast vs oracle")
     check(affine_ints(fast_strict, MAIN_ORACLE_LANES) == oracle_varbase(ks),
@@ -1426,7 +1923,7 @@ def main():
     base_strict_ms = time_ms(lambda: api.scalar_mult_base(scalars, strict=True), 10)
     derive_ms = time_ms(lambda: ecdh.derive_public_planes(d2_dev), 10)
     shared_ms = time_ms(lambda: ecdh.shared_secret_planes(d2_dev, q1x, q1y), 5)
-    print(f"phase 9 second main path B={BATCH}: launches {json.dumps(launches9)}; masks exact "
+    say(f"phase 9 second main path B={BATCH}: launches {json.dumps(launches9)}; masks exact "
           f"(4 invalid lanes), d1*Q2 == d2*Q1 on {BATCH - 4} lanes, 64 lanes of each result vs "
           f"oracle; E, E strict, B strict exact vs their plain versions; window kernel "
           f"{window_ms:.3f} ms ({rate(window_ms):.0f} mults/s), plain "
@@ -1437,7 +1934,7 @@ def main():
           f"api.scalar_mult_base(strict) {base_strict_ms:.3f} ms; ecdh.derive_public_planes "
           f"{derive_ms:.3f} ms ({rate(derive_ms):.0f} keys/s), ecdh.shared_secret_planes "
           f"{shared_ms:.3f} ms ({rate(shared_ms):.0f} secrets/s); plain times at the same shape, "
-          f"one run each {card}", flush=True)
+          f"one run each {card}")
 
     # -- phase 10: the secp256k1 field (kernel C on the Montgomery field) ------------
     fs_k1 = SECP256K1.field
@@ -1464,9 +1961,9 @@ def main():
     check(ints[4] == [ofield.mont_opposite(x, fs_k1) for x in ai], "k1 probe opposite vs ints")
     probe_k1_ms = time_ms(lambda: field_ops.probe(a_dev, b_dev, fs_k1), 20)
     probe_k1_plain_ms = time_ms(lambda: field_ops.probe_plain(a_dev, b_dev, fs_k1), 3)
-    print(f"phase 10 secp256k1 field probe: {CHECK_LANES} lanes exact vs plain CIOS GFp "
+    say(f"phase 10 secp256k1 field probe: {CHECK_LANES} lanes exact vs plain CIOS GFp "
           f"(carry_edges pairs first) and 64 vs "
-          f"ints; kernel {probe_k1_ms:.3f} ms, plain {probe_k1_plain_ms:.3f} ms {card}", flush=True)
+          f"ints; kernel {probe_k1_ms:.3f} ms, plain {probe_k1_plain_ms:.3f} ms {card}")
 
     # -- phase 11: the secp256k1 kernels: GLV (F), comb (B), affine (D) -------------
     k1 = SECP256K1
@@ -1496,10 +1993,10 @@ def main():
         if strict:
             check(jacobian_affine_ints(got, ORACLE_LANES, k1)
                   == oracle_varbase(s11_ints[:ORACLE_LANES], k1), "glv_strict vs oracle")
-    print(f"phase 11 glv: F and F strict {CHECK_LANES} lanes exact vs glv_plain "
+    say(f"phase 11 glv: F and F strict {CHECK_LANES} lanes exact vs glv_plain "
           f"({glv_plain_check_ms['glv']:.1f} / {glv_plain_check_ms['glv_strict']:.1f} ms plain); "
           f"strict {ORACLE_LANES} lanes with points (i+1)G vs oracle (1, 2, lambda, lambda +- 1, "
-          f"n-1, n-2, k1 = 0 and k2 = 0 splits)", flush=True)
+          f"n-1, n-2, k1 = 0 and k2 = 0 splits)")
 
     tables_k1, negbase_k1, nb_k1 = comb.device_tables(k1, k1.gx, k1.gy, dev)
     limbs_k1 = comb.kernel_tables(k1, k1.gx, k1.gy, dev)
@@ -1525,127 +2022,12 @@ def main():
     check(affine_ints(AffinePoint(*got, k1), ORACLE_LANES)
           == oracle_base(comb_k1_ints[:ORACLE_LANES], k1), "secp256k1 affine vs oracle")
     del got, plain, jx, jy, jz, comb_k1_got
-    print(f"phase 11 comb, comb_strict, affine on secp256k1: {CHECK_LANES} lanes exact vs "
+    say(f"phase 11 comb, comb_strict, affine on secp256k1: {CHECK_LANES} lanes exact vs "
           f"comb_plain / to_affine (one lane at infinity); {ORACLE_LANES} lanes vs oracle "
-          f"(edge scalars 1, 2, 5, n-2; n-1 strict)", flush=True)
+          f"(edge scalars 1, 2, 5, n-2; n-1 strict)")
 
     # -- phase 12: the third main path, batched ECDSA, on both curves ----------------
-    def ecdsa_path(curve):
-        n, p = curve.order, curve.p
-        fs_n = ecdsa.order_field(curve)
-        d_ints = scalar_ints(rng, ECDSA_BATCH, [1, 2, 5, n - 2], curve)
-        k_ints = scalar_ints(rng, ECDSA_BATCH, [n - 2, 5, 2, 1], curve)
-        z_ints = [int.from_bytes(rng.bytes(32), "big") for _ in range(ECDSA_BATCH)]
-        z_ints[4] = n  # e == 0 mod n: u1 == 0 in verification
-        rfc = curve == P256
-        if rfc:  # lanes 8..15: RFC 6979 A.2.5 keys, hashes and nonces
-            for i in range(8, 16):
-                msg, k_rfc, _, _ = RFC6979_SHA256[i % 2]
-                h1 = hashlib.sha256(msg).digest()
-                d_ints[i], z_ints[i] = RFC6979_X, ecdsa._bits2int(h1, 256)
-                k_ints[i] = ecdsa.rfc6979_nonce(h1, RFC6979_X, curve)
-                check(k_ints[i] == k_rfc, "RFC 6979 A.2.5 nonce")
-        d_dev, k_dev, z_dev = (to_dev(v, dev) for v in (d_ints, k_ints, z_ints))
-        vid = [torch.full((ECDSA_BATCH,), v, dtype=torch.int32, device=dev) for v in (0, 1)]
-
-        # the tampered batch: lanes 500..505 r + 1, s = 0, s = n, r = 0, an
-        # off-curve Q and (secp256k1) a valid signature with u2 = lambda
-        t = ORACLE_LANES - 12
-
-        def tampered(r, s, q):
-            z_t, r_t, s_t, qx_t, qy_t = z_dev.clone(), r.clone(), s.clone(), q.x.clone(), q.y.clone()
-            r_t[:, t] = to_dev([(convert.planes_to_ints(r[:, t:t + 1].cpu().numpy())[0] + 1) % n],
-                               dev)[:, 0]
-            s_t[:, t + 1] = 0
-            s_t[:, t + 2] = to_dev([n], dev)[:, 0]
-            r_t[:, t + 3] = 0
-            y_off = (convert.planes_to_ints(q.y[:, t + 4:t + 5].cpu().numpy())[0] + 1) % p
-            qy_t[:, t + 4] = to_dev([y_off], dev)[:, 0]
-            if curve == SECP256K1:
-                dd, kk = d_ints[t + 5], k_ints[t + 5]
-                rr = oracle_sign(0, dd, kk, curve)[0]
-                ss = rr * pow(lam, -1, n) % n
-                zz = ss * (kk - lam * dd) % n
-                qq = coz.scalar_mult_affine(dd, curve.gx, curve.gy, curve)
-                for tens, v in ((z_t, zz), (r_t, rr), (s_t, ss), (qx_t, qq[0]), (qy_t, qq[1])):
-                    tens[:, t + 5] = to_dev([v], dev)[:, 0]
-            return z_t, r_t, s_t, qx_t, qy_t
-
-        for k in counted:
-            k.launches = 0
-        q = api.scalar_mult_base(d_dev, curve)
-        r, s, ok = ecdsa.sign_planes(z_dev, d_dev, k_dev, curve)
-        v_ok = ecdsa.verify_planes(z_dev, r, s, q.x, q.y, curve)
-        z_t, r_t, s_t, qx_t, qy_t = tampered(r, s, q)
-        v_t = ecdsa.verify_planes(z_t, r_t, s_t, qx_t, qy_t, curve)
-        rec = [ecdsa.recover_planes(z_dev, r, s, v, curve) for v in vid]
-        torch.cuda.synchronize()
-        launches = {k.symbol: k.launches for k in counted}
-        varbase_kernel = kglv.KERNEL_STRICT if curve == SECP256K1 else window.KERNEL_STRICT
-        for k in (comb.KERNELS[(curve, False)], affine.KERNELS[curve], varbase_kernel):
-            check(launches[k.symbol] >= 1, f"ECDSA path on {curve.name} launched {k.symbol}")
-
-        check(bool(ok.all()), f"{curve.name}: every lane signed")
-        check(bool(v_ok.all()), f"{curve.name}: every honest signature verifies")
-        ri = convert.planes_to_ints(r[:, :ORACLE_LANES].cpu().numpy())
-        si = convert.planes_to_ints(s[:, :ORACLE_LANES].cpu().numpy())
-        check(list(zip(ri, si))[:MAIN_ORACLE_LANES] == [
-            oracle_sign(z, d, k, curve) for z, d, k in
-            zip(z_ints[:MAIN_ORACLE_LANES], d_ints, k_ints)], f"{curve.name}: sign vs oracle")
-        if rfc:
-            got = zip(*(convert.planes_to_ints(v[:, 8:16].cpu().numpy()) for v in (r, s)))
-            check(list(got) == [RFC6979_SHA256[i % 2][2:] for i in range(8, 16)],
-                  "8 RFC 6979 A.2.5 signatures")
-        cols = [convert.planes_to_ints(t[:, :ORACLE_LANES].cpu().numpy())
-                for t in (z_t, r_t, s_t, qx_t, qy_t)]
-        want_t = [oracle_verify(*lane, curve) for lane in zip(*cols)]
-        check(v_t[:ORACLE_LANES].tolist() == want_t, f"{curve.name}: tampered masks vs oracle")
-        tampered_lanes = want_t[t:t + 6]
-        check(tampered_lanes == [0] * 5 + [1], f"{curve.name}: tampered lanes {tampered_lanes}")
-        check(bool((v_t[ORACLE_LANES:] == 1).all()), f"{curve.name}: untouched lanes verify")
-        found = torch.zeros(ECDSA_BATCH, dtype=torch.bool, device=dev)
-        for qx_r, qy_r, ok_r in rec:
-            found |= ok_r.bool() & (qx_r == q.x).all(0) & (qy_r == q.y).all(0)
-        check(bool(found.all()), f"{curve.name}: v = 0 or v = 1 recovers Q on every lane")
-        del v_t, rec, found
-
-        # times: the calls, their kernels, and their plain-PyTorch parts; the
-        # calls and the plain parts take seconds and ran above, so one warm
-        # run each
-        t = {"sign": time_once_ms(lambda: ecdsa.sign_planes(z_dev, d_dev, k_dev, curve))[0],
-             "verify": time_once_ms(lambda: ecdsa.verify_planes(z_dev, r, s, q.x, q.y, curve))[0],
-             "recover": time_once_ms(lambda: ecdsa.recover_planes(z_dev, r, s, vid[0], curve))[0]}
-        limbs_c = comb.kernel_tables(curve, curve.gx, curve.gy, dev)
-        nb_c = comb.device_tables(curve, curve.gx, curve.gy, dev)[2]
-        jac = comb.comb_planes(d_dev, limbs_c, nb_c, curve)
-        t["kernel_comb"] = time_ms(lambda: comb.comb_planes(d_dev, limbs_c, nb_c, curve), 10)
-        t["kernel_affine"] = time_ms(lambda: affine.affine_planes(*jac, curve), 10)
-        if curve == SECP256K1:
-            packed = kglv.pack_scalars(d_dev, curve)
-            qxm = GFp.from_classical(q.x, curve.field).planes.contiguous()
-            qym = GFp.from_classical(q.y, curve.field).planes.contiguous()
-            t["kernel_glv_strict"] = time_ms(
-                lambda: kglv.glv_planes(packed, qxm, qym, curve, strict=True), 3)
-            t["plain_glv_split"] = time_ms(lambda: kglv.pack_scalars(d_dev, curve), 3)
-        else:
-            t["kernel_window_strict"] = time_ms(
-                lambda: window.window_planes(d_dev, q.x, q.y, strict=True), 3)
-        km = mont.mont_from_classical(k_dev.to(torch.int64), fs_n)
-        t["plain_batch_inverse_mod_n"] = time_once_ms(
-            lambda: ecdsa._batch_inverse_mont(km, fs_n))[0]
-        t["plain_recovery_sqrt"] = time_once_ms(lambda: group.affine_from_x(r, curve))[0]
-        out = {"launches": launches, "ms": t, "d": d_dev, "q": q, "jac": jac}
-        if curve == SECP256K1:
-            out.update(packed=packed, qxm=qxm, qym=qym)
-        print(f"phase 12 ECDSA {curve.name} B={ECDSA_BATCH}: launches {json.dumps(launches)}; every "
-              f"lane signed and verified; {ORACLE_LANES} lanes of the tampered batch exact vs "
-              f"oracle (r+1, s=0, s=n, r=0, off-curve Q rejected; "
-              f"{'u2 = lambda' if curve == SECP256K1 else 'an honest'} lane accepted); hash = n "
-              f"lane; recovery gives Q on every lane{'; RFC 6979 A.2.5 on 8 lanes' if rfc else ''}; "
-              f"ms {json.dumps({k: round(v, 3) for k, v in t.items()})} {card}", flush=True)
-        return out
-
-    path12 = {c.name: ecdsa_path(c) for c in (P256, SECP256K1)}
+    path12 = {c.name: ecdsa_path(rng, dev, card, counted, c) for c in (P256, SECP256K1)}
     launches12 = {}
     for c in path12.values():
         for sym, v in c["launches"].items():
@@ -1678,20 +2060,28 @@ def main():
     check(comb_k1_strict_err == 0, "secp256k1 strict comb kernel == comb_plain at B = 524,288")
     del plain
     glv_ms = time_ms(lambda: kglv.glv_planes(packed11, xm, ym, k1, strict=False), 5)
-    print(f"phase 12 secp256k1 kernels exact vs their plain versions at B = {ECDSA_BATCH}: "
+    say(f"phase 12 secp256k1 kernels exact vs their plain versions at B = {ECDSA_BATCH}: "
           f"glv_strict plain {glv_strict_plain_ms:.1f} ms, comb plain {comb_k1_plain_ms:.1f} ms, "
           f"strict comb {comb_k1_strict_ms:.3f} ms (plain {comb_k1_strict_plain_ms:.1f} ms), "
           f"affine plain {affine_k1_plain_ms:.1f} ms; glv (plain chain) {glv_ms:.3f} ms at "
-          f"{CHECK_LANES} lanes {card}", flush=True)
+          f"{CHECK_LANES} lanes {card}")
 
     xp = x25519_phases(rng, dev, card, counted)
     sp = schedule_phase(rng, dev, card, counted, scalars,
                         {False: comb_plain_ms, True: comb_strict_plain_ms})
     p18 = {c: curve_phase(rng, dev, card, counted, c) for c in CURVES18}
     launches18 = {k.symbol: sum(p["launches"][k.symbol] for p in p18.values()) for k in counted}
+    p19 = {c: wide_phase(rng, dev, card, counted, c) for c in CURVES19}
+    sass_mix = sass_job.result()
+    for kname, mix in sass_mix.items():
+        check(mix is not None, f"cuobjdump -sass found {kname}")
+    say("phase 1 SASS of kernels E (three curves) and F, instructions a lane issues by class "
+        "(cuobjdump -sass, loop bodies times their runs): " + json.dumps(
+            {k: v["per_lane"] for k, v in sass_mix.items()}))
+    launches19 = {k.symbol: sum(p["launches"][k.symbol] for p in p19.values()) for k in counted}
     paths = {"phase6": launches6, "phase9": launches9, "phase12": launches12,
              "phase15": xp["launches15"], "phase16": xp["launches16"],
-             "phase17": sp["launches17"], "phase18": launches18}
+             "phase17": sp["launches17"], "phase18": launches18, "phase19": launches19}
 
     def entry(kernel, kname, err, ms, plain_ms, lanes=BATCH, reps=0):
         bound_ms, bound_by = bound(kname, lanes, sm_clock_mhz, reps)
@@ -1750,8 +2140,14 @@ def main():
          "reps": CALIB_REPS, "plain_reps": CALIB_CHECK_REPS},
         *(entry(sp["kernels"][k], k, max(v["err"], v["check_err"]), v["ms"], v["plain_ms"])
           for k, v in sp["by_kernel"].items()),
-        *(entry(p["kernels"][k], k, v["err"], v["ms"], v["plain_ms"])
+        *({**entry(p["kernels"][k], k, v["err"], v["ms"], v["plain_ms"]),
+           "plain_lanes": v["plain_lanes"]}
           for p in p18.values() for k, v in p["by_kernel"].items()),
+        # phase 19: ms and bound at B (kernel C at CHECK_LANES), plain_ms on
+        # the path's first plain_lanes lanes
+        *({**entry(p["kernels"][k], k, v["err"], v["ms"], v["plain_ms"],
+                   lanes=v.get("lanes", BATCH)), "plain_lanes": v["plain_lanes"]}
+          for p in p19.values() for k, v in p["by_kernel"].items()),
     ]
     api_ms = {"scalar_mult_base": base_api_ms, "scalar_mult": var_api_ms,
               "scalar_mult_fast": fast_ms, "scalar_mult_fast_strict": fast_strict_ms,
@@ -1762,7 +2158,8 @@ def main():
               "x25519.derive_public_planes": xp["derive_public_planes_ms"],
               **{f"comb.scalar_mult_base({schedule_args(k)}) + affine": v["api_ms"]
                  for k, v in sp["by_kernel"].items()},
-              **{k: v for p in p18.values() for k, v in p["api_ms"].items()}}
+              **{k: v for p in p18.values() for k, v in p["api_ms"].items()},
+              **{k: v for p in p19.values() for k, v in p["api_ms"].items()}}
     # the measured int32 rate against the 64 IMAD per SM per clock bound()
     # assumes: kernel I issues 2 of its 4 instructions a chain step on the
     # multiply-add pipe (IMAD, IMAD.IADD), so that pipe's rate is 2 / 5 of

@@ -2,7 +2,7 @@
 checkout's, on one card.
 
     python -m ecsimd_tpu_torch.bench.ab OTHER_CHECKOUT [--batch N] [--reps R]
-        [--rounds K] [--only NAME,...]
+        [--rounds K] [--only NAME,...] [--sass]
 
 Builds both libraries (the other from ``OTHER_CHECKOUT/ecsimd_tpu_torch/
 csrc``, every ``.cu`` there, into ``build/ab/``), calls each kernel's
@@ -11,10 +11,14 @@ captured: the kernel, its tensors, its batch and ints), then replays that
 launch on both libraries with the same pointers. The outputs of the two
 must agree word for word; the times are CUDA-event means over ``reps``
 launches, taken in turns other, this, this, other, ``rounds`` times, so
-that both sit on one card under one power limit. Prints one JSON line:
-per kernel both times, their ratio, whether the outputs agreed, and each
-library's ptxas report (registers, spill bytes) for it; then the card's
-name and power limit. The kernels' C interface must be the same in both
+that both sit on one card under one power limit. A kernel the other
+library lacks (one this checkout added: P-384's and P-521's) is timed on
+this library alone and reported with ``other_ms`` and ``exact`` null.
+``--sass`` also compares each kernel's SASS in the two libraries
+(``cuobjdump -sass``, instruction for instruction): ``sass_equal``.
+Prints one JSON line: per kernel both times, their ratio, whether the
+outputs agreed, and each library's ptxas report (registers, spill bytes)
+for it; then the card's name and power limit. The kernels' C interface must be the same in both
 checkouts.
 """
 
@@ -35,7 +39,7 @@ from ecsimd_tpu_torch.bench import sass
 from ecsimd_tpu_torch.field import GFp
 from ecsimd_tpu_torch.kernels import _build, affine, comb, field_ops, ladder, mladder, window
 from ecsimd_tpu_torch.kernels import glv as kglv
-from ecsimd_tpu_torch.specs import P256, SECP256K1, W25519_FIELD, WEI25519
+from ecsimd_tpu_torch.specs import P256, P384, P521, SECP256K1, W25519_FIELD, WEI25519
 
 SEED = 0xAB06
 
@@ -61,12 +65,39 @@ def _scalars(rng, n, order):
     return [int.from_bytes(rng.bytes(nbytes), "little") % (order - 1) + 1 for _ in range(n)]
 
 
-def _planes(ints, dev):
-    return torch.from_numpy(convert.ints_to_planes(ints, 16)).to(dev)
+def _planes(ints, dev, d=16):
+    return torch.from_numpy(convert.ints_to_planes(ints, d)).to(dev)
 
 
-def _below(rng, n, p, dev):
-    return _planes([int.from_bytes(rng.bytes(40), "little") % p for _ in range(n)], dev)
+def _below(rng, n, p, dev, d=16):
+    nbytes = 40 if d == 16 else 8 + 4 * d
+    return _planes([int.from_bytes(rng.bytes(nbytes), "little") % p for _ in range(n)], dev, d)
+
+
+def _wide(batch: int, dev, rng) -> dict:
+    """The workloads of kernels A, B, C, D and E on P-384 and P-521."""
+    out = {}
+    for curve in (P384, P521):
+        tag, d = _build.CURVE_TAGS[curve][0], curve.field.ndigits
+        s = _planes(_scalars(rng, batch, curve.order), dev, d)
+        pt = api.scalar_mult_base(_planes(_scalars(rng, batch, curve.order), dev, d), curve)
+        limbs = comb.kernel_tables(curve, curve.gx, curve.gy, dev)
+        _, _, nb = comb.device_tables(curve, curve.gx, curve.gy, dev)
+        jac = comb.comb_planes(s, limbs, nb, curve)
+        a, b = _below(rng, batch, curve.p, dev, d), _below(rng, batch, curve.p, dev, d)
+        out |= {
+            f"ladder_{tag}": lambda s=s, pt=pt, c=curve: ladder.ladder_planes(s, pt.x, pt.y, c),
+            f"window_{tag}": lambda s=s, pt=pt, c=curve: window.window_planes(s, pt.x, pt.y, c),
+            f"window_strict_{tag}": lambda s=s, pt=pt, c=curve: window.window_planes(
+                s, pt.x, pt.y, c, strict=True),
+            f"comb_{tag}": lambda s=s, lb=limbs, nb=nb, c=curve: comb.comb_planes(s, lb, nb, c),
+            f"comb_strict_{tag}": lambda s=s, lb=limbs, nb=nb, c=curve: comb.comb_planes(
+                s, lb, nb, c, strict=True),
+            f"affine_{tag}": lambda jac=jac, c=curve: affine.affine_planes(*jac, c),
+            f"field_probe_{tag}": lambda a=a, b=b, c=curve: field_ops.probe(a, b, c.field),
+            f"field_consts_{tag}": lambda c=curve: field_ops.constants(c.field, dev),
+        }
+    return out
 
 
 def workloads(batch: int, dev) -> dict:
@@ -127,6 +158,7 @@ def workloads(batch: int, dev) -> dict:
         "comb_w25519": lambda: comb.comb_planes(kw, limbsw, nbw, WEI25519),
         "affine_w25519": lambda: affine.affine_planes(*jacw, WEI25519),
         "field_probe_w25519": lambda: field_ops.probe(aw, bw, wf),
+        **_wide(batch, dev, rng),
     }
 
 
@@ -137,6 +169,7 @@ def main(argv=None):
     ap.add_argument("--reps", type=int, default=3)
     ap.add_argument("--rounds", type=int, default=2, help="0: compare the outputs only")
     ap.add_argument("--only", default="", help="comma-separated kernel names")
+    ap.add_argument("--sass", action="store_true", help="compare the kernels' SASS too")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the A/B times kernels on an NVIDIA GPU")
@@ -148,6 +181,8 @@ def main(argv=None):
         sources=tuple(sorted(p.name for p in csrc.glob("*.cu"))),
         headers=tuple(sorted(p.name for p in csrc.glob("*.cuh"))))
     rep_this, rep_other = sass.ptxas(this.log), sass.ptxas(other.log)
+    funcs = ({lab: _sass_functions(b.path) for lab, b in (("this", this), ("other", other))}
+             if args.sass else None)
     work = workloads(args.batch, dev)
     names = [n for n in args.only.split(",") if n] or list(work)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -157,9 +192,11 @@ def main(argv=None):
         with capture(launches):
             work[name]()
         torch.cuda.synchronize()
+        new = any(not hasattr(other.lib, k.symbol) for k, *_ in launches)
+        labs = ("this",) if new else ("other", "this")
         fns = {lab: [(_build.entry(b.lib, k.symbol, k.n_pointers, k.n_ints), ts, n, ints)
-                     for k, ts, n, ints in launches] for lab, b in (("this", this),
-                                                                    ("other", other))}
+                     for k, ts, n, ints in launches]
+               for lab, b in (("this", this), ("other", other)) if lab in labs}
         tensors = [t for _, ts, _, _ in launches for t in ts]
 
         def run(lab):
@@ -169,15 +206,17 @@ def main(argv=None):
                     raise RuntimeError(f"{name} ({lab}): CUDA error {err} at launch")
 
         outs = {}
-        for lab in ("other", "this"):
+        for lab in labs:
             run(lab)
             torch.cuda.synchronize()
             outs[lab] = [t.clone() for t in tensors]
-        exact = all(torch.equal(x, y) for x, y in zip(outs["this"], outs["other"]))
+        exact = None if new else all(torch.equal(x, y) for x, y in zip(outs["this"], outs["other"]))
         del outs
         times = {"this": [], "other": []}
         for _ in range(args.rounds):
             for lab in ("other", "this", "this", "other"):
+                if lab not in labs:
+                    continue
                 start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
                 run(lab)
                 start.record()
@@ -187,7 +226,7 @@ def main(argv=None):
                 end.synchronize()
                 times[lab].append(start.elapsed_time(end) / args.reps)
         ms = {lab: sum(v) / len(v) if v else None for lab, v in times.items()}
-        ratio = ms["this"] / ms["other"] if args.rounds else None
+        ratio = ms["this"] / ms["other"] if args.rounds and not new else None
         results.append({
             "name": name, "symbol": launches[0][0].symbol, "this_ms": ms["this"],
             "other_ms": ms["other"], "ratio": ratio, "exact": exact, "times": times,
@@ -195,17 +234,47 @@ def main(argv=None):
                            for k, *_ in launches},
             "ptxas_other": {k.symbol: sass.resources(rep_other, _kernel_part(k.symbol))
                             for k, *_ in launches},
+            "sass_equal": None if new else _same_sass(funcs, launches),
         })
-        timed = (f"this {ms['this']:.3f} ms, other {ms['other']:.3f} ms, ratio {ratio:.4f}, "
-                 if args.rounds else "")
-        print(f"{name}: {timed}exact {exact}", flush=True)
+        if new:
+            timed = f"this {ms['this']:.3f} ms (new: the other checkout lacks it), " if (
+                args.rounds) else "new: the other checkout lacks it, "
+        else:
+            timed = (f"this {ms['this']:.3f} ms, other {ms['other']:.3f} ms, ratio {ratio:.4f}, "
+                     if args.rounds else "")
+        sass_note = "" if funcs is None else f", sass_equal {results[-1]['sass_equal']}"
+        print(f"{name}: {timed}exact {exact}{sass_note}", flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(json.dumps({"card": smi, "batch": args.batch, "reps": args.reps,
                       "rounds": args.rounds, "kernels": results}))
     print(smi)
-    if not all(r["exact"] for r in results):
+    if not all(r["exact"] is not False for r in results):
         raise SystemExit("outputs differ between the two libraries")
+
+
+def _sass_functions(lib: Path) -> dict:
+    text = subprocess.run([sass.cuobjdump(), "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    return sass.parse(text)
+
+
+def _same_sass(funcs, launches):
+    """Whether every launched kernel has the same SASS in both libraries
+    (None without --sass)."""
+    if funcs is None:
+        return None
+    pairs = [(_sass_of(funcs["this"], k.symbol), _sass_of(funcs["other"], k.symbol))
+             for k, *_ in launches]
+    return all(a is not None and a == b for a, b in pairs)
+
+
+def _sass_of(funcs: dict, symbol: str):
+    """The (opcode, operands) list of the kernel of C entry ``symbol`` in
+    ``funcs`` (the shortest function name that holds its part), or None."""
+    pat = re.compile(r"(?<![A-Za-z_])" + re.escape(_kernel_part(symbol)))
+    hits = sorted((f for f in funcs if pat.search(f)), key=len)
+    return [(op, args) for _, op, args in funcs[hits[0]]] if hits else None
 
 
 def _kernel_part(symbol: str) -> str:

@@ -36,6 +36,12 @@ DEFAULT_KERNELS = ("window_p256_kernel", "window_strict_p256_kernel", "glv_secp2
                    "glv_strict_secp256k1_kernel", "window_secp256k1_kernel",
                    "window_strict_secp256k1_kernel", "window_w25519_kernel",
                    "window_strict_w25519_kernel")
+# kernel E on P-384 and P-521 (pass them by name): their field multiplies
+# are calls, whose instructions sit in the callee (fe_mul, fe_sqr), outside
+# these counts; only the static counts are given, with the P-521 top word's
+# four windows the nest has no single shape for TRIPS
+WIDE_KERNELS = tuple(f"window{st}_{tag}_kernel" for tag in ("p384", "p521")
+                     for st in ("", "_strict"))
 
 # Loop nests as the sources write them, outermost first, loops in address
 # order: (name, iterations each time the loop is entered, inner loops).

@@ -1,5 +1,5 @@
-// Kernel D: Jacobian -> affine on P-256, on secp256k1 and on Wei25519, one
-// lane per thread (NVIDIA Hopper, sm_90a).
+// Kernel D: Jacobian -> affine on P-256, secp256k1, Wei25519, P-384 and
+// P-521, one lane per thread (NVIDIA Hopper, sm_90a).
 //
 // Replaces the affine conversion at the end of the JAX package's API,
 // ecsimd_tpu/curves/point.py:JacobianPoint.to_affine, which runs as plain
@@ -15,10 +15,15 @@
 //
 // What bounds it: 32-bit integer multiply-add throughput, about 387 field
 // multiplies per lane on P-256, 510 on secp256k1 (p - 2 has 249 set bits)
-// and 270 on Wei25519 (the 2^255 - 19 addition chain); memory traffic is five planes of 16 words per lane. Constant time
-// per lane: the exponent is public and the same for every lane.
+// and 270 on Wei25519 (the 2^255 - 19 addition chain); on P-384 and P-521
+// the addition chains of field_p384.cuh and field_p521.cuh, 403 and 541
+// field operations of 144 / 78 and 289 / 153 products; memory traffic is
+// five planes of D words per lane. Constant time per lane: the exponent is
+// public and the same for every lane.
 
 #include "field_p256.cuh"
+#include "field_p384.cuh"
+#include "field_p521.cuh"
 #include "field_secp256k1.cuh"
 #include "field_w25519.cuh"
 
@@ -43,6 +48,8 @@ constexpr int kThreads = 128;
 EC_AFFINE_KERNEL(affine_p256_kernel, p256)
 EC_AFFINE_KERNEL(affine_secp256k1_kernel, secp256k1)
 EC_AFFINE_KERNEL(affine_w25519_kernel, w25519)
+EC_AFFINE_KERNEL(affine_p384_kernel, p384)
+EC_AFFINE_KERNEL(affine_p521_kernel, p521)
 
 template <class Kernel>
 int launch(Kernel kernel, const int32_t* xs, const int32_t* ys, const int32_t* zs, int32_t* ax,
@@ -56,8 +63,8 @@ int launch(Kernel kernel, const int32_t* xs, const int32_t* ys, const int32_t* z
 
 }  // namespace
 
-// xs, ys, zs: (16, B) int32 Jacobian digit planes (internal form); ax, ay:
-// (16, B) classical affine outputs. Launches on `stream` and returns
+// xs, ys, zs: (D, B) int32 Jacobian digit planes (internal form; D = 16,
+// or 24 on P-384 and 33 on P-521); ax, ay: (D, B) classical affine outputs. Launches on `stream` and returns
 // cudaGetLastError().
 extern "C" int ec_affine_p256(const int32_t* xs, const int32_t* ys, const int32_t* zs,
                               int32_t* ax, int32_t* ay, int64_t B, void* stream) {
@@ -72,4 +79,14 @@ extern "C" int ec_affine_secp256k1(const int32_t* xs, const int32_t* ys, const i
 extern "C" int ec_affine_w25519(const int32_t* xs, const int32_t* ys, const int32_t* zs,
                                 int32_t* ax, int32_t* ay, int64_t B, void* stream) {
   return launch(affine_w25519_kernel, xs, ys, zs, ax, ay, B, stream);
+}
+
+extern "C" int ec_affine_p384(const int32_t* xs, const int32_t* ys, const int32_t* zs,
+                              int32_t* ax, int32_t* ay, int64_t B, void* stream) {
+  return launch(affine_p384_kernel, xs, ys, zs, ax, ay, B, stream);
+}
+
+extern "C" int ec_affine_p521(const int32_t* xs, const int32_t* ys, const int32_t* zs,
+                              int32_t* ax, int32_t* ay, int64_t B, void* stream) {
+  return launch(affine_p521_kernel, xs, ys, zs, ax, ay, B, stream);
 }

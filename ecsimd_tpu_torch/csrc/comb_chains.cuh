@@ -46,6 +46,7 @@
 #pragma once
 
 #include "comb_scan.cuh"
+#include "smem.cuh"
 
 namespace chains {
 
@@ -127,14 +128,5 @@ int launch(Kernel kernel, const int32_t* scalars, const int32_t* tables, const i
   return (int)cudaGetLastError();
 }
 
-// The dynamic shared memory the runtime gives a block of `kernel`, as
-// `launch` set it (cudaFuncAttributes::maxDynamicSharedSizeBytes), or minus
-// the CUDA error if the query fails.
-template <class Kernel>
-int smem_granted(Kernel kernel) {
-  cudaFuncAttributes attr;
-  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
-  return err == cudaSuccess ? attr.maxDynamicSharedSizeBytes : -(int)err;
-}
 
 }  // namespace

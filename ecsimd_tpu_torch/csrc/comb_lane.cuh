@@ -1,10 +1,15 @@
 // The comb's per-lane entry read and fix-up, and kernel B's per-lane chain,
 // over the field of the including namespace (sm_90a). comb.cu, comb_tree.cu,
 // comb_pipe.cu and kernel L's sources include this file inside namespaces
-// p256, secp256k1 and w25519, each after the field's coz header and
-// comb_scan.cuh, so the code is written once; the file has no include
-// guard and includes nothing. The table staging and
-// the masked scan are field-independent (comb_scan.cuh, namespace comb).
+// p256, secp256k1 and w25519, comb_p384.cu and comb_p521.cu inside p384
+// and p521, each after the field's coz header and comb_scan.cuh, so the
+// code is written once; the file has no include guard and includes
+// nothing. The table staging and the masked scan are field-independent
+// (comb_scan.cuh, namespace comb); the layout of an entry is the width's
+// (comb::Layout<kWords>), and a chain has 2 D positions (nbits / 8: 32,
+// 48 or 66).
+
+constexpr int kCombPositions = 2 * kDigits;
 
 // Entry e of a position j >= 1 staged in `buf`: +-(2m+1) 2^(8j) B, its
 // magnitude m read by masks and its sign applied by a masked negation.
@@ -45,8 +50,8 @@ __device__ __forceinline__ void comb_finish(fe x, fe y, fe z, const int32_t* sca
                                             int32_t* ay_out, int32_t* z_out, int64_t B, int64_t i,
                                             bool active) {
   fe sx, sy, sz;
-  comb_add<kStrict>(x, y, z, fe_from_digits(negbase), fe_from_digits(negbase + 16), sx, sy,
-                    sz);
+  comb_add<kStrict>(x, y, z, fe_from_digits(negbase), fe_from_digits(negbase + kDigits), sx,
+                    sy, sz);
   const uint32_t even = ((uint32_t)scalars[i] & 1u) ^ 1u;
   if (active) {
     fe_store(ax_out, B, i, fe_select(even, sx, x));
@@ -58,23 +63,25 @@ __device__ __forceinline__ void comb_finish(fe x, fe y, fe z, const int32_t* sca
 // One lane of the comb. Every thread of the block runs every position, the
 // block's staging and barriers included; `active` says whether lane i
 // exists, and only active lanes store.
+// `buf`: two buffers of the width's largest position.
 template <bool kStrict>
-__device__ __forceinline__ void comb_lane(const int32_t* scalars, const uint4* tables,
-                                          const int32_t* negbase, int32_t* ax_out,
-                                          int32_t* ay_out, int32_t* z_out, int64_t B,
-                                          int64_t i, bool active, uint4 (*buf)[comb::kBufVecs]) {
+__device__ __forceinline__ void comb_lane(
+    const int32_t* scalars, const uint4* tables, const int32_t* negbase, int32_t* ax_out,
+    int32_t* ay_out, int32_t* z_out, int64_t B, int64_t i, bool active,
+    uint4 (*buf)[comb::Layout<kWords>::kBufVecs]) {
+  constexpr int kEV = comb::Layout<kWords>::kEntryVecs;
   fe x, y, z;
-  comb::stage_position(tables, 0, buf[0]);
+  comb::stage_position<kEV>(tables, 0, buf[0]);
 #pragma unroll 1
-  for (int j = 0; j < comb::kPositions; ++j) {
-    if (j + 1 < comb::kPositions) {
-      comb::stage_position(tables, j + 1, buf[(j + 1) & 1]);
+  for (int j = 0; j < kCombPositions; ++j) {
+    if (j + 1 < kCombPositions) {
+      comb::stage_position<kEV>(tables, j + 1, buf[(j + 1) & 1]);
       comb::wait_staged<1>();
     } else {
       comb::wait_staged<0>();
     }
     __syncthreads();
-    const uint32_t e = comb::entry_index(scalars, B, i, j);
+    const uint32_t e = comb::entry_index<kDigits>(scalars, B, i, j);
     if (j == 0) {
       read_entry(buf[0], 0, e, x, y);
       z = fe_one();

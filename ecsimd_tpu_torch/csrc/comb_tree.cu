@@ -40,6 +40,7 @@
 #include "coz_secp256k1.cuh"
 #include "coz_w25519.cuh"
 #include "comb_scan.cuh"
+#include "smem.cuh"
 
 namespace tree {
 
@@ -140,15 +141,6 @@ int launch(Kernel kernel, const int32_t* scalars, const int32_t* tables, const i
   return (int)cudaGetLastError();
 }
 
-// The dynamic shared memory the runtime gives a block of the kernel, as
-// `launch` set it (cudaFuncAttributes::maxDynamicSharedSizeBytes), or minus
-// the CUDA error if the query fails.
-template <class Kernel>
-int smem_granted(Kernel kernel) {
-  cudaFuncAttributes attr;
-  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
-  return err == cudaSuccess ? attr.maxDynamicSharedSizeBytes : -(int)err;
-}
 
 }  // namespace
 

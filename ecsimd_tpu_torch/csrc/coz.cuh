@@ -1,8 +1,8 @@
 // Co-Z formulas over the field of the including namespace (sm_90a): the
 // ladder's DBLU, ZADDU, TPLU and ZDAU.
 //
-// Written once for every field: coz_p256.cuh, coz_secp256k1.cuh and
-// coz_w25519.cuh include this file inside their namespaces, after the
+// Written once for every field: coz_p256.cuh, coz_secp256k1.cuh,
+// coz_w25519.cuh, coz_p384.cuh and coz_p521.cuh include this file inside their namespaces, after the
 // field's fe_* arithmetic and the curve's a in the field's internal form,
 // curve_a(). So this file has no include guard and includes nothing.
 //

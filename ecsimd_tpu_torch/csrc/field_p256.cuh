@@ -50,6 +50,9 @@ using ec::fe_swap_if;
 using ec::fe_zero;
 using ec::scalar_word;
 
+constexpr int kWords = 8;    // 32-bit limbs (limbs.cuh's 8-word names above)
+constexpr int kDigits = 16;  // base-2^16 digit planes
+
 // p = 2^256 - 2^224 + 2^192 + 2^96 - 1
 #define P256_P {0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu, 0u, 0u, 0u, 1u, 0xFFFFFFFFu}
 

@@ -39,6 +39,9 @@ using ec::fe_swap_if;
 using ec::fe_zero;
 using ec::scalar_word;
 
+constexpr int kWords = 8;    // 32-bit limbs (limbs.cuh's 8-word names above)
+constexpr int kDigits = 16;  // base-2^16 digit planes
+
 // p = 2^256 - 2^32 - 977
 #define SECP256K1_P \
   {0xFFFFFC2Fu, 0xFFFFFFFEu, 0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu}

@@ -36,6 +36,9 @@ using ec::fe_swap_if;
 using ec::fe_zero;
 using ec::scalar_word;
 
+constexpr int kWords = 8;    // 32-bit limbs (limbs.cuh's 8-word names above)
+constexpr int kDigits = 16;  // base-2^16 digit planes
+
 // p = 2^255 - 19
 #define W25519_P \
   {0xFFFFFFEDu, 0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu, 0x7FFFFFFFu}

@@ -51,7 +51,7 @@
 
 namespace secp256k1 {
 
-constexpr int kDigits = 9;  // digits of |k1| and |k2| (glv_params(SECP256K1).dk)
+constexpr int kSplitDigits = 9;  // digits of |k1| and |k2| (glv_params(SECP256K1).dk)
 
 using wtable::Table;
 
@@ -101,8 +101,8 @@ __device__ __forceinline__ void glv_lane(const int32_t* packed, const int32_t* x
                                          const int32_t* ys, const int32_t* beta_digits,
                                          int32_t* ax_out, int32_t* ay_out, int32_t* z_out,
                                          int64_t B, int64_t i, Table& tbl) {
-  const uint32_t neg1 = (uint32_t)packed[(2 * kDigits) * B + i] & 1u;
-  const uint32_t neg2 = (uint32_t)packed[(2 * kDigits + 1) * B + i] & 1u;
+  const uint32_t neg1 = (uint32_t)packed[(2 * kSplitDigits) * B + i] & 1u;
+  const uint32_t neg2 = (uint32_t)packed[(2 * kSplitDigits + 1) * B + i] & 1u;
 
   fe accx, accy, accz;
   {
@@ -126,11 +126,11 @@ __device__ __forceinline__ void glv_lane(const int32_t* packed, const int32_t* x
   }
 
 #pragma unroll 1
-  for (int dig = kDigits - 1; dig >= 0; --dig) {
+  for (int dig = kSplitDigits - 1; dig >= 0; --dig) {
     const uint32_t p1 = (uint32_t)packed[dig * B + i];
-    const uint32_t p2 = (uint32_t)packed[(kDigits + dig) * B + i];
-    const uint32_t p1n = dig + 1 < kDigits ? (uint32_t)packed[(dig + 1) * B + i] : 0u;
-    const uint32_t p2n = dig + 1 < kDigits ? (uint32_t)packed[(kDigits + dig + 1) * B + i] : 0u;
+    const uint32_t p2 = (uint32_t)packed[(kSplitDigits + dig) * B + i];
+    const uint32_t p1n = dig + 1 < kSplitDigits ? (uint32_t)packed[(dig + 1) * B + i] : 0u;
+    const uint32_t p2n = dig + 1 < kSplitDigits ? (uint32_t)packed[(kSplitDigits + dig + 1) * B + i] : 0u;
 #pragma unroll 1
     for (int off = 12; off >= 0; off -= 4) {
 #pragma unroll 1
@@ -171,7 +171,7 @@ __device__ __forceinline__ void glv_lane(const int32_t* packed, const int32_t* x
     } else {
       add_z2_1(accx, accy, accz, bx, fy, sx, sy, sz);
     }
-    const uint32_t even = ((uint32_t)packed[(half * kDigits) * B + i] & 1u) ^ 1u;
+    const uint32_t even = ((uint32_t)packed[(half * kSplitDigits) * B + i] & 1u) ^ 1u;
     accx = fe_select(even, sx, accx);
     accy = fe_select(even, sy, accy);
     accz = fe_select(even, sz, accz);

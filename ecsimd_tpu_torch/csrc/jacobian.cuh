@@ -1,7 +1,7 @@
 // Jacobian adds over the field of the including namespace (sm_90a).
 //
-// Written once for every field: coz_p256.cuh, coz_secp256k1.cuh and
-// coz_w25519.cuh include this file inside their namespaces, each after its
+// Written once for every field: coz_p256.cuh, coz_secp256k1.cuh,
+// coz_w25519.cuh, coz_p384.cuh and coz_p521.cuh include this file inside their namespaces, each after its
 // own fe_* arithmetic and its curve's jac_dbl. So this file has no
 // include guard and includes nothing.
 //

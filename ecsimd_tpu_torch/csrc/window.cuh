@@ -2,7 +2,8 @@
 // (NVIDIA Hopper, sm_90a), plain and strict: the kernels and their launcher
 // over the lane of window_lane.cuh. The instantiations are split over one
 // source per curve so that their builds run side by side: window.cu
-// (P-256), window_secp256k1.cu and window_w25519.cu.
+// (P-256), window_secp256k1.cu, window_w25519.cu, window_p384.cu and
+// window_p521.cu.
 //
 // Replaces ecsimd_tpu/kernels/window.py:_window_kernel (core _window_core),
 // both strict variants, which the JAX package runs on every curve. Same
@@ -11,7 +12,7 @@
 // seven jac_add); the accumulator starts at P (the recoding's top digit is
 // 1); then for each 4-bit window, MSB first (bit offsets 252 .. 0): four
 // jac_dbl and one add of +-T[idx] — jac_add, or add_complete when strict.
-// Window i reads bits 4i .. 4i+4 of k (bit 256 reads as 0) and recodes
+// Window i reads bits 4i .. 4i+4 of k (bit nbits reads as 0) and recodes
 // them to the odd digit ((w5 | 1) - 16). Even scalars then add -P
 // (add_z2_1, or add_complete when strict), since k was computed as k | 1.
 // Output: Jacobian (X, Y, Z) planes, bit-identical to the plain PyTorch
@@ -29,6 +30,15 @@
 // occupancy (ptxas -v in phase 1 of chip_smoke.py reports each
 // instantiation's registers and spills).
 //
+// P-384 and P-521 (12- and 17-word elements): the table of a thread is
+// 1,152 or 1,920 bytes (window_table.cuh), so a block takes it as dynamic
+// shared memory, raised above 48 KiB at launch: 64 threads a block on
+// P-384 (72 KiB, three blocks an SM), 32 on P-521 (60 KiB, three blocks an
+// SM). The SM's 227 KiB hold no more than 192 and 96 such threads however
+// they are grouped; smaller blocks keep the 128 KiB a 64-thread P-521 block
+// would take from leaving one block an SM. Their field multiplies are
+// calls, not inlined (field_p384.cuh).
+//
 // What bounds it: the integer ALU pipe. A P-256 lane issues about 0.86
 // million instructions (1.0 million strict), 73 % of them on the ALU pipe
 // (carry chains, the Solinas reduction, selects) and 26 % on the
@@ -42,6 +52,7 @@
 #pragma once
 
 #include "window_table.cuh"
+#include "smem.cuh"
 
 namespace {
 
@@ -71,5 +82,44 @@ int launch(Kernel kernel, const int32_t* scalars, const int32_t* xs, const int32
   }
   return (int)cudaGetLastError();
 }
+
+// --- P-384 and P-521: the table as dynamic shared memory ---------------------
+
+// The table of a block of T threads at N words, in bytes.
+template <int N, int T>
+constexpr int table_bytes() {
+  return wtable::kEntries * wtable::vecs<N>() * T * (int)sizeof(uint4);
+}
+
+#define EC_WINDOW_KERNEL_WIDE(NAME, NS, STRICT, THREADS)                                  \
+  __global__ void __launch_bounds__(THREADS)                                               \
+  NAME(const int32_t* __restrict__ scalars, const int32_t* __restrict__ xs,                \
+       const int32_t* __restrict__ ys, int32_t* __restrict__ ax, int32_t* __restrict__ ay,  \
+       int32_t* __restrict__ z, int64_t B) {                                               \
+    extern __shared__ uint4 smem[];                                                        \
+    using Table = uint4[wtable::kEntries * wtable::vecs<NS::kWords>()][THREADS];           \
+    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;                      \
+    if (i >= B) return;                                                                    \
+    NS::window_lane<STRICT>(scalars, xs, ys, ax, ay, z, B, i,                              \
+                            *reinterpret_cast<Table*>(smem));                              \
+  }
+
+// Launch a wide instantiation with T threads a block and its table as
+// dynamic shared memory; return cudaGetLastError() (or the attribute's
+// error).
+template <int N, int T, class Kernel>
+int launch_wide(Kernel kernel, const int32_t* scalars, const int32_t* xs, const int32_t* ys,
+                int32_t* ax, int32_t* ay, int32_t* z, int64_t B, void* stream) {
+  if (B > 0) {
+    constexpr int bytes = table_bytes<N, T>();
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+    const int64_t blocks = (B + T - 1) / T;
+    kernel<<<(unsigned)blocks, T, bytes, (cudaStream_t)stream>>>(scalars, xs, ys, ax, ay, z, B);
+  }
+  return (int)cudaGetLastError();
+}
+
 
 }  // namespace

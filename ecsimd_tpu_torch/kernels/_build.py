@@ -28,7 +28,7 @@ from pathlib import Path
 
 import torch
 
-from ecsimd_tpu_torch.specs import P256, SECP256K1, WEI25519
+from ecsimd_tpu_torch.specs import P256, P384, P521, SECP256K1, WEI25519
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ecsimd_tpu_torch"
@@ -36,16 +36,25 @@ SOURCES = ("field_ops.cu", "ladder.cu", "comb.cu", "affine.cu", "window.cu",
            "window_secp256k1.cu", "window_w25519.cu", "glv.cu", "mladder.cu", "calib.cu",
            "comb_tree.cu", "comb_pipe.cu", "comb_chains.cu", "comb_unroll.cu",
            "comb_chains_secp256k1.cu", "comb_unroll_secp256k1.cu", "comb_chains_w25519.cu",
-           "comb_unroll_w25519.cu")
-HEADERS = ("limbs.cuh", "mul256.cuh", "field_p256.cuh", "field_secp256k1.cuh",
-           "field_w25519.cuh", "jacobian.cuh", "coz.cuh", "coz_p256.cuh", "coz_secp256k1.cuh",
-           "coz_w25519.cuh", "ladder_lane.cuh", "window.cuh", "window_lane.cuh",
-           "window_table.cuh", "comb_scan.cuh", "comb_lane.cuh", "comb_tree_lane.cuh",
-           "comb_pipe_lane.cuh", "comb_chains.cuh", "comb_chains_lane.cuh")
+           "comb_unroll_w25519.cu", "ladder_p384.cu", "ladder_p521.cu", "window_p384.cu",
+           "window_p521.cu", "comb_p384.cu", "comb_p521.cu")
+HEADERS = ("limbs.cuh", "limbs_ns.cuh", "mul256.cuh", "mul_wide.cuh", "field_p256.cuh",
+           "field_secp256k1.cuh", "field_w25519.cuh", "field_p384.cuh", "field_p521.cuh",
+           "jacobian.cuh", "coz.cuh", "dbl_am3.cuh", "coz_p256.cuh", "coz_secp256k1.cuh",
+           "coz_w25519.cuh", "coz_p384.cuh", "coz_p521.cuh", "ladder_lane.cuh", "window.cuh",
+           "window_lane.cuh", "window_table.cuh", "comb_scan.cuh", "comb_lane.cuh",
+           "comb_tree_lane.cuh", "comb_pipe_lane.cuh", "comb_chains.cuh",
+           "comb_chains_lane.cuh", "comb_wide.cuh", "smem.cuh")
 # curve -> (the tag of its kernels' C names, the curve as a kernel's
 # ``replaces`` names it; none for P-256, the first curve ported)
 CURVE_TAGS = {P256: ("p256", None), SECP256K1: ("secp256k1", "secp256k1"),
-              WEI25519: ("w25519", "Wei25519")}
+              WEI25519: ("w25519", "Wei25519"), P384: ("p384", "P-384"), P521: ("p521", "P-521")}
+# the 256-bit curves: the comb's tree, pipe and multi-chain / unrolled
+# schedules (kernels J, K, L) run on these only (ROADMAP B0c)
+CURVES_256 = (P256, SECP256K1, WEI25519)
+# the curves whose kernel A, B, D and E instantiations each have a source of
+# their own (``<kernel>_<tag>.cu``), so that their builds run side by side
+WIDE_CURVES = (P384, P521)
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",

@@ -1,5 +1,5 @@
-"""Jacobian -> affine: kernel D (``csrc/affine.cu``, P-256, secp256k1 and
-Wei25519) and its wrapper.
+"""Jacobian -> affine: kernel D (``csrc/affine.cu``, P-256, secp256k1,
+Wei25519, P-384 and P-521) and its wrapper.
 
 The JAX package converts with plain XLA (``ecsimd_tpu/curves/point.py``
 ``JacobianPoint.to_affine``: one batch inversion through a product tree),
@@ -38,6 +38,15 @@ KERNEL_W25519 = _build.Kernel(
     n_pointers=5,
 )
 KERNELS = {P256: KERNEL, SECP256K1: KERNEL_SECP256K1, WEI25519: KERNEL_W25519}
+for _curve in _build.WIDE_CURVES:
+    _tag, _name = _build.CURVE_TAGS[_curve]
+    KERNELS[_curve] = _build.Kernel(
+        symbol=f"ec_affine_{_tag}",
+        source="ecsimd_tpu_torch/csrc/affine.cu",
+        replaces=f"ecsimd_tpu/curves/point.py:50 JacobianPoint.to_affine ({_name}; XLA, no "
+                 "Pallas kernel)",
+        n_pointers=5,
+    )
 
 
 def affine_planes(x, y, z, curve: CurveSpec = P256):
@@ -47,9 +56,8 @@ def affine_planes(x, y, z, curve: CurveSpec = P256):
     kernel = KERNELS.get(curve)
     if kernel is None:
         raise NotImplementedError(
-            f"{curve.name}: the CUDA affine conversion covers P-256, secp256k1 and Wei25519 "
-            "(ROADMAP B0b, P-384 and P-521)"
-        )
+            f"{curve.name}: the CUDA affine conversion covers P-256, secp256k1, Wei25519, P-384 "
+            "and P-521")
     shape = (curve.field.ndigits, x.shape[-1])
     for name, t in (("x", x), ("y", y), ("z", z)):
         _build.check_planes(name, t, shape, x.device)

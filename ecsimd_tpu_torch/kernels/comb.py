@@ -1,10 +1,11 @@
 """Fixed-base comb k_i * B: the CUDA kernels of every schedule of the JAX
-package's ``comb_mont_planes`` — B (serial, ``csrc/comb.cu``), J (pairwise
-tree, ``csrc/comb_tree.cu``), K (pipelined serial chain,
+package's ``comb_mont_planes`` — B (serial, ``csrc/comb.cu`` on P-256,
+secp256k1 and Wei25519, ``csrc/comb_p384.cu`` and ``comb_p521.cu``), J
+(pairwise tree, ``csrc/comb_tree.cu``), K (pipelined serial chain,
 ``csrc/comb_pipe.cu``) and L (``chains`` independent chains / ``unroll``
-positions a step, ``csrc/comb_chains.cuh``), each on P-256, secp256k1 and
-Wei25519 — their wrappers, their plain PyTorch versions and the host-built
-tables.
+positions a step, ``csrc/comb_chains.cuh``), J, K and L on the 256-bit
+curves only (ROADMAP B0c) — their wrappers, their plain PyTorch versions
+and the host-built tables.
 
 Replaces ``ecsimd_tpu/kernels/comb.py`` (``comb_mont_planes`` and its
 Pallas bodies ``_comb_kernel``, ``_comb_kernel_tree`` and
@@ -99,6 +100,16 @@ KERNELS = {
     (SECP256K1, False): KERNEL_SECP256K1, (SECP256K1, True): KERNEL_SECP256K1_STRICT,
     (WEI25519, False): KERNEL_W25519, (WEI25519, True): KERNEL_W25519_STRICT,
 }
+for _curve in _build.WIDE_CURVES:
+    _tag, _name = _build.CURVE_TAGS[_curve]
+    for _st in (False, True):
+        KERNELS[(_curve, _st)] = _build.Kernel(
+            symbol=f"ec_comb_{_tag}{'_strict' if _st else ''}",
+            source=f"ecsimd_tpu_torch/csrc/comb_{_tag}.cu",
+            replaces=f"ecsimd_tpu/kernels/comb.py:213 _comb_kernel ({_name}"
+                     f"{', strict=True' if _st else ''})",
+            n_pointers=6,
+        )
 # kernel L's (chains, unroll, strict) instantiations on every curve; chains
 # = unroll = 1 is kernel B
 SCHEDULES_L = ((2, 1, False), (2, 2, False), (4, 1, False), (1, 2, False), (1, 4, False),
@@ -123,10 +134,10 @@ def _schedule_kernel(curve: CurveSpec, stem: str, source: str, replaces: str,
 # curve -> kernel J / K instantiation
 KERNELS_TREE = {c: _schedule_kernel(c, "comb_tree_{tag}", "comb_tree.cu",
                                     "ecsimd_tpu/kernels/comb.py:416 _comb_kernel_tree")
-                for c in _build.CURVE_TAGS}
+                for c in _build.CURVES_256}
 KERNELS_PIPE = {c: _schedule_kernel(c, "comb_pipe_{tag}", "comb_pipe.cu",
                                     "ecsimd_tpu/kernels/comb.py:337 _comb_kernel_pipe")
-                for c in _build.CURVE_TAGS}
+                for c in _build.CURVES_256}
 # (curve, chains, unroll, strict) -> kernel L instantiation
 KERNELS_CHAINS = {
     (curve, c, u, st): _schedule_kernel(
@@ -134,7 +145,7 @@ KERNELS_CHAINS = {
         f"{'comb_unroll' if c == 1 else 'comb_chains'}{{tag}}.cu",
         "ecsimd_tpu/kernels/comb.py:213 _comb_kernel",
         f"chains={c}, unroll={u}{', strict=True' if st else ''}; grid and permutation :624")
-    for curve in _build.CURVE_TAGS for c, u, st in SCHEDULES_L
+    for curve in _build.CURVES_256 for c, u, st in SCHEDULES_L
 }
 CHAINS = ("serial", "tree", "pipe")
 
@@ -276,16 +287,33 @@ def device_tables(curve: CurveSpec, bx: int, by: int, device: torch.device):
     )
 
 
+def coord_words(d: int) -> int:
+    """32-bit words a coordinate of ``d`` digits takes in the kernels' table
+    layout: its ceil(d / 2) limbs, padded with zero words to a whole number
+    of 16-byte vectors (8 at 16 digits, 12 at 24, 20 at 33)."""
+    return -(-((d + 1) // 2) // 4) * 4
+
+
 def limb_layout(np_tables):
     """Kernel B's table layout from (npos, 256, 2D) int32 digit tables:
-    (256 + (npos - 1) * 128, D) int32 rows, one per kept entry, each the
-    D/2 32-bit limbs of x then of y. Position 0 keeps its 256 entries;
-    positions 1..npos-1 keep entries 128..255, the positive multiples
-    (2m+1) 2^(8i) B in magnitude order (entry 127 - m is their opposite)."""
+    (256 + (npos - 1) * 128, 2 W) int32 rows, one per kept entry, each the
+    W = ``coord_words(D)`` words of x then of y: a coordinate's 32-bit limbs
+    (digits 2k, 2k + 1; with D odd the last limb holds one digit), then
+    zero words. Position 0 keeps its 256 entries; positions 1..npos-1 keep
+    entries 128..255, the positive multiples (2m+1) 2^(8i) B in magnitude
+    order (entry 127 - m is their opposite)."""
     t = np.asarray(np_tables).astype(np.int64)
     d = t.shape[2] // 2
-    limbs = (t[..., 0::2] & 0xFFFF) | (t[..., 1::2] << DIGIT_BITS)
-    rows = np.concatenate([limbs[0], limbs[1:, NENT // 2 :].reshape(-1, d)])
+    w = coord_words(d)
+    coords = []
+    for c in (t[..., :d], t[..., d:]):
+        if d % 2:
+            c = np.concatenate([c, np.zeros(c.shape[:-1] + (1,), np.int64)], axis=-1)
+        limbs = (c[..., 0::2] & 0xFFFF) | (c[..., 1::2] << DIGIT_BITS)
+        pad = np.zeros(limbs.shape[:-1] + (w - limbs.shape[-1],), np.int64)
+        coords.append(np.concatenate([limbs, pad], axis=-1))
+    limbs = np.concatenate(coords, axis=-1)
+    rows = np.concatenate([limbs[0], limbs[1:, NENT // 2 :].reshape(-1, 2 * w)])
     return rows.astype(np.uint32).view(np.int32)
 
 
@@ -454,7 +482,8 @@ def _launch(kernel, scalars, tables, negbase_digits, curve: CurveSpec):
     dev = scalars.device
     npos = _npos(curve.field.nbits)
     _build.check_planes("scalars", scalars, shape, dev)
-    _build.check_planes("tables", tables, (NENT + (npos - 1) * NENT // 2, d), dev)
+    _build.check_planes("tables", tables, (NENT + (npos - 1) * NENT // 2, 2 * coord_words(d)),
+                        dev)
     _build.check_planes("negbase", negbase_digits, (2 * d,), dev)
     if tables.data_ptr() % 16:
         raise ValueError("tables: the comb kernels stage entries as 16-byte words; need "
@@ -465,11 +494,13 @@ def _launch(kernel, scalars, tables, negbase_digits, curve: CurveSpec):
     return ax, ay, z
 
 
-def _require_curve(curve: CurveSpec, what: str):
-    if curve not in _build.CURVE_TAGS:
+def _require_256(curve: CurveSpec, what: str):
+    """Kernels J, K and L run on the 256-bit curves only."""
+    if curve not in _build.CURVES_256:
         raise NotImplementedError(
-            f"{curve.name}: the CUDA {what} covers P-256, secp256k1 and Wei25519 "
-            "(ROADMAP B0b, P-384 and P-521)")
+            f"{curve.name}: the CUDA {what} covers P-256, secp256k1 and Wei25519; on P-384 and "
+            "P-521 the serial comb (kernel B) runs on the card, this schedule on CPU tensors "
+            "only (ROADMAP B0c)")
 
 
 def comb_planes(scalars, tables, negbase_digits, curve: CurveSpec = P256, strict: bool = False):
@@ -478,15 +509,18 @@ def comb_planes(scalars, tables, negbase_digits, curve: CurveSpec = P256, strict
     of ``device_tables``. Returns Jacobian (ax, ay, z) planes (internal
     domain)."""
     _build.require_cuda(scalars, "comb")
-    _require_curve(curve, "comb")
-    return _launch(KERNELS[(curve, bool(strict))], scalars, tables, negbase_digits, curve)
+    kernel = KERNELS.get((curve, bool(strict)))
+    if kernel is None:
+        raise NotImplementedError(
+            f"{curve.name}: the CUDA comb covers P-256, secp256k1, Wei25519, P-384 and P-521")
+    return _launch(kernel, scalars, tables, negbase_digits, curve)
 
 
 def comb_tree_planes(scalars, tables, negbase_digits, curve: CurveSpec = P256):
     """Run kernel J, the pairwise tree, on CUDA planes (operands as
     ``comb_planes``); bit-exact with ``comb_tree_plain``."""
     _build.require_cuda(scalars, "comb tree")
-    _require_curve(curve, "comb tree")
+    _require_256(curve, "comb tree")
     return _launch(KERNELS_TREE[curve], scalars, tables, negbase_digits, curve)
 
 
@@ -494,7 +528,7 @@ def comb_pipe_planes(scalars, tables, negbase_digits, curve: CurveSpec = P256):
     """Run kernel K, the pipelined serial chain, on CUDA planes (operands
     as ``comb_planes``); bit-exact with kernel B and ``comb_plain``."""
     _build.require_cuda(scalars, "comb pipe")
-    _require_curve(curve, "comb pipe")
+    _require_256(curve, "comb pipe")
     return _launch(KERNELS_PIPE[curve], scalars, tables, negbase_digits, curve)
 
 
@@ -506,7 +540,7 @@ def comb_chains_planes(scalars, tables, negbase_digits, curve: CurveSpec = P256,
     with kernel B)."""
     _build.require_cuda(scalars, "comb chains")
     check_schedule(curve, "serial", chains, unroll, strict)
-    _require_curve(curve, "comb chains")
+    _require_256(curve, "comb chains")
     kernel = KERNELS_CHAINS.get((curve, chains, unroll, bool(strict)))
     if kernel is None:
         raise NotImplementedError(

@@ -1,5 +1,6 @@
-"""The co-Z ladder k_i * P_i: kernel A (``csrc/ladder.cu``; P-256,
-secp256k1 and Wei25519) and its wrapper.
+"""The co-Z ladder k_i * P_i: kernel A (``csrc/ladder.cu`` on P-256,
+secp256k1 and Wei25519, ``csrc/ladder_p384.cu`` and ``ladder_p521.cu``)
+and its wrapper.
 
 Replaces ``ecsimd_tpu/kernels/ladder.py`` (``ladder_mont_planes`` and its
 Pallas body ``_ladder_kernel``). The plain PyTorch version is
@@ -42,6 +43,14 @@ KERNEL_W25519 = _build.Kernel(
     n_pointers=6,
 )
 KERNELS = {P256: KERNEL, SECP256K1: KERNEL_SECP256K1, WEI25519: KERNEL_W25519}
+for _curve in _build.WIDE_CURVES:
+    _tag, _name = _build.CURVE_TAGS[_curve]
+    KERNELS[_curve] = _build.Kernel(
+        symbol=f"ec_ladder_{_tag}",
+        source=f"ecsimd_tpu_torch/csrc/ladder_{_tag}.cu",
+        replaces=f"ecsimd_tpu/kernels/ladder.py:116 _ladder_kernel ({_name})",
+        n_pointers=6,
+    )
 
 
 def ladder_planes(scalars, xm, ym, curve: CurveSpec = P256):
@@ -52,9 +61,7 @@ def ladder_planes(scalars, xm, ym, curve: CurveSpec = P256):
     kernel = KERNELS.get(curve)
     if kernel is None:
         raise NotImplementedError(
-            f"{curve.name}: the CUDA ladder covers P-256, secp256k1 and Wei25519 "
-            "(ROADMAP B0b, P-384 and P-521)"
-        )
+            f"{curve.name}: the CUDA ladder covers P-256, secp256k1, Wei25519, P-384 and P-521")
     shape = (curve.field.ndigits, scalars.shape[-1])
     for name, t in (("scalars", scalars), ("x", xm), ("y", ym)):
         _build.check_planes(name, t, shape, scalars.device)

@@ -1,6 +1,6 @@
-"""Signed fixed-window (w = 4) k_i * P_i: kernel E (``csrc/window.cu``,
-``window_secp256k1.cu``, ``window_w25519.cu``: P-256, secp256k1 and
-Wei25519), its wrapper, the recoding and the plain PyTorch version.
+"""Signed fixed-window (w = 4) k_i * P_i: kernel E (``csrc/window.cu`` on
+P-256, ``window_<tag>.cu`` on secp256k1, Wei25519, P-384 and P-521), its
+wrapper, the recoding and the plain PyTorch version.
 
 Replaces ``ecsimd_tpu/kernels/window.py`` (``window_mont_planes`` and its
 Pallas body ``_window_kernel``, both ``strict`` variants). Each lane builds
@@ -121,9 +121,7 @@ def window_planes(scalars, x, y, curve: CurveSpec = P256, strict: bool = False):
     kernel = KERNELS.get((curve, bool(strict)))
     if kernel is None:
         raise NotImplementedError(
-            f"{curve.name}: the CUDA window covers P-256, secp256k1 and Wei25519 "
-            "(ROADMAP B0b, P-384 and P-521)"
-        )
+            f"{curve.name}: the CUDA window covers P-256, secp256k1, Wei25519, P-384 and P-521")
     shape = (curve.field.ndigits, scalars.shape[-1])
     for name, t in (("scalars", scalars), ("x", x), ("y", y)):
         _build.check_planes(name, t, shape, scalars.device)

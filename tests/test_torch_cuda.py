@@ -24,7 +24,7 @@ from ecsimd_tpu_torch.kernels import glv as kglv
 from ecsimd_tpu_torch.oracle import comb as ocomb
 from ecsimd_tpu_torch.oracle import coz
 from ecsimd_tpu_torch.oracle import window as ow
-from ecsimd_tpu_torch.specs import P256, SECP256K1, W25519_FIELD, WEI25519
+from ecsimd_tpu_torch.specs import P256, P384, P521, SECP256K1, W25519_FIELD, WEI25519
 
 pytestmark = pytest.mark.cuda
 D = P256.field.ndigits
@@ -646,3 +646,176 @@ def test_comb_schedule_kernels_other_curves(cuda, curve, kw):
     want = _curve_oracle(ks[:16], [(curve.gx, curve.gy)] * 16, curve)
     assert [aff[i] for i in lanes] == [want[i] for i in lanes]
     assert len(lanes) >= 12
+
+
+# --- P-384 and P-521: kernels A, B (both modes), C, D and E (both modes) ------------
+
+WIDE = [P384, P521]
+
+
+def _wide_planes(vals, curve, dev):
+    return torch.from_numpy(convert.ints_to_planes(vals, curve.field.ndigits)).to(dev)
+
+
+def _wide_scalars(curve, n, seed, dev, last=None):
+    """Scalars uniform mod n (edges 1, 2, 5, n - 2 first; lane 4 ``last``)."""
+    rng = np.random.default_rng(seed)
+    nbytes = (curve.order.bit_length() + 7) // 8 + 8
+    ks = [1, 2, 5, curve.order - 2] + [
+        int.from_bytes(rng.bytes(nbytes), "little") % (curve.order - 1) + 1 for _ in range(n - 4)]
+    if last is not None:
+        ks[4] = last
+    return ks, _wide_planes(ks, curve, dev)
+
+
+def _wide_points(curve, n, dev):
+    """(i+1) G on the first 16 lanes (lane 0: G, z = 1 through the
+    tables), G on the rest."""
+    pts = multiples(curve, 16) + [(curve.gx, curve.gy)] * (n - 16)
+    return pts, AffinePoint(_wide_planes([x for x, _ in pts], curve, dev),
+                            _wide_planes([y for _, y in pts], curve, dev), curve)
+
+
+@pytest.mark.parametrize("curve", WIDE, ids=lambda c: c.name)
+def test_field_probe_kernel_wide(cuda, curve):
+    """Kernel C on the P-384 (Solinas) and P-521 (Mersenne fold) layers:
+    4,096 lanes, edge pairs first (p - 1, words of all ones, P-521's 9-bit
+    top word), against the plain GFp and 64 lanes against ints; and its
+    constant-operand form (1, 2, p - 1 and 0 as compile-time constants
+    through every new chain) against the plain version."""
+    fs, p = curve.field, curve.p
+    words = (fs.ndigits + 1) // 2
+    edges = [0, 1, 2, p - 1, p - 2, p >> 1, ((1 << (32 * words)) - 1) % p,
+             (0x1FF << 512) % p, (1 << 512) % p, ((1 << 512) - 1) % p]
+    pairs = [(x, y) for x in edges for y in edges]
+    rng = np.random.default_rng(98)
+    a = [x for x, _ in pairs] + rand_ints(rng, p, 4096 - len(pairs))
+    b = [y for _, y in pairs] + rand_ints(rng, p, 4096 - len(pairs))
+    ta, tb = _wide_planes(a, curve, cuda), _wide_planes(b, curve, cuda)
+    kernel = field_ops.KERNELS[fs]
+    before = kernel.launches
+    got = field_ops.probe(ta, tb, fs)
+    assert kernel.launches == before + 1
+    assert torch.equal(got, field_ops.probe_plain(ta, tb, fs))
+    got_ints = [ints(got[k, :, :64]) for k in range(5)]
+    assert got_ints == [[x * y % p for x, y in zip(a[:64], b)], [x * x % p for x in a[:64]],
+                        [(x + y) % p for x, y in zip(a[:64], b)],
+                        [(x - y) % p for x, y in zip(a[:64], b)], [(-x) % p for x in a[:64]]]
+    assert torch.equal(field_ops.constants(fs, cuda).cpu(), field_ops.constants_plain(fs))
+
+
+@pytest.mark.parametrize("curve", WIDE, ids=lambda c: c.name)
+def test_ladder_kernel_wide(cuda, curve):
+    """Kernel A through api.scalar_mult against the plain ladder on 256
+    lanes and the oracle on 16 (points (i+1)G)."""
+    ks, s = _wide_scalars(curve, 256, 99, cuda)
+    pts, pt = _wide_points(curve, 256, cuda)
+    kernel = ladder.KERNELS[curve]
+    before = kernel.launches
+    got = ladder.scalar_mult(s, pt)
+    assert kernel.launches == before + 1
+    want = group.scalar_mult(s, JacobianPoint.from_affine(pt))
+    for k, w in zip((got.x, got.y, got.z), (want.x, want.y, want.z)):
+        assert torch.equal(k.planes, w.planes)
+    out = affine.to_affine(got)
+    assert list(zip(ints(out.x[:, :16]), ints(out.y[:, :16]))) == _curve_oracle(
+        ks[:16], pts[:16], curve)
+
+
+@pytest.mark.parametrize("strict", [False, True], ids=["plain", "strict"])
+@pytest.mark.parametrize("curve", WIDE, ids=lambda c: c.name)
+def test_window_kernel_wide(cuda, curve, strict):
+    """Kernel E (strict: k = n - 1 on lane 4) against window_plain on 256
+    lanes and the oracle on 16 (the plain window's degenerate lanes
+    excluded)."""
+    ks, s = _wide_scalars(curve, 256, 100, cuda, curve.order - 1 if strict else None)
+    pts, pt = _wide_points(curve, 256, cuda)
+    kernel = window.KERNELS[(curve, strict)]
+    before = kernel.launches
+    got = window.scalar_mult(s, pt, strict=strict)
+    assert kernel.launches == before + 1
+    for k, w in zip((got.x, got.y, got.z), window.window_plain(s, pt.x, pt.y, curve, strict)):
+        assert torch.equal(k.planes, w)
+
+    def degenerate(k, pt):
+        try:
+            ow.scalar_mult(k, (*pt, 1), curve)
+            return False
+        except ZeroDivisionError:
+            return True
+
+    lanes = [i for i in range(16) if strict or not degenerate(ks[i], pts[i])]
+    aff = _curve_affine((got.x.planes, got.y.planes, got.z.planes), 16, curve)
+    want = _curve_oracle(ks[:16], pts[:16], curve)
+    assert [aff[i] for i in lanes] == [want[i] for i in lanes] and len(lanes) >= 14
+
+
+@pytest.mark.parametrize("strict", [False, True], ids=["plain", "strict"])
+@pytest.mark.parametrize("curve", WIDE, ids=lambda c: c.name)
+def test_comb_and_affine_kernels_wide(cuda, curve, strict):
+    """Kernel B (strict: k = n - 1 on lane 4) against comb_plain on 1,024
+    lanes, through kernel D (one lane at infinity) against to_affine, and
+    16 lanes against the oracle."""
+    ks, s = _wide_scalars(curve, 1024, 101, cuda, curve.order - 1 if strict else None)
+    tables, negbase, nb = comb.device_tables(curve, curve.gx, curve.gy, cuda)
+    limbs = comb.kernel_tables(curve, curve.gx, curve.gy, cuda)
+    kernel = comb.KERNELS[(curve, strict)]
+    before = kernel.launches
+    got = comb.comb_planes(s, limbs, nb, curve, strict)
+    assert kernel.launches == before + 1
+    for k, w in zip(got, comb.comb_plain(s, tables, curve, negbase, strict)):
+        assert torch.equal(k, w)
+    jx, jy, jz = (t.clone() for t in got)
+    jz[:, -1] = 0
+    aff = affine.affine_planes(jx, jy, jz, curve)
+    plain = JacobianPoint(*(GFp(t, curve.field) for t in (jx, jy, jz)), curve).to_affine()
+    assert torch.equal(aff[0], plain.x) and torch.equal(aff[1], plain.y)
+    assert not bool(aff[0][:, -1].any() or aff[1][:, -1].any())
+    lanes = [i for i in range(16) if strict or i != 4]  # n - 1: not in the plain comb's domain
+    got16 = list(zip(ints(aff[0][:, :16]), ints(aff[1][:, :16])))
+    want = _curve_oracle(ks[:16], [(curve.gx, curve.gy)] * 16, curve)
+    assert [got16[i] for i in lanes] == [want[i] for i in lanes]
+
+
+@pytest.mark.parametrize("curve", WIDE, ids=lambda c: c.name)
+def test_comb_schedules_refuse_the_wide_curves_on_the_card(cuda, curve):
+    """Kernels J, K and L are not built for P-384 and P-521 (ROADMAP B0c):
+    on CUDA tensors those schedules raise, with no fallback."""
+    _, s = _wide_scalars(curve, 8, 102, cuda)
+    for kw in ({"chain": "tree"}, {"chain": "pipe"}, {"chains": 2}):
+        with pytest.raises(NotImplementedError, match="ROADMAP B0c"):
+            comb.scalar_mult_base(s, curve, **kw)
+
+
+def test_ecdh_and_ecdsa_p384_on_the_card(cuda):
+    """P-384 through the protocols on the card: ECDH keys and secrets both
+    ways (every lane), ECDSA with 384-bit hashes signed, verified and
+    recovered, 8 lanes against the oracle's composition."""
+    curve = P384
+    n = curve.order
+    d1, s1 = _wide_scalars(curve, 64, 103, cuda)
+    d2, s2 = _wide_scalars(curve, 64, 104, cuda)
+    q1x, q1y, ok1 = ecdh.derive_public_planes(s1, curve)
+    q2x, q2y, ok2 = ecdh.derive_public_planes(s2, curve)
+    x12, ok12 = ecdh.shared_secret_planes(s1, q2x, q2y, curve)
+    x21, ok21 = ecdh.shared_secret_planes(s2, q1x, q1y, curve)
+    assert bool((ok1 & ok2 & ok12 & ok21).all()) and torch.equal(x12, x21)
+    assert ints(x12[:, :8]) == [coz.scalar_mult_affine(a * b % n, curve.gx, curve.gy, curve)[0]
+                                for a, b in zip(d1[:8], d2)]
+    rng = np.random.default_rng(105)
+    zs = [int.from_bytes(rng.bytes(48), "big") for _ in range(64)]
+    ks, sk = _wide_scalars(curve, 64, 106, cuda)
+    z = _wide_planes(zs, curve, cuda)
+    r, s, ok = ecdsa.sign_planes(z, s1, sk, curve)
+    assert bool(ok.all())
+    for i in range(8):
+        rx = coz.scalar_mult_affine(ks[i], curve.gx, curve.gy, curve)[0] % n
+        assert (ints(r[:, i:i + 1])[0], ints(s[:, i:i + 1])[0]) == (
+            rx, pow(ks[i], -1, n) * (zs[i] % n + rx * d1[i]) % n)
+    assert bool(ecdsa.verify_planes(z, r, s, q1x, q1y, curve).all())
+    found = torch.zeros(64, dtype=torch.bool, device=cuda)
+    for v in (0, 1):
+        qx, qy, okr = ecdsa.recover_planes(z, r, s, torch.full((64,), v, dtype=torch.int32,
+                                                              device=cuda), curve)
+        found |= okr.bool() & (qx == q1x).all(0) & (qy == q1y).all(0)
+    assert bool(found.all())

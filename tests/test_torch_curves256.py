@@ -11,8 +11,11 @@
   spec's a in the field's internal form; no lane builds the field's 1 from
   a bare word (on secp256k1 the 1 is R mod p); every kernel table entry is
   an ``extern "C"`` entry of its source.
-* The wrappers cover exactly P-256, secp256k1 and Wei25519, in every mode
-  the JAX package runs, and raise on P-384 and P-521 naming ROADMAP B0b.
+* The wrappers of kernels A, B, D and E cover P-256, secp256k1, Wei25519,
+  P-384 and P-521, in every mode the JAX package runs, and hand a P-384 /
+  P-521 launch its own kernel and (24, B) / (33, B) planes; the comb's
+  tree, pipe and multi-chain schedules (J, K, L) cover the 256-bit curves
+  and raise on P-384 and P-521 naming ROADMAP B0c.
 
 Tolerance: exact."""
 
@@ -38,6 +41,7 @@ from tests.torch_helpers import ints, multiples, planes, port_spec, rand_ints, t
 
 ROOT = Path(__file__).resolve().parent.parent
 CURVES = (P256, SECP256K1, WEI25519)
+WIDE = (P384, P521)
 TTOYA5 = port_spec(TOYA5)
 
 
@@ -103,18 +107,21 @@ CSRC = ROOT / "ecsimd_tpu_torch" / "csrc"
 
 @pytest.mark.parametrize("header, macro, curve", [
     ("coz_p256.cuh", "P256_A", P256), ("coz_secp256k1.cuh", "SECP256K1_A", SECP256K1),
-    ("coz_w25519.cuh", "WEI25519_A", WEI25519)], ids=lambda v: getattr(v, "name", None))
+    ("coz_w25519.cuh", "WEI25519_A", WEI25519), ("coz_p384.cuh", "P384_A", P384),
+    ("coz_p521.cuh", "P521_A", P521)], ids=lambda v: getattr(v, "name", None))
 def test_curve_a_in_internal_form(header, macro, curve):
     """The a each namespace hands coz.cuh's DBLU (and Wei25519's doubling):
-    eight 32-bit words, least significant first, equal to the spec's a in
-    the field's internal form."""
+    the field's 32-bit words (8; 12 on P-384, 17 on P-521), least
+    significant first, equal to the spec's a in the field's internal form."""
     text = (CSRC / header).read_text()
-    m = re.search(rf"#define {macro} \\\s*\{{([^}}]*)\}}", text)
+    m = re.search(rf"#define {macro}\s*\\\s*\{{([^}}]*)\}}", text)
     assert m, f"{header}: no {macro}"
-    words = [int(w.strip().rstrip("u"), 16 if "x" in w else 10) for w in m[1].split(",")]
-    assert len(words) == 8
+    words = [int(w.strip().rstrip("u"), 16 if "x" in w else 10)
+             for w in m[1].replace("\\", " ").split(",")]
+    d = curve.field.ndigits
+    assert len(words) == (d + 1) // 2
     value = sum(w << (32 * i) for i, w in enumerate(words))
-    like = torch.zeros((16, 1), dtype=torch.int32)
+    like = torch.zeros((d, 1), dtype=torch.int32)
     assert value == ints(GFp.constant(curve.a, curve.field, like).planes)[0]
     assert f"const fe a = {{{macro}}};" in text and '#include "coz.cuh"' in text
 
@@ -147,18 +154,22 @@ def _curve_and_mode(key):
 
 @pytest.mark.parametrize("table", sorted(TABLES))
 def test_kernel_table_covers_the_256_bit_curves(table):
-    """Each table holds one kernel for every (curve, mode) of P-256,
-    secp256k1 and Wei25519 and nothing else, each an extern "C" entry of its
-    named source (J's and L's with their _smem query), with distinct
-    symbols."""
+    """Each table holds one kernel for every (curve, mode) it covers and
+    nothing else — A, B, D and E the three 256-bit curves, P-384 and P-521;
+    J, K and L the 256-bit curves (ROADMAP B0c) — each an extern "C" entry
+    of its named source (J's and L's, and the wide B's and E's, with their
+    _smem query), with distinct symbols."""
     kernels = TABLES[table]
     keys = {_curve_and_mode(k) for k in kernels}
-    assert keys == {(c, m) for c in CURVES for m in MODES[table]}
+    covered = CURVES if table.startswith(("comb_tree", "comb_pipe", "comb_chains")) else (
+        CURVES + WIDE)
+    assert keys == {(c, m) for c in covered for m in MODES[table]}
     assert len({k.symbol for k in kernels.values()}) == len(kernels)
     for k in kernels.values():
         text = (ROOT / k.source).read_text()
         assert f'extern "C" int {k.symbol}(' in text, k.symbol
-        if table in ("comb_tree", "comb_chains"):
+        if table in ("comb_tree", "comb_chains") or (
+                table in ("comb", "window") and k.source.endswith(("_p384.cu", "_p521.cu"))):
             assert f'extern "C" int {k.symbol}_smem(void)' in text, k.symbol
 
 
@@ -167,7 +178,8 @@ def _wrapper_calls(curve):
     d = curve.field.ndigits
     z = torch.zeros((d, 4), dtype=torch.int32)
     npos = curve.field.nbits // comb.W
-    tables = torch.zeros((comb.NENT + (npos - 1) * comb.NENT // 2, d), dtype=torch.int32)
+    tables = torch.zeros((comb.NENT + (npos - 1) * comb.NENT // 2, 2 * comb.coord_words(d)),
+                         dtype=torch.int32)
     nb = torch.zeros(2 * d, dtype=torch.int32)
     return {
         "ladder": lambda: ladder.ladder_planes(z, z, z, curve),
@@ -182,13 +194,40 @@ def _wrapper_calls(curve):
     }
 
 
+# the wrappers whose kernel runs on P-384 and P-521 -> the stem of its C name
+WIDE_ROUTES = {"ladder": "ladder", "window": "window", "window_strict": "window",
+               "comb": "comb", "comb_strict": "comb", "affine": "affine"}
+
+
 @pytest.mark.parametrize("curve", [P384, P521], ids=lambda c: c.name)
 @pytest.mark.parametrize("wrapper", sorted(_wrapper_calls(P256)))
 def test_wrappers_raise_on_the_wider_curves(monkeypatch, wrapper, curve):
-    """On P-384 and P-521 every wrapper refuses before it launches, and
-    names the queue that will bring the curve (the tensors' device check
-    passed by stubbing)."""
+    """On P-384 and P-521 (the tensors' device check passed by stubbing):
+    kernels A, B (both modes), D and E (both modes) take the card route —
+    one launch of the curve's own kernel, ``ec_<kind>_<tag>[_strict]``,
+    handed (24, B) / (33, B) planes (B's tables in the padded limb layout),
+    counted once; the comb's tree, pipe and multi-chain schedules still
+    refuse before they launch, naming ROADMAP B0c."""
     monkeypatch.setattr(_build, "require_cuda", lambda t, what: None)
-    monkeypatch.setattr(_build, "launch", lambda *a: pytest.fail("launched"))
-    with pytest.raises(NotImplementedError, match="ROADMAP B0b"):
-        _wrapper_calls(curve)[wrapper]()
+    if wrapper not in WIDE_ROUTES:
+        monkeypatch.setattr(_build, "launch", lambda *a: pytest.fail("launched"))
+        with pytest.raises(NotImplementedError, match="ROADMAP B0c"):
+            _wrapper_calls(curve)[wrapper]()
+        return
+    calls = []
+    monkeypatch.setattr(_build, "launch", lambda kernel, tensors, batch, *ints:
+                        calls.append((kernel, tensors, batch)))
+    tag = _build.CURVE_TAGS[curve][0]
+    d = curve.field.ndigits
+    _wrapper_calls(curve)[wrapper]()
+    (kernel, tensors, batch), = calls
+    strict = "_strict" if wrapper.endswith("_strict") else ""
+    assert kernel.symbol == f"ec_{WIDE_ROUTES[wrapper]}_{tag}{strict}"
+    assert kernel.launches >= 1 and batch == 4
+    shapes = [tuple(t.shape) for t in tensors]
+    if wrapper.startswith("comb"):
+        npos = curve.field.nbits // comb.W
+        assert shapes == [(d, 4), (comb.NENT + (npos - 1) * comb.NENT // 2,
+                                   2 * comb.coord_words(d)), (2 * d,)] + [(d, 4)] * 3
+    else:
+        assert shapes == [(d, 4)] * kernel.n_pointers
