@@ -12,9 +12,9 @@ batched ECDSA sign / verify / recover on P-256 and secp256k1 (comb, strict
 window, strict GLV and affine kernels), batched X25519 keygen and exchange
 (Wei25519 comb, affine, x-only ladder and x / z kernels), the int32
 calibration, the comb's other schedules (tree, pipe, multi-chain and
-unrolled: kernels J, K, L), and the variable-base kernels and the comb's
-schedules on secp256k1 and Wei25519. Phases, one line each; any failed
-check raises and the script exits non-zero:
+unrolled: kernels J, K, L), the variable-base kernels and the comb's
+schedules on secp256k1, Wei25519, P-384 and P-521. Phases, one line each;
+any failed check raises and the script exits non-zero:
 
   0. device: a CUDA card is required; prints its name, power limit and
      maximum SM clock.
@@ -104,7 +104,19 @@ check raises and the script exits non-zero:
      chains, unroll) and kernel D for each schedule, launch counts, 64
      lanes against the oracle; each kernel exact against its plain version
      or kernel B on the path's own inputs; CUDA-event times of each kernel,
-     of the entry point with D, and of the plain versions.
+     of the entry point with D, and of the plain versions. Then its B9 part
+     (general_phase): the generic kernel L (chains and unroll as run-time
+     ints) at chains 8, 32, chains 4 with unroll 2, unroll 8, 32, strict
+     unroll 8, 32 on P-256 (phase 6's scalars), and at chains 8 and strict
+     unroll 8 on secp256k1 and Wei25519 (edge scalars 1, 2, 5, n-2, n-1
+     first), each a path of its own at B = 524,288 through the entry point
+     and kernel D (schedule_path): launch counts, 512 lanes against the
+     oracle (degenerate lanes of each schedule's composition excluded and
+     counted), each schedule exact against comb_chains_plain / comb_plain on
+     the path's first 65,536 lanes, the positions staged a step and the
+     shared memory (against comb.general_smem_bytes), CUDA-event times; and
+     the generic kernel L word for word the templated one at each of the
+     seven schedules of comb.SCHEDULES_L on P-256, both timed in turns.
  18. the main path on secp256k1 and on Wei25519 at B = 524,288 (edge
      scalars 1, 2, 5, n-2, n-1 first; points (i+1)G, lane 0 and every lane
      from 512 on the generator itself): api.scalar_mult (kernel A),
@@ -121,7 +133,8 @@ check raises and the script exits non-zero:
      window's degenerate lanes, and n-1 on the ladder, excluded and
      counted); masks exact; each new kernel exact against its plain
      version, or kernel B for K and one-chain L, on the first 65,536 lanes
-     of the path's own inputs (all 524,288 before phase 19 was added);
+     of the path's own inputs (all 524,288 before phase 19 was added; the
+     plain versions in the plain pool, beside the path);
      CUDA-event times of each kernel at 524,288 lanes, of the entry points
      and of the plain versions.
  19. the main path on P-384 and on P-521 at B = 524,288 (edge scalars 1, 2,
@@ -141,6 +154,14 @@ check raises and the script exits non-zero:
      kernel C against probe_plain (edge pairs first) and 64 lanes against
      ints; CUDA-event times of each kernel at 524,288 lanes, of the entry
      points, and of the plain versions.
+ 20. the comb's schedules on P-384 and on P-521 at B = 524,288
+     (wide_schedule_phase; edge scalars 1, 2, 5, n-2, n-1 first): the tree
+     (kernel J, its walk the table of comb_tree_schedule.cuh), the pipe
+     (K), and the generic kernel L at chains 2, 3 and npos, unroll 2 and
+     npos, strict unroll 2 and npos (and on P-384 chains 4, chains 2 with
+     unroll 2, which P-521 refuses with ValueError, as the JAX package
+     does), each through comb.scalar_mult_base and kernel D, each curve a
+     path of its own (schedule_path, as phase 17's B9 part).
 
 Inputs come from numpy.random.default_rng(SEED). The line before the last
 is a JSON object with one entry per kernel; the last line is the device
@@ -173,7 +194,7 @@ from ecsimd_tpu_torch.oracle import comb as ocomb
 from ecsimd_tpu_torch.oracle import coz
 from ecsimd_tpu_torch.oracle import field as ofield
 from ecsimd_tpu_torch.oracle import window as ow
-from ecsimd_tpu_torch.specs import P256, P384, SECP256K1, W25519_FIELD, WEI25519
+from ecsimd_tpu_torch.specs import P256, P384, P521, SECP256K1, W25519_FIELD, WEI25519
 
 SEED = 0xEC51
 BATCH = 524288  # bench.py's deployment size
@@ -253,6 +274,69 @@ def wide_kernels(curve):
             f"affine_{tag}": affine.KERNELS[curve],
             f"field_probe_{tag}": field_ops.KERNELS[curve.field],
             f"field_consts_{tag}": field_ops.KERNELS_CONSTS[curve.field]}
+
+
+
+def schedule_name(chains, unroll, strict):
+    """JSON name of the generic kernel L at a schedule (without a curve's
+    tag)."""
+    return ("comb_general" + (f"_chains{chains}" if chains > 1 else "")
+            + (f"_unroll{unroll}" if unroll > 1 else "") + ("_strict" if strict else ""))
+
+
+def general_schedules(triples):
+    """JSON name -> the entry point's keyword arguments, for (chains,
+    unroll, strict) triples."""
+    return {schedule_name(c, u, st): {"chains": c, "unroll": u, "strict": st}
+            for c, u, st in triples}
+
+
+# phase 17, its B9 part: the generic kernel L at schedules that kernel
+# L's templated instantiations do not take; all on P-256, B9_OTHER on
+# secp256k1 and Wei25519
+SCHEDULES_B9 = general_schedules(((8, 1, False), (32, 1, False), (4, 2, False), (1, 8, False),
+                                  (1, 32, False), (1, 8, True), (1, 32, True)))
+B9_OTHER = ("comb_general_chains8", "comb_general_unroll8_strict")
+
+
+def wide_schedules(curve):
+    """Phase 20's schedules on P-384 or P-521: JSON name (without the tag)
+    -> the entry point's keyword arguments. The tree, the pipe, and the
+    generic kernel L at chains 2, 3 and npos, unroll 2 and npos, strict
+    unroll 2 and npos; on P-384 also chains 4 and chains 2 with unroll 2,
+    which P-521 (66 positions) refuses (WIDE_REFUSED)."""
+    npos = curve.field.nbits // comb.W
+    triples = [(2, 1, False), (3, 1, False), (npos, 1, False), (1, 2, False), (1, npos, False),
+               (1, 2, True), (1, npos, True)]
+    if curve == P384:
+        triples += [(4, 1, False), (2, 2, False)]
+    return {"comb_tree": {"chain": "tree"}, "comb_pipe": {"chain": "pipe"},
+            **general_schedules(triples)}
+
+
+WIDE_REFUSED = {P521: ({"chains": 4}, {"chains": 2, "unroll": 2})}
+# curve -> the schedules of its path in phase 17's B9 part or in phase 20
+PATH_SCHEDULES = {P256: SCHEDULES_B9, SECP256K1: {k: SCHEDULES_B9[k] for k in B9_OTHER},
+                  WEI25519: {k: SCHEDULES_B9[k] for k in B9_OTHER},
+                  P384: wide_schedules(P384), P521: wide_schedules(P521)}
+
+
+def schedule_kernel(curve, kw):
+    """The kernel comb.scalar_mult_base(..., curve, **kw) launches on CUDA
+    tensors (kw not the serial chain with one chain at unroll 1)."""
+    if kw.get("chain") == "tree":
+        return comb.KERNELS_TREE[curve]
+    if kw.get("chain") == "pipe":
+        return comb.KERNELS_PIPE[curve]
+    key = (curve, kw.get("chains", 1), kw.get("unroll", 1), kw.get("strict", False))
+    return comb.KERNELS_CHAINS.get(key) or comb.KERNELS_GENERAL[(curve, key[3])]
+
+
+def tagged(curve, name):
+    """A kernels-line name on ``curve``: P-256's bare, the others' with the
+    curve's tag."""
+    return name if curve == P256 else f"{name}_{_build.CURVE_TAGS[curve][0]}"
+
 
 # RFC 6979 A.2.5, P-256 with SHA-256: private key x, and (message, k, r, s)
 RFC6979_X = 0xC9AFA9D845BA75166B5C215767B1D6934E50C3DB36E89B127B8A622B120F6721
@@ -379,6 +463,32 @@ def wide_ms(tag, d):
 for _c, _tag in CURVES19.items():
     LANE_MS |= wide_ms(_tag, _c.field.ndigits)
 
+
+def schedules_ms(curve, schedules):
+    """(M, S) per lane of the comb schedules ``schedules`` (JSON name ->
+    keyword arguments) on ``curve``, by kernels-line name: the tree's npos/2
+    affine adds, npos/2 - 1 general adds and the fix-up; the pipe's npos
+    mixed adds (the fix-up one of them); c chains' npos - c mixed adds, c - 1
+    general adds and the fix-up; strict, npos complete adds."""
+    npos = curve.field.nbits // comb.W
+    tag = _build.CURVE_TAGS[curve][0]
+    add_c = CURVE_FORMULAS.get(tag, CURVE_FORMULAS["p256"])[1]
+    out = {}
+    for name, kw in schedules.items():
+        c = kw.get("chains", 1)
+        if kw.get("chain") == "tree":
+            ms = lane_ms((npos // 2, "aff_add"), (npos // 2 - 1, "jac_add"), (1, "add_z2_1"))
+        elif kw.get("strict"):
+            ms = lane_ms((npos, add_c))
+        else:
+            ms = lane_ms((npos + 1 - c, "add_z2_1"), (c - 1, "jac_add"))
+        out[tagged(curve, name)] = ms
+    return out
+
+
+for _c, _kws in PATH_SCHEDULES.items():
+    LANE_MS |= schedules_ms(_c, _kws)
+
 # 32 x 32 -> 64-bit products, two 32-bit multiply-adds each. A multiply has
 # 8 x 8 products, a squaring 36 (8 squares, 28 cross products taken once).
 # The reduction: none on P-256 (Solinas: adds only); on secp256k1 the least
@@ -424,6 +534,14 @@ for _c, _tag in CURVES19.items():
         ("affine", 5), ("field_probe", 7), ("field_consts", len(field_ops.CONST_OPS)))}
     BYTES_PER_LANE[f"comb_table_{_tag}"] = (
         (comb.NENT + (2 * _d - 1) * comb.NENT // 2) * 2 * comb.coord_words(_d) * 4)
+# phase 17's B9 part and phase 20: the ptxas name of each schedule's kernel,
+# and its bytes (scalars in, three coordinates out)
+for _c, _kws in PATH_SCHEDULES.items():
+    for _k in _kws:
+        _kind = _k if _k in ("comb_tree", "comb_pipe") else (
+            "comb_general_strict" if _k.endswith("_strict") else "comb_general")
+        PTXAS_NAMES[tagged(_c, _k)] = f"{_kind}_{_build.CURVE_TAGS[_c][0]}_kernel"
+        BYTES_PER_LANE[tagged(_c, _k)] = 4 * _c.field.ndigits * 4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 peak memory bandwidth
 IMAD_PER_SM_PER_CLOCK = 64  # CUDA C++ Programming Guide, compute capability 9.0
 SMS = 132
@@ -457,10 +575,11 @@ def pmap(fn, args):
     return list(_POOL.map(fn, *zip(*args), chunksize=chunk))
 
 
-def plain_job(kind, curve, strict, arrays, device):
+def plain_job(kind, curve, strict, arrays, device, chains=1):
     """One plain version on ``device`` (a pool process): ``kind`` ladder,
-    window, comb or affine on the int32 numpy planes ``arrays``. Returns
-    its output planes as numpy and its milliseconds (CUDA events)."""
+    window, comb, comb_tree, comb_chains (``chains`` chains) or affine on
+    the int32 numpy planes ``arrays``. Returns its output planes as numpy
+    and its milliseconds (CUDA events)."""
     dev = torch.device(device)
     fs = curve.field
     ts = [torch.from_numpy(a).to(dev) for a in arrays]
@@ -476,9 +595,14 @@ def plain_job(kind, curve, strict, arrays, device):
         out = (jac.x.planes, jac.y.planes, jac.z.planes)
     elif kind == "window":
         out = window.window_plain(*ts, curve, strict)
-    elif kind == "comb":
+    elif kind.startswith("comb"):
         tables, negbase, _ = comb.device_tables(curve, curve.gx, curve.gy, dev)
-        out = comb.comb_plain(ts[0], tables, curve, negbase, strict)
+        if kind == "comb_tree":
+            out = comb.comb_tree_plain(ts[0], tables, curve, negbase)
+        elif kind == "comb_chains":
+            out = comb.comb_chains_plain(ts[0], tables, curve, negbase, chains)
+        else:
+            out = comb.comb_plain(ts[0], tables, curve, negbase, strict)
     else:
         pt = JacobianPoint(*(GFp(v, fs) for v in ts), curve).to_affine()
         out = (pt.x, pt.y)
@@ -981,15 +1105,22 @@ def x25519_phases(rng, dev, card, counted):
 
 
 def schedule_args(kname):
-    return ", ".join(f"{a}={b!r}" for a, b in SCHEDULES[kname].items())
+    """The entry point's keyword arguments of a phase 17 schedule (its JSON
+    name) or the arguments themselves, as text."""
+    kw = SCHEDULES[kname] if isinstance(kname, str) else kname
+    return ", ".join(f"{a}={b!r}" for a, b in kw.items())
 
 
 def comb_degenerate(k, tables_np, negbase, kw, curve=P256):
     """True where the composition of the schedule ``kw`` on Python ints
     (oracle.comb, on classical tables) hits a degenerate add (equal or
     opposite x): the tree's subset sums, the chains' prefix sums and their
-    cross-chain sums, the fix-up. Such lanes leave the oracle check only;
-    kernel and plain version agree on them bit for bit all the same."""
+    cross-chain sums, the fix-up; any number of chains, ``unroll`` changing
+    nothing. A strict schedule (complete adds) has none. Such lanes leave
+    the oracle check only; kernel and plain version agree on them bit for
+    bit all the same."""
+    if kw.get("strict"):
+        return False
     try:
         if kw.get("chain") == "tree":
             ocomb.tree(k, tables_np, negbase, curve)
@@ -1109,6 +1240,169 @@ def schedule_phase(rng, dev, card, counted, scalars, b_plain_ms):
     return {"launches17": launches17, "kernels": kernels, "by_kernel": out}
 
 
+def schedule_path(dev, card, counted, curve, scalars, ks, phase):
+    """The comb's schedules PATH_SCHEDULES[curve] (JSON name -> keyword
+    arguments of comb.scalar_mult_base) on ``curve`` at B = 524,288 on
+    ``scalars`` (``ks``: at least the first ORACLE_LANES as ints): phase
+    17's B9 part and phase 20. Their plain versions (comb_tree_plain, comb_chains_plain,
+    comb_plain) on the first CHECK_LANES lanes start in the plain pool;
+    the path: each schedule through the entry point, then kernel D, with
+    the launch counts reset before and read after; ORACLE_LANES lanes of
+    each against the oracle (lanes where the schedule's composition on ints
+    degenerates excluded and counted); each kernel exact against its plain
+    version on the first CHECK_LANES lanes; the generic kernel L's shared
+    memory equal to comb.general_smem_bytes; the times. Returns the
+    numbers of the kernels line."""
+    fs, d = curve.field, curve.field.ndigits
+    schedules = PATH_SCHEDULES[curve]
+    limbs = comb.kernel_tables(curve, curve.gx, curve.gy, dev)
+    nb = comb.device_tables(curve, curve.gx, curve.gy, dev)[2]
+    tables_np, negbase_ints = comb.base_tables(curve, curve.gx, curve.gy)
+    classical = ocomb.classical_tables(tables_np, fs)
+    m = CHECK_LANES
+    s_c = scalars[:, :m].contiguous()
+    host = [s_c.cpu().numpy()]
+
+    def plain_key(kw):
+        if kw.get("chain") == "tree":
+            return "comb_tree", False, 1
+        if kw.get("chains", 1) > 1:
+            return "comb_chains", False, kw["chains"]
+        return "comb", kw.get("strict", False), 1
+
+    jobs = {}
+    for kw in schedules.values():
+        key = plain_key(kw)
+        if key not in jobs:
+            jobs[key] = plain_submit(key[0], curve, key[1], host, dev.type, key[2])
+
+    # -- the path
+    for k in counted:
+        k.launches = 0
+    results = {name: affine.to_affine(comb.scalar_mult_base(scalars, curve, **kw))
+               for name, kw in schedules.items()}
+    torch.cuda.synchronize()
+    launches = {k.symbol: k.launches for k in counted}
+    kernels = {tagged(curve, name): schedule_kernel(curve, kw) for name, kw in schedules.items()}
+    for name, kernel in kernels.items():
+        check(launches[kernel.symbol] >= 1, f"phase {phase} path on {curve.name} launched {name}")
+    check(launches[affine.KERNELS[curve].symbol] >= len(schedules),
+          f"phase {phase} path on {curve.name} launched affine")
+
+    # -- ORACLE_LANES lanes of each result against the oracle
+    want = oracle_base(ks[:ORACLE_LANES], curve)
+    excluded = {}
+    for name, kw in schedules.items():
+        res = results[name]
+        check(res.x.shape == (d, BATCH) and res.x.dtype == torch.int32, f"{name} output shape")
+        check(bool(((res.x >= 0) & (res.x < 1 << 16)).all()), f"{name} digits in range")
+        flags = pmap(comb_degenerate, [(k, classical, negbase_ints, kw, curve)
+                                       for k in ks[:ORACLE_LANES]])
+        lanes = [i for i, f in enumerate(flags) if not f]
+        excluded[name] = ORACLE_LANES - len(lanes)
+        got = affine_ints(res, ORACLE_LANES)
+        check([got[i] for i in lanes] == [want[i] for i in lanes],
+              f"phase {phase} {curve.name} {name} vs oracle")
+    del results
+    say(f"phase {phase} {curve.name} comb schedules path B={BATCH} (comb.scalar_mult_base -> "
+        f"kernel, then kernel D): launches {json.dumps({k: v for k, v in launches.items() if v})}; "
+        f"{ORACLE_LANES} lanes of each "
+        f"vs oracle (edge scalars first; degenerate lanes excluded: {json.dumps(excluded)})")
+
+    # -- each kernel against its plain version on the first CHECK_LANES lanes
+    # (these launches come after the counts were read), the generic kernel
+    # L's shared memory, and the times at full width
+    out = {}
+    for name, kw in schedules.items():
+        want_np, plain_ms = jobs[plain_key(kw)].result()
+        got = comb.schedule_planes(s_c, limbs, nb, curve, **kw)
+        err = max_abs_diff(got, [torch.from_numpy(w).to(dev) for w in want_np])
+        check(err == 0, f"{curve.name} {name} kernel == its plain version on {m} lanes")
+        row = {"err": err, "plain_ms": plain_ms, "plain_lanes": m, "schedule": kw}
+        kernel = kernels[tagged(curve, name)]
+        if kernel is comb.KERNELS_GENERAL[(curve, kw.get("strict", False))]:
+            torch.cuda.synchronize()
+            smem = dynamic_smem(kernel)["dynamic_smem_bytes"]
+            want_smem = comb.general_smem_bytes(curve, kw["unroll"])
+            check(smem == want_smem, f"{curve.name} {name}: {smem} bytes of shared memory, "
+                                     f"general_smem_bytes says {want_smem}")
+            row |= {"group": comb.general_group(curve, kw["unroll"]), "dynamic_smem_bytes": smem}
+        out[tagged(curve, name)] = row
+    del got
+    wide = curve in CURVES19
+    api_ms = {}
+    for name, kw in schedules.items():
+        out[tagged(curve, name)]["ms"] = time_ms(
+            lambda kw=kw: comb.schedule_planes(scalars, limbs, nb, curve, **kw), 10 if wide else 20)
+        api_ms[f"{curve.name} comb.scalar_mult_base({schedule_args(kw)}) + affine"] = time_ms(
+            lambda kw=kw: affine.to_affine(comb.scalar_mult_base(scalars, curve, **kw)),
+            5 if wide else 10)
+    staged = {k: [v["group"], v["dynamic_smem_bytes"]] for k, v in out.items() if "group" in v}
+    say(f"phase {phase} {curve.name} comb schedules: each kernel exact vs its plain version "
+        f"(comb_tree_plain, comb_chains_plain, comb_plain) on the path's first {m} lanes; "
+        f"generic L's staged positions a step and shared memory {json.dumps(staged)}; "
+        f"kernel ms at B={BATCH} {json.dumps({k: round(v['ms'], 3) for k, v in out.items()})}; "
+        f"entry point + D ms {json.dumps({k: round(v, 3) for k, v in api_ms.items()})}; plain ms "
+        f"at {m} lanes {json.dumps({k: round(v['plain_ms'], 1) for k, v in out.items()})} {card}")
+    return {"launches": launches, "kernels": kernels, "by_kernel": out, "api_ms": api_ms}
+
+
+def general_phase(rng, dev, card, counted, scalars):
+    """Phase 17, its B9 part: the generic kernel L at PATH_SCHEDULES[curve]
+    — SCHEDULES_B9 on P-256 (on phase 6's 524,288 scalars), B9_OTHER on
+    secp256k1 and Wei25519 (edge scalars 1, 2, 5, n-2, n-1 first) — each a
+    path of its own (schedule_path); then on P-256 the generic kernel at
+    each schedule of comb.SCHEDULES_L against the templated instantiation:
+    word for word on the 524,288 lanes, and CUDA-event times in turns.
+    Returns {curve: schedule_path's numbers} and the times."""
+    ks = convert.planes_to_ints(scalars[:, :ORACLE_LANES].cpu().numpy())
+    out = {P256: schedule_path(dev, card, counted, P256, scalars, ks, "17 (B9)")}
+    for curve in CURVES18:
+        n = curve.order
+        ks_c = scalar_ints(rng, BATCH, [1, 2, 5, n - 2, n - 1], curve)
+        out[curve] = schedule_path(dev, card, counted, curve, to_dev(ks_c, dev), ks_c, "17 (B9)")
+    limbs = comb.kernel_tables(P256, P256.gx, P256.gy, dev)
+    nb = comb.device_tables(P256, P256.gx, P256.gy, dev)[2]
+    versus = {}
+    for c, u, st in comb.SCHEDULES_L:
+        templated = functools.partial(comb.comb_chains_planes, scalars, limbs, nb, P256, c, u, st)
+        generic = functools.partial(comb.comb_general_planes, scalars, limbs, nb, P256, c, u, st)
+        err = max_abs_diff(generic(), templated())
+        check(err == 0, f"generic kernel L == templated kernel L at chains={c}, unroll={u}, "
+                        f"strict={st}, word for word on {BATCH} lanes")
+        t = [time_ms(f, 10) for f in (templated, generic, generic, templated)]
+        versus[schedule_name(c, u, st)] = {"templated_ms": (t[0] + t[3]) / 2,
+                                           "generic_ms": (t[1] + t[2]) / 2}
+    pairs = {k: [round(v["templated_ms"], 3), round(v["generic_ms"], 3)] for k, v in versus.items()}
+    say(f"phase 17 (B9) P-256: the generic kernel L word for word the templated one at each of "
+        f"its seven schedules on {BATCH} lanes; ms (templated, generic; in turns) "
+        f"{json.dumps(pairs)} {card}")
+    return out, versus
+
+
+def wide_schedule_phase(rng, dev, card, counted, curve):
+    """Phase 20 on ``curve`` (P-384 or P-521): the comb's schedules of
+    PATH_SCHEDULES[curve] — kernels J, K and the generic L — through the
+    entry point and kernel D at B = 524,288 (schedule_path; edge scalars 1,
+    2, 5, n-2, n-1 first); first, on P-521, the schedules of WIDE_REFUSED
+    refused by check_schedule (ValueError), as the JAX package refuses
+    them."""
+    n, d = curve.order, curve.field.ndigits
+    ks = scalar_ints(rng, BATCH, [1, 2, 5, n - 2, n - 1], curve)
+    scalars = to_dev(ks, dev, d)
+    for kw in WIDE_REFUSED.get(curve, ()):
+        try:
+            comb.scalar_mult_base(scalars, curve, **kw)
+        except ValueError:
+            continue
+        check(False, f"{curve.name}: comb.scalar_mult_base({schedule_args(kw)}) refused")
+    if curve in WIDE_REFUSED:
+        say(f"phase 20 {curve.name}: comb.scalar_mult_base refuses "
+            f"{[schedule_args(kw) for kw in WIDE_REFUSED[curve]]} (ValueError: npos "
+            f"{curve.field.nbits // comb.W} not a multiple of chains * unroll)")
+    return schedule_path(dev, card, counted, curve, scalars, ks, 20)
+
+
 def ecdh_path(rng, dev, card, curve=WEI25519, phase=18):
     """The protocol path of phase 18 (Wei25519) and 19 (P-384, P-521),
     inside its launch count: ECDH (two parties' keys, then shared secrets
@@ -1175,8 +1469,9 @@ def curve_phase(rng, dev, card, counted, curve):
     """Phase 18 on ``curve`` (secp256k1 or Wei25519): the main path through
     the entry points at B = 524,288, its checks, then each new kernel
     against its plain version (K and one-chain L: kernel B, itself held to
-    comb_plain) on the path's own inputs, and the times. Returns the
-    numbers of the kernels line."""
+    comb_plain) on the path's own inputs, and the times. The plain versions
+    run in the plain pool beside the path, as phase 19's (plain_ms is
+    timed there). Returns the numbers of the kernels line."""
     tag = CURVES18[curve]
     fs, n = curve.field, curve.order
     kern = curve_kernels(curve)
@@ -1186,10 +1481,25 @@ def curve_phase(rng, dev, card, counted, curve):
     xm = GFp.from_classical(points.x, fs).planes.contiguous()
     ym = GFp.from_classical(points.y, fs).planes.contiguous()
     k_shared = scalar_ints(rng, 1, [], curve)[0]
-    tables, negbase, nb = comb.device_tables(curve, curve.gx, curve.gy, dev)
+    nb = comb.device_tables(curve, curve.gx, curve.gy, dev)[2]
     limbs = comb.kernel_tables(curve, curve.gx, curve.gy, dev)
     tables_np, negbase_ints = comb.base_tables(curve, curve.gx, curve.gy)
     classical = ocomb.classical_tables(tables_np, fs)
+
+    # the plain versions of the kernel checks below, on the first
+    # CHECK_LANES lanes of the path's inputs (since phase 19 was added: at
+    # full width they took ~200 s), start now in the plain pool
+    m = CHECK_LANES
+    sc, xc, yc = (t[:, :m].contiguous() for t in (scalars, xm, ym))
+    host = [t.cpu().numpy() for t in (sc, xc, yc)]
+    plain = {"ladder": plain_submit("ladder", curve, False, host, dev.type),
+             "comb_tree": plain_submit("comb_tree", curve, False, host[:1], dev.type)}
+    for st in (False, True):
+        plain[("window", st)] = plain_submit("window", curve, st, host, dev.type)
+        plain[("comb", st)] = plain_submit("comb", curve, st, host[:1], dev.type)
+    for c in sorted({kw["chains"] for kw in SCHEDULES.values() if kw.get("chains", 1) > 1}):
+        plain[("comb_chains", c)] = plain_submit("comb_chains", curve, False, host[:1], dev.type,
+                                                 c)
 
     # -- the path: every entry point of this slice on this curve
     for k in counted:
@@ -1238,13 +1548,9 @@ def curve_phase(rng, dev, card, counted, curve):
           f"points (i+1)G; excluded lanes: {json.dumps(excluded)})")
 
     # -- each new kernel against its plain version (or kernel B) on the first
-    # CHECK_LANES lanes of the path's inputs (since phase 19 was added: the
-    # plain versions at full width took ~200 s), and the times at full width
-    # (these launches come after the counts were read)
+    # CHECK_LANES lanes of the path's inputs (the plain pool's results), and
+    # the times at full width (these launches come after the counts were read)
     out = {k: {"plain_lanes": CHECK_LANES} for k in kern}
-    m = CHECK_LANES
-    sc, xc, yc = (t[:, :m].contiguous() for t in (scalars, xm, ym))
-    pc = AffinePoint(points.x[:, :m].contiguous(), points.y[:, :m].contiguous(), curve)
 
     def kernel_runs(s, x, y):
         """JSON name -> one call of each new kernel on scalars s, points (x, y)."""
@@ -1265,25 +1571,25 @@ def curve_phase(rng, dev, card, counted, curve):
 
     runs, chk = kernel_runs(scalars, xm, ym), kernel_runs(sc, xc, yc)
 
-    def plain_check(kname, plain):
-        out[kname]["plain_ms"], want = time_once_ms(plain)
-        out[kname]["err"] = max_abs_diff(chk[kname](), want)
+    def plain_result(key):
+        """The plain pool's planes (on the card) and milliseconds for ``key``."""
+        want_np, ms = plain[key].result()
+        return [torch.from_numpy(w).to(dev) for w in want_np], ms
+
+    def check_against(kname, got, key):
+        want, out[kname]["plain_ms"] = plain_result(key)
+        out[kname]["err"] = max_abs_diff(got, want)
         check(out[kname]["err"] == 0, f"{kname} kernel == its plain version on {m} lanes")
 
-    def ladder_plain():
-        jac = group.scalar_mult(sc, JacobianPoint.from_affine(pc))
-        return jac.x.planes, jac.y.planes, jac.z.planes
-
-    plain_check(f"ladder_{tag}", ladder_plain)
+    check_against(f"ladder_{tag}", chk[f"ladder_{tag}"](), "ladder")
     for st in (False, True):
         kname = f"window{'_strict' if st else ''}_{tag}"
-        plain_check(kname, lambda st=st: window.window_plain(sc, xc, yc, curve, st))
+        check_against(kname, chk[kname](), ("window", st))
     # kernel B, both modes (on Wei25519 strict is new), against comb_plain:
     # K and one-chain L are then held to kernel B, as in phase 17
     b_out, b_plain_ms = {}, {}
     for st in (False, True):
-        b_plain_ms[st], want = time_once_ms(
-            lambda: comb.comb_plain(sc, tables, curve, negbase, st))
+        want, b_plain_ms[st] = plain_result(("comb", st))
         b_out[st] = comb.comb_planes(sc, limbs, nb, curve, st)
         err = max_abs_diff(b_out[st], want)
         check(err == 0, f"{curve.name} comb (strict={st}) kernel == comb_plain on {m} lanes")
@@ -1292,16 +1598,14 @@ def curve_phase(rng, dev, card, counted, curve):
     for kname, kw in SCHEDULES.items():
         name = f"{kname}_{tag}"
         if kw.get("chain") == "tree":
-            plain_check(name, lambda: comb.comb_tree_plain(sc, tables, curve, negbase))
+            check_against(name, chk[name](), "comb_tree")
         elif kw.get("chain") == "pipe" or kw["chains"] == 1:
             st = kw.get("strict", False)
             out[name]["plain_ms"] = b_plain_ms[st]
             out[name]["err"] = max_abs_diff(chk[name](), b_out[st])
             check(out[name]["err"] == 0, f"{name} kernel == kernel B on {m} lanes")
         else:
-            c, u = kw["chains"], kw["unroll"]
-            plain_check(name, lambda c=c, u=u: comb.comb_chains_plain(
-                sc, tables, curve, negbase, c, u))
+            check_against(name, chk[name](), ("comb_chains", kw["chains"]))
     del b_out, chk
     for name, run in runs.items():
         out[name]["ms"] = time_ms(run, 5 if name.startswith(("ladder", "window")) else 20)
@@ -1480,7 +1784,7 @@ def wide_phase(rng, dev, card, counted, curve):
     xm = GFp.from_classical(points.x, fs).planes.contiguous()
     ym = GFp.from_classical(points.y, fs).planes.contiguous()
     k_shared = scalar_ints(rng, 1, [], curve)[0]
-    tables, negbase, nb = comb.device_tables(curve, curve.gx, curve.gy, dev)
+    nb = comb.device_tables(curve, curve.gx, curve.gy, dev)[2]
     limbs = comb.kernel_tables(curve, curve.gx, curve.gy, dev)
     tables_np, negbase_ints = comb.base_tables(curve, curve.gx, curve.gy)
     classical = ocomb.classical_tables(tables_np, fs)
@@ -1749,7 +2053,7 @@ def run():
                *field_ops.KERNELS_CONSTS.values(), kglv.KERNEL,
                kglv.KERNEL_STRICT, mladder.KERNEL, mladder.KERNEL_XDIVZ, roofline.KERNEL,
                *comb.KERNELS_TREE.values(), *comb.KERNELS_PIPE.values(),
-               *comb.KERNELS_CHAINS.values())
+               *comb.KERNELS_CHAINS.values(), *comb.KERNELS_GENERAL.values())
     for k in counted:
         k.launches = 0
     out_base = api.scalar_mult_base(scalars)
@@ -2069,9 +2373,11 @@ def run():
     xp = x25519_phases(rng, dev, card, counted)
     sp = schedule_phase(rng, dev, card, counted, scalars,
                         {False: comb_plain_ms, True: comb_strict_plain_ms})
+    b9, b9_versus = general_phase(rng, dev, card, counted, scalars)
     p18 = {c: curve_phase(rng, dev, card, counted, c) for c in CURVES18}
     launches18 = {k.symbol: sum(p["launches"][k.symbol] for p in p18.values()) for k in counted}
     p19 = {c: wide_phase(rng, dev, card, counted, c) for c in CURVES19}
+    p20 = {c: wide_schedule_phase(rng, dev, card, counted, c) for c in CURVES19}
     sass_mix = sass_job.result()
     for kname, mix in sass_mix.items():
         check(mix is not None, f"cuobjdump -sass found {kname}")
@@ -2082,6 +2388,9 @@ def run():
     paths = {"phase6": launches6, "phase9": launches9, "phase12": launches12,
              "phase15": xp["launches15"], "phase16": xp["launches16"],
              "phase17": sp["launches17"], "phase18": launches18, "phase19": launches19}
+    # phase 17's B9 part and phase 20: a path a curve
+    paths |= {f"phase17_b9_{_build.CURVE_TAGS[c][0]}": p["launches"] for c, p in b9.items()}
+    paths |= {f"phase20_{_build.CURVE_TAGS[c][0]}": p["launches"] for c, p in p20.items()}
 
     def entry(kernel, kname, err, ms, plain_ms, lanes=BATCH, reps=0):
         bound_ms, bound_by = bound(kname, lanes, sm_clock_mhz, reps)
@@ -2148,6 +2457,14 @@ def run():
         *({**entry(p["kernels"][k], k, v["err"], v["ms"], v["plain_ms"],
                    lanes=v.get("lanes", BATCH)), "plain_lanes": v["plain_lanes"]}
           for p in p19.values() for k, v in p["by_kernel"].items()),
+        # phase 17's B9 part and phase 20: one entry a (kernel, curve,
+        # schedule); ms and bound at B, plain_ms on the path's first
+        # plain_lanes lanes; the generic kernel L's staged positions a step
+        # (group) and shared memory at that schedule
+        *({**entry(p["kernels"][k], k, v["err"], v["ms"], v["plain_ms"]),
+           **{x: v[x] for x in ("plain_lanes", "schedule", "group", "dynamic_smem_bytes")
+              if x in v}}
+          for p in (*b9.values(), *p20.values()) for k, v in p["by_kernel"].items()),
     ]
     api_ms = {"scalar_mult_base": base_api_ms, "scalar_mult": var_api_ms,
               "scalar_mult_fast": fast_ms, "scalar_mult_fast_strict": fast_strict_ms,
@@ -2159,7 +2476,8 @@ def run():
               **{f"comb.scalar_mult_base({schedule_args(k)}) + affine": v["api_ms"]
                  for k, v in sp["by_kernel"].items()},
               **{k: v for p in p18.values() for k, v in p["api_ms"].items()},
-              **{k: v for p in p19.values() for k, v in p["api_ms"].items()}}
+              **{k: v for p in p19.values() for k, v in p["api_ms"].items()},
+              **{k: v for p in (*b9.values(), *p20.values()) for k, v in p["api_ms"].items()}}
     # the measured int32 rate against the 64 IMAD per SM per clock bound()
     # assumes: kernel I issues 2 of its 4 instructions a chain step on the
     # multiply-add pipe (IMAD, IMAD.IADD), so that pipe's rate is 2 / 5 of
@@ -2177,6 +2495,7 @@ def run():
     print(json.dumps({"kernels": kernels, "card": smi,
                       "sm_clock_max_mhz": sm_clock_mhz, "batch": BATCH,
                       "build_s": build.seconds, "api_ms": api_ms, "int32_ceiling": ceiling,
+                      "generic_vs_templated_l_ms": b9_versus,
                       "wall_s": time.perf_counter() - t_start}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                             "count": torch.cuda.device_count()}}))

@@ -12,8 +12,8 @@ launch on both libraries with the same pointers. The outputs of the two
 must agree word for word; the times are CUDA-event means over ``reps``
 launches, taken in turns other, this, this, other, ``rounds`` times, so
 that both sit on one card under one power limit. A kernel the other
-library lacks (one this checkout added: P-384's and P-521's) is timed on
-this library alone and reported with ``other_ms`` and ``exact`` null.
+library lacks (one this checkout added) is timed on this library alone
+and reported with ``other_ms`` and ``exact`` null.
 ``--sass`` also compares each kernel's SASS in the two libraries
 (``cuobjdump -sass``, instruction for instruction): ``sass_equal``.
 Prints one JSON line: per kernel both times, their ratio, whether the
@@ -75,7 +75,8 @@ def _below(rng, n, p, dev, d=16):
 
 
 def _wide(batch: int, dev, rng) -> dict:
-    """The workloads of kernels A, B, C, D and E on P-384 and P-521."""
+    """The workloads of kernels A, B, C, D, E, J, K and the generic L on
+    P-384 and P-521."""
     out = {}
     for curve in (P384, P521):
         tag, d = _build.CURVE_TAGS[curve][0], curve.field.ndigits
@@ -96,8 +97,30 @@ def _wide(batch: int, dev, rng) -> dict:
             f"affine_{tag}": lambda jac=jac, c=curve: affine.affine_planes(*jac, c),
             f"field_probe_{tag}": lambda a=a, b=b, c=curve: field_ops.probe(a, b, c.field),
             f"field_consts_{tag}": lambda c=curve: field_ops.constants(c.field, dev),
+            f"comb_tree_{tag}": lambda s=s, lb=limbs, nb=nb, c=curve: comb.comb_tree_planes(
+                s, lb, nb, c),
+            f"comb_pipe_{tag}": lambda s=s, lb=limbs, nb=nb, c=curve: comb.comb_pipe_planes(
+                s, lb, nb, c),
+            **_general(tag, curve, s, limbs, nb),
         }
     return out
+
+
+def _schedules(tag, curve, s, limbs, nb, chains) -> dict:
+    """Kernels J, K and L's templated instantiations (``chains``: name ->
+    (chains, unroll, strict)) on a 256-bit curve other than P-256."""
+    return {f"comb_tree_{tag}": lambda: comb.comb_tree_planes(s, limbs, nb, curve),
+            f"comb_pipe_{tag}": lambda: comb.comb_pipe_planes(s, limbs, nb, curve),
+            **{f"{k}_{tag}": (lambda c=c, u=u, st=st: comb.comb_chains_planes(
+                s, limbs, nb, curve, c, u, st)) for k, (c, u, st) in chains.items()}}
+
+
+def _general(tag, curve, s, limbs, nb) -> dict:
+    """The generic kernel L on ``curve``: chains 2 (unroll 1), and strict
+    with one chain at unroll 2."""
+    return {f"comb_general_{tag}": lambda: comb.comb_general_planes(s, limbs, nb, curve, 2, 1),
+            f"comb_general_strict_{tag}": lambda: comb.comb_general_planes(
+                s, limbs, nb, curve, 1, 2, True)}
 
 
 def workloads(batch: int, dev) -> dict:
@@ -158,6 +181,11 @@ def workloads(batch: int, dev) -> dict:
         "comb_w25519": lambda: comb.comb_planes(kw, limbsw, nbw, WEI25519),
         "affine_w25519": lambda: affine.affine_planes(*jacw, WEI25519),
         "field_probe_w25519": lambda: field_ops.probe(aw, bw, wf),
+        **_schedules("secp256k1", k1, s1, limbs1, nb1, chains),
+        **_schedules("w25519", WEI25519, kw, limbsw, nbw, chains),
+        **_general("p256", P256, s, limbs, nb),
+        **_general("secp256k1", k1, s1, limbs1, nb1),
+        **_general("w25519", WEI25519, kw, limbsw, nbw),
         **_wide(batch, dev, rng),
     }
 

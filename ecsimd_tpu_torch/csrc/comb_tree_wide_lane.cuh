@@ -1,0 +1,58 @@
+// Kernel J's lane on P-384 and P-521, the comb's stride tree walked by the
+// schedule table, over the field of the including namespace (sm_90a).
+// comb_tree_p384.cu and comb_tree_p521.cu include this file inside p384 and
+// p521, each after the field's coz header, comb_tree_wide.cuh and
+// comb_lane.cuh, so the lane is written once; the file has no include guard
+// and includes nothing. comb_tree_wide.cuh says what the kernel computes
+// and how.
+
+// One lane of the tree; every thread takes part in the block's staging and
+// barriers, and only active lanes store.
+__device__ __forceinline__ void comb_tree_wide_lane(const int32_t* scalars, const uint4* tables,
+                                                    const int32_t* negbase, int32_t* ax_out,
+                                                    int32_t* ay_out, int32_t* z_out, int64_t B,
+                                                    int64_t i, bool active, uint4* smem) {
+  using Sched = tree_schedule::Schedule<kCombPositions>;
+  constexpr int kHalf = kCombPositions / 2;
+  // the pending sums, in thread-local memory (comb_tree_wide.cuh says why);
+  // `top` counts them and is set by the schedule alone
+  fe sx[Sched::kPending], sy[Sched::kPending], sz[Sched::kPending];
+  int top = 0;
+  fe x, y, z;
+  tree_wide::stage_pair<kWords, kCombPositions>(tables, 0, smem);
+#pragma unroll 1
+  for (int k = 0; k < Sched::kSteps; ++k) {
+    if (k + 1 < Sched::kSteps) {
+      tree_wide::stage_pair<kWords, kCombPositions>(tables, k + 1, smem);
+      comb::wait_staged<1>();
+    } else {
+      comb::wait_staged<0>();
+    }
+    __syncthreads();
+    const uint32_t step = Sched::step(k);
+    const int lo = (int)(step & 0xFFu);
+    fe ax, ay, bx, by;
+    read_entry(tree_wide::slot<kWords>(smem, k & 1, 0), lo,
+               comb::entry_index<kDigits>(scalars, B, i, lo), ax, ay);
+    read_signed_entry(tree_wide::slot<kWords>(smem, k & 1, 1),
+                      comb::entry_index<kDigits>(scalars, B, i, lo + kHalf), bx, by);
+    __syncthreads();  // the next step stages into the buffer just read
+    aff_add(ax, ay, bx, by, x, y, z);  // node lo of level 1
+    // fold the pending sums the schedule says, the most recent first (each
+    // the lower-index node), then leave the new node pending unless it is
+    // the root
+#pragma unroll 1
+    for (int f = (int)(step >> 8); f > 0; --f) {
+      --top;
+      fe h, r;
+      jac_add(sx[top], sy[top], sz[top], x, y, z, x, y, z, h, r);
+    }
+    if (k + 1 < Sched::kSteps) {
+      sx[top] = x;
+      sy[top] = y;
+      sz[top] = z;
+      ++top;
+    }
+  }
+  comb_finish<false>(x, y, z, scalars, negbase, ax_out, ay_out, z_out, B, i, active);
+}

@@ -1,11 +1,13 @@
 """Fixed-base comb k_i * B: the CUDA kernels of every schedule of the JAX
-package's ``comb_mont_planes`` — B (serial, ``csrc/comb.cu`` on P-256,
-secp256k1 and Wei25519, ``csrc/comb_p384.cu`` and ``comb_p521.cu``), J
-(pairwise tree, ``csrc/comb_tree.cu``), K (pipelined serial chain,
-``csrc/comb_pipe.cu``) and L (``chains`` independent chains / ``unroll``
-positions a step, ``csrc/comb_chains.cuh``), J, K and L on the 256-bit
-curves only (ROADMAP B0c) — their wrappers, their plain PyTorch versions
-and the host-built tables.
+package's ``comb_mont_planes``, on P-256, secp256k1, Wei25519, P-384 and
+P-521 — B (serial, ``csrc/comb.cu``, ``comb_p384.cu``, ``comb_p521.cu``),
+J (pairwise tree, ``csrc/comb_tree.cu``; on P-384 / P-521
+``comb_tree_<tag>.cu``, walking ``tree_schedule``), K (pipelined serial
+chain, ``csrc/comb_pipe.cu``, ``comb_pipe_<tag>.cu``) and L (``chains``
+independent chains / ``unroll`` positions a step: seven template
+instantiations a 256-bit curve, ``csrc/comb_chains.cuh``, and one generic
+kernel a curve for every other schedule, ``csrc/comb_general.cuh``) —
+their wrappers, their plain PyTorch versions and the host-built tables.
 
 Replaces ``ecsimd_tpu/kernels/comb.py`` (``comb_mont_planes`` and its
 Pallas bodies ``_comb_kernel``, ``_comb_kernel_tree`` and
@@ -43,6 +45,7 @@ comparators, and run on the main path only for CPU tensors.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import numpy as np
@@ -131,13 +134,14 @@ def _schedule_kernel(curve: CurveSpec, stem: str, source: str, replaces: str,
     )
 
 
-# curve -> kernel J / K instantiation
-KERNELS_TREE = {c: _schedule_kernel(c, "comb_tree_{tag}", "comb_tree.cu",
-                                    "ecsimd_tpu/kernels/comb.py:416 _comb_kernel_tree")
-                for c in _build.CURVES_256}
-KERNELS_PIPE = {c: _schedule_kernel(c, "comb_pipe_{tag}", "comb_pipe.cu",
-                                    "ecsimd_tpu/kernels/comb.py:337 _comb_kernel_pipe")
-                for c in _build.CURVES_256}
+# curve -> kernel J / K instantiation: one source for the three 256-bit
+# curves, one a curve on P-384 and P-521
+KERNELS_TREE = {c: _schedule_kernel(
+    c, "comb_tree_{tag}", "comb_tree.cu" if c in _build.CURVES_256 else "comb_tree{tag}.cu",
+    "ecsimd_tpu/kernels/comb.py:416 _comb_kernel_tree") for c in _build.CURVES}
+KERNELS_PIPE = {c: _schedule_kernel(
+    c, "comb_pipe_{tag}", "comb_pipe.cu" if c in _build.CURVES_256 else "comb_pipe{tag}.cu",
+    "ecsimd_tpu/kernels/comb.py:337 _comb_kernel_pipe") for c in _build.CURVES}
 # (curve, chains, unroll, strict) -> kernel L instantiation
 KERNELS_CHAINS = {
     (curve, c, u, st): _schedule_kernel(
@@ -146,6 +150,16 @@ KERNELS_CHAINS = {
         "ecsimd_tpu/kernels/comb.py:213 _comb_kernel",
         f"chains={c}, unroll={u}{', strict=True' if st else ''}; grid and permutation :624")
     for curve in _build.CURVES_256 for c, u, st in SCHEDULES_L
+}
+# (curve, strict) -> the generic kernel L, every schedule of the serial
+# chain (chains and unroll are its two int arguments)
+KERNELS_GENERAL = {
+    (curve, st): dataclasses.replace(_schedule_kernel(
+        curve, f"comb_general_{{tag}}{'_strict' if st else ''}", "comb_general{tag}.cu",
+        "ecsimd_tpu/kernels/comb.py:213 _comb_kernel",
+        f"any chains and unroll{', strict=True' if st else ''}; grid and permutation :624"),
+        n_ints=2)
+    for curve in _build.CURVES for st in (False, True)
 }
 CHAINS = ("serial", "tree", "pipe")
 
@@ -457,6 +471,124 @@ def comb_tree_plain(scalars, tables, curve: CurveSpec, negbase):
     return _fixup(scalars, x, y, z, negbase, group.add_z2_1)
 
 
+def tree_schedule(npos: int) -> list[tuple[int, int]]:
+    """Kernel J's walk of the stride tree of ``comb_tree_plain`` (the JAX
+    package's ``_tree_core``) over ``npos`` positions, one step a level-1
+    pair: [(p, f), ...] — step k adds the entries of positions p and
+    p + npos/2 (the level-1 node p), then folds the f most recently pending
+    sums into it, each as ``jac_add(pending, node)`` (the pending sum is
+    always the lower-index node), and leaves the result pending unless it
+    is the root. That is the tree's post-order: a level of n nodes adds
+    node i to node i + n // 2 and passes an odd last node on unchanged, so
+    the walk adds the same pairs in the same operand order. At 32 positions
+    the pairs are the 4-bit reversal of k and f the trailing ones of k (the
+    256-bit kernel J's loop)."""
+    assert npos % 2 == 0 and npos >= 2
+    sizes = [npos // 2]  # nodes a level, level 1 first
+    while sizes[-1] > 1:
+        sizes.append((sizes[-1] + 1) // 2)
+    steps = []
+
+    def visit(level, i):
+        if level == 0:
+            steps.append([i, 0])
+            return
+        n = sizes[level - 1]
+        if i < n // 2:
+            visit(level - 1, i)
+            visit(level - 1, i + n // 2)
+            steps[-1][1] += 1
+        else:  # the odd last node of the level below passes on
+            visit(level - 1, n - 1)
+
+    visit(len(sizes) - 1, 0)
+    return [(pair, folds) for pair, folds in steps]
+
+
+def tree_pending(schedule) -> int:
+    """The most sums ``schedule`` (``tree_schedule``) holds pending at once."""
+    depth = most = 0
+    for k, (_, folds) in enumerate(schedule):
+        most = max(most, depth)
+        depth -= folds
+        assert depth >= 0
+        depth += k + 1 < len(schedule)
+    assert depth == 0
+    return most
+
+
+# kernel J's schedule tables, P-384 and P-521: the generated header and its
+# position counts
+TREE_SCHEDULE_HEADER = "ecsimd_tpu_torch/csrc/comb_tree_schedule.cuh"
+TREE_SCHEDULE_NPOS = (48, 66)
+
+
+def tree_schedule_header() -> str:
+    """The text of ``TREE_SCHEDULE_HEADER``: ``tree_schedule(npos)`` for each
+    of ``TREE_SCHEDULE_NPOS`` as a ``__constant__`` table of one 16-bit
+    word a step, p | f << 8, and its step and pending counts."""
+    out = [
+        "// Kernel J's step schedules on P-384 (48 positions) and P-521 (66): the",
+        "// post-order walk of the comb's stride tree, written by",
+        "// kernels/comb.py:tree_schedule_header() from tree_schedule(npos), which",
+        "// says what a step does; tests/test_torch_comb_general.py holds this file to",
+        "// the generator, so edit the generator, not this file. Word k of a table is",
+        "// p | f << 8: step k adds the level-1 pair (p, p + npos / 2), then folds the",
+        "// f most recently pending sums into it. kPending: the most sums pending at",
+        "// once.",
+        "",
+        "#pragma once",
+        "",
+        "#include <stdint.h>",
+        "",
+        "namespace tree_schedule {",
+        "",
+        "template <int kNpos>",
+        "struct Schedule;",
+    ]
+    for npos in TREE_SCHEDULE_NPOS:
+        sched = tree_schedule(npos)
+        assert sched[0] == (0, 0)  # position 0 comes first, into buffer 0's large slot
+        words = [f"0x{pair | folds << 8:04X}" for pair, folds in sched]
+        out += ["", f"static __constant__ uint16_t kSteps{npos}[{len(sched)}] = {{"]
+        out += ["    " + ", ".join(words[i:i + 8]) + ("," if i + 8 < len(words) else "};")
+                for i in range(0, len(words), 8)]
+        out += [
+            "",
+            "template <>",
+            f"struct Schedule<{npos}> {{",
+            f"  static constexpr int kSteps = {len(sched)};",
+            f"  static constexpr int kPending = {tree_pending(sched)};",
+            "  static __device__ __forceinline__ uint32_t step(int k) { return "
+            f"kSteps{npos}[k]; }}",
+            "};",
+        ]
+    out += ["", "}  // namespace tree_schedule", ""]
+    return "\n".join(out)
+
+
+def general_group(curve: CurveSpec, unroll: int) -> int:
+    """Positions the generic kernel L stages a step at ``unroll``: unroll,
+    at most 4 at 256 bits (72 KiB of shared memory, three blocks an SM) and
+    2 on the wider curves (60 KiB on P-384, 100 KiB on P-521, two blocks an
+    SM), lowered to a divisor of npos (no accepted schedule needs that on
+    the port's curves). Its launcher computes the same; ``unroll`` changes
+    no value."""
+    npos = _npos(curve.field.nbits)
+    group = min(unroll, 4 if curve.field.ndigits <= 16 else 2)
+    while npos % group:
+        group -= 1
+    return group
+
+
+def general_smem_bytes(curve: CurveSpec, unroll: int) -> int:
+    """The dynamic shared memory of the generic kernel L at ``unroll``:
+    position 0's slot (256 entries) and 2 g - 1 slots of 128 entries, g =
+    ``general_group``, each entry 2 ``coord_words(D)`` words."""
+    g = general_group(curve, unroll)
+    return (NENT + (2 * g - 1) * NENT // 2) * 2 * coord_words(curve.field.ndigits) * 4
+
+
 def check_schedule(curve: CurveSpec, chain: str, chains: int, unroll: int, strict: bool):
     """Raise ``ValueError`` on a schedule the JAX package's
     ``comb_mont_planes`` rejects: ``chain`` not serial, tree or pipe;
@@ -474,9 +606,10 @@ def check_schedule(curve: CurveSpec, chain: str, chains: int, unroll: int, stric
                          "the documented measure-zero degenerate class)")
 
 
-def _launch(kernel, scalars, tables, negbase_digits, curve: CurveSpec):
-    """Check the operands of a comb kernel (B, J, K or L) and launch it.
-    Returns Jacobian (ax, ay, z) planes (internal domain)."""
+def _launch(kernel, scalars, tables, negbase_digits, curve: CurveSpec, *ints: int):
+    """Check the operands of a comb kernel (B, J, K or L) and launch it
+    with its ``ints``. Returns Jacobian (ax, ay, z) planes (internal
+    domain)."""
     d = curve.field.ndigits
     shape = (d, scalars.shape[-1])
     dev = scalars.device
@@ -489,18 +622,9 @@ def _launch(kernel, scalars, tables, negbase_digits, curve: CurveSpec):
         raise ValueError("tables: the comb kernels stage entries as 16-byte words; need "
                          "16-byte alignment")
     ax, ay, z = (torch.empty(shape, dtype=torch.int32, device=dev) for _ in range(3))
-    _build.launch(kernel, [scalars, tables, negbase_digits, ax, ay, z], shape[1])
+    _build.launch(kernel, [scalars, tables, negbase_digits, ax, ay, z], shape[1], *ints)
     kernel.launches += 1
     return ax, ay, z
-
-
-def _require_256(curve: CurveSpec, what: str):
-    """Kernels J, K and L run on the 256-bit curves only."""
-    if curve not in _build.CURVES_256:
-        raise NotImplementedError(
-            f"{curve.name}: the CUDA {what} covers P-256, secp256k1 and Wei25519; on P-384 and "
-            "P-521 the serial comb (kernel B) runs on the card, this schedule on CPU tensors "
-            "only (ROADMAP B0c)")
 
 
 def comb_planes(scalars, tables, negbase_digits, curve: CurveSpec = P256, strict: bool = False):
@@ -520,7 +644,6 @@ def comb_tree_planes(scalars, tables, negbase_digits, curve: CurveSpec = P256):
     """Run kernel J, the pairwise tree, on CUDA planes (operands as
     ``comb_planes``); bit-exact with ``comb_tree_plain``."""
     _build.require_cuda(scalars, "comb tree")
-    _require_256(curve, "comb tree")
     return _launch(KERNELS_TREE[curve], scalars, tables, negbase_digits, curve)
 
 
@@ -528,26 +651,51 @@ def comb_pipe_planes(scalars, tables, negbase_digits, curve: CurveSpec = P256):
     """Run kernel K, the pipelined serial chain, on CUDA planes (operands
     as ``comb_planes``); bit-exact with kernel B and ``comb_plain``."""
     _build.require_cuda(scalars, "comb pipe")
-    _require_256(curve, "comb pipe")
     return _launch(KERNELS_PIPE[curve], scalars, tables, negbase_digits, curve)
+
+
+def comb_general_planes(scalars, tables, negbase_digits, curve: CurveSpec = P256,
+                        chains: int = 1, unroll: int = 1, strict: bool = False):
+    """Run the generic kernel L, any schedule of the serial chain that
+    ``check_schedule`` accepts (``chains`` and ``unroll`` are the kernel's
+    int arguments), on CUDA planes (operands as ``comb_planes``);
+    bit-exact with ``comb_chains_plain`` (with one chain, with kernel B)."""
+    _build.require_cuda(scalars, "comb chains")
+    check_schedule(curve, "serial", chains, unroll, strict)
+    return _launch(KERNELS_GENERAL[(curve, bool(strict))], scalars, tables, negbase_digits,
+                   curve, chains, unroll)
 
 
 def comb_chains_planes(scalars, tables, negbase_digits, curve: CurveSpec = P256,
                        chains: int = 2, unroll: int = 1, strict: bool = False):
     """Run kernel L, ``chains`` independent chains taking ``unroll``
     positions each per staging step, on CUDA planes (operands as
-    ``comb_planes``); bit-exact with ``comb_chains_plain`` (with one chain,
-    with kernel B)."""
+    ``comb_planes``): its templated instantiation where ``KERNELS_CHAINS``
+    has one, else the generic kernel (``comb_general_planes``); bit-exact
+    with ``comb_chains_plain`` (with one chain, with kernel B)."""
     _build.require_cuda(scalars, "comb chains")
     check_schedule(curve, "serial", chains, unroll, strict)
-    _require_256(curve, "comb chains")
     kernel = KERNELS_CHAINS.get((curve, chains, unroll, bool(strict)))
     if kernel is None:
-        raise NotImplementedError(
-            f"chains={chains}, unroll={unroll}, strict={strict}: kernel L runs chains and unroll "
-            "in {1, 2, 4} with chains * unroll in {2, 4} (strict with one chain; chains = unroll "
-            "= 1 is kernel B); other schedules run on CPU tensors only (ROADMAP B9)")
+        return comb_general_planes(scalars, tables, negbase_digits, curve, chains, unroll, strict)
     return _launch(kernel, scalars, tables, negbase_digits, curve)
+
+
+def schedule_planes(scalars, tables, negbase_digits, curve: CurveSpec = P256,
+                    chain: str = "serial", chains: int = 1, unroll: int = 1,
+                    strict: bool = False):
+    """The kernel of a schedule on CUDA planes (operands as
+    ``comb_planes``): J for the tree, K for the pipe, B for one chain at
+    unroll 1, else L (``comb_chains_planes``). Raises ``ValueError`` on a
+    schedule the JAX package rejects."""
+    check_schedule(curve, chain, chains, unroll, strict)
+    if chain == "tree":
+        return comb_tree_planes(scalars, tables, negbase_digits, curve)
+    if chain == "pipe":
+        return comb_pipe_planes(scalars, tables, negbase_digits, curve)
+    if chains == unroll == 1:
+        return comb_planes(scalars, tables, negbase_digits, curve, strict)
+    return comb_chains_planes(scalars, tables, negbase_digits, curve, chains, unroll, strict)
 
 
 def scalar_mult_base(
@@ -563,9 +711,10 @@ def scalar_mult_base(
     ``chain="pipe"`` pipelines the serial chain (kernel K; its value is the
     serial one), and the serial chain runs ``chains`` independent
     accumulators taking ``unroll`` positions a step (kernel L; one chain
-    and unroll 1 is kernel B). The tree and the pipe ignore ``chains`` and
-    ``unroll`` once they are valid, as the JAX package does. CUDA tensors
-    go to the kernels, CPU tensors to the plain versions. Raises
+    and unroll 1 is kernel B), on every curve of the port. The tree and the
+    pipe ignore ``chains`` and ``unroll`` once they are valid, as the JAX
+    package does. CUDA tensors go to the kernels (``schedule_planes``), CPU
+    tensors to the plain versions. Raises
     ``ValueError`` on a schedule the JAX package rejects."""
     check_schedule(curve, chain, chains, unroll, strict)
     fs = curve.field
@@ -580,13 +729,6 @@ def scalar_mult_base(
             ax, ay, z = comb_plain(scalars, tables, curve, negbase)
     else:
         limbs = kernel_tables(curve, bx, by, scalars.device)
-        s = scalars.contiguous()
-        if chain == "tree":
-            ax, ay, z = comb_tree_planes(s, limbs, negbase_digits, curve)
-        elif chain == "pipe":
-            ax, ay, z = comb_pipe_planes(s, limbs, negbase_digits, curve)
-        elif chains == unroll == 1:
-            ax, ay, z = comb_planes(s, limbs, negbase_digits, curve, strict)
-        else:
-            ax, ay, z = comb_chains_planes(s, limbs, negbase_digits, curve, chains, unroll, strict)
+        ax, ay, z = schedule_planes(scalars.contiguous(), limbs, negbase_digits, curve, chain,
+                                    chains, unroll, strict)
     return JacobianPoint(GFp(ax, fs), GFp(ay, fs), GFp(z, fs), curve)

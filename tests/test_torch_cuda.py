@@ -248,15 +248,61 @@ def test_comb_schedule_dynamic_smem_queries(cuda):
 
 
 @pytest.mark.parametrize("kw", [{"chains": 8}, {"chains": 2, "unroll": 4}, {"unroll": 8},
-                                {"chains": 4, "unroll": 2}],
+                                {"chains": 4, "unroll": 2}, {"chains": 32},
+                                {"unroll": 32, "strict": True}],
                          ids=lambda kw: "-".join(f"{k}{v}" for k, v in kw.items()))
 def test_comb_schedules_beyond_kernel_l_raise(cuda, kw):
-    """Valid schedules with chains * unroll > 4 have no kernel: on CUDA
-    tensors they raise (they run on CPU tensors, through the plain
-    version)."""
-    _, s = _scalars(256, 92, cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        comb.scalar_mult_base(s, P256, **kw)
+    """Valid schedules with chains * unroll > 4, which kernel L's templated
+    instantiations do not take, run on the generic kernel L through
+    comb.scalar_mult_base: one launch of it, Jacobian planes exact against
+    comb_chains_plain on 4,096 lanes (strict: k = n - 1 on lane 4), 16
+    lanes against the oracle; its shared memory is what
+    comb.general_smem_bytes says for the schedule's unroll."""
+    strict = kw.get("strict", False)
+    c, u = kw.get("chains", 1), kw.get("unroll", 1)
+    ks, _ = _scalars(4096, 92, cuda)
+    if strict:
+        ks[4] = P256.order - 1
+    s = _planes(ks, cuda)
+    tables, negbase, _, _ = _comb_tables(P256, cuda)
+    kernel = comb.KERNELS_GENERAL[(P256, strict)]
+    before = kernel.launches
+    out = comb.scalar_mult_base(s, P256, **kw)
+    assert kernel.launches == before + 1
+    for k, w in zip(_jacobian_planes(out),
+                    comb.comb_chains_plain(s, tables, P256, negbase, c, u, strict)):
+        assert torch.equal(k, w)
+    lanes = [i for i in range(16) if strict or not _chains_degenerate(P256, ks[i], c)]
+    aff = _affine(_jacobian_planes(out), 16)
+    want = _neg_or_oracle(ks[:16], [(P256.gx, P256.gy)] * 16)
+    assert [aff[i] for i in lanes] == [want[i] for i in lanes] and len(lanes) >= 12
+    fn = getattr(_build.library().lib, kernel.symbol + "_smem")
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    assert fn() == comb.general_smem_bytes(P256, u)
+
+
+def _chains_degenerate(curve, k, chains):
+    """Whether the chains' composition of k on ints meets a degenerate add."""
+    tables_np, negbase_ints = comb.base_tables(curve, curve.gx, curve.gy)
+    try:
+        ocomb.chains(k, ocomb.classical_tables(tables_np, curve.field), negbase_ints, curve,
+                     chains)
+        return False
+    except ZeroDivisionError:
+        return True
+
+
+def test_generic_kernel_l_matches_the_templated_one(cuda):
+    """The generic kernel L at a schedule a templated instantiation also
+    takes (chains 2, unroll 1; one chain, unroll 4, strict) gives the
+    templated kernel's planes word for word on 65,536 lanes."""
+    ks, s = _scalars(65536, 94, cuda)
+    _, _, nb, limbs = _comb_tables(P256, cuda)
+    for c, u, st in ((2, 1, False), (1, 4, True)):
+        want = comb.comb_chains_planes(s, limbs, nb, P256, c, u, st)
+        got = comb.comb_general_planes(s, limbs, nb, P256, c, u, st)
+        for k, w in zip(got, want):
+            assert torch.equal(k, w)
 
 
 def test_ecdh_on_the_card(cuda):
@@ -777,14 +823,53 @@ def test_comb_and_affine_kernels_wide(cuda, curve, strict):
     assert [got16[i] for i in lanes] == [want[i] for i in lanes]
 
 
+WIDE_SCHEDULES = [{"chain": "tree"}, {"chain": "pipe"}, {"chains": 2}, {"chains": 3},
+                  {"unroll": 2}, {"unroll": 3, "strict": True}]
+
+
+@pytest.mark.parametrize("kw", WIDE_SCHEDULES,
+                         ids=lambda kw: "-".join(f"{k}{v}" for k, v in kw.items()))
 @pytest.mark.parametrize("curve", WIDE, ids=lambda c: c.name)
-def test_comb_schedules_refuse_the_wide_curves_on_the_card(cuda, curve):
-    """Kernels J, K and L are not built for P-384 and P-521 (ROADMAP B0c):
-    on CUDA tensors those schedules raise, with no fallback."""
-    _, s = _wide_scalars(curve, 8, 102, cuda)
-    for kw in ({"chain": "tree"}, {"chain": "pipe"}, {"chains": 2}):
-        with pytest.raises(NotImplementedError, match="ROADMAP B0c"):
-            comb.scalar_mult_base(s, curve, **kw)
+def test_comb_schedules_refuse_the_wide_curves_on_the_card(cuda, curve, kw):
+    """Kernels J (tree), K (pipe) and the generic L through
+    comb.scalar_mult_base on P-384 and P-521: one launch of the curve's
+    kernel, Jacobian planes exact against comb_tree_plain / comb_plain /
+    comb_chains_plain on 1,024 lanes (strict: k = n - 1 on lane 4), 16
+    lanes against the oracle (lanes whose composition on ints degenerates
+    excluded)."""
+    strict = kw.get("strict", False)
+    c, u = kw.get("chains", 1), kw.get("unroll", 1)
+    ks, s = _wide_scalars(curve, 1024, 102, cuda, curve.order - 1 if strict else None)
+    tables, negbase, _ = comb.device_tables(curve, curve.gx, curve.gy, cuda)
+    if kw.get("chain") == "tree":
+        kernel, want = comb.KERNELS_TREE[curve], comb.comb_tree_plain(s, tables, curve, negbase)
+    elif kw.get("chain") == "pipe":
+        kernel, want = comb.KERNELS_PIPE[curve], comb.comb_plain(s, tables, curve, negbase)
+    else:
+        kernel = comb.KERNELS_GENERAL[(curve, strict)]
+        want = comb.comb_chains_plain(s, tables, curve, negbase, c, u, strict)
+    before = kernel.launches
+    out = comb.scalar_mult_base(s, curve, **kw)
+    assert kernel.launches == before + 1
+    for k, w in zip(_jacobian_planes(out), want):
+        assert torch.equal(k, w)
+    tables_np, negbase_ints = comb.base_tables(curve, curve.gx, curve.gy)
+    classical = ocomb.classical_tables(tables_np, curve.field)
+
+    def degenerate(k):
+        try:
+            if kw.get("chain") == "tree":
+                ocomb.tree(k, classical, negbase_ints, curve)
+            else:
+                ocomb.chains(k, classical, negbase_ints, curve, c)
+            return False
+        except ZeroDivisionError:
+            return True
+
+    lanes = [i for i in range(16) if strict or not degenerate(ks[i])]
+    aff = _curve_affine(_jacobian_planes(out), 16, curve)
+    want = _curve_oracle(ks[:16], [(curve.gx, curve.gy)] * 16, curve)
+    assert [aff[i] for i in lanes] == [want[i] for i in lanes] and len(lanes) >= 12
 
 
 def test_ecdh_and_ecdsa_p384_on_the_card(cuda):

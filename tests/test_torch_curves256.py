@@ -11,11 +11,11 @@
   spec's a in the field's internal form; no lane builds the field's 1 from
   a bare word (on secp256k1 the 1 is R mod p); every kernel table entry is
   an ``extern "C"`` entry of its source.
-* The wrappers of kernels A, B, D and E cover P-256, secp256k1, Wei25519,
-  P-384 and P-521, in every mode the JAX package runs, and hand a P-384 /
-  P-521 launch its own kernel and (24, B) / (33, B) planes; the comb's
-  tree, pipe and multi-chain schedules (J, K, L) cover the 256-bit curves
-  and raise on P-384 and P-521 naming ROADMAP B0c.
+* The wrappers of kernels A, B, D, E, J, K and the generic L cover
+  P-256, secp256k1, Wei25519, P-384 and P-521, in every mode the JAX
+  package runs, and hand a P-384 / P-521 launch its own kernel and
+  (24, B) / (33, B) planes; kernel L's templated instantiations cover the
+  256-bit curves.
 
 Tolerance: exact."""
 
@@ -138,13 +138,14 @@ def test_no_lane_builds_the_field_one_from_a_word():
 TABLES = {
     "ladder": ladder.KERNELS, "window": window.KERNELS, "comb": comb.KERNELS,
     "comb_tree": comb.KERNELS_TREE, "comb_pipe": comb.KERNELS_PIPE,
-    "comb_chains": comb.KERNELS_CHAINS, "affine": affine.KERNELS,
+    "comb_chains": comb.KERNELS_CHAINS, "comb_general": comb.KERNELS_GENERAL,
+    "affine": affine.KERNELS,
 }
 # the modes the JAX package runs each kernel in, on every curve
 MODES = {
     "ladder": {()}, "window": {(False,), (True,)}, "comb": {(False,), (True,)},
     "comb_tree": {()}, "comb_pipe": {()}, "comb_chains": set(comb.SCHEDULES_L),
-    "affine": {()},
+    "comb_general": {(False,), (True,)}, "affine": {()},
 }
 
 
@@ -155,21 +156,22 @@ def _curve_and_mode(key):
 @pytest.mark.parametrize("table", sorted(TABLES))
 def test_kernel_table_covers_the_256_bit_curves(table):
     """Each table holds one kernel for every (curve, mode) it covers and
-    nothing else — A, B, D and E the three 256-bit curves, P-384 and P-521;
-    J, K and L the 256-bit curves (ROADMAP B0c) — each an extern "C" entry
-    of its named source (J's and L's, and the wide B's and E's, with their
-    _smem query), with distinct symbols."""
+    nothing else — A, B, D, E, J, K and the generic L the three 256-bit
+    curves, P-384 and P-521; L's templated instantiations the 256-bit
+    curves — each an extern "C" entry of its named source (J's and L's, and
+    the wide B's, E's and K's, with their _smem query), with distinct
+    symbols."""
     kernels = TABLES[table]
     keys = {_curve_and_mode(k) for k in kernels}
-    covered = CURVES if table.startswith(("comb_tree", "comb_pipe", "comb_chains")) else (
-        CURVES + WIDE)
+    covered = CURVES if table == "comb_chains" else CURVES + WIDE
     assert keys == {(c, m) for c in covered for m in MODES[table]}
     assert len({k.symbol for k in kernels.values()}) == len(kernels)
     for k in kernels.values():
         text = (ROOT / k.source).read_text()
         assert f'extern "C" int {k.symbol}(' in text, k.symbol
-        if table in ("comb_tree", "comb_chains") or (
-                table in ("comb", "window") and k.source.endswith(("_p384.cu", "_p521.cu"))):
+        if table in ("comb_tree", "comb_chains", "comb_general") or (
+                table in ("comb", "window", "comb_pipe")
+                and k.source.endswith(("_p384.cu", "_p521.cu"))):
             assert f'extern "C" int {k.symbol}_smem(void)' in text, k.symbol
 
 
@@ -194,35 +196,34 @@ def _wrapper_calls(curve):
     }
 
 
-# the wrappers whose kernel runs on P-384 and P-521 -> the stem of its C name
-WIDE_ROUTES = {"ladder": "ladder", "window": "window", "window_strict": "window",
-               "comb": "comb", "comb_strict": "comb", "affine": "affine"}
+# the wrappers on P-384 and P-521 -> the stem of their kernel's C name and
+# its ints (the generic kernel L: chains 2, unroll 1)
+WIDE_ROUTES = {"ladder": ("ladder", ()), "window": ("window", ()),
+               "window_strict": ("window", ()), "comb": ("comb", ()), "comb_strict": ("comb", ()),
+               "comb_tree": ("comb_tree", ()), "comb_pipe": ("comb_pipe", ()),
+               "comb_chains": ("comb_general", (2, 1)), "affine": ("affine", ())}
 
 
 @pytest.mark.parametrize("curve", [P384, P521], ids=lambda c: c.name)
 @pytest.mark.parametrize("wrapper", sorted(_wrapper_calls(P256)))
 def test_wrappers_raise_on_the_wider_curves(monkeypatch, wrapper, curve):
-    """On P-384 and P-521 (the tensors' device check passed by stubbing):
-    kernels A, B (both modes), D and E (both modes) take the card route —
-    one launch of the curve's own kernel, ``ec_<kind>_<tag>[_strict]``,
-    handed (24, B) / (33, B) planes (B's tables in the padded limb layout),
-    counted once; the comb's tree, pipe and multi-chain schedules still
-    refuse before they launch, naming ROADMAP B0c."""
+    """On P-384 and P-521 (the tensors' device check passed by stubbing)
+    every wrapper takes the card route — kernels A, B (both modes), D, E
+    (both modes), J (tree), K (pipe) and L (chains 2: the generic kernel,
+    handed chains and unroll as ints): one launch of the curve's own kernel,
+    ``ec_<kind>_<tag>[_strict]``, handed (24, B) / (33, B) planes (the
+    comb's tables in the padded limb layout), counted once. None raises."""
     monkeypatch.setattr(_build, "require_cuda", lambda t, what: None)
-    if wrapper not in WIDE_ROUTES:
-        monkeypatch.setattr(_build, "launch", lambda *a: pytest.fail("launched"))
-        with pytest.raises(NotImplementedError, match="ROADMAP B0c"):
-            _wrapper_calls(curve)[wrapper]()
-        return
     calls = []
     monkeypatch.setattr(_build, "launch", lambda kernel, tensors, batch, *ints:
-                        calls.append((kernel, tensors, batch)))
+                        calls.append((kernel, tensors, batch, ints)))
     tag = _build.CURVE_TAGS[curve][0]
     d = curve.field.ndigits
     _wrapper_calls(curve)[wrapper]()
-    (kernel, tensors, batch), = calls
+    (kernel, tensors, batch, ints_), = calls
     strict = "_strict" if wrapper.endswith("_strict") else ""
-    assert kernel.symbol == f"ec_{WIDE_ROUTES[wrapper]}_{tag}{strict}"
+    stem, want_ints = WIDE_ROUTES[wrapper]
+    assert kernel.symbol == f"ec_{stem}_{tag}{strict}" and ints_ == want_ints
     assert kernel.launches >= 1 and batch == 4
     shapes = [tuple(t.shape) for t in tensors]
     if wrapper.startswith("comb"):
