@@ -153,7 +153,12 @@ any failed check raises and the script exits non-zero:
      plain versions on the first 65,536 lanes of the path's own inputs,
      kernel C against probe_plain (edge pairs first) and 64 lanes against
      ints; CUDA-event times of each kernel at 524,288 lanes, of the entry
-     points, and of the plain versions.
+     points, and of the plain versions. E's table is split between shared
+     memory and a scratch (kernels/window.table_split): its persistent
+     grid of SMs x 4 blocks of 64 threads walks 65,536 and 524,288 lanes
+     over 33,792 scratch columns on an H100; the kernels line gives each
+     wide E's blocks an SM (its source's _occupancy query, checked against
+     the split's four) and the scratch's bytes.
  20. the comb's schedules on P-384 and on P-521 at B = 524,288
      (wide_schedule_phase; edge scalars 1, 2, 5, n-2, n-1 first): the tree
      (kernel J, its walk the table of comb_tree_schedule.cuh), the pipe
@@ -643,6 +648,25 @@ def dynamic_smem(kernel):
     n = fn()
     check(n > 0, f"{kernel.symbol}: dynamic shared memory query gave {n}")
     return {"dynamic_smem_bytes": n}
+
+
+def table_split(kernel, dev):
+    """For a kernel E on P-384 / P-521 (its table split between shared memory
+    and a scratch): the blocks an SM its source's ``_occupancy`` query
+    grants (at least the split's four of 64 threads: eight warps), the
+    entries on chip, the scratch's bytes a slot and in all; {} for any
+    other kernel."""
+    curve = next((c for (c, _), k in window.KERNELS.items() if k is kernel), None)
+    if curve not in window.SPLITS:
+        return {}
+    sp = window.table_split(curve)
+    blocks = window.occupancy(kernel.symbol)
+    check(blocks >= sp.blocks, f"{kernel.symbol}: {blocks} blocks an SM, the split wants "
+                               f"{sp.blocks}")
+    slots = window.resident_slots(kernel, curve, dev)
+    return {"blocks_per_sm": blocks, "warps_per_sm": blocks * sp.threads // 32,
+            "table_entries_on_chip": sp.on_chip, "scratch_bytes_per_slot": sp.scratch_bytes,
+            "scratch_slots": slots, "scratch_bytes": sp.scratch_bytes * slots}
 
 
 def carry_edges(p):
@@ -1408,7 +1432,8 @@ def ecdh_path(rng, dev, card, curve=WEI25519, phase=18):
     inside its launch count: ECDH (two parties' keys, then shared secrets
     both ways with a zero scalar, scalar = n, an off-curve peer and x = p in
     the batch) and api.scalar_mult_base(strict=True) with k = n - 1 on lane
-    4. Returns the times of the calls."""
+    4. Returns its calls to time, {name: (call, repetitions)}: the caller
+    times them when the plain versions no longer share the card."""
     n, p, d = curve.order, curve.p, curve.field.ndigits
     name = curve.name
     d1 = scalar_ints(rng, BATCH, [1, 2, 5, n - 2], curve)
@@ -1452,17 +1477,20 @@ def ecdh_path(rng, dev, card, curve=WEI25519, phase=18):
                                            curve)], f"{name} shared secrets vs oracle")
     check(affine_ints(base_strict, ORACLE_LANES) == oracle_base(k_ints[:ORACLE_LANES], curve),
           f"{name} scalar_mult_base(strict) vs oracle (n - 1 on lane 4)")
-    ms = {"ecdh.derive_public_planes": time_ms(
-              lambda: ecdh.derive_public_planes(d2_dev, curve), 10),
-          "ecdh.shared_secret_planes": time_ms(
-              lambda: ecdh.shared_secret_planes(d2_dev, q1x, q1y, curve), 5),
-          "scalar_mult_base_strict": time_ms(
-              lambda: api.scalar_mult_base(k_dev, curve, strict=True), 10)}
     say(f"phase {phase} {name} ECDH and strict keygen B={BATCH}: masks exact (4 invalid lanes), "
           f"d1*Q2 == d2*Q1 on {BATCH - 4} lanes, {MAIN_ORACLE_LANES} secrets vs oracle; "
           f"scalar_mult_base(strict) {ORACLE_LANES} lanes vs oracle (1, 2, 5, n-2, n-1 first); "
-          f"ms {json.dumps({k: round(v, 3) for k, v in ms.items()})} {card}")
-    return ms
+          f"timed with the phase's entry points")
+    return {"ecdh.derive_public_planes": (lambda: ecdh.derive_public_planes(d2_dev, curve), 10),
+            "ecdh.shared_secret_planes": (
+                lambda: ecdh.shared_secret_planes(d2_dev, q1x, q1y, curve), 5),
+            "scalar_mult_base_strict": (
+                lambda: api.scalar_mult_base(k_dev, curve, strict=True), 10)}
+
+
+def time_calls(calls):
+    """{name: (call, repetitions)} -> {name: CUDA-event ms of one call}."""
+    return {k: time_ms(fn, n) for k, (fn, n) in calls.items()}
 
 
 def curve_phase(rng, dev, card, counted, curve):
@@ -1510,7 +1538,7 @@ def curve_phase(rng, dev, card, counted, curve):
            "scalar_mult_shared_fast": api.scalar_mult_shared_fast(k_shared, points)}
     for kname, kw in SCHEDULES.items():
         res[kname] = affine.to_affine(comb.scalar_mult_base(scalars, curve, **kw))
-    proto_ms = ecdh_path(rng, dev, card) if curve == WEI25519 else {}
+    ecdh_calls = ecdh_path(rng, dev, card) if curve == WEI25519 else {}
     torch.cuda.synchronize()
     launches = {k.symbol: k.launches for k in counted}
     for kname, kernel in kern.items():
@@ -1618,7 +1646,7 @@ def curve_phase(rng, dev, card, counted, curve):
               **{f"comb.scalar_mult_base({schedule_args(k)}) + affine": time_ms(
                   lambda kw=kw: affine.to_affine(comb.scalar_mult_base(scalars, curve, **kw)),
                   10) for k, kw in SCHEDULES.items()},
-              **proto_ms}
+              **time_calls(ecdh_calls)}
     say(f"phase 18 {curve.name} kernels exact vs their plain versions (K, one-chain L: kernel "
           f"B, itself exact vs comb_plain) on the path's first {CHECK_LANES} lanes; kernel ms "
           f"{json.dumps({k: round(v['ms'], 3) for k, v in out.items()})}; plain ms "
@@ -1772,9 +1800,10 @@ def wide_phase(rng, dev, card, counted, curve):
     version on the first CHECK_LANES lanes of the path's own inputs (the
     plain P-521 ladder at full width would take minutes), kernel C against
     probe_plain, and the times. The plain versions of A, B, D and E run in
-    the plain pool beside the path (plain_ms is timed there, six processes
-    sharing the card and the host). Returns the numbers of the kernels
-    line."""
+    the plain pool beside the path's first entry points (plain_ms is timed
+    there, six processes sharing the card and the host); ECDH is timed
+    after them and ECDSA waits for them, so that their times are the
+    card's own. Returns the numbers of the kernels line."""
     tag = CURVES19[curve]
     fs, n, p, d = curve.field, curve.order, curve.p, curve.field.ndigits
     kern = wide_kernels(curve)
@@ -1814,13 +1843,17 @@ def wide_phase(rng, dev, card, counted, curve):
            "scalar_mult_shared_fast": api.scalar_mult_shared_fast(k_shared, points),
            "scalar_mult_base": api.scalar_mult_base(scalars, curve),
            "scalar_mult_base_strict": api.scalar_mult_base(scalars, curve, strict=True)}
-    proto_ms = ecdh_path(rng, dev, card, curve, 19)
+    ecdh_calls = ecdh_path(rng, dev, card, curve, 19)
     torch.cuda.synchronize()
     launches = {k.symbol: k.launches for k in counted}
+    ecdsa_ms = {}
     if curve == P384:  # ECDSA resets the counts and returns its own
+        # it times its calls itself: the plain versions, which share the
+        # card, finish first
+        concurrent.futures.wait(list(plain.values()))
         pe = ecdsa_path(rng, dev, card, counted, curve, 19)
         launches = {s: v + pe["launches"][s] for s, v in launches.items()}
-        proto_ms |= {f"ecdsa.{k}": v for k, v in pe["ms"].items()}
+        ecdsa_ms = {f"ecdsa.{k}": v for k, v in pe["ms"].items()}
     for kname, kernel in kern.items():
         if not kname.startswith("field_"):
             check(launches[kernel.symbol] >= 1, f"phase 19 path on {curve.name} launched {kname}")
@@ -1920,7 +1953,7 @@ def wide_phase(rng, dev, card, counted, curve):
               "scalar_mult_shared_fast": time_ms(
                   lambda: api.scalar_mult_shared_fast(k_shared, points), 3),
               "scalar_mult_base": time_ms(lambda: api.scalar_mult_base(scalars, curve), 10),
-              **proto_ms}
+              **time_calls(ecdh_calls), **ecdsa_ms}
     say(f"phase 19 {curve.name} kernels exact vs their plain versions on the path's first {m} "
           f"lanes (C on {len(pairs)} edge pairs and draws, 64 lanes vs ints, and on compile-time "
           f"constants); kernel ms at B={BATCH} "
@@ -2381,9 +2414,18 @@ def run():
     sass_mix = sass_job.result()
     for kname, mix in sass_mix.items():
         check(mix is not None, f"cuobjdump -sass found {kname}")
-    say("phase 1 SASS of kernels E (three curves) and F, instructions a lane issues by class "
-        "(cuobjdump -sass, loop bodies times their runs): " + json.dumps(
-            {k: v["per_lane"] for k, v in sass_mix.items()}))
+    say("phase 1 SASS of kernels E (five curves) and F, instructions a lane issues by class "
+        "(cuobjdump -sass, loop bodies times their runs, called functions times their calls): "
+        + json.dumps({k: v["per_lane"] for k, v in sass_mix.items()}) + "; the wide E's called "
+        "functions, once each (multiply, then squaring): " + json.dumps(
+            {k: [c["static"] for c in v["callees"]] for k, v in sass_mix.items()
+             if v["callees"]}))
+    for kname in sass.WIDE_KERNELS:
+        # the scratch is written and read by the same thread: never the
+        # read-only path (the inputs' 32-bit loads may take it)
+        mix = sass_mix[kname]["static"]
+        check(mix.get("ldg128", 0) > 0 and mix.get("ldg128_nc", 0) == 0,
+              f"{kname} reads its scratch with 16-byte ld.global, not the read-only path")
     launches19 = {k.symbol: sum(p["launches"][k.symbol] for p in p19.values()) for k in counted}
     paths = {"phase6": launches6, "phase9": launches9, "phase12": launches12,
              "phase15": xp["launches15"], "phase16": xp["launches16"],
@@ -2400,7 +2442,7 @@ def run():
             "launches_by_path": {k: v[kernel.symbol] for k, v in paths.items()},
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None, "lanes": lanes,
-            **res[kname], **dynamic_smem(kernel),
+            **res[kname], **dynamic_smem(kernel), **table_split(kernel, dev),
         }
 
     ms_k1 = pk1["ms"]

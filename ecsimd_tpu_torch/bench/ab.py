@@ -18,8 +18,15 @@ and reported with ``other_ms`` and ``exact`` null.
 (``cuobjdump -sass``, instruction for instruction): ``sass_equal``.
 Prints one JSON line: per kernel both times, their ratio, whether the
 outputs agreed, and each library's ptxas report (registers, spill bytes)
-for it; then the card's name and power limit. The kernels' C interface must be the same in both
-checkouts.
+for it; then the card's name and power limit.
+
+Each library gets the arguments its own checkout's ``Kernel`` declares
+(read from the other checkout by a Python process of its own): the first
+``n_pointers`` of the captured tensors and the first ``n_ints`` of the
+ints, so a kernel whose interface grew by trailing arguments (kernel E on
+P-384 / P-521 gained a scratch and its slot count) is compared with
+its older self. Scratch tensors (a ``Kernel``'s last ``n_scratch``
+pointers) are not compared.
 """
 
 from __future__ import annotations
@@ -27,8 +34,10 @@ from __future__ import annotations
 import argparse
 import contextlib
 import json
+import os
 import re
 import subprocess
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -190,6 +199,26 @@ def workloads(batch: int, dev) -> dict:
     }
 
 
+_DECLARED = """
+import gc, json, pkgutil, importlib
+import ecsimd_tpu_torch
+from ecsimd_tpu_torch.kernels import _build
+for m in pkgutil.walk_packages(ecsimd_tpu_torch.__path__, "ecsimd_tpu_torch."):
+    importlib.import_module(m.name)
+print(json.dumps({k.symbol: [k.n_pointers, k.n_ints] for k in gc.get_objects()
+                  if isinstance(k, _build.Kernel)}))
+"""
+
+
+def declared(checkout: Path) -> dict[str, tuple[int, int]]:
+    """{C entry: (n_pointers, n_ints)} as ``checkout``'s own package declares
+    its kernels, read by a Python process run in that checkout."""
+    env = {**os.environ, "PYTHONPATH": str(checkout.resolve())}
+    out = subprocess.run([sys.executable, "-c", _DECLARED], cwd=checkout, env=env,
+                         capture_output=True, text=True, check=True, timeout=300).stdout
+    return {k: tuple(v) for k, v in json.loads(out.splitlines()[-1]).items()}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("other", type=Path, help="the other checkout's root")
@@ -208,6 +237,7 @@ def main(argv=None):
         csrc, _build.BUILD_DIR.parent / "ab",
         sources=tuple(sorted(p.name for p in csrc.glob("*.cu"))),
         headers=tuple(sorted(p.name for p in csrc.glob("*.cuh"))))
+    other_args = declared(args.other)
     rep_this, rep_other = sass.ptxas(this.log), sass.ptxas(other.log)
     funcs = ({lab: _sass_functions(b.path) for lab, b in (("this", this), ("other", other))}
              if args.sass else None)
@@ -222,10 +252,21 @@ def main(argv=None):
         torch.cuda.synchronize()
         new = any(not hasattr(other.lib, k.symbol) for k, *_ in launches)
         labs = ("this",) if new else ("other", "this")
-        fns = {lab: [(_build.entry(b.lib, k.symbol, k.n_pointers, k.n_ints), ts, n, ints)
-                     for k, ts, n, ints in launches]
-               for lab, b in (("this", this), ("other", other)) if lab in labs}
-        tensors = [t for _, ts, _, _ in launches for t in ts]
+        counts = {"this": {k.symbol: (k.n_pointers, k.n_ints) for k, *_ in launches},
+                  "other": other_args}
+        fns = {}
+        for lab, b in (("this", this), ("other", other)):
+            if lab in labs:
+                fns[lab] = []
+                for k, ts, n, ints in launches:
+                    n_ptr, n_int = counts[lab][k.symbol]
+                    if n_ptr > len(ts) or n_int > len(ints):
+                        raise RuntimeError(f"{name} ({lab}): {k.symbol} takes more arguments "
+                                           f"than this checkout's wrapper gave it")
+                    fns[lab].append((_build.entry(b.lib, k.symbol, n_ptr, n_int), ts[:n_ptr], n,
+                                     ints[:n_int]))
+        # the results: every tensor but the scratch
+        tensors = [t for k, ts, _, _ in launches for t in ts[:len(ts) - k.n_scratch]]
 
         def run(lab):
             for fn, ts, n, ints in fns[lab]:

@@ -3,13 +3,19 @@
     python -m ecsimd_tpu_torch.bench.sass [--lib PATH] [KERNEL_SUBSTRING ...]
 
 prints one JSON object: for each kernel whose (mangled) name contains one of
-the given substrings (default: kernels E, on its three curves, and F,
+the given substrings (default: kernels E, on its five curves, and F,
 plain and strict), its
 static count of SASS instructions by class, the loops (the address ranges
 of backward branches) with the classes of the instructions each holds
 outside its inner loops, and, where the loop nest has the shape the source
 gives it (``TRIPS``), the dynamic count per lane: each loop's own
-instructions times the number of times it runs. Without ``--lib`` it
+instructions times the number of times it runs. The device functions a
+kernel calls (P-384's and P-521's ``fe_mul`` and ``fe_sqr``, not inlined)
+sit in the kernel's listing after its own code, from each CALL's target to
+the first RET: each is counted once by class (``callees``, largest
+multiply count first: the multiply, then the squaring), kept out of the
+kernel's own loops, and its instructions enter the dynamic count a lane
+once for each call the lane makes. Without ``--lib`` it
 builds (or reuses) this checkout's library. Needs the CUDA toolkit's
 ``cuobjdump``.
 
@@ -18,9 +24,11 @@ IMUL), ``imad_move`` the moves, adds and shifts that ptxas also issues
 there (IMAD.MOV, IMAD.IADD, IMAD.SHL), ``alu`` the integer ALU (IADD3,
 LOP3, SHF, SEL, ISETP, LEA, PRMT, MOV, ...), ``uniform`` the uniform
 datapath (U*), ``lds`` / ``sts`` shared memory (``lds128`` the 16-byte
-loads among them), ``ldl`` / ``stl`` local memory (spills), ``ldg`` /
-``stg`` device memory, ``control`` branches and barriers, ``other`` the
-rest.
+loads among them), ``ldl`` / ``stl`` local memory (spills, and the
+registers a call saves), ``ldg`` / ``stg`` device memory (``ldg128`` the
+16-byte loads among them, ``ldg_nc`` the loads through the read-only
+path, ``ldg128_nc`` the 16-byte ones among those),
+``control`` branches, calls and barriers, ``other`` the rest.
 """
 
 from __future__ import annotations
@@ -30,30 +38,41 @@ import json
 import re
 import shutil
 import subprocess
+from fractions import Fraction
 from pathlib import Path
 
+# kernel E on P-384 and P-521: their field multiplies are calls
+WIDE_KERNELS = tuple(f"window{st}_{tag}_kernel" for tag in ("p384", "p521")
+                     for st in ("", "_strict"))
 DEFAULT_KERNELS = ("window_p256_kernel", "window_strict_p256_kernel", "glv_secp256k1_kernel",
                    "glv_strict_secp256k1_kernel", "window_secp256k1_kernel",
                    "window_strict_secp256k1_kernel", "window_w25519_kernel",
-                   "window_strict_w25519_kernel")
-# kernel E on P-384 and P-521 (pass them by name): their field multiplies
-# are calls, whose instructions sit in the callee (fe_mul, fe_sqr), outside
-# these counts; only the static counts are given, with the P-521 top word's
-# four windows the nest has no single shape for TRIPS
-WIDE_KERNELS = tuple(f"window{st}_{tag}_kernel" for tag in ("p384", "p521")
-                     for st in ("", "_strict"))
+                   "window_strict_w25519_kernel") + WIDE_KERNELS
 
 # Loop nests as the sources write them, outermost first, loops in address
 # order: (name, iterations each time the loop is entered, inner loops).
-# window*.cu (E on every curve): the table's 7 adds; the 8 words of k, 8
-# windows each, 4 doublings each. glv.cu: the table's 7 adds; 9 digits, 4 windows each, 4
+# window*.cu (E on the 256-bit curves): the table's 7 adds; the 8 words of
+# k, 8 windows each, 4 doublings each. On P-384 and P-521 E's persistent
+# grid walks its lanes in one more loop (once a lane): 12 or 17 words, 8
+# windows each but 4 in P-521's top word (132 in all: 132 / 17 a word on
+# average). glv.cu: the table's 7 adds; 9 digits, 4 windows each, 4
 # doublings and 2 lookup-and-adds each; the 2 fix-ups.
 _E = [("table", 7, []), ("word", 8, [("window", 8, [("dbl", 4, [])])])]
 _F = [("table", 7, []), ("digit", 9, [("window", 4, [("dbl", 4, []), ("add", 2, [])])]),
       ("fixup", 2, [])]
+
+
+def _wide_e(words, windows):
+    return [("lane", 1, [("table", 7, []),
+                         ("word", words, [("window", Fraction(windows, words),
+                                           [("dbl", 4, [])])])])]
+
+
 TRIPS = {"glv_secp256k1_kernel": _F, "glv_strict_secp256k1_kernel": _F} | {
     f"window{st}_{tag}_kernel": _E for st in ("", "_strict")
-    for tag in ("p256", "secp256k1", "w25519")}
+    for tag in ("p256", "secp256k1", "w25519")} | {
+    f"window{st}_{tag}_kernel": _wide_e(words, 4 * digits) for st in ("", "_strict")
+    for tag, words, digits in (("p384", 12, 24), ("p521", 17, 33))}
 
 _LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)\s*([^;]*);")
 _FUNC = re.compile(r"Function\s*:\s*(\S+)")
@@ -103,8 +122,37 @@ def _mix(instrs) -> dict[str, int]:
         counts[c] = counts.get(c, 0) + 1
         if c == "lds128":
             counts["lds"] = counts.get("lds", 0) + 1
+        if c == "ldg":
+            wide, nc = ".128" in op, ".CONSTANT" in op
+            for key, on in (("ldg128", wide), ("ldg_nc", nc), ("ldg128_nc", wide and nc)):
+                if on:
+                    counts[key] = counts.get(key, 0) + 1
     counts["total"] = len(instrs)
     return counts
+
+
+def callees(instrs) -> dict[int, list]:
+    """{CALL target address: the instructions from it to the first RET}: the
+    device functions a kernel calls, which ptxas lays out in the kernel's
+    listing after its own code."""
+    targets = sorted({int(m.group(1), 16) for _, op, args in instrs
+                      if op.split(".")[0] == "CALL" and (m := re.search(r"0x([0-9a-f]+)", args))})
+    out = {}
+    for tgt in targets:
+        body = []
+        for x in instrs:
+            if x[0] >= tgt:
+                body.append(x)
+                if x[1].split(".")[0] == "RET":
+                    break
+        out[tgt] = body
+    return out
+
+
+def own(instrs) -> list:
+    """The kernel's own instructions: all but its callees' bodies."""
+    inside = {x[0] for body in callees(instrs).values() for x in body}
+    return [x for x in instrs if x[0] not in inside]
 
 
 def loops(instrs) -> list[dict]:
@@ -144,31 +192,42 @@ def loops(instrs) -> list[dict]:
     return tree
 
 
-def _walk(nodes):
-    for n in nodes:
-        yield n
-        yield from _walk(n["inner"])
-
-
 def dynamic(instrs, tree, trips) -> dict[str, int] | None:
     """Instructions a lane issues, by class: the code outside every loop
-    once, each loop's own instructions times its runs. None when the loop
-    nest differs from ``trips``."""
+    once, each loop's own instructions times its runs, each callee's body
+    times the calls that reach it (``tree``: the loops of ``own(instrs)``).
+    None when the loop nest differs from ``trips``."""
     shape = lambda nodes: [shape(n["inner"]) for n in nodes]  # noqa: E731
     spec_shape = lambda spec: [spec_shape(t[2]) for t in spec]  # noqa: E731
     if shape(tree) != spec_shape(trips):
         return None
-    inside = {x[0] for n in _walk(tree) for x in instrs if n["start"] <= x[0] <= n["end"]}
-    total = _mix([x for x in instrs if x[0] not in inside])
+    body = own(instrs)
+    runs = {x[0]: Fraction(1) for x in body}
 
-    def add(nodes, spec, runs):
+    def walk(nodes, spec, outer):
         for node, (_, n, inner) in zip(nodes, spec):
-            for k, v in node["mix"].items():
-                total[k] = total.get(k, 0) + v * runs * n
-            add(node["inner"], inner, runs * n)
+            k = outer * n
+            for x in body:
+                if node["start"] <= x[0] <= node["end"]:
+                    runs[x[0]] = k
+            walk(node["inner"], inner, k)
 
-    add(tree, trips, 1)
-    return total
+    walk(tree, trips, Fraction(1))
+    total: dict[str, Fraction] = {}
+
+    def add(instr, times):
+        for k, v in _mix([instr]).items():
+            total[k] = total.get(k, 0) + v * times
+
+    for x in body:
+        add(x, runs[x[0]])
+    for tgt, fn in callees(instrs).items():
+        calls = sum(runs[x[0]] for x in body if x[1].split(".")[0] == "CALL"
+                    and re.search(rf"0x0*{tgt:x}\b", x[2]))
+        for x in fn:
+            add(x, calls)
+    assert all(v.denominator == 1 for v in total.values() if isinstance(v, Fraction)), total
+    return {k: int(v) for k, v in total.items()}
 
 
 def ptxas(log: str) -> dict[str, dict[str, int]]:
@@ -227,8 +286,10 @@ def report(lib: Path, names=DEFAULT_KERNELS) -> dict:
             out[name] = None
             continue
         instrs = funcs[match[0]]
-        tree = loops(instrs)
-        out[name] = {"function": match[0], "static": _mix(instrs), "loops": tree,
+        tree = loops(own(instrs))
+        called = sorted(callees(instrs).items(), key=lambda kv: -_mix(kv[1]).get("imad", 0))
+        out[name] = {"function": match[0], "static": _mix(own(instrs)), "loops": tree,
+                     "callees": [{"address": tgt, "static": _mix(fn)} for tgt, fn in called],
                      "per_lane": dynamic(instrs, tree, TRIPS[name]) if name in TRIPS else None}
     return out
 

@@ -30,14 +30,29 @@
 // occupancy (ptxas -v in phase 1 of chip_smoke.py reports each
 // instantiation's registers and spills).
 //
-// P-384 and P-521 (12- and 17-word elements): the table of a thread is
-// 1,152 or 1,920 bytes (window_table.cuh), so a block takes it as dynamic
-// shared memory, raised above 48 KiB at launch: 64 threads a block on
-// P-384 (72 KiB, three blocks an SM), 32 on P-521 (60 KiB, three blocks an
-// SM). The SM's 227 KiB hold no more than 192 and 96 such threads however
-// they are grouped; smaller blocks keep the 128 KiB a 64-thread P-521 block
-// would take from leaving one block an SM. Their field multiplies are
-// calls, not inlined (field_p384.cuh).
+// P-384 and P-521 (12- and 17-word elements): a thread's table (1,152 or
+// 1,568 bytes) does not fit the 908 bytes a thread that eight warps an SM
+// leave in shared memory, and at fewer warps (three on P-521, six on
+// P-384, when the whole table sat in shared memory) the SM's schedulers
+// had nothing to hide latency with. So the table is split
+// (window_table.cuh's Split, one constant K a curve, window_<tag>.cu):
+// entries 0 .. K-1 (and P-521's packed top words) in dynamic shared
+// memory, entries K .. 7 in a scratch in device memory that the wrapper
+// allocates, [vector][slot], one column for each thread of a persistent
+// grid of SMs x 4 blocks of 64 threads (window.py asks the source's
+// `_occupancy` query for the blocks). The scratch, 26 MB on P-521 and
+// 10 MB on P-384, stays in the 50 MB L2; a P-521 lookup reads 768 bytes
+// a lane from it. __launch_bounds__(64, 4) holds the registers to 255.
+// The scratch is read with 16-byte ld.global (the thread wrote it; never
+// the read-only path: phase 1 of chip_smoke.py checks the SASS). It is a
+// device buffer, not a thread-local array: a local array would be the
+// same L2-backed memory, and was not tried. Constant time: the lookup
+// still reads all eight entries, on chip and off, and keeps one with
+// masks; every shared and global address depends on the entry number,
+// the vector, the thread and the slot only, and the walk over the lanes
+// on the batch, never on a scalar. The field multiplies are calls, not
+// inlined (field_p384.cuh; inlined, the wide E ran as fast or up to 82 %
+// slower, bench/occupancy.py --inline, PERF.md).
 //
 // What bounds it: the integer ALU pipe. A P-256 lane issues about 0.86
 // million instructions (1.0 million strict), 73 % of them on the ALU pipe
@@ -83,43 +98,65 @@ int launch(Kernel kernel, const int32_t* scalars, const int32_t* xs, const int32
   return (int)cudaGetLastError();
 }
 
-// --- P-384 and P-521: the table as dynamic shared memory ---------------------
+// --- P-384 and P-521: the table split between shared memory and a scratch ---
 
-// The table of a block of T threads at N words, in bytes.
-template <int N, int T>
-constexpr int table_bytes() {
-  return wtable::kEntries * wtable::vecs<N>() * T * (int)sizeof(uint4);
-}
-
-#define EC_WINDOW_KERNEL_WIDE(NAME, NS, STRICT, THREADS)                                  \
-  __global__ void __launch_bounds__(THREADS)                                               \
+// Kernel E on a wide curve: 64 threads a block, four blocks an SM (eight
+// warps; the register file allows 255 registers a thread at that), its
+// TABLE (window_table.cuh's Split: the first K entries in dynamic shared
+// memory, the rest in the scratch). A persistent grid: thread `slot` of
+// the grid walks lanes slot, slot + slots, ... and reuses its own column
+// of the scratch; lanes and slots are public, so no address or branch
+// depends on a scalar.
+#define EC_WINDOW_KERNEL_WIDE(NAME, NS, STRICT, TABLE)                                    \
+  __global__ void __launch_bounds__(kThreads, 4)                                           \
   NAME(const int32_t* __restrict__ scalars, const int32_t* __restrict__ xs,                \
        const int32_t* __restrict__ ys, int32_t* __restrict__ ax, int32_t* __restrict__ ay,  \
-       int32_t* __restrict__ z, int64_t B) {                                               \
+       int32_t* __restrict__ z, int32_t* scratch, int64_t B, int64_t slots) {              \
     extern __shared__ uint4 smem[];                                                        \
-    using Table = uint4[wtable::kEntries * wtable::vecs<NS::kWords>()][THREADS];           \
-    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;                      \
-    if (i >= B) return;                                                                    \
-    NS::window_lane<STRICT>(scalars, xs, ys, ax, ay, z, B, i,                              \
-                            *reinterpret_cast<Table*>(smem));                              \
+    TABLE tbl{reinterpret_cast<uint4(*)[kThreads]>(smem), reinterpret_cast<uint4*>(scratch), \
+              slots, (int64_t)blockIdx.x * kThreads + threadIdx.x};                         \
+    for (int64_t i = tbl.slot; i < B; i += slots)                                          \
+      NS::window_lane<STRICT>(scalars, xs, ys, ax, ay, z, B, i, tbl);                      \
   }
 
-// Launch a wide instantiation with T threads a block and its table as
-// dynamic shared memory; return cudaGetLastError() (or the attribute's
-// error).
-template <int N, int T, class Kernel>
-int launch_wide(Kernel kernel, const int32_t* scalars, const int32_t* xs, const int32_t* ys,
-                int32_t* ax, int32_t* ay, int32_t* z, int64_t B, void* stream) {
+// Launch a wide instantiation over `slots` scratch columns (a multiple of
+// kThreads: the wrapper's resident threads, SMs x blocks an SM x kThreads),
+// at most one thread a lane; return cudaGetLastError() (or the
+// attribute's error, or cudaErrorInvalidValue for a slot count the grid
+// cannot take).
+template <class Table, class Kernel>
+int launch_split(Kernel kernel, const int32_t* scalars, const int32_t* xs, const int32_t* ys,
+                 int32_t* ax, int32_t* ay, int32_t* z, int32_t* scratch, int64_t B,
+                 int64_t slots, void* stream) {
+  if (slots <= 0 || slots % kThreads != 0 || slots / kThreads > 0x7FFFFFFF)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Table::kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
   if (B > 0) {
-    constexpr int bytes = table_bytes<N, T>();
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return (int)err;
-    const int64_t blocks = (B + T - 1) / T;
-    kernel<<<(unsigned)blocks, T, bytes, (cudaStream_t)stream>>>(scalars, xs, ys, ax, ay, z, B);
+    const int64_t lanes_blocks = (B + kThreads - 1) / kThreads;
+    const int64_t blocks = lanes_blocks < slots / kThreads ? lanes_blocks : slots / kThreads;
+    kernel<<<(unsigned)blocks, kThreads, Table::kSmemBytes, (cudaStream_t)stream>>>(
+        scalars, xs, ys, ax, ay, z, scratch, B, slots);
   }
   return (int)cudaGetLastError();
 }
 
+// The blocks of `kernel` an SM holds at kThreads threads and its table's
+// shared memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor), queried
+// once into `cached`; minus the CUDA error if a query fails.
+template <class Table, class Kernel>
+int occupancy(Kernel kernel, int& cached) {
+  if (cached > 0) return cached;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         Table::kSmemBytes);
+  int blocks = 0;
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kThreads,
+                                                        Table::kSmemBytes);
+  if (err != cudaSuccess) return -(int)err;
+  cached = blocks;
+  return blocks;
+}
 
 }  // namespace

@@ -72,9 +72,10 @@ NVCC_FLAGS = ARCH_FLAGS + (
 @dataclasses.dataclass
 class Kernel:
     """One CUDA kernel of the port: its C entry point, its source, the TPU
-    kernel it replaces, its arguments (``n_pointers`` tensors, then the
-    batch and ``n_ints`` more int64 values) and the number of times it
-    was launched."""
+    kernel it replaces, its arguments (``n_pointers`` tensors, the last
+    ``n_scratch`` of them scratch that holds no result, then the batch and
+    ``n_ints`` more int64 values) and the number of times it was
+    launched."""
 
     symbol: str
     source: str
@@ -82,6 +83,7 @@ class Kernel:
     n_pointers: int
     n_ints: int = 0
     launches: int = 0
+    n_scratch: int = 0
 
 
 @dataclasses.dataclass(frozen=True)

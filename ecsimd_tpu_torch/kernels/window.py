@@ -15,6 +15,13 @@ secret digit. ``window_plain`` follows ``_window_core`` operation for
 operation; every field result is canonical, so the kernel's Jacobian
 planes equal it bit for bit.
 
+On P-384 and P-521 the kernel's per-lane table is split between shared
+memory and a scratch in device memory (``table_split``): the wrapper
+allocates the scratch, one column for each thread the card holds at once
+(``resident_slots``: SMs x the blocks an SM the source's ``_occupancy``
+query grants x 64 threads), and the kernel's persistent grid walks the
+lanes over those threads.
+
 Scalar domain: non-strict k in [1, order-1) minus the measure-zero class
 whose prefix sums collide with a table entry (k = order-2 is one on P-256,
 for any P, and not on secp256k1 or Wei25519); strict: all of [1, order).
@@ -22,25 +29,79 @@ for any P, and not on secp256k1 or Wei25519); strict: all of [1, order).
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+import functools
+
 import torch
 
 from ecsimd_tpu_torch.curves import group
 from ecsimd_tpu_torch.curves.point import AffinePoint, JacobianPoint
 from ecsimd_tpu_torch.field import GFp
 from ecsimd_tpu_torch.kernels import _build
-from ecsimd_tpu_torch.specs import DIGIT_BITS, P256, CurveSpec
+from ecsimd_tpu_torch.specs import DIGIT_BITS, P256, P384, P521, CurveSpec
 
 W = 4  # window width in bits
 TABLE = 1 << (W - 1)  # odd multiples P, 3P, .., 15P
 
+VEC_BYTES = 16  # the table's unit: one 16-byte vector
+
+
+@dataclasses.dataclass(frozen=True)
+class TableSplit:
+    """Kernel E's per-lane table on a wide curve (``csrc/window_table.cuh``,
+    ``Split``): the first ``on_chip`` of the eight entries in shared memory,
+    the rest in the scratch. An entry's whole 32-bit words (x, y, z) are
+    ``vecs`` vectors; P-521's top words (9 bits each) are packed, an
+    entry's three into one word, the eight entries' into ``top_vecs``
+    vectors kept in shared memory. ``threads`` a block, and the
+    ``blocks`` an SM the kernel is built for (``__launch_bounds__``)."""
+
+    on_chip: int
+    vecs: int
+    top_vecs: int
+    threads: int = 64
+    blocks: int = 4
+
+    @property
+    def smem_bytes(self) -> int:
+        """Dynamic shared memory a block."""
+        return (self.on_chip * self.vecs + self.top_vecs) * self.threads * VEC_BYTES
+
+    @property
+    def scratch_vecs(self) -> int:
+        """Vectors a slot (a thread's column) of the scratch."""
+        return (TABLE - self.on_chip) * self.vecs
+
+    @property
+    def scratch_bytes(self) -> int:
+        """Scratch bytes a slot."""
+        return self.scratch_vecs * VEC_BYTES
+
+
+# the split of each wide curve (the sources' kOnChip<TAG>): P-384 12 words,
+# 9 vectors an entry; P-521 17 words, 16 whole ones (12 vectors) and the
+# packed top word
+SPLITS = {P384: TableSplit(on_chip=6, vecs=9, top_vecs=0),
+          P521: TableSplit(on_chip=4, vecs=12, top_vecs=2)}
+
+
+def table_split(curve: CurveSpec) -> TableSplit:
+    """Kernel E's table split on ``curve`` (P-384 or P-521)."""
+    return SPLITS[curve]
+
+
 def _kernel(curve: CurveSpec, strict: bool) -> _build.Kernel:
     tag, name = _build.CURVE_TAGS[curve]
     opts = ", ".join(o for o in (name, "strict=True" if strict else None) if o)
+    wide = curve in SPLITS  # + the scratch, and its slot count
     return _build.Kernel(
         symbol=f"ec_window_{tag}{'_strict' if strict else ''}",
         source=f"ecsimd_tpu_torch/csrc/{'window.cu' if curve == P256 else f'window_{tag}.cu'}",
         replaces="ecsimd_tpu/kernels/window.py:160 _window_kernel" + (f" ({opts})" if opts else ""),
-        n_pointers=6,
+        n_pointers=7 if wide else 6,
+        n_ints=1 if wide else 0,
+        n_scratch=1 if wide else 0,
     )
 
 
@@ -113,10 +174,53 @@ def window_plain(scalars, x, y, curve: CurveSpec, strict: bool = False):
     return sx.select(meven, ax).planes, sy.select(meven, ay).planes, sz.select(meven, az).planes
 
 
+@functools.cache
+def occupancy(symbol: str) -> int:
+    """The blocks an SM the card holds of kernel ``symbol`` (a wide E), from
+    its source's ``<symbol>_occupancy`` query; raises if the query fails or
+    grants no block."""
+    fn = getattr(_build.library().lib, symbol + "_occupancy")
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    n = fn()
+    if n < 1:
+        raise RuntimeError(f"{symbol}: occupancy query gave {n} (minus a CUDA error, or 0)")
+    return n
+
+
+def resident_slots(kernel: _build.Kernel, curve: CurveSpec, device: torch.device) -> int:
+    """The scratch's columns for ``kernel`` on ``device``: one for each
+    thread the card holds at once (SMs x blocks an SM x threads a block)."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return sms * occupancy(kernel.symbol) * table_split(curve).threads
+
+
+def scratch_for(kernel: _build.Kernel, curve: CurveSpec, device: torch.device) -> torch.Tensor:
+    """A wide E's scratch: (scratch_vecs, slots, 4) int32 on ``device``, the
+    [vector][slot] layout of 16-byte vectors the kernel takes."""
+    shape = (table_split(curve).scratch_vecs, resident_slots(kernel, curve, device), 4)
+    return torch.empty(shape, dtype=torch.int32, device=device)
+
+
+def check_scratch(t: torch.Tensor, curve: CurveSpec, device: torch.device) -> int:
+    """Raise unless ``t`` is a contiguous int32 (scratch_vecs, slots, 4)
+    tensor on ``device`` with slots a positive multiple of the block's
+    threads; return slots."""
+    sp = table_split(curve)
+    if (t.device != device or t.dtype != torch.int32 or t.dim() != 3
+            or t.shape[0] != sp.scratch_vecs or t.shape[2] != 4 or t.shape[1] < 1
+            or t.shape[1] % sp.threads or not t.is_contiguous()):
+        raise ValueError(f"scratch: expected a contiguous int32 ({sp.scratch_vecs}, slots, 4) "
+                         f"tensor on {device}, slots a multiple of {sp.threads}, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+    return t.shape[1]
+
+
 def window_planes(scalars, x, y, curve: CurveSpec = P256, strict: bool = False):
     """Run kernel E on (D, B) int32 CUDA planes: classical scalars and the
     affine point's coordinates in the field's internal form (as
-    ``window_plain``). Returns Jacobian (ax, ay, z) internal-form planes."""
+    ``window_plain``; canonical residues). Returns Jacobian (ax, ay, z)
+    internal-form planes. On P-384 and P-521 it allocates the kernel's
+    scratch (``scratch_for``)."""
     _build.require_cuda(scalars, "window")
     kernel = KERNELS.get((curve, bool(strict)))
     if kernel is None:
@@ -126,7 +230,12 @@ def window_planes(scalars, x, y, curve: CurveSpec = P256, strict: bool = False):
     for name, t in (("scalars", scalars), ("x", x), ("y", y)):
         _build.check_planes(name, t, shape, scalars.device)
     ax, ay, z = (torch.empty(shape, dtype=torch.int32, device=scalars.device) for _ in range(3))
-    _build.launch(kernel, [scalars, x, y, ax, ay, z], shape[1])
+    if curve in SPLITS:
+        scratch = scratch_for(kernel, curve, scalars.device)
+        slots = check_scratch(scratch, curve, scalars.device)
+        _build.launch(kernel, [scalars, x, y, ax, ay, z, scratch], shape[1], slots)
+    else:
+        _build.launch(kernel, [scalars, x, y, ax, ay, z], shape[1])
     kernel.launches += 1
     return ax, ay, z
 

@@ -796,6 +796,56 @@ def test_window_kernel_wide(cuda, curve, strict):
     assert [aff[i] for i in lanes] == [want[i] for i in lanes] and len(lanes) >= 14
 
 
+LANES_PAST_THE_SLOTS = 70_000  # more than 132 SMs x 256 threads, not a multiple of 64
+
+
+@pytest.mark.parametrize("strict", [False, True], ids=["plain", "strict"])
+@pytest.mark.parametrize("curve", WIDE, ids=lambda c: c.name)
+def test_window_kernel_wide_lanes_are_independent(cuda, curve, strict):
+    """Kernel E's persistent walk and the reuse of a slot's scratch column:
+    on 70,000 random lanes (scalars mod n, points k G from the comb), more
+    than the card's resident threads, its first and last 256 lanes equal E
+    run on those 256 lanes alone."""
+    n = LANES_PAST_THE_SLOTS
+    _, s = _wide_scalars(curve, n, 107, cuda)
+    _, base = _wide_scalars(curve, n, 108, cuda)
+    pt = api.scalar_mult_base(base, curve)
+    slots = window.resident_slots(window.KERNELS[(curve, strict)], curve, cuda)
+    assert n > slots and n % 64
+    full = window.scalar_mult(s, pt, strict=strict)
+    for part in (slice(0, 256), slice(n - 256, n)):
+        sub = AffinePoint(pt.x[:, part].contiguous(), pt.y[:, part].contiguous(), curve)
+        alone = window.scalar_mult(s[:, part].contiguous(), sub, strict=strict)
+        for k, w in zip((full.x, full.y, full.z), (alone.x, alone.y, alone.z)):
+            assert torch.equal(k.planes[:, part], w.planes)
+
+
+@pytest.mark.parametrize("strict", [False, True], ids=["plain", "strict"])
+@pytest.mark.parametrize("curve", WIDE, ids=lambda c: c.name)
+def test_window_kernel_wide_queries_match_the_split(cuda, curve, strict):
+    """After a launch, each wide E's ``_smem`` query gives the Python split's
+    shared bytes a block and its ``_occupancy`` query at least the target
+    four blocks of 64 threads an SM (eight warps); the scratch the wrapper
+    allocates has one column for each resident thread."""
+    kernel = window.KERNELS[(curve, strict)]
+    sp = window.table_split(curve)
+    _, s = _wide_scalars(curve, 64, 109, cuda)
+    _, pt = _wide_points(curve, 64, cuda)
+    window.scalar_mult(s, pt, strict=strict)
+    lib = _build.library().lib
+    for q, want in (("_smem", sp.smem_bytes), ("_occupancy", None)):
+        fn = getattr(lib, kernel.symbol + q)
+        fn.argtypes, fn.restype = [], ctypes.c_int
+        got = fn()
+        if want is None:
+            assert got >= sp.blocks and got == window.occupancy(kernel.symbol)
+        else:
+            assert got == want
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    scratch = window.scratch_for(kernel, curve, cuda)
+    assert tuple(scratch.shape) == (sp.scratch_vecs, sms * window.occupancy(kernel.symbol) * 64, 4)
+
+
 @pytest.mark.parametrize("strict", [False, True], ids=["plain", "strict"])
 @pytest.mark.parametrize("curve", WIDE, ids=lambda c: c.name)
 def test_comb_and_affine_kernels_wide(cuda, curve, strict):

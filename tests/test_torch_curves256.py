@@ -198,8 +198,10 @@ def _wrapper_calls(curve):
 
 # the wrappers on P-384 and P-521 -> the stem of their kernel's C name and
 # its ints (the generic kernel L: chains 2, unroll 1)
-WIDE_ROUTES = {"ladder": ("ladder", ()), "window": ("window", ()),
-               "window_strict": ("window", ()), "comb": ("comb", ()), "comb_strict": ("comb", ()),
+SLOTS = 128  # the resident threads the test hands the wide kernel E
+WIDE_ROUTES = {"ladder": ("ladder", ()), "window": ("window", (SLOTS,)),
+               "window_strict": ("window", (SLOTS,)), "comb": ("comb", ()),
+               "comb_strict": ("comb", ()),
                "comb_tree": ("comb_tree", ()), "comb_pipe": ("comb_pipe", ()),
                "comb_chains": ("comb_general", (2, 1)), "affine": ("affine", ())}
 
@@ -212,8 +214,11 @@ def test_wrappers_raise_on_the_wider_curves(monkeypatch, wrapper, curve):
     (both modes), J (tree), K (pipe) and L (chains 2: the generic kernel,
     handed chains and unroll as ints): one launch of the curve's own kernel,
     ``ec_<kind>_<tag>[_strict]``, handed (24, B) / (33, B) planes (the
-    comb's tables in the padded limb layout), counted once. None raises."""
+    comb's tables in the padded limb layout; E also its scratch, one column
+    a resident thread, and the slot count as an int), counted once. None
+    raises."""
     monkeypatch.setattr(_build, "require_cuda", lambda t, what: None)
+    monkeypatch.setattr(window, "resident_slots", lambda kernel, curve, device: SLOTS)
     calls = []
     monkeypatch.setattr(_build, "launch", lambda kernel, tensors, batch, *ints:
                         calls.append((kernel, tensors, batch, ints)))
@@ -230,5 +235,7 @@ def test_wrappers_raise_on_the_wider_curves(monkeypatch, wrapper, curve):
         npos = curve.field.nbits // comb.W
         assert shapes == [(d, 4), (comb.NENT + (npos - 1) * comb.NENT // 2,
                                    2 * comb.coord_words(d)), (2 * d,)] + [(d, 4)] * 3
+    elif wrapper.startswith("window"):
+        assert shapes == [(d, 4)] * 6 + [(window.table_split(curve).scratch_vecs, SLOTS, 4)]
     else:
         assert shapes == [(d, 4)] * kernel.n_pointers

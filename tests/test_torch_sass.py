@@ -83,3 +83,49 @@ def test_ab_kernel_names():
         "PiS2_S2_l' for 'sm_90a'\nptxas info    : Used 168 registers, 0 bytes smem\n")
     assert sass.resources(two, "ladder_w25519_kernel")["registers"] == 168
     assert sass.resources(two, "mladder_w25519_kernel")["registers"] == 96
+
+
+CALLS = """
+	code for sm_90a
+		Function : _ZN12_GLOBAL__N_118window_p521_kernelEPKiS1_S1_PiS2_S2_Pill
+        /*0000*/                   S2R R0, SR_TID.X ;
+        /*0010*/                   CALL.REL.NOINC 0x90 ;
+        /*0020*/                   LDG.E.128 R4, desc[UR4][R2.64] ;
+        /*0030*/                   CALL.REL.NOINC 0xc0 ;
+        /*0040*/                   CALL.REL.NOINC 0x90 ;
+        /*0050*/               @P0 BRA 0x20 ;
+        /*0060*/                   LDG.E.CONSTANT R8, desc[UR4][R6.64] ;
+        /*0070*/                   EXIT ;
+        /*0080*/                   BRA 0x80;
+        /*0090*/                   IMAD.WIDE.U32 R2, R4, R5, R2 ;
+        /*00a0*/                   IMAD.WIDE.U32 R2, R4, R5, R2 ;
+        /*00b0*/                   RET.REL.NODEC R20 0x0 ;
+        /*00c0*/                   IMAD.WIDE.U32 R2, R4, R4, R2 ;
+        /*00d0*/                   RET.REL.NODEC R20 0x0 ;
+"""
+
+
+def test_callees_enter_the_per_lane_count():
+    """A kernel's called device functions (after its EXIT, each from a CALL
+    target to its RET) stay out of its own code and loops, are counted
+    once each, and enter the dynamic count once a call; a loop's trips may
+    be a fraction whose runs are whole (P-521's 132 windows over 17
+    words)."""
+    instrs = sass.parse(CALLS)["_ZN12_GLOBAL__N_118window_p521_kernelEPKiS1_S1_PiS2_S2_Pill"]
+    called = sass.callees(instrs)
+    assert sorted(called) == [0x90, 0xc0]
+    assert [x[0] for x in called[0x90]] == [0x90, 0xa0, 0xb0]
+    assert [x[0] for x in called[0xc0]] == [0xc0, 0xd0]
+    mine = sass.own(instrs)
+    assert [x[0] for x in mine] == [0x0, 0x10, 0x20, 0x30, 0x40, 0x50, 0x60, 0x70, 0x80]
+    tree = sass.loops(mine)
+    assert [(n["start"], n["end"]) for n in tree] == [(0x20, 0x50)]
+    per_lane = sass.dynamic(instrs, tree, [("loop", sass.Fraction(6, 2), [])])
+    # own: 5 outside the loop (S2R, CALL, LDG.CONSTANT, EXIT, BRA) + 3 x 4;
+    # calls: 0x90 once outside and 3 times inside (3 instructions each),
+    # 0xc0 3 times (2 each)
+    assert per_lane["total"] == 5 + 12 + 4 * 3 + 3 * 2
+    assert per_lane["imad"] == 4 * 2 + 3 * 1
+    assert per_lane["ldg128"] == 3 and per_lane["ldg_nc"] == 1 and per_lane["ldg"] == 4
+    rep = sass.TRIPS["window_p521_kernel"]
+    assert rep[0][0] == "lane" and rep[0][2][1][2][0][1] * 17 == 132
