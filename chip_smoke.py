@@ -21,13 +21,15 @@ any failed check raises and the script exits non-zero:
   1. build: compiles every CUDA source of the port with nvcc (sm_90a), one
      process per source, and prints the build seconds, each kernel's
      registers, spills, stack frame and shared memory, each source's nvcc
-     seconds, and the SASS of kernels E (on the three curves) and F by
-     instruction class (bench/sass.py: cuobjdump -sass, each loop's body
-     times its runs).
+     seconds, and the SASS of kernels E and F, and of B and the generic L
+     on their five curves, by instruction class (bench/sass.py: cuobjdump
+     -sass, each loop's body times its runs; B's and L's tensor-core
+     products, IMMA, among them).
   2. field probe (kernel C) against the plain GFp: 65,536 lanes, the pairs
      of carry_edges (p - 1, p - 2^32, all-ones words, ...) first, exact; 64
      lanes also against Python ints.
-  3. comb (kernel B, its masked shared-memory table scan) against
+  3. comb (kernel B, its table read by u8 one-hot products on the tensor
+     cores) against
      comb_plain: Jacobian planes, exact, 65,536 lanes; 512 lanes (edge
      scalars 1, 2, 5, n-2 first) against the oracle.
   4. ladder (kernel A): 512 lanes carrying distinct points (i+1)G against
@@ -635,19 +637,68 @@ def say(msg):
     print(f"{msg} [t = {time.perf_counter() - _T0:.1f} s]", flush=True)
 
 
+class Counts(dict):
+    """{symbol: launches} of one path, and ``shapes``: {symbol: {(lanes,
+    *ints): launches}}, the same launches by the lanes and ints each had
+    (``_build.Kernel.count``)."""
+
+    def __init__(self, launches=(), shapes=None):
+        super().__init__(launches)
+        self.shapes = shapes if shapes is not None else {}
+
+
+def zero_counts(counted):
+    """Set every kernel's launch counts to 0: just before a path is driven."""
+    for k in counted:
+        k.reset()
+
+
+def read_counts(counted):
+    """The launch counts of the path just driven, as ``Counts``."""
+    return Counts({k.symbol: k.launches for k in counted},
+                  {k.symbol: dict(k.shapes) for k in counted})
+
+
+def sum_counts(parts):
+    """The ``Counts`` of several paths' runs together."""
+    out = Counts()
+    for c in parts:
+        for sym, n in c.items():
+            out[sym] = out.get(sym, 0) + n
+        for sym, shapes in c.shapes.items():
+            mine = out.shapes.setdefault(sym, {})
+            for key, n in shapes.items():
+                mine[key] = mine.get(key, 0) + n
+    return out
+
+
 def dynamic_smem(kernel):
     """{"dynamic_smem_bytes": n}: the dynamic shared memory the runtime gives
     a block of ``kernel`` (ptxas reports only the static part), read from
-    its source's ``<symbol>_smem`` query; {} for a kernel launched with
-    none, whose source has no such query."""
+    its source's ``<symbol>_smem`` query, and where its source has a
+    ``<symbol>_blocks`` query (kernels B and the generic L) also
+    "blocks_per_sm", the blocks an SM holds at that size; {} for a kernel
+    launched with none, whose source has no such query."""
+    lib = _build.library().lib
     try:
-        fn = getattr(_build.library().lib, kernel.symbol + "_smem")
+        fn = getattr(lib, kernel.symbol + "_smem")
     except AttributeError:
         return {}
     fn.argtypes, fn.restype = [], ctypes.c_int
     n = fn()
     check(n > 0, f"{kernel.symbol}: dynamic shared memory query gave {n}")
-    return {"dynamic_smem_bytes": n}
+    out = {"dynamic_smem_bytes": n}
+    curve = next((c for (c, _), k in comb.KERNELS.items() if k is kernel), None)
+    if curve is not None:  # kernel B: its two buffers and the row buffers
+        check(n == comb.serial_smem_bytes(curve), f"{kernel.symbol}: {n} bytes of shared memory, "
+                                                  f"serial_smem_bytes says "
+                                                  f"{comb.serial_smem_bytes(curve)}")
+    if hasattr(lib, kernel.symbol + "_blocks"):
+        fn = getattr(lib, kernel.symbol + "_blocks")
+        fn.argtypes, fn.restype = [], ctypes.c_int
+        out["blocks_per_sm"] = fn()
+        check(out["blocks_per_sm"] > 0, f"{kernel.symbol}: {out['blocks_per_sm']} blocks an SM")
+    return out
 
 
 def table_split(kernel, dev):
@@ -1004,8 +1055,8 @@ def x25519_phases(rng, dev, card, counted):
           "RFC 7748 §5.2 vectors, iteration 1")
 
     tables_w, negbase_w, nb_w = comb.device_tables(WEI25519, WEI25519.gx, WEI25519.gy, dev)
-    limbs_w = comb.kernel_tables(WEI25519, WEI25519.gx, WEI25519.gy, dev)
-    jac = comb.comb_planes(k14, limbs_w, nb_w, WEI25519)
+    mma_w = comb.mma_tables(WEI25519, WEI25519.gx, WEI25519.gy, dev)
+    jac = comb.comb_planes(k14, mma_w, nb_w, WEI25519)
     out["comb_check_err"] = max_abs_diff(jac, comb.comb_plain(k14, tables_w, WEI25519, negbase_w))
     check(out["comb_check_err"] == 0, "Wei25519 comb kernel == comb_plain (Jacobian)")
     jx, jy, jz = (t.clone() for t in jac)
@@ -1029,8 +1080,7 @@ def x25519_phases(rng, dev, card, counted):
     ka = split32(rng.bytes(32 * BATCH))
     kb = split32(rng.bytes(32 * BATCH))
     sp = ORACLE_LANES - 8  # lanes sp..sp+5: special peer u's, inside the checked lanes
-    for k in counted:
-        k.launches = 0
+    zero_counts(counted)
     qa = x25519.derive_public_batch(ka)
     qb = x25519.derive_public_batch(kb)
     top_set = bytearray(qb[sp + 4])
@@ -1040,7 +1090,7 @@ def x25519_phases(rng, dev, card, counted):
     s_ab = x25519.x25519_batch(ka, peers)
     s_ba = x25519.x25519_batch(kb, qa)
     torch.cuda.synchronize()
-    launches15 = {k.symbol: k.launches for k in counted}
+    launches15 = read_counts(counted)
     for k in (comb.KERNEL_W25519, affine.KERNEL_W25519, mladder.KERNEL, mladder.KERNEL_XDIVZ):
         check(launches15[k.symbol] >= 1, f"X25519 path launched {k.symbol}")
     check(len(s_ab) == len(s_ba) == len(qa) == BATCH and all(len(v) == 32 for v in s_ab),
@@ -1073,7 +1123,7 @@ def x25519_phases(rng, dev, card, counted):
     out["xdivz_plain_ms"], plain = time_once_ms(lambda: mladder.xdivz_plain(x2, z2, fs))
     out["xdivz_err"] = max_abs_diff([mladder.xdivz(x2, z2)], [plain])
     check(out["xdivz_err"] == 0, "xdivz kernel == batch-inverse x / z at B = 524,288")
-    jac = comb.comb_planes(kpa, limbs_w, nb_w, WEI25519)
+    jac = comb.comb_planes(kpa, mma_w, nb_w, WEI25519)
     out["comb_plain_ms"], plain = time_once_ms(
         lambda: comb.comb_plain(kpa, tables_w, WEI25519, negbase_w))
     out["comb_err"] = max_abs_diff(jac, plain)
@@ -1085,7 +1135,7 @@ def x25519_phases(rng, dev, card, counted):
     del plain
     out["mladder_ms"] = time_ms(lambda: mladder.mladder_planes(kpa, upb, fs, x25519.A24, 255), 5)
     out["xdivz_ms"] = time_ms(lambda: mladder.xdivz(x2, z2), 10)
-    out["comb_ms"] = time_ms(lambda: comb.comb_planes(kpa, limbs_w, nb_w, WEI25519), 10)
+    out["comb_ms"] = time_ms(lambda: comb.comb_planes(kpa, mma_w, nb_w, WEI25519), 10)
     out["affine_ms"] = time_ms(lambda: affine.affine_planes(*jac, WEI25519), 10)
     upb_raw = x25519._byte_planes(peers, False, dev)
     out["x25519_planes_ms"] = time_ms(lambda: x25519.x25519_planes(kpa, upb_raw), 5)
@@ -1114,10 +1164,9 @@ def x25519_phases(rng, dev, card, counted):
         lambda: roofline.calib_plain(ca_dev, cb_dev, CALIB_CHECK_REPS))
     out["calib_err"] = max_abs_diff([got], [plain])
     check(out["calib_err"] == 0, "calib kernel == calib_plain")
-    for k in counted:
-        k.launches = 0
+    zero_counts(counted)
     ceiling = roofline.measure_int32_ceiling(reps=CALIB_REPS, iters=8, device=dev)
-    out["launches16"] = {k.symbol: k.launches for k in counted}
+    out["launches16"] = read_counts(counted)
     check(out["launches16"][roofline.KERNEL.symbol] >= 1, "calibration launched ec_calib")
     out["ceiling"] = ceiling
     out["calib_elements"] = n
@@ -1165,6 +1214,7 @@ def schedule_phase(rng, dev, card, counted, scalars, b_plain_ms):
     one chain. Returns the numbers of the kernels line."""
     tables, negbase, nb = comb.device_tables(P256, P256.gx, P256.gy, dev)
     limbs = comb.kernel_tables(P256, P256.gx, P256.gy, dev)
+    mma = comb.mma_tables(P256, P256.gx, P256.gy, dev)
     tables_np, negbase_ints = comb.base_tables(P256, P256.gx, P256.gy)
     kernels = {"comb_tree": comb.KERNELS_TREE[P256], "comb_pipe": comb.KERNELS_PIPE[P256]} | {
         k: comb.KERNELS_CHAINS[(P256, *v)] for k, v in SCHEDULES_L.items()}
@@ -1174,7 +1224,8 @@ def schedule_phase(rng, dev, card, counted, scalars, b_plain_ms):
             return comb.comb_tree_planes(s, limbs, nb)
         if kw.get("chain") == "pipe":
             return comb.comb_pipe_planes(s, limbs, nb)
-        return comb.comb_chains_planes(s, limbs, nb, P256, kw["chains"], kw["unroll"], kw["strict"])
+        return comb.comb_chains_planes(s, limbs, mma, nb, P256, kw["chains"], kw["unroll"],
+                                       kw["strict"])
 
     def reference(kw, s):
         """The plain version (J, L with chains > 1) or kernel B (K, L with
@@ -1183,7 +1234,7 @@ def schedule_phase(rng, dev, card, counted, scalars, b_plain_ms):
             return comb.comb_tree_plain(s, tables, P256, negbase)
         if kw.get("chains", 1) > 1:
             return comb.comb_chains_plain(s, tables, P256, negbase, kw["chains"], kw["unroll"])
-        return comb.comb_planes(s, limbs, nb, strict=kw.get("strict", False))
+        return comb.comb_planes(s, mma, nb, strict=kw.get("strict", False))
 
     out = {k: {} for k in SCHEDULES}
     # -- 65,536 lanes against the plain versions / kernel B, 512 against the oracle
@@ -1213,12 +1264,11 @@ def schedule_phase(rng, dev, card, counted, scalars, b_plain_ms):
     # -- the path: entry point -> kernel J, K or L -> kernel D, at B = 524,288
     ks = convert.planes_to_ints(scalars[:, :MAIN_ORACLE_LANES].cpu().numpy())
     want = oracle_base(ks)
-    for k in counted:
-        k.launches = 0
+    zero_counts(counted)
     results = {kname: affine.to_affine(comb.scalar_mult_base(scalars, P256, **kw))
                for kname, kw in SCHEDULES.items()}
     torch.cuda.synchronize()
-    launches17 = {k.symbol: k.launches for k in counted}
+    launches17 = read_counts(counted)
     for kname in SCHEDULES:
         check(launches17[kernels[kname].symbol] >= 1, f"phase 17 path launched {kname}")
     check(launches17[affine.KERNEL.symbol] >= len(SCHEDULES), "phase 17 path launched affine")
@@ -1237,7 +1287,7 @@ def schedule_phase(rng, dev, card, counted, scalars, b_plain_ms):
 
     # -- each kernel against its plain version / kernel B on the path's inputs
     # (these launches come after the counts were read)
-    b_out = {st: comb.comb_planes(scalars, limbs, nb, strict=st) for st in (False, True)}
+    b_out = {st: comb.comb_planes(scalars, mma, nb, strict=st) for st in (False, True)}
     for kname, kw in SCHEDULES.items():
         got = run(kw, scalars)
         if kw.get("chain") == "tree" or kw.get("chains", 1) > 1:
@@ -1280,6 +1330,7 @@ def schedule_path(dev, card, counted, curve, scalars, ks, phase):
     fs, d = curve.field, curve.field.ndigits
     schedules = PATH_SCHEDULES[curve]
     limbs = comb.kernel_tables(curve, curve.gx, curve.gy, dev)
+    mma = comb.mma_tables(curve, curve.gx, curve.gy, dev)
     nb = comb.device_tables(curve, curve.gx, curve.gy, dev)[2]
     tables_np, negbase_ints = comb.base_tables(curve, curve.gx, curve.gy)
     classical = ocomb.classical_tables(tables_np, fs)
@@ -1301,12 +1352,11 @@ def schedule_path(dev, card, counted, curve, scalars, ks, phase):
             jobs[key] = plain_submit(key[0], curve, key[1], host, dev.type, key[2])
 
     # -- the path
-    for k in counted:
-        k.launches = 0
+    zero_counts(counted)
     results = {name: affine.to_affine(comb.scalar_mult_base(scalars, curve, **kw))
                for name, kw in schedules.items()}
     torch.cuda.synchronize()
-    launches = {k.symbol: k.launches for k in counted}
+    launches = read_counts(counted)
     kernels = {tagged(curve, name): schedule_kernel(curve, kw) for name, kw in schedules.items()}
     for name, kernel in kernels.items():
         check(launches[kernel.symbol] >= 1, f"phase {phase} path on {curve.name} launched {name}")
@@ -1339,7 +1389,7 @@ def schedule_path(dev, card, counted, curve, scalars, ks, phase):
     out = {}
     for name, kw in schedules.items():
         want_np, plain_ms = jobs[plain_key(kw)].result()
-        got = comb.schedule_planes(s_c, limbs, nb, curve, **kw)
+        got = comb.schedule_planes(s_c, limbs, mma, nb, curve, **kw)
         err = max_abs_diff(got, [torch.from_numpy(w).to(dev) for w in want_np])
         check(err == 0, f"{curve.name} {name} kernel == its plain version on {m} lanes")
         row = {"err": err, "plain_ms": plain_ms, "plain_lanes": m, "schedule": kw}
@@ -1350,14 +1400,15 @@ def schedule_path(dev, card, counted, curve, scalars, ks, phase):
             want_smem = comb.general_smem_bytes(curve, kw["unroll"])
             check(smem == want_smem, f"{curve.name} {name}: {smem} bytes of shared memory, "
                                      f"general_smem_bytes says {want_smem}")
-            row |= {"group": comb.general_group(curve, kw["unroll"]), "dynamic_smem_bytes": smem}
+            row |= {"group": comb.general_group(curve, kw["unroll"]), **dynamic_smem(kernel)}
         out[tagged(curve, name)] = row
     del got
     wide = curve in CURVES19
     api_ms = {}
     for name, kw in schedules.items():
         out[tagged(curve, name)]["ms"] = time_ms(
-            lambda kw=kw: comb.schedule_planes(scalars, limbs, nb, curve, **kw), 10 if wide else 20)
+            lambda kw=kw: comb.schedule_planes(scalars, limbs, mma, nb, curve, **kw),
+            10 if wide else 20)
         api_ms[f"{curve.name} comb.scalar_mult_base({schedule_args(kw)}) + affine"] = time_ms(
             lambda kw=kw: affine.to_affine(comb.scalar_mult_base(scalars, curve, **kw)),
             5 if wide else 10)
@@ -1386,11 +1437,13 @@ def general_phase(rng, dev, card, counted, scalars):
         ks_c = scalar_ints(rng, BATCH, [1, 2, 5, n - 2, n - 1], curve)
         out[curve] = schedule_path(dev, card, counted, curve, to_dev(ks_c, dev), ks_c, "17 (B9)")
     limbs = comb.kernel_tables(P256, P256.gx, P256.gy, dev)
+    mma = comb.mma_tables(P256, P256.gx, P256.gy, dev)
     nb = comb.device_tables(P256, P256.gx, P256.gy, dev)[2]
     versus = {}
     for c, u, st in comb.SCHEDULES_L:
-        templated = functools.partial(comb.comb_chains_planes, scalars, limbs, nb, P256, c, u, st)
-        generic = functools.partial(comb.comb_general_planes, scalars, limbs, nb, P256, c, u, st)
+        templated = functools.partial(comb.comb_chains_planes, scalars, limbs, mma, nb, P256, c,
+                                      u, st)
+        generic = functools.partial(comb.comb_general_planes, scalars, mma, nb, P256, c, u, st)
         err = max_abs_diff(generic(), templated())
         check(err == 0, f"generic kernel L == templated kernel L at chains={c}, unroll={u}, "
                         f"strict={st}, word for word on {BATCH} lanes")
@@ -1511,6 +1564,7 @@ def curve_phase(rng, dev, card, counted, curve):
     k_shared = scalar_ints(rng, 1, [], curve)[0]
     nb = comb.device_tables(curve, curve.gx, curve.gy, dev)[2]
     limbs = comb.kernel_tables(curve, curve.gx, curve.gy, dev)
+    mma = comb.mma_tables(curve, curve.gx, curve.gy, dev)
     tables_np, negbase_ints = comb.base_tables(curve, curve.gx, curve.gy)
     classical = ocomb.classical_tables(tables_np, fs)
 
@@ -1530,8 +1584,7 @@ def curve_phase(rng, dev, card, counted, curve):
                                                  c)
 
     # -- the path: every entry point of this slice on this curve
-    for k in counted:
-        k.launches = 0
+    zero_counts(counted)
     res = {"scalar_mult": api.scalar_mult(scalars, points),
            "scalar_mult_fast": api.scalar_mult_fast(scalars, points),
            "scalar_mult_fast_strict": api.scalar_mult_fast(scalars, points, strict=True),
@@ -1540,7 +1593,7 @@ def curve_phase(rng, dev, card, counted, curve):
         res[kname] = affine.to_affine(comb.scalar_mult_base(scalars, curve, **kw))
     ecdh_calls = ecdh_path(rng, dev, card) if curve == WEI25519 else {}
     torch.cuda.synchronize()
-    launches = {k.symbol: k.launches for k in counted}
+    launches = read_counts(counted)
     for kname, kernel in kern.items():
         check(launches[kernel.symbol] >= 1, f"phase 18 path on {curve.name} launched {kname}")
     check(launches[affine.KERNELS[curve].symbol] >= len(res), f"phase 18 {curve.name} affine")
@@ -1586,7 +1639,7 @@ def curve_phase(rng, dev, card, counted, curve):
              f"window_{tag}": lambda: window.window_planes(s, x, y, curve),
              f"window_strict_{tag}": lambda: window.window_planes(s, x, y, curve, True)}
         if curve == WEI25519:
-            r["comb_strict_w25519"] = lambda: comb.comb_planes(s, limbs, nb, curve, True)
+            r["comb_strict_w25519"] = lambda: comb.comb_planes(s, mma, nb, curve, True)
         for kname, kw in SCHEDULES.items():
             if kw.get("chain") == "tree":
                 r[f"{kname}_{tag}"] = lambda: comb.comb_tree_planes(s, limbs, nb, curve)
@@ -1594,7 +1647,7 @@ def curve_phase(rng, dev, card, counted, curve):
                 r[f"{kname}_{tag}"] = lambda: comb.comb_pipe_planes(s, limbs, nb, curve)
             else:
                 r[f"{kname}_{tag}"] = (lambda kw=kw: comb.comb_chains_planes(
-                    s, limbs, nb, curve, kw["chains"], kw["unroll"], kw["strict"]))
+                    s, limbs, mma, nb, curve, kw["chains"], kw["unroll"], kw["strict"]))
         return r
 
     runs, chk = kernel_runs(scalars, xm, ym), kernel_runs(sc, xc, yc)
@@ -1618,7 +1671,7 @@ def curve_phase(rng, dev, card, counted, curve):
     b_out, b_plain_ms = {}, {}
     for st in (False, True):
         want, b_plain_ms[st] = plain_result(("comb", st))
-        b_out[st] = comb.comb_planes(sc, limbs, nb, curve, st)
+        b_out[st] = comb.comb_planes(sc, mma, nb, curve, st)
         err = max_abs_diff(b_out[st], want)
         check(err == 0, f"{curve.name} comb (strict={st}) kernel == comb_plain on {m} lanes")
     if curve == WEI25519:
@@ -1705,8 +1758,7 @@ def ecdsa_path(rng, dev, card, counted, curve, phase=12):
                 tens[:, t + 5] = to_dev([v], dev)[:, 0]
         return z_t, r_t, s_t, qx_t, qy_t
 
-    for k in counted:
-        k.launches = 0
+    zero_counts(counted)
     q = api.scalar_mult_base(d_dev, curve)
     r, s, ok = ecdsa.sign_planes(z_dev, d_dev, k_dev, curve)
     v_ok = ecdsa.verify_planes(z_dev, r, s, q.x, q.y, curve)
@@ -1714,7 +1766,7 @@ def ecdsa_path(rng, dev, card, counted, curve, phase=12):
     v_t = ecdsa.verify_planes(z_t, r_t, s_t, qx_t, qy_t, curve)
     rec = [ecdsa.recover_planes(z_dev, r, s, v, curve) for v in vid]
     torch.cuda.synchronize()
-    launches = {k.symbol: k.launches for k in counted}
+    launches = read_counts(counted)
     varbase_kernel = kglv.KERNEL_STRICT if curve == SECP256K1 else window.KERNELS[(curve, True)]
     for k in (comb.KERNELS[(curve, False)], affine.KERNELS[curve], varbase_kernel):
         check(launches[k.symbol] >= 1, f"ECDSA path on {curve.name} launched {k.symbol}")
@@ -1749,10 +1801,10 @@ def ecdsa_path(rng, dev, card, counted, curve, phase=12):
     t = {"sign": time_once_ms(lambda: ecdsa.sign_planes(z_dev, d_dev, k_dev, curve))[0],
          "verify": time_once_ms(lambda: ecdsa.verify_planes(z_dev, r, s, q.x, q.y, curve))[0],
          "recover": time_once_ms(lambda: ecdsa.recover_planes(z_dev, r, s, vid[0], curve))[0]}
-    limbs_c = comb.kernel_tables(curve, curve.gx, curve.gy, dev)
+    mma_c = comb.mma_tables(curve, curve.gx, curve.gy, dev)
     nb_c = comb.device_tables(curve, curve.gx, curve.gy, dev)[2]
-    jac = comb.comb_planes(d_dev, limbs_c, nb_c, curve)
-    t["kernel_comb"] = time_ms(lambda: comb.comb_planes(d_dev, limbs_c, nb_c, curve), 10)
+    jac = comb.comb_planes(d_dev, mma_c, nb_c, curve)
+    t["kernel_comb"] = time_ms(lambda: comb.comb_planes(d_dev, mma_c, nb_c, curve), 10)
     t["kernel_affine"] = time_ms(lambda: affine.affine_planes(*jac, curve), 10)
     if curve == SECP256K1:
         packed = kglv.pack_scalars(d_dev, curve)
@@ -1814,7 +1866,7 @@ def wide_phase(rng, dev, card, counted, curve):
     ym = GFp.from_classical(points.y, fs).planes.contiguous()
     k_shared = scalar_ints(rng, 1, [], curve)[0]
     nb = comb.device_tables(curve, curve.gx, curve.gy, dev)[2]
-    limbs = comb.kernel_tables(curve, curve.gx, curve.gy, dev)
+    mma = comb.mma_tables(curve, curve.gx, curve.gy, dev)
     tables_np, negbase_ints = comb.base_tables(curve, curve.gx, curve.gy)
     classical = ocomb.classical_tables(tables_np, fs)
 
@@ -1824,7 +1876,7 @@ def wide_phase(rng, dev, card, counted, curve):
     # counts are reset, so not counted)
     m = CHECK_LANES
     s_c, x_c, y_c = (t[:, :m].contiguous() for t in (scalars, xm, ym))
-    jx, jy, jz = (t.clone() for t in comb.comb_planes(s_c, limbs, nb, curve))
+    jx, jy, jz = (t.clone() for t in comb.comb_planes(s_c, mma, nb, curve))
     jz[:, -1] = 0  # a lane at infinity maps to (0, 0)
     host = [t.cpu().numpy() for t in (s_c, x_c, y_c, jx, jy, jz)]
     plain = {f"ladder_{tag}": plain_submit("ladder", curve, False, host[:3], dev.type),
@@ -1835,8 +1887,7 @@ def wide_phase(rng, dev, card, counted, curve):
         plain[f"comb{sfx}_{tag}"] = plain_submit("comb", curve, st, host[:1], dev.type)
 
     # -- the path: every entry point of this slice on this curve
-    for k in counted:
-        k.launches = 0
+    zero_counts(counted)
     res = {"scalar_mult": api.scalar_mult(scalars, points),
            "scalar_mult_fast": api.scalar_mult_fast(scalars, points),
            "scalar_mult_fast_strict": api.scalar_mult_fast(scalars, points, strict=True),
@@ -1845,14 +1896,14 @@ def wide_phase(rng, dev, card, counted, curve):
            "scalar_mult_base_strict": api.scalar_mult_base(scalars, curve, strict=True)}
     ecdh_calls = ecdh_path(rng, dev, card, curve, 19)
     torch.cuda.synchronize()
-    launches = {k.symbol: k.launches for k in counted}
+    launches = read_counts(counted)
     ecdsa_ms = {}
     if curve == P384:  # ECDSA resets the counts and returns its own
         # it times its calls itself: the plain versions, which share the
         # card, finish first
         concurrent.futures.wait(list(plain.values()))
         pe = ecdsa_path(rng, dev, card, counted, curve, 19)
-        launches = {s: v + pe["launches"][s] for s, v in launches.items()}
+        launches = sum_counts([launches, pe["launches"]])
         ecdsa_ms = {f"ecdsa.{k}": v for k, v in pe["ms"].items()}
     for kname, kernel in kern.items():
         if not kname.startswith("field_"):
@@ -1906,7 +1957,7 @@ def wide_phase(rng, dev, card, counted, curve):
     for st in (False, True):
         sfx = "_strict" if st else ""
         runs_c[f"window{sfx}_{tag}"] = lambda st=st: window.window_planes(s_c, x_c, y_c, curve, st)
-        runs_c[f"comb{sfx}_{tag}"] = lambda st=st: comb.comb_planes(s_c, limbs, nb, curve, st)
+        runs_c[f"comb{sfx}_{tag}"] = lambda st=st: comb.comb_planes(s_c, mma, nb, curve, st)
     for kname, job in plain.items():
         check_against(kname, runs_c[kname], *job.result())
     # kernel C: the edge pairs first, then draws below p
@@ -1936,12 +1987,12 @@ def wide_phase(rng, dev, card, counted, curve):
                    "plain_lanes": 1}
     del jx, jy, jz
 
-    jac = comb.comb_planes(scalars, limbs, nb, curve)
+    jac = comb.comb_planes(scalars, mma, nb, curve)
     runs = {f"ladder_{tag}": lambda: ladder.ladder_planes(scalars, xm, ym, curve),
             f"window_{tag}": lambda: window.window_planes(scalars, xm, ym, curve),
             f"window_strict_{tag}": lambda: window.window_planes(scalars, xm, ym, curve, True),
-            f"comb_{tag}": lambda: comb.comb_planes(scalars, limbs, nb, curve),
-            f"comb_strict_{tag}": lambda: comb.comb_planes(scalars, limbs, nb, curve, True),
+            f"comb_{tag}": lambda: comb.comb_planes(scalars, mma, nb, curve),
+            f"comb_strict_{tag}": lambda: comb.comb_planes(scalars, mma, nb, curve, True),
             f"affine_{tag}": lambda: affine.affine_planes(*jac, curve)}
     for name, run in runs.items():
         out[name]["ms"] = time_ms(run, 3 if name.startswith(("ladder", "window")) else 10)
@@ -2041,10 +2092,10 @@ def run():
 
     # -- phase 3: comb -----------------------------------------------------------
     tables, negbase, negbase_digits = comb.device_tables(P256, P256.gx, P256.gy, dev)
-    limbs = comb.kernel_tables(P256, P256.gx, P256.gy, dev)
+    mma = comb.mma_tables(P256, P256.gx, P256.gy, dev)
     s_np = scalar_planes(rng, CHECK_LANES)
     s_dev = torch.from_numpy(s_np).to(dev)
-    comb_got = comb.comb_planes(s_dev, limbs, negbase_digits)
+    comb_got = comb.comb_planes(s_dev, mma, negbase_digits)
     want = comb.comb_plain(s_dev, tables, P256, negbase)
     torch.cuda.synchronize()
     comb_check_err = max_abs_diff(comb_got, want)
@@ -2087,12 +2138,11 @@ def run():
                kglv.KERNEL_STRICT, mladder.KERNEL, mladder.KERNEL_XDIVZ, roofline.KERNEL,
                *comb.KERNELS_TREE.values(), *comb.KERNELS_PIPE.values(),
                *comb.KERNELS_CHAINS.values(), *comb.KERNELS_GENERAL.values())
-    for k in counted:
-        k.launches = 0
+    zero_counts(counted)
     out_base = api.scalar_mult_base(scalars)
     out_var = api.scalar_mult(scalars, points)
     torch.cuda.synchronize()
-    launches6 = {k.symbol: k.launches for k in counted}
+    launches6 = read_counts(counted)
     for k in (comb.KERNEL, ladder.KERNEL, affine.KERNEL):
         check(launches6[k.symbol] >= 1, f"main path launched {k.symbol}")
     for out in (out_base, out_var):
@@ -2104,10 +2154,10 @@ def run():
     check(affine_ints(out_var, MAIN_ORACLE_LANES) == oracle_varbase(ks), "main path k*P vs oracle")
 
     # each kernel against its plain version at the main path's shape
-    comb_ms = time_ms(lambda: comb.comb_planes(scalars, limbs, negbase_digits), 20)
+    comb_ms = time_ms(lambda: comb.comb_planes(scalars, mma, negbase_digits), 20)
     comb_plain_ms, comb_plain_out = time_once_ms(
         lambda: comb.comb_plain(scalars, tables, P256, negbase))
-    jac_b = comb.comb_planes(scalars, limbs, negbase_digits)
+    jac_b = comb.comb_planes(scalars, mma, negbase_digits)
     comb_err = max_abs_diff(jac_b, comb_plain_out)
     check(comb_err == 0, "comb kernel == comb_plain at B = 524,288")
     del comb_plain_out
@@ -2164,7 +2214,7 @@ def run():
     # -- phase 8: strict comb (kernel B strict) -----------------------------------
     s8_np = scalar_planes(rng, CHECK_LANES, EDGE_SCALARS + [N - 1])
     s8 = torch.from_numpy(s8_np).to(dev)
-    got = comb.comb_planes(s8, limbs, negbase_digits, strict=True)
+    got = comb.comb_planes(s8, mma, negbase_digits, strict=True)
     comb_strict_check_err = max_abs_diff(
         got, comb.comb_plain(s8, tables, P256, negbase, strict=True))
     check(comb_strict_check_err == 0, "strict comb kernel == strict comb_plain (Jacobian)")
@@ -2182,8 +2232,7 @@ def run():
     d1[bad], d1[bad + 1] = 0, N
     d1_dev = torch.from_numpy(convert.ints_to_planes(d1, D)).to(dev)
     d2_dev = torch.from_numpy(convert.ints_to_planes(d2, D)).to(dev)
-    for k in counted:
-        k.launches = 0
+    zero_counts(counted)
     fast = api.scalar_mult_fast(scalars, points)
     fast_strict = api.scalar_mult_fast(scalars, points, strict=True)
     base_strict = api.scalar_mult_base(scalars, strict=True)
@@ -2196,7 +2245,7 @@ def run():
     s12, ok12 = ecdh.shared_secret_planes(d1_dev, q2x_bad, q2y_bad)
     s21, ok21 = ecdh.shared_secret_planes(d2_dev, q1x, q1y)
     torch.cuda.synchronize()
-    launches9 = {k.symbol: k.launches for k in counted}
+    launches9 = read_counts(counted)
     for k in (comb.KERNEL, comb.KERNEL_STRICT, window.KERNEL, window.KERNEL_STRICT, affine.KERNEL):
         check(launches9[k.symbol] >= 1, f"second main path launched {k.symbol}")
 
@@ -2246,7 +2295,7 @@ def run():
     comb_strict_plain_ms, plain = time_once_ms(
         lambda: comb.comb_plain(scalars, tables, P256, negbase, strict=True))
     comb_strict_err = max_abs_diff(
-        comb.comb_planes(scalars, limbs, negbase_digits, strict=True), plain)
+        comb.comb_planes(scalars, mma, negbase_digits, strict=True), plain)
     check(comb_strict_err == 0, "strict comb kernel == strict comb_plain at B = 524,288")
     del plain
 
@@ -2254,7 +2303,7 @@ def run():
     window_strict_ms = time_ms(
         lambda: window.window_planes(scalars, points.x, points.y, strict=True), 5)
     comb_strict_ms = time_ms(
-        lambda: comb.comb_planes(scalars, limbs, negbase_digits, strict=True), 20)
+        lambda: comb.comb_planes(scalars, mma, negbase_digits, strict=True), 20)
     fast_ms = time_ms(lambda: api.scalar_mult_fast(scalars, points), 5)
     fast_strict_ms = time_ms(lambda: api.scalar_mult_fast(scalars, points, strict=True), 5)
     base_strict_ms = time_ms(lambda: api.scalar_mult_base(scalars, strict=True), 10)
@@ -2336,13 +2385,13 @@ def run():
           f"n-1, n-2, k1 = 0 and k2 = 0 splits)")
 
     tables_k1, negbase_k1, nb_k1 = comb.device_tables(k1, k1.gx, k1.gy, dev)
-    limbs_k1 = comb.kernel_tables(k1, k1.gx, k1.gy, dev)
+    mma_k1 = comb.mma_tables(k1, k1.gx, k1.gy, dev)
     comb_k1_check = {}
     for strict, kname in ((False, "comb_secp256k1"), (True, "comb_strict_secp256k1")):
         edges = [1, 2, 5, nk - 2] + ([nk - 1] if strict else [])
         s_ints = scalar_ints(rng, CHECK_LANES, edges, k1)
         s_k1 = to_dev(s_ints, dev)
-        got = comb.comb_planes(s_k1, limbs_k1, nb_k1, k1, strict=strict)
+        got = comb.comb_planes(s_k1, mma_k1, nb_k1, k1, strict=strict)
         comb_k1_check[kname] = max_abs_diff(
             got, comb.comb_plain(s_k1, tables_k1, k1, negbase_k1, strict))
         check(comb_k1_check[kname] == 0, f"{kname} kernel == comb_plain (Jacobian)")
@@ -2365,10 +2414,7 @@ def run():
 
     # -- phase 12: the third main path, batched ECDSA, on both curves ----------------
     path12 = {c.name: ecdsa_path(rng, dev, card, counted, c) for c in (P256, SECP256K1)}
-    launches12 = {}
-    for c in path12.values():
-        for sym, v in c["launches"].items():
-            launches12[sym] = launches12.get(sym, 0) + v
+    launches12 = sum_counts([c["launches"] for c in path12.values()])
 
     # the secp256k1 kernels against their plain versions on the path's own
     # inputs (these launches come after the counts were read)
@@ -2389,11 +2435,11 @@ def run():
     check(affine_k1_err == 0, "secp256k1 affine kernel == to_affine at B = 524,288")
     del plain
     comb_k1_strict_ms = time_ms(
-        lambda: comb.comb_planes(pk1["d"], limbs_k1, nb_k1, SECP256K1, strict=True), 10)
+        lambda: comb.comb_planes(pk1["d"], mma_k1, nb_k1, SECP256K1, strict=True), 10)
     comb_k1_strict_plain_ms, plain = time_once_ms(
         lambda: comb.comb_plain(pk1["d"], tables_k1, SECP256K1, negbase_k1, strict=True))
     comb_k1_strict_err = max_abs_diff(
-        comb.comb_planes(pk1["d"], limbs_k1, nb_k1, SECP256K1, strict=True), plain)
+        comb.comb_planes(pk1["d"], mma_k1, nb_k1, SECP256K1, strict=True), plain)
     check(comb_k1_strict_err == 0, "secp256k1 strict comb kernel == comb_plain at B = 524,288")
     del plain
     glv_ms = time_ms(lambda: kglv.glv_planes(packed11, xm, ym, k1, strict=False), 5)
@@ -2408,13 +2454,14 @@ def run():
                         {False: comb_plain_ms, True: comb_strict_plain_ms})
     b9, b9_versus = general_phase(rng, dev, card, counted, scalars)
     p18 = {c: curve_phase(rng, dev, card, counted, c) for c in CURVES18}
-    launches18 = {k.symbol: sum(p["launches"][k.symbol] for p in p18.values()) for k in counted}
+    launches18 = sum_counts([p["launches"] for p in p18.values()])
     p19 = {c: wide_phase(rng, dev, card, counted, c) for c in CURVES19}
     p20 = {c: wide_schedule_phase(rng, dev, card, counted, c) for c in CURVES19}
     sass_mix = sass_job.result()
     for kname, mix in sass_mix.items():
         check(mix is not None, f"cuobjdump -sass found {kname}")
-    say("phase 1 SASS of kernels E (five curves) and F, instructions a lane issues by class "
+    say("phase 1 SASS of kernels E (five curves), F, B and the generic L (five curves, chains 2, "
+        "unroll 1), instructions a lane issues by class "
         "(cuobjdump -sass, loop bodies times their runs, called functions times their calls): "
         + json.dumps({k: v["per_lane"] for k, v in sass_mix.items()}) + "; the wide E's called "
         "functions, once each (multiply, then squaring): " + json.dumps(
@@ -2426,7 +2473,14 @@ def run():
         mix = sass_mix[kname]["static"]
         check(mix.get("ldg128", 0) > 0 and mix.get("ldg128_nc", 0) == 0,
               f"{kname} reads its scratch with 16-byte ld.global, not the read-only path")
-    launches19 = {k.symbol: sum(p["launches"][k.symbol] for p in p19.values()) for k in counted}
+    for kname in sass.COMB_KERNELS:
+        # B and the generic L select on the tensor cores: IMMA, and no scan
+        # loop over a position's entries (their loop nests are TRIPS')
+        mix = sass_mix[kname]
+        check(mix["static"].get("imma", 0) > 0 and mix["static"].get("lds128", 0) == 0
+              and mix["per_lane"] is not None,
+              f"{kname} selects with IMMA and scans no position with 16-byte loads")
+    launches19 = sum_counts([p["launches"] for p in p19.values()])
     paths = {"phase6": launches6, "phase9": launches9, "phase12": launches12,
              "phase15": xp["launches15"], "phase16": xp["launches16"],
              "phase17": sp["launches17"], "phase18": launches18, "phase19": launches19}
@@ -2434,12 +2488,28 @@ def run():
     paths |= {f"phase17_b9_{_build.CURVE_TAGS[c][0]}": p["launches"] for c, p in b9.items()}
     paths |= {f"phase20_{_build.CURVE_TAGS[c][0]}": p["launches"] for c, p in p20.items()}
 
-    def entry(kernel, kname, err, ms, plain_ms, lanes=BATCH, reps=0):
+    def entry(kernel, kname, err, ms, plain_ms, lanes=BATCH, reps=0, schedule=None):
+        """One kernel of the kernels line: its launches on the main paths
+        (the generic L's at ``schedule`` only), by path with the lanes of
+        each, and weighted by lanes (launches of ``lanes`` lanes that do
+        the same work), beside its times at ``lanes``."""
         bound_ms, bound_by = bound(kname, lanes, sm_clock_mhz, reps)
+        ints = None
+        if schedule is not None and kernel.n_ints == 2:  # the generic L: count its schedule
+            ints = (schedule.get("chains", 1), schedule.get("unroll", 1))
+        by_path = {}
+        for path, counts in paths.items():
+            by_lanes = {}
+            for (n_lanes, *k_ints), n in counts.shapes.get(kernel.symbol, {}).items():
+                if ints is None or tuple(k_ints) == ints:
+                    by_lanes[n_lanes] = by_lanes.get(n_lanes, 0) + n
+            if by_lanes:
+                by_path[path] = {"launches": sum(by_lanes.values()), "lanes": by_lanes}
+        weighted = sum(n * n_lanes for p in by_path.values() for n_lanes, n in p["lanes"].items())
         return {
             "name": kname, "route": "cuda", "source": kernel.source, "replaces": kernel.replaces,
-            "launches": sum(v[kernel.symbol] for v in paths.values()),
-            "launches_by_path": {k: v[kernel.symbol] for k, v in paths.items()},
+            "launches": sum(p["launches"] for p in by_path.values()),
+            "launches_by_path": by_path, "lane_weighted_launches": weighted / lanes,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None, "lanes": lanes,
             **res[kname], **dynamic_smem(kernel), **table_split(kernel, dev),
@@ -2503,9 +2573,10 @@ def run():
         # schedule); ms and bound at B, plain_ms on the path's first
         # plain_lanes lanes; the generic kernel L's staged positions a step
         # (group) and shared memory at that schedule
-        *({**entry(p["kernels"][k], k, v["err"], v["ms"], v["plain_ms"]),
-           **{x: v[x] for x in ("plain_lanes", "schedule", "group", "dynamic_smem_bytes")
-              if x in v}}
+        *({**entry(p["kernels"][k], k, v["err"], v["ms"], v["plain_ms"],
+                   schedule=v.get("schedule")),
+           **{x: v[x] for x in ("plain_lanes", "schedule", "group", "dynamic_smem_bytes",
+                                "blocks_per_sm") if x in v}}
           for p in (*b9.values(), *p20.values()) for k, v in p["by_kernel"].items()),
     ]
     api_ms = {"scalar_mult_base": base_api_ms, "scalar_mult": var_api_ms,

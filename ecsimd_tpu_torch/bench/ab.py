@@ -25,8 +25,12 @@ Each library gets the arguments its own checkout's ``Kernel`` declares
 ``n_pointers`` of the captured tensors and the first ``n_ints`` of the
 ints, so a kernel whose interface grew by trailing arguments (kernel E on
 P-384 / P-521 gained a scratch and its slot count) is compared with
-its older self. Scratch tensors (a ``Kernel``'s last ``n_scratch``
-pointers) are not compared.
+its older self; and the comb table in the layout it declares
+(``layout``: a checkout whose kernel declares none, or ``"limbs"``, gets
+``comb.kernel_tables`` where this one's takes ``comb.mma_tables``), so
+kernels B and the generic L are compared with their masked-scan selves.
+Scratch tensors (a ``Kernel``'s last ``n_scratch`` pointers) are not
+compared.
 """
 
 from __future__ import annotations
@@ -92,17 +96,18 @@ def _wide(batch: int, dev, rng) -> dict:
         s = _planes(_scalars(rng, batch, curve.order), dev, d)
         pt = api.scalar_mult_base(_planes(_scalars(rng, batch, curve.order), dev, d), curve)
         limbs = comb.kernel_tables(curve, curve.gx, curve.gy, dev)
+        mma = comb.mma_tables(curve, curve.gx, curve.gy, dev)
         _, _, nb = comb.device_tables(curve, curve.gx, curve.gy, dev)
-        jac = comb.comb_planes(s, limbs, nb, curve)
+        jac = comb.comb_planes(s, mma, nb, curve)
         a, b = _below(rng, batch, curve.p, dev, d), _below(rng, batch, curve.p, dev, d)
         out |= {
             f"ladder_{tag}": lambda s=s, pt=pt, c=curve: ladder.ladder_planes(s, pt.x, pt.y, c),
             f"window_{tag}": lambda s=s, pt=pt, c=curve: window.window_planes(s, pt.x, pt.y, c),
             f"window_strict_{tag}": lambda s=s, pt=pt, c=curve: window.window_planes(
                 s, pt.x, pt.y, c, strict=True),
-            f"comb_{tag}": lambda s=s, lb=limbs, nb=nb, c=curve: comb.comb_planes(s, lb, nb, c),
-            f"comb_strict_{tag}": lambda s=s, lb=limbs, nb=nb, c=curve: comb.comb_planes(
-                s, lb, nb, c, strict=True),
+            f"comb_{tag}": lambda s=s, mm=mma, nb=nb, c=curve: comb.comb_planes(s, mm, nb, c),
+            f"comb_strict_{tag}": lambda s=s, mm=mma, nb=nb, c=curve: comb.comb_planes(
+                s, mm, nb, c, strict=True),
             f"affine_{tag}": lambda jac=jac, c=curve: affine.affine_planes(*jac, c),
             f"field_probe_{tag}": lambda a=a, b=b, c=curve: field_ops.probe(a, b, c.field),
             f"field_consts_{tag}": lambda c=curve: field_ops.constants(c.field, dev),
@@ -110,26 +115,27 @@ def _wide(batch: int, dev, rng) -> dict:
                 s, lb, nb, c),
             f"comb_pipe_{tag}": lambda s=s, lb=limbs, nb=nb, c=curve: comb.comb_pipe_planes(
                 s, lb, nb, c),
-            **_general(tag, curve, s, limbs, nb),
+            **_general(tag, curve, s, mma, nb),
         }
     return out
 
 
-def _schedules(tag, curve, s, limbs, nb, chains) -> dict:
+def _schedules(tag, curve, s, limbs, mma, nb, chains) -> dict:
     """Kernels J, K and L's templated instantiations (``chains``: name ->
     (chains, unroll, strict)) on a 256-bit curve other than P-256."""
     return {f"comb_tree_{tag}": lambda: comb.comb_tree_planes(s, limbs, nb, curve),
             f"comb_pipe_{tag}": lambda: comb.comb_pipe_planes(s, limbs, nb, curve),
             **{f"{k}_{tag}": (lambda c=c, u=u, st=st: comb.comb_chains_planes(
-                s, limbs, nb, curve, c, u, st)) for k, (c, u, st) in chains.items()}}
+                s, limbs, mma, nb, curve, c, u, st)) for k, (c, u, st) in chains.items()}}
 
 
-def _general(tag, curve, s, limbs, nb) -> dict:
-    """The generic kernel L on ``curve``: chains 2 (unroll 1), and strict
-    with one chain at unroll 2."""
-    return {f"comb_general_{tag}": lambda: comb.comb_general_planes(s, limbs, nb, curve, 2, 1),
+def _general(tag, curve, s, mma, nb) -> dict:
+    """The generic kernel L on ``curve``: chains 2 (unroll 2 where npos
+    allows it, else 1), and strict with one chain at unroll 2."""
+    u = 2 if (curve.field.nbits // comb.W) % 4 == 0 else 1
+    return {f"comb_general_{tag}": lambda: comb.comb_general_planes(s, mma, nb, curve, 2, u),
             f"comb_general_strict_{tag}": lambda: comb.comb_general_planes(
-                s, limbs, nb, curve, 1, 2, True)}
+                s, mma, nb, curve, 1, 2, True)}
 
 
 def workloads(batch: int, dev) -> dict:
@@ -139,8 +145,9 @@ def workloads(batch: int, dev) -> dict:
     s = _planes(_scalars(rng, batch, P256.order), dev)
     pt = api.scalar_mult_base(_planes(_scalars(rng, batch, P256.order), dev))
     limbs = comb.kernel_tables(P256, P256.gx, P256.gy, dev)
+    mma = comb.mma_tables(P256, P256.gx, P256.gy, dev)
     _, _, nb = comb.device_tables(P256, P256.gx, P256.gy, dev)
-    jac = comb.comb_planes(s, limbs, nb)
+    jac = comb.comb_planes(s, mma, nb)
     a, b = _below(rng, batch, P256.p, dev), _below(rng, batch, P256.p, dev)
 
     k1 = SECP256K1
@@ -150,8 +157,9 @@ def workloads(batch: int, dev) -> dict:
     ym = GFp.from_classical(pt1.y, k1.field).planes.contiguous()
     packed = kglv.pack_scalars(s1, k1).contiguous()
     limbs1 = comb.kernel_tables(k1, k1.gx, k1.gy, dev)
+    mma1 = comb.mma_tables(k1, k1.gx, k1.gy, dev)
     _, _, nb1 = comb.device_tables(k1, k1.gx, k1.gy, dev)
-    jac1 = comb.comb_planes(s1, limbs1, nb1, k1)
+    jac1 = comb.comb_planes(s1, mma1, nb1, k1)
     a1, b1 = _below(rng, batch, k1.p, dev), _below(rng, batch, k1.p, dev)
 
     wf = W25519_FIELD
@@ -159,8 +167,9 @@ def workloads(batch: int, dev) -> dict:
     uw = _below(rng, batch, wf.p, dev)
     x2, z2 = mladder.mladder_planes(kw, uw, wf, x25519.A24, 255)
     limbsw = comb.kernel_tables(WEI25519, WEI25519.gx, WEI25519.gy, dev)
+    mmaw = comb.mma_tables(WEI25519, WEI25519.gx, WEI25519.gy, dev)
     _, _, nbw = comb.device_tables(WEI25519, WEI25519.gx, WEI25519.gy, dev)
-    jacw = comb.comb_planes(kw, limbsw, nbw, WEI25519)
+    jacw = comb.comb_planes(kw, mmaw, nbw, WEI25519)
     aw, bw = _below(rng, batch, wf.p, dev), _below(rng, batch, wf.p, dev)
 
     chains = {f"comb_chains{c}" + (f"_unroll{u}" if u > 1 else ""): (c, u, False)
@@ -173,28 +182,30 @@ def workloads(batch: int, dev) -> dict:
         "glv": lambda: kglv.glv_planes(packed, xm, ym, k1, strict=False),
         "glv_strict": lambda: kglv.glv_planes(packed, xm, ym, k1, strict=True),
         "ladder": lambda: ladder.ladder_planes(s, pt.x, pt.y),
-        "comb": lambda: comb.comb_planes(s, limbs, nb),
-        "comb_strict": lambda: comb.comb_planes(s, limbs, nb, strict=True),
+        "comb": lambda: comb.comb_planes(s, mma, nb),
+        "comb_strict": lambda: comb.comb_planes(s, mma, nb, strict=True),
         "comb_tree": lambda: comb.comb_tree_planes(s, limbs, nb),
         "comb_pipe": lambda: comb.comb_pipe_planes(s, limbs, nb),
-        **{k: (lambda c=c, u=u, st=st: comb.comb_chains_planes(s, limbs, nb, P256, c, u, st))
+        **{k: (lambda c=c, u=u, st=st: comb.comb_chains_planes(s, limbs, mma, nb, P256, c, u,
+                                                               st))
            for k, (c, u, st) in chains.items()},
         "affine": lambda: affine.affine_planes(*jac),
         "field_probe": lambda: field_ops.probe(a, b),
-        "comb_secp256k1": lambda: comb.comb_planes(s1, limbs1, nb1, k1),
-        "comb_strict_secp256k1": lambda: comb.comb_planes(s1, limbs1, nb1, k1, strict=True),
+        "comb_secp256k1": lambda: comb.comb_planes(s1, mma1, nb1, k1),
+        "comb_strict_secp256k1": lambda: comb.comb_planes(s1, mma1, nb1, k1, strict=True),
         "affine_secp256k1": lambda: affine.affine_planes(*jac1, k1),
         "field_probe_secp256k1": lambda: field_ops.probe(a1, b1, k1.field),
         "mladder": lambda: mladder.mladder_planes(kw, uw, wf, x25519.A24, 255),
         "x25519_xdivz": lambda: mladder.xdivz(x2, z2),
-        "comb_w25519": lambda: comb.comb_planes(kw, limbsw, nbw, WEI25519),
+        "comb_w25519": lambda: comb.comb_planes(kw, mmaw, nbw, WEI25519),
+        "comb_strict_w25519": lambda: comb.comb_planes(kw, mmaw, nbw, WEI25519, strict=True),
         "affine_w25519": lambda: affine.affine_planes(*jacw, WEI25519),
         "field_probe_w25519": lambda: field_ops.probe(aw, bw, wf),
-        **_schedules("secp256k1", k1, s1, limbs1, nb1, chains),
-        **_schedules("w25519", WEI25519, kw, limbsw, nbw, chains),
-        **_general("p256", P256, s, limbs, nb),
-        **_general("secp256k1", k1, s1, limbs1, nb1),
-        **_general("w25519", WEI25519, kw, limbsw, nbw),
+        **_schedules("secp256k1", k1, s1, limbs1, mma1, nb1, chains),
+        **_schedules("w25519", WEI25519, kw, limbsw, mmaw, nbw, chains),
+        **_general("p256", P256, s, mma, nb),
+        **_general("secp256k1", k1, s1, mma1, nb1),
+        **_general("w25519", WEI25519, kw, mmaw, nbw),
         **_wide(batch, dev, rng),
     }
 
@@ -205,14 +216,14 @@ import ecsimd_tpu_torch
 from ecsimd_tpu_torch.kernels import _build
 for m in pkgutil.walk_packages(ecsimd_tpu_torch.__path__, "ecsimd_tpu_torch."):
     importlib.import_module(m.name)
-print(json.dumps({k.symbol: [k.n_pointers, k.n_ints] for k in gc.get_objects()
-                  if isinstance(k, _build.Kernel)}))
+print(json.dumps({k.symbol: [k.n_pointers, k.n_ints, getattr(k, "layout", None)]
+                  for k in gc.get_objects() if isinstance(k, _build.Kernel)}))
 """
 
 
-def declared(checkout: Path) -> dict[str, tuple[int, int]]:
-    """{C entry: (n_pointers, n_ints)} as ``checkout``'s own package declares
-    its kernels, read by a Python process run in that checkout."""
+def declared(checkout: Path) -> dict[str, tuple[int, int, str | None]]:
+    """{C entry: (n_pointers, n_ints, layout)} as ``checkout``'s own package
+    declares its kernels, read by a Python process run in that checkout."""
     env = {**os.environ, "PYTHONPATH": str(checkout.resolve())}
     out = subprocess.run([sys.executable, "-c", _DECLARED], cwd=checkout, env=env,
                          capture_output=True, text=True, check=True, timeout=300).stdout
@@ -252,18 +263,21 @@ def main(argv=None):
         torch.cuda.synchronize()
         new = any(not hasattr(other.lib, k.symbol) for k, *_ in launches)
         labs = ("this",) if new else ("other", "this")
-        counts = {"this": {k.symbol: (k.n_pointers, k.n_ints) for k, *_ in launches},
+        counts = {"this": {k.symbol: (k.n_pointers, k.n_ints, k.layout) for k, *_ in launches},
                   "other": other_args}
         fns = {}
         for lab, b in (("this", this), ("other", other)):
             if lab in labs:
                 fns[lab] = []
                 for k, ts, n, ints in launches:
-                    n_ptr, n_int = counts[lab][k.symbol]
+                    n_ptr, n_int, layout = counts[lab][k.symbol]
                     if n_ptr > len(ts) or n_int > len(ints):
                         raise RuntimeError(f"{name} ({lab}): {k.symbol} takes more arguments "
                                            f"than this checkout's wrapper gave it")
-                    fns[lab].append((_build.entry(b.lib, k.symbol, n_ptr, n_int), ts[:n_ptr], n,
+                    ts = ts[:n_ptr]
+                    if k.layout == "mma" and layout != "mma":
+                        ts = [ts[0], _limbs_for(ts[1], dev), *ts[2:]]
+                    fns[lab].append((_build.entry(b.lib, k.symbol, n_ptr, n_int), ts, n,
                                      ints[:n_int]))
         # the results: every tensor but the scratch
         tensors = [t for k, ts, _, _ in launches for t in ts[:len(ts) - k.n_scratch]]
@@ -320,6 +334,15 @@ def main(argv=None):
     print(smi)
     if not all(r["exact"] is not False for r in results):
         raise SystemExit("outputs differ between the two libraries")
+
+
+def _limbs_for(mma: torch.Tensor, dev) -> torch.Tensor:
+    """``comb.kernel_tables`` of the curve whose generator's
+    ``comb.mma_tables`` is ``mma`` (the tables the workloads build)."""
+    for curve in _build.CURVES:
+        if comb.mma_tables(curve, curve.gx, curve.gy, dev).data_ptr() == mma.data_ptr():
+            return comb.kernel_tables(curve, curve.gx, curve.gy, dev)
+    raise ValueError("not the u8 comb table of a curve's generator")
 
 
 def _sass_functions(lib: Path) -> dict:

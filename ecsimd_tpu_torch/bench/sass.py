@@ -3,8 +3,8 @@
     python -m ecsimd_tpu_torch.bench.sass [--lib PATH] [KERNEL_SUBSTRING ...]
 
 prints one JSON object: for each kernel whose (mangled) name contains one of
-the given substrings (default: kernels E, on its five curves, and F,
-plain and strict), its
+the given substrings (default: kernels E, on its five curves, F, and B
+and the generic L on their five curves, plain and strict), its
 static count of SASS instructions by class, the loops (the address ranges
 of backward branches) with the classes of the instructions each holds
 outside its inner loops, and, where the loop nest has the shape the source
@@ -15,16 +15,21 @@ sit in the kernel's listing after its own code, from each CALL's target to
 the first RET: each is counted once by class (``callees``, largest
 multiply count first: the multiply, then the squaring), kept out of the
 kernel's own loops, and its instructions enter the dynamic count a lane
-once for each call the lane makes. Without ``--lib`` it
+once for each call the lane makes. The generic L's loops run as its
+launch's ints say: the count is at chains 2, unroll 1 (one position a
+step), and code in a branch that a lane takes only at some positions (a
+chain's fold) counts at every position. Without ``--lib`` it
 builds (or reuses) this checkout's library. Needs the CUDA toolkit's
 ``cuobjdump``.
 
 Classes: ``imad`` the multiply-add pipe (IMAD, IMAD.WIDE, IMAD.HI, IMAD.X,
 IMUL), ``imad_move`` the moves, adds and shifts that ptxas also issues
 there (IMAD.MOV, IMAD.IADD, IMAD.SHL), ``alu`` the integer ALU (IADD3,
-LOP3, SHF, SEL, ISETP, LEA, PRMT, MOV, ...), ``uniform`` the uniform
-datapath (U*), ``lds`` / ``sts`` shared memory (``lds128`` the 16-byte
-loads among them), ``ldl`` / ``stl`` local memory (spills, and the
+LOP3, SHF, SEL, ISETP, LEA, PRMT, MOV, ...), ``imma`` the tensor cores'
+integer products (IMMA), ``shfl`` the warp shuffles, ``uniform`` the
+uniform datapath (U*), ``lds`` / ``sts`` shared memory (``lds128`` the
+16-byte loads among them, ``ldsm`` the ldmatrix loads), ``ldl`` / ``stl``
+local memory (spills, and the
 registers a call saves), ``ldg`` / ``stg`` device memory (``ldg128`` the
 16-byte loads among them, ``ldg_nc`` the loads through the read-only
 path, ``ldg128_nc`` the 16-byte ones among those),
@@ -44,10 +49,14 @@ from pathlib import Path
 # kernel E on P-384 and P-521: their field multiplies are calls
 WIDE_KERNELS = tuple(f"window{st}_{tag}_kernel" for tag in ("p384", "p521")
                      for st in ("", "_strict"))
+# kernels B and the generic L, the comb's table read on the tensor cores
+COMB_TAGS = ("p256", "secp256k1", "w25519", "p384", "p521")
+COMB_KERNELS = tuple(f"comb{kind}{st}_{tag}_kernel" for kind in ("", "_general")
+                     for tag in COMB_TAGS for st in ("", "_strict"))
 DEFAULT_KERNELS = ("window_p256_kernel", "window_strict_p256_kernel", "glv_secp256k1_kernel",
                    "glv_strict_secp256k1_kernel", "window_secp256k1_kernel",
                    "window_strict_secp256k1_kernel", "window_w25519_kernel",
-                   "window_strict_w25519_kernel") + WIDE_KERNELS
+                   "window_strict_w25519_kernel") + WIDE_KERNELS + COMB_KERNELS
 
 # Loop nests as the sources write them, outermost first, loops in address
 # order: (name, iterations each time the loop is entered, inner loops).
@@ -68,11 +77,64 @@ def _wide_e(words, windows):
                                            [("dbl", 4, [])])])])]
 
 
+# The comb at npos positions and N words a coordinate (32, 48, 66; 8,
+# 12, 17). Kernel B (comb_mma_lane.cuh): the copies of positions 0 and 1
+# (16-byte chunks over 128 threads: N, ceil(N / 2) a thread, thread 0's
+# count), then positions 1 .. npos - 1, each staging the next but the
+# last. The generic L (comb_general_lane.cuh) at one position a step:
+# steps 0 and 1 staged, then npos steps, each but the first two staging
+# the next, each but the first reading one position (the first step's
+# position 0 is read before the loop).
+def _comb_b(npos, n):
+    c1 = -(-n // 2)
+    return [("stage0", n, []), ("stage1", c1, []),
+            ("position", npos - 1, [("stage", Fraction((npos - 2) * c1, npos - 1), [])])]
+
+
+def _comb_general(npos, n):
+    c1 = -(-n // 2)
+    return [("step0", 1, [("copy", n, [])]), ("step1", 1, [("copy", c1, [])]),
+            ("step", npos, [("stage", Fraction(npos - 2, npos), [("copy", c1, [])]),
+                            ("position", Fraction(npos - 1, npos), [])])]
+
+
+# The masked scan the two replaced (the parent of the tensor-core read), so
+# that a library built before it reads too (--lib): its copies of 16-byte
+# vectors (2 padded N words an entry), and its scan of each position, 4
+# entries an iteration at 256 bits, 2 on P-384 and P-521, in loops of
+# their own inside the position loop (position 0's at j = 0 only).
+def _scan_b(npos, n):
+    ev = 2 * (-(-n // 4))
+    per = 4 if n == 8 else 2
+    return [("stage0", 2 * ev, []),
+            ("position", npos, [("stage", Fraction((npos - 1) * ev, npos), []),
+                                ("scan0", Fraction(256 // per, npos), []),
+                                ("scan", Fraction((npos - 1) * (128 // per), npos), [])])]
+
+
+def _scan_general(npos, n):
+    ev = 2 * (-(-n // 4))
+    per = 4 if n == 8 else 2
+    return [("step0", 1, [("copy", 2 * ev, [])]),
+            ("step", npos, [("stage", Fraction(npos - 1, npos), [("copy", ev, [])]),
+                            ("position", 1, [("scan0", Fraction(256 // per, npos), []),
+                                             ("scan", Fraction((npos - 1) * (128 // per), npos),
+                                              [])])])]
+
+
+_COMB_SIZES = {"p256": (32, 8), "secp256k1": (32, 8), "w25519": (32, 8), "p384": (48, 12),
+               "p521": (66, 17)}
 TRIPS = {"glv_secp256k1_kernel": _F, "glv_strict_secp256k1_kernel": _F} | {
     f"window{st}_{tag}_kernel": _E for st in ("", "_strict")
     for tag in ("p256", "secp256k1", "w25519")} | {
     f"window{st}_{tag}_kernel": _wide_e(words, 4 * digits) for st in ("", "_strict")
-    for tag, words, digits in (("p384", 12, 24), ("p521", 17, 33))}
+    for tag, words, digits in (("p384", 12, 24), ("p521", 17, 33))} | {
+    f"comb{kind}{st}_{tag}_kernel": fn(*size) for kind, fn in (("", _comb_b),
+                                                                ("_general", _comb_general))
+    for tag, size in _COMB_SIZES.items() for st in ("", "_strict")}
+TRIPS_SCAN = {f"comb{kind}{st}_{tag}_kernel": fn(*size)
+              for kind, fn in (("", _scan_b), ("_general", _scan_general))
+              for tag, size in _COMB_SIZES.items() for st in ("", "_strict")}
 
 _LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)\s*([^;]*);")
 _FUNC = re.compile(r"Function\s*:\s*(\S+)")
@@ -90,6 +152,12 @@ def classify(op: str) -> str:
         return "imad_move" if op.startswith(("IMAD.MOV", "IMAD.IADD", "IMAD.SHL")) else "imad"
     if base == "LDS":
         return "lds128" if ".128" in op else "lds"
+    if base == "LDSM":
+        return "ldsm"
+    if base == "IMMA":
+        return "imma"
+    if base == "SHFL":
+        return "shfl"
     if base in ("STS", "LDL", "STL", "LDG", "STG"):
         return base.lower()
     if base in _CONTROL:
@@ -120,7 +188,7 @@ def _mix(instrs) -> dict[str, int]:
     for _, op, _ in instrs:
         c = classify(op)
         counts[c] = counts.get(c, 0) + 1
-        if c == "lds128":
+        if c in ("lds128", "ldsm"):
             counts["lds"] = counts.get("lds", 0) + 1
         if c == "ldg":
             wide, nc = ".128" in op, ".CONSTANT" in op
@@ -288,9 +356,13 @@ def report(lib: Path, names=DEFAULT_KERNELS) -> dict:
         instrs = funcs[match[0]]
         tree = loops(own(instrs))
         called = sorted(callees(instrs).items(), key=lambda kv: -_mix(kv[1]).get("imad", 0))
+        per_lane = None
+        for trips in (TRIPS.get(name), TRIPS_SCAN.get(name)):
+            if per_lane is None and trips is not None:
+                per_lane = dynamic(instrs, tree, trips)
         out[name] = {"function": match[0], "static": _mix(own(instrs)), "loops": tree,
                      "callees": [{"address": tgt, "static": _mix(fn)} for tgt, fn in called],
-                     "per_lane": dynamic(instrs, tree, TRIPS[name]) if name in TRIPS else None}
+                     "per_lane": per_lane}
     return out
 
 

@@ -24,32 +24,33 @@
 //
 // `unroll` changes no value. It sets how many positions a step stages in
 // shared memory as one group (cp.async, double buffered; one pair of
-// barriers a group): g = unroll, at most 4 at 256 bits (72 KiB, three
-// blocks an SM, as the templated kernel L) and 2 on P-384 and P-521 (60 and
-// 100 KiB: the first slot holds position 0, 256 entries; two blocks an SM),
-// lowered to a divisor of npos (kernels/comb.general_group computes the
-// same on the host).
+// barriers a group): g = unroll, at most 4 at 256 bits (74 KiB with the
+// row buffers, three blocks an SM, as the templated kernel L) and 2 on
+// P-384 and P-521 (62 and 87 KiB: the first slot holds position 0, 256
+// entries; two blocks an SM at their registers), lowered to a divisor of
+// npos (kernels/comb.general_group computes the same on the host).
 //
-// Constant time, memory accesses included: no address depends on the
-// scalar. Every position is staged whole and every thread reads every entry
-// of it with masks (comb_scan.cuh); which slot, which position and whether
-// a position reseeds a chain are set by the loop counters and the launch's
-// ints, the same in every lane.
+// Constant time, memory accesses included: no address and no branch
+// depends on the scalar. Every position is staged whole in the layout of
+// kernel B (kernels/comb.mma_layout), and each warp selects its lanes'
+// entries with u8 one-hot products on the tensor cores (comb_mma.cuh, which
+// says how); which slot, which position and whether a position reseeds a
+// chain are set by the loop counters and the launch's ints, the same in
+// every lane.
 //
 // What bounds it: the field multiplies of npos - chains mixed adds, chains -
-// 1 general adds (12 M + 4 S) and the fix-up, beside the masked scan of
-// every position (as kernel B).
+// 1 general adds (12 M + 4 S) and the fix-up; the selection adds, a lane
+// and a position, what it adds to kernel B (comb.cu).
 //
 // This header holds the field-independent staging, the kernel template
 // (EC_COMB_GENERAL_KERNEL, two a namespace) and the launcher; the lane is
-// comb_general_lane.cuh's, included inside the field's namespace. One
-// source a curve (comb_general.cu on P-256, comb_general_<tag>.cu), so that
-// the builds run side by side.
+// comb_general_lane.cuh's, included inside the field's namespace after
+// comb_lane.cuh and comb_mma_lane.cuh. One source a curve (comb_general.cu
+// on P-256, comb_general_<tag>.cu), so that the builds run side by side.
 
 #pragma once
 
-#include "comb_scan.cuh"
-#include "smem.cuh"
+#include "comb_mma.cuh"
 
 namespace general {
 
@@ -59,20 +60,37 @@ constexpr int group_cap() {
   return N <= 8 ? 4 : 2;
 }
 
+// The bytes of the generic kernel L's shared memory at N words a coordinate
+// and g positions a step: buffer 0 (position 0's slot and g - 1 slots of
+// another position), buffer 1 (g slots), the row buffers.
+template <int N>
+constexpr int smem_bytes(int g) {
+  using L = comb_mma::Layout<N>;
+  return L::kBytes0 + (2 * g - 1) * L::kBytes + comb_mma::kRowBytes;
+}
+
 // Slot q of buffer b, g positions a step: buffer 0 is position 0's slot
-// (kSlot0 vectors) and g - 1 slots of kSlot vectors, buffer 1 g slots.
-template <int kSlot0, int kSlot>
-__device__ __forceinline__ uint4* slot(uint4* smem, int b, int q, int g) {
-  if (b == 0) return smem + (q == 0 ? 0 : kSlot0 + (q - 1) * kSlot);
-  return smem + kSlot0 + (g - 1 + q) * kSlot;
+// and g - 1 slots of another position, buffer 1 g slots.
+template <int N>
+__device__ __forceinline__ uint8_t* slot(uint8_t* smem, int b, int q, int g) {
+  using L = comb_mma::Layout<N>;
+  if (b == 0) return smem + (q == 0 ? 0 : L::kBytes0 + (q - 1) * L::kBytes);
+  return smem + L::kBytes0 + (g - 1 + q) * L::kBytes;
+}
+
+// The calling warp's row buffer, after the slots of g positions a step.
+template <int N>
+__device__ __forceinline__ uint32_t* rows(uint8_t* smem, int g) {
+  using L = comb_mma::Layout<N>;
+  return comb_mma::warp_rows(smem + L::kBytes0 + (2 * g - 1) * L::kBytes);
 }
 
 // Stage positions s g .. s g + g - 1 into buffer s & 1, as one group.
-template <int kEV, int kSlot0, int kSlot>
-__device__ __forceinline__ void stage_step(const uint4* tables, int s, int g, uint4* smem) {
+template <int N>
+__device__ __forceinline__ void stage_step(const uint8_t* tables, int s, int g, uint8_t* smem) {
 #pragma unroll 1
   for (int q = 0; q < g; ++q) {
-    comb::stage_copy<kEV>(tables, s * g + q, slot<kSlot0, kSlot>(smem, s & 1, q, g));
+    comb_mma::stage_copy<N>(tables, s * g + q, slot<N>(smem, s & 1, q, g));
   }
   comb::commit_staged();
 }
@@ -87,13 +105,14 @@ using comb::kThreads;
 // nothing: every thread takes part in the block's staging and barriers.
 #define EC_COMB_GENERAL_KERNEL(NAME, NS, STRICT, MIN_BLOCKS)                                \
   __global__ void __launch_bounds__(kThreads, MIN_BLOCKS)                                  \
-  NAME(const int32_t* __restrict__ scalars, const uint4* __restrict__ tables,              \
+  NAME(const int32_t* __restrict__ scalars, const uint8_t* __restrict__ tables,           \
        const int32_t* __restrict__ negbase, int32_t* __restrict__ ax,                      \
        int32_t* __restrict__ ay, int32_t* __restrict__ z, int64_t B, int per, int group) { \
     extern __shared__ uint4 smem[];                                                        \
     const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;                      \
     NS::comb_general_lane<STRICT>(scalars, tables, negbase, ax, ay, z, B,                  \
-                                  i < B ? i : B - 1, i < B, smem, per, group);             \
+                                  i < B ? i : B - 1, i < B,                                \
+                                  reinterpret_cast<uint8_t*>(smem), per, group);           \
   }
 
 // Launch `kernel` (N words a coordinate, npos positions) at `chains` and
@@ -101,7 +120,7 @@ using comb::kThreads;
 // for a schedule the JAX package rejects (npos not a multiple of chains *
 // unroll, strict with more than one chain).
 template <int N, int kNpos, class Kernel>
-int launch_general(Kernel kernel, bool strict, const int32_t* scalars, const int32_t* tables,
+int launch_general(Kernel kernel, bool strict, const int32_t* scalars, const uint8_t* tables,
                    const int32_t* negbase, int32_t* ax, int32_t* ay, int32_t* z, int64_t B,
                    int64_t chains, int64_t unroll, void* stream) {
   if (chains < 1 || unroll < 1 || kNpos % (chains * unroll) != 0 || (strict && chains != 1)) {
@@ -110,15 +129,13 @@ int launch_general(Kernel kernel, bool strict, const int32_t* scalars, const int
   int group = unroll < general::group_cap<N>() ? (int)unroll : general::group_cap<N>();
   while (kNpos % group != 0) --group;
   if (B > 0) {
-    using L = comb::Layout<N>;
-    const int bytes =
-        (L::kBufVecs + (2 * group - 1) * comb::kHalfEntries * L::kEntryVecs) * (int)sizeof(uint4);
+    const int bytes = general::smem_bytes<N>(group);
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return (int)err;
     const int64_t blocks = (B + kThreads - 1) / kThreads;
     kernel<<<(unsigned)blocks, kThreads, bytes, (cudaStream_t)stream>>>(
-        scalars, reinterpret_cast<const uint4*>(tables), negbase, ax, ay, z, B,
+        scalars, tables, negbase, ax, ay, z, B,
         (int)(kNpos / chains), group);
   }
   return (int)cudaGetLastError();

@@ -1,8 +1,8 @@
 // The generic kernel L's lane, the comb's chains walked in kernel B's order
 // with a running total, over the field of the including namespace (sm_90a).
 // comb_general.cu and comb_general_<tag>.cu include this file inside the
-// field's namespace, after its coz header, comb_general.cuh and
-// comb_lane.cuh, so the lane is written once; the file has no include
+// field's namespace, after its coz header, comb_general.cuh, comb_lane.cuh
+// and comb_mma_lane.cuh, so the lane is written once; the file has no include
 // guard and includes nothing. comb_general.cuh says what the kernel
 // computes and how.
 
@@ -10,41 +10,52 @@
 // positions staged a step. Every thread takes part in the block's staging
 // and barriers, and only active lanes store.
 template <bool kStrict>
-__device__ __forceinline__ void comb_general_lane(const int32_t* scalars, const uint4* tables,
+__device__ __forceinline__ void comb_general_lane(const int32_t* scalars, const uint8_t* tables,
                                                   const int32_t* negbase, int32_t* ax_out,
                                                   int32_t* ay_out, int32_t* z_out, int64_t B,
-                                                  int64_t i, bool active, uint4* smem, int per,
+                                                  int64_t i, bool active, uint8_t* smem, int per,
                                                   int group) {
-  constexpr int kEV = comb::Layout<kWords>::kEntryVecs;
-  constexpr int kSlot0 = comb::Layout<kWords>::kBufVecs;
-  constexpr int kSlot = comb::kHalfEntries * kEV;
+  uint32_t* const rows = general::rows<kWords>(smem, group);
   const int steps = kCombPositions / group;
   fe x, y, z;                                  // the running chain
   fe tx = fe_zero(), ty = fe_zero(), tz = fe_zero();  // the total of the chains before it
-  general::stage_step<kEV, kSlot0, kSlot>(tables, 0, group, smem);
-  int left = 0;  // positions left in the running chain
+  // step 0, and step 1 in flight meanwhile; position 0 seeds the first chain
+  general::stage_step<kWords>(tables, 0, group, smem);
+  if (steps > 1) {
+    general::stage_step<kWords>(tables, 1, group, smem);
+    comb::wait_staged<1>();
+  } else {
+    comb::wait_staged<0>();
+  }
+  __syncthreads();
+  read_entry_mma(general::slot<kWords>(smem, 0, 0, group), rows, 0,
+                 comb::entry_index<kDigits>(scalars, B, i, 0), x, y);
+  z = fe_one();
+  int left = per - 1;  // positions left in the running chain
 #pragma unroll 1
   for (int s = 0; s < steps; ++s) {
-    if (s + 1 < steps) {
-      general::stage_step<kEV, kSlot0, kSlot>(tables, s + 1, group, smem);
-      comb::wait_staged<1>();
-    } else {
-      comb::wait_staged<0>();
+    if (s > 0) {  // step s was staged during step s - 1
+      if (s + 1 < steps) {
+        general::stage_step<kWords>(tables, s + 1, group, smem);
+        comb::wait_staged<1>();
+      } else {
+        comb::wait_staged<0>();
+      }
+      __syncthreads();
     }
-    __syncthreads();
 #pragma unroll 1
-    for (int q = 0; q < group; ++q) {
+    for (int q = s == 0 ? 1 : 0; q < group; ++q) {
       const int j = s * group + q;
       fe ex, ey;
-      read_entry(general::slot<kSlot0, kSlot>(smem, s & 1, q, group), j,
-                 comb::entry_index<kDigits>(scalars, B, i, j), ex, ey);
+      read_signed_entry_mma(general::slot<kWords>(smem, s & 1, q, group), rows,
+                            comb::entry_index<kDigits>(scalars, B, i, j), ex, ey);
       if (left == 0) {  // the first position of a chain: fold the last one, reseed
         if constexpr (!kStrict) {
           if (j == per) {
             tx = x;
             ty = y;
             tz = z;
-          } else if (j > per) {
+          } else {
             fe h, r;
             jac_add(tx, ty, tz, x, y, z, tx, ty, tz, h, r);
           }

@@ -13,6 +13,7 @@
 
 namespace p384 {
 #include "comb_lane.cuh"
+#include "comb_mma_lane.cuh"
 #include "comb_general_lane.cuh"
 }  // namespace p384
 
@@ -21,13 +22,14 @@ EC_COMB_GENERAL_KERNEL(comb_general_p384_kernel, p384, false, 1)
 EC_COMB_GENERAL_KERNEL(comb_general_strict_p384_kernel, p384, true, 1)
 }  // namespace
 
-// scalars: (24, B) int32 digit planes; tables: (6272, 24) int32 limbs
-// (kernels/comb.kernel_tables), 16-byte aligned; negbase: 48 int32 digits (x
+// scalars: (24, B) int32 digit planes; tables: 6272 x 96 bytes
+// (kernels/comb.mma_layout), 16-byte aligned; negbase: 48 int32 digits (x
 // then y) of -B, internal form; ax, ay, z: (24, B) outputs; chains, unroll: the
 // schedule (48 a multiple of chains * unroll; strict: one chain). Launches
 // on `stream` and returns cudaGetLastError(); <entry>_smem returns the dynamic
-// shared memory its last launch asked for (smem_granted).
-extern "C" int ec_comb_general_p384(const int32_t* scalars, const int32_t* tables,
+// shared memory its last launch asked for (smem_granted), <entry>_blocks the
+// blocks an SM holds at that size (blocks_granted).
+extern "C" int ec_comb_general_p384(const int32_t* scalars, const uint8_t* tables,
                                     const int32_t* negbase, int32_t* ax, int32_t* ay, int32_t* z,
                                     int64_t B, int64_t chains, int64_t unroll, void* stream) {
   return launch_general<p384::kWords, p384::kCombPositions>(
@@ -35,7 +37,7 @@ extern "C" int ec_comb_general_p384(const int32_t* scalars, const int32_t* table
       stream);
 }
 
-extern "C" int ec_comb_general_p384_strict(const int32_t* scalars, const int32_t* tables,
+extern "C" int ec_comb_general_p384_strict(const int32_t* scalars, const uint8_t* tables,
                                            const int32_t* negbase, int32_t* ax, int32_t* ay,
                                            int32_t* z, int64_t B, int64_t chains,
                                            int64_t unroll, void* stream) {
@@ -44,9 +46,13 @@ extern "C" int ec_comb_general_p384_strict(const int32_t* scalars, const int32_t
       unroll, stream);
 }
 
-extern "C" int ec_comb_general_p384_smem(void) {
-  return smem_granted(comb_general_p384_kernel);
+extern "C" int ec_comb_general_p384_smem(void) { return smem_granted(comb_general_p384_kernel); }
+extern "C" int ec_comb_general_p384_blocks(void) {
+  return blocks_granted(comb_general_p384_kernel, comb::kThreads);
 }
 extern "C" int ec_comb_general_p384_strict_smem(void) {
   return smem_granted(comb_general_strict_p384_kernel);
+}
+extern "C" int ec_comb_general_p384_strict_blocks(void) {
+  return blocks_granted(comb_general_strict_p384_kernel, comb::kThreads);
 }

@@ -13,6 +13,7 @@
 
 namespace p521 {
 #include "comb_lane.cuh"
+#include "comb_mma_lane.cuh"
 #include "comb_general_lane.cuh"
 }  // namespace p521
 
@@ -21,13 +22,14 @@ EC_COMB_GENERAL_KERNEL(comb_general_p521_kernel, p521, false, 1)
 EC_COMB_GENERAL_KERNEL(comb_general_strict_p521_kernel, p521, true, 1)
 }  // namespace
 
-// scalars: (33, B) int32 digit planes; tables: (8576, 40) int32 limbs
-// (kernels/comb.kernel_tables), 16-byte aligned; negbase: 66 int32 digits (x
+// scalars: (33, B) int32 digit planes; tables: 8576 x 136 bytes
+// (kernels/comb.mma_layout), 16-byte aligned; negbase: 66 int32 digits (x
 // then y) of -B, internal form; ax, ay, z: (33, B) outputs; chains, unroll: the
 // schedule (66 a multiple of chains * unroll; strict: one chain). Launches
 // on `stream` and returns cudaGetLastError(); <entry>_smem returns the dynamic
-// shared memory its last launch asked for (smem_granted).
-extern "C" int ec_comb_general_p521(const int32_t* scalars, const int32_t* tables,
+// shared memory its last launch asked for (smem_granted), <entry>_blocks the
+// blocks an SM holds at that size (blocks_granted).
+extern "C" int ec_comb_general_p521(const int32_t* scalars, const uint8_t* tables,
                                     const int32_t* negbase, int32_t* ax, int32_t* ay, int32_t* z,
                                     int64_t B, int64_t chains, int64_t unroll, void* stream) {
   return launch_general<p521::kWords, p521::kCombPositions>(
@@ -35,7 +37,7 @@ extern "C" int ec_comb_general_p521(const int32_t* scalars, const int32_t* table
       stream);
 }
 
-extern "C" int ec_comb_general_p521_strict(const int32_t* scalars, const int32_t* tables,
+extern "C" int ec_comb_general_p521_strict(const int32_t* scalars, const uint8_t* tables,
                                            const int32_t* negbase, int32_t* ax, int32_t* ay,
                                            int32_t* z, int64_t B, int64_t chains,
                                            int64_t unroll, void* stream) {
@@ -44,9 +46,13 @@ extern "C" int ec_comb_general_p521_strict(const int32_t* scalars, const int32_t
       unroll, stream);
 }
 
-extern "C" int ec_comb_general_p521_smem(void) {
-  return smem_granted(comb_general_p521_kernel);
+extern "C" int ec_comb_general_p521_smem(void) { return smem_granted(comb_general_p521_kernel); }
+extern "C" int ec_comb_general_p521_blocks(void) {
+  return blocks_granted(comb_general_p521_kernel, comb::kThreads);
 }
 extern "C" int ec_comb_general_p521_strict_smem(void) {
   return smem_granted(comb_general_strict_p521_kernel);
+}
+extern "C" int ec_comb_general_p521_strict_blocks(void) {
+  return blocks_granted(comb_general_strict_p521_kernel, comb::kThreads);
 }

@@ -4,7 +4,8 @@
 // say what the kernel computes, how it stays constant-time and what bounds
 // it. Here npos = 32.
 // 128 threads a block, three blocks an SM asked of ptxas (the most that
-// four staged positions, 72 KiB, let in), as the templated kernel L.
+// four staged positions and the row buffers, 74 KiB, let in), as the
+// templated kernel L.
 // Replaces ecsimd_tpu/kernels/comb.py:_comb_kernel with chains > 1 or
 // unroll > 1.
 
@@ -13,6 +14,7 @@
 
 namespace secp256k1 {
 #include "comb_lane.cuh"
+#include "comb_mma_lane.cuh"
 #include "comb_general_lane.cuh"
 }  // namespace secp256k1
 
@@ -21,13 +23,14 @@ EC_COMB_GENERAL_KERNEL(comb_general_secp256k1_kernel, secp256k1, false, 3)
 EC_COMB_GENERAL_KERNEL(comb_general_strict_secp256k1_kernel, secp256k1, true, 3)
 }  // namespace
 
-// scalars: (16, B) int32 digit planes; tables: (4224, 16) int32 limbs
-// (kernels/comb.kernel_tables), 16-byte aligned; negbase: 32 int32 digits (x
+// scalars: (16, B) int32 digit planes; tables: 4224 x 64 bytes
+// (kernels/comb.mma_layout), 16-byte aligned; negbase: 32 int32 digits (x
 // then y) of -B, internal form; ax, ay, z: (16, B) outputs; chains, unroll: the
 // schedule (32 a multiple of chains * unroll; strict: one chain). Launches
 // on `stream` and returns cudaGetLastError(); <entry>_smem returns the dynamic
-// shared memory its last launch asked for (smem_granted).
-extern "C" int ec_comb_general_secp256k1(const int32_t* scalars, const int32_t* tables,
+// shared memory its last launch asked for (smem_granted), <entry>_blocks the
+// blocks an SM holds at that size (blocks_granted).
+extern "C" int ec_comb_general_secp256k1(const int32_t* scalars, const uint8_t* tables,
                                     const int32_t* negbase, int32_t* ax, int32_t* ay, int32_t* z,
                                     int64_t B, int64_t chains, int64_t unroll, void* stream) {
   return launch_general<secp256k1::kWords, secp256k1::kCombPositions>(
@@ -35,7 +38,7 @@ extern "C" int ec_comb_general_secp256k1(const int32_t* scalars, const int32_t* 
       stream);
 }
 
-extern "C" int ec_comb_general_secp256k1_strict(const int32_t* scalars, const int32_t* tables,
+extern "C" int ec_comb_general_secp256k1_strict(const int32_t* scalars, const uint8_t* tables,
                                            const int32_t* negbase, int32_t* ax, int32_t* ay,
                                            int32_t* z, int64_t B, int64_t chains,
                                            int64_t unroll, void* stream) {
@@ -47,6 +50,12 @@ extern "C" int ec_comb_general_secp256k1_strict(const int32_t* scalars, const in
 extern "C" int ec_comb_general_secp256k1_smem(void) {
   return smem_granted(comb_general_secp256k1_kernel);
 }
+extern "C" int ec_comb_general_secp256k1_blocks(void) {
+  return blocks_granted(comb_general_secp256k1_kernel, comb::kThreads);
+}
 extern "C" int ec_comb_general_secp256k1_strict_smem(void) {
   return smem_granted(comb_general_strict_secp256k1_kernel);
+}
+extern "C" int ec_comb_general_secp256k1_strict_blocks(void) {
+  return blocks_granted(comb_general_strict_secp256k1_kernel, comb::kThreads);
 }

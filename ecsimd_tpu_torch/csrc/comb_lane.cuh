@@ -1,13 +1,16 @@
-// The comb's per-lane entry read and fix-up, and kernel B's per-lane chain,
-// over the field of the including namespace (sm_90a). comb.cu, comb_tree.cu,
-// comb_pipe.cu and kernel L's sources include this file inside namespaces
-// p256, secp256k1 and w25519, comb_p384.cu and comb_p521.cu inside p384
-// and p521, each after the field's coz header and comb_scan.cuh, so the
-// code is written once; the file has no include guard and includes
-// nothing. The table staging and the masked scan are field-independent
+// The comb's per-lane entry read and fix-up, over the field of the
+// including namespace (sm_90a). Kernel B (comb.cu, comb_p384.cu,
+// comb_p521.cu), J (comb_tree*.cu), K (comb_pipe*.cu) and L (comb_chains*.cu,
+// comb_unroll*.cu, comb_general*.cu) include this file inside namespaces
+// p256, secp256k1, w25519, p384 and p521, each after the field's coz header
+// and comb_scan.cuh, so the code is written once; the file has no include
+// guard and includes nothing. The table staging and the masked scan, which
+// J, K and the templated L read entries with, are field-independent
 // (comb_scan.cuh, namespace comb); the layout of an entry is the width's
 // (comb::Layout<kWords>), and a chain has 2 D positions (nbits / 8: 32,
-// 48 or 66).
+// 48 or 66). Kernel B and the generic L select their entries on the tensor
+// cores instead (comb_mma.cuh, comb_mma_lane.cuh) and use only comb_add
+// and comb_finish from here.
 
 constexpr int kCombPositions = 2 * kDigits;
 
@@ -58,39 +61,4 @@ __device__ __forceinline__ void comb_finish(fe x, fe y, fe z, const int32_t* sca
     fe_store(ay_out, B, i, fe_select(even, sy, y));
     fe_store(z_out, B, i, fe_select(even, sz, z));
   }
-}
-
-// One lane of the comb. Every thread of the block runs every position, the
-// block's staging and barriers included; `active` says whether lane i
-// exists, and only active lanes store.
-// `buf`: two buffers of the width's largest position.
-template <bool kStrict>
-__device__ __forceinline__ void comb_lane(
-    const int32_t* scalars, const uint4* tables, const int32_t* negbase, int32_t* ax_out,
-    int32_t* ay_out, int32_t* z_out, int64_t B, int64_t i, bool active,
-    uint4 (*buf)[comb::Layout<kWords>::kBufVecs]) {
-  constexpr int kEV = comb::Layout<kWords>::kEntryVecs;
-  fe x, y, z;
-  comb::stage_position<kEV>(tables, 0, buf[0]);
-#pragma unroll 1
-  for (int j = 0; j < kCombPositions; ++j) {
-    if (j + 1 < kCombPositions) {
-      comb::stage_position<kEV>(tables, j + 1, buf[(j + 1) & 1]);
-      comb::wait_staged<1>();
-    } else {
-      comb::wait_staged<0>();
-    }
-    __syncthreads();
-    const uint32_t e = comb::entry_index<kDigits>(scalars, B, i, j);
-    if (j == 0) {
-      read_entry(buf[0], 0, e, x, y);
-      z = fe_one();
-    } else {
-      fe ex, ey;
-      read_signed_entry(buf[j & 1], e, ex, ey);
-      comb_add<kStrict>(x, y, z, ex, ey, x, y, z);
-    }
-    __syncthreads();  // the next staging overwrites this buffer
-  }
-  comb_finish<kStrict>(x, y, z, scalars, negbase, ax_out, ay_out, z_out, B, i, active);
 }

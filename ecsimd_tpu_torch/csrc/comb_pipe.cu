@@ -5,9 +5,9 @@
 //
 // Replaces ecsimd_tpu/kernels/comb.py:_comb_kernel_pipe (chain="pipe"). The
 // TPU kernel gathers entry j + 1 on its matrix unit (a one-hot product)
-// while its vector unit adds entry j. Here the gather is kernel B's masked
-// scan of a position staged in shared memory (shared-memory loads and
-// masked ORs: the load/store and integer-logic pipes), and the add is the
+// while its vector unit adds entry j. Here the gather is the masked scan
+// (comb_scan.cuh) of a position staged in shared memory (shared-memory
+// loads and masked ORs: the load/store and integer-logic pipes), and the add is the
 // field arithmetic (the multiply-add pipe). So iteration j reads entry
 // j + 1 out of its staged position into registers and adds entry j, read
 // in the iteration before: the two have no data dependence, and the warp
@@ -23,9 +23,10 @@
 // a step reads is set by the loop counter.
 //
 // What bounds it: as kernel B, the chain's 32-bit multiply-adds (31 + 1
-// mixed adds of 7 M + 4 S) beside the masked scan (~68 K shared-memory
-// words per lane); the pipeline holds one more entry (16 words) in
-// registers than kernel B.
+// mixed adds of 7 M + 4 S), here beside the masked scan (~68 K
+// shared-memory words per lane, where kernel B selects on the tensor
+// cores); the pipeline holds one more entry (16 words) in registers than
+// the serial chain.
 
 #include "coz_p256.cuh"
 #include "coz_secp256k1.cuh"

@@ -1,11 +1,11 @@
 // Kernel K: the fixed-base comb's serial chain, software-pipelined, on
 // P-384, one lane per thread (NVIDIA Hopper, sm_90a): comb_pipe_lane.cuh's
 // chain over the P-384 field (12 32-bit words, field_p384.cuh), launched by
-// comb_wide.cuh with kernel B's two staging buffers (48 KiB of dynamic
+// comb_wide.cuh with two staging buffers of position 0 (48 KiB of dynamic
 // shared memory, 128 threads a block). comb_pipe.cu says what the kernel
 // computes, how it stays constant-time and what bounds it; here the chain
 // has 48 positions, position 0 is 24 KiB and each other 12 KiB, and the
-// pipeline holds one more entry (24 words) in registers than kernel B.
+// pipeline holds one more entry (24 words) in registers than the serial chain.
 // Its value is kernel B's, bit for bit. One source a curve, so that the
 // builds run side by side. Replaces
 // ecsimd_tpu/kernels/comb.py:_comb_kernel_pipe (chain="pipe").

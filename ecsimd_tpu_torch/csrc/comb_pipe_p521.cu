@@ -1,11 +1,11 @@
 // Kernel K: the fixed-base comb's serial chain, software-pipelined, on
 // P-521, one lane per thread (NVIDIA Hopper, sm_90a): comb_pipe_lane.cuh's
 // chain over the P-521 field (17 32-bit words, field_p521.cuh), launched by
-// comb_wide.cuh with kernel B's two staging buffers (80 KiB of dynamic
+// comb_wide.cuh with two staging buffers of position 0 (80 KiB of dynamic
 // shared memory, 128 threads a block). comb_pipe.cu says what the kernel
 // computes, how it stays constant-time and what bounds it; here the chain
 // has 66 positions, position 0 is 40 KiB and each other 20 KiB, and the
-// pipeline holds one more entry (34 words) in registers than kernel B.
+// pipeline holds one more entry (34 words) in registers than the serial chain.
 // Its value is kernel B's, bit for bit. One source a curve, so that the
 // builds run side by side. Replaces
 // ecsimd_tpu/kernels/comb.py:_comb_kernel_pipe (chain="pipe").

@@ -1,8 +1,10 @@
 // Staging and masked scan of the comb's table positions, shared by kernels
-// B (comb*.cu), J (comb_tree.cu), K (comb_pipe.cu) and L (comb_chains.cuh)
-// on every curve (sm_90a). Field-independent: an entry is the x limbs then
-// the y limbs (kernels/comb.kernel_tables), each coordinate padded to whole
-// 16-byte vectors — 16 32-bit words at 8 words a coordinate (the constants
+// J (comb_tree*.cu), K (comb_pipe*.cu) and the templated L (comb_chains.cuh)
+// on every curve (sm_90a); kernel B and the generic L take only its
+// constants, entry_index and cp.async groups (their read: comb_mma.cuh).
+// Field-independent: an entry is the x limbs then the y limbs
+// (kernels/comb.kernel_tables), each coordinate padded to whole 16-byte
+// vectors — 16 32-bit words at 8 words a coordinate (the constants
 // below, which J, K and L use), 24 on P-384 and 40 on P-521 (Layout<N>:
 // 17 words and 3 zero words a coordinate). The sign of an entry of
 // positions 1 .. npos - 1 and the choice of scan per position are in

@@ -33,7 +33,7 @@
 //
 // What bounds it: the 32-bit multiply-adds of 16 affine adds (4 M + 2 S),
 // 15 general adds (12 M + 4 S) and the fix-up (7 M + 4 S), beside the
-// masked scan (~68 K shared-memory words per lane, as kernel B); the 88 KiB
+// masked scan (~68 K shared-memory words per lane); the 88 KiB
 // of shared memory allow two blocks of 128 threads per SM.
 
 #include "coz_p256.cuh"

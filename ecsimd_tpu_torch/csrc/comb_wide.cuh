@@ -1,9 +1,9 @@
-// Kernels B and K on P-384 and P-521 (sm_90a): the kernel templates
-// (EC_COMB_WIDE_KERNEL, two a namespace; EC_COMB_PIPE_WIDE_KERNEL, one) and
-// their launcher, for comb_p384.cu, comb_p521.cu, comb_pipe_p384.cu and
-// comb_pipe_p521.cu. The lanes are comb_lane.cuh's and comb_pipe_lane.cuh's,
-// included inside the field's namespace; comb.cu and comb_pipe.cu say what
-// the kernels compute, how they stay constant-time and what bounds them.
+// Kernel K on P-384 and P-521 (sm_90a): the kernel template
+// (EC_COMB_PIPE_WIDE_KERNEL, one a namespace) and its launcher, for
+// comb_pipe_p384.cu and comb_pipe_p521.cu. The lane is comb_pipe_lane.cuh's,
+// included inside the field's namespace; comb_pipe.cu says what the kernel
+// computes, how it stays constant-time and what bounds it. (Kernel B on
+// these curves reads its entries on the tensor cores: comb_mma.cuh.)
 //
 // An entry is 2 Layout<N>::kCoordVecs 16-byte vectors (comb_scan.cuh), so
 // the two staging buffers of the largest position (position 0, 256
@@ -24,20 +24,9 @@ using comb::kThreads;
 template <int N>
 using Buffers = uint4[2][comb::Layout<N>::kBufVecs];
 
-// Lanes past the end of the batch run the chain on the last lane and store
-// nothing: every thread takes part in the block's staging and barriers.
-#define EC_COMB_WIDE_KERNEL(NAME, NS, STRICT)                                              \
-  __global__ void __launch_bounds__(kThreads)                                              \
-  NAME(const int32_t* __restrict__ scalars, const uint4* __restrict__ tables,              \
-       const int32_t* __restrict__ negbase, int32_t* __restrict__ ax,                      \
-       int32_t* __restrict__ ay, int32_t* __restrict__ z, int64_t B) {                     \
-    extern __shared__ uint4 smem[];                                                        \
-    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;                      \
-    NS::comb_lane<STRICT>(scalars, tables, negbase, ax, ay, z, B, i < B ? i : B - 1,       \
-                          i < B, *reinterpret_cast<Buffers<NS::kWords>*>(smem));           \
-  }
-
-// Kernel K: the same, over the pipelined lane.
+// Kernel K over the pipelined lane. Lanes past the end of the batch run the
+// chain on the last lane and store nothing: every thread takes part in the
+// block's staging and barriers.
 #define EC_COMB_PIPE_WIDE_KERNEL(NAME, NS)                                                 \
   __global__ void __launch_bounds__(kThreads)                                              \
   NAME(const int32_t* __restrict__ scalars, const uint4* __restrict__ tables,              \

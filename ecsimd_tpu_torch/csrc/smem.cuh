@@ -20,4 +20,19 @@ int smem_granted(Kernel kernel) {
   return err == cudaSuccess ? attr.maxDynamicSharedSizeBytes : -(int)err;
 }
 
+// The blocks of `threads` threads an SM holds of `kernel` at the dynamic
+// shared memory its launcher set (cudaOccupancyMaxActiveBlocksPerMultiprocessor),
+// or minus the CUDA error if a query fails.
+template <class Kernel>
+int blocks_granted(Kernel kernel, int threads) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  int blocks = 0;
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads,
+                                                        attr.maxDynamicSharedSizeBytes);
+  }
+  return err == cudaSuccess ? blocks : -(int)err;
+}
+
 }  // namespace

@@ -49,7 +49,7 @@ HEADERS = ("limbs.cuh", "limbs_ns.cuh", "mul256.cuh", "mul_wide.cuh", "field_p25
            "comb_tree_lane.cuh", "comb_pipe_lane.cuh", "comb_chains.cuh",
            "comb_chains_lane.cuh", "comb_wide.cuh", "smem.cuh", "comb_general.cuh",
            "comb_general_lane.cuh", "comb_tree_wide.cuh", "comb_tree_wide_lane.cuh",
-           "comb_tree_schedule.cuh")
+           "comb_tree_schedule.cuh", "comb_mma.cuh", "comb_mma_lane.cuh")
 # curve -> (the tag of its kernels' C names, the curve as a kernel's
 # ``replaces`` names it; none for P-256, the first curve ported)
 CURVE_TAGS = {P256: ("p256", None), SECP256K1: ("secp256k1", "secp256k1"),
@@ -74,8 +74,11 @@ class Kernel:
     """One CUDA kernel of the port: its C entry point, its source, the TPU
     kernel it replaces, its arguments (``n_pointers`` tensors, the last
     ``n_scratch`` of them scratch that holds no result, then the batch and
-    ``n_ints`` more int64 values) and the number of times it was
-    launched."""
+    ``n_ints`` more int64 values), the layout of the comb table it takes
+    (``"limbs"``: ``comb.kernel_tables``, ``"mma"``: ``comb.mma_tables``;
+    None for a kernel that takes none), the number of times it was launched
+    and those launches by lanes and ints (``shapes``: ``(batch, *ints)`` ->
+    launches)."""
 
     symbol: str
     source: str
@@ -84,6 +87,20 @@ class Kernel:
     n_ints: int = 0
     launches: int = 0
     n_scratch: int = 0
+    layout: str | None = None
+    shapes: dict = dataclasses.field(default_factory=dict)
+
+    def count(self, batch: int, *ints: int):
+        """Count one launch of ``batch`` lanes at ``ints``: each wrapper
+        calls this where it launches the kernel, and nowhere else."""
+        self.launches += 1
+        key = (batch, *ints)
+        self.shapes[key] = self.shapes.get(key, 0) + 1
+
+    def reset(self):
+        """Set the counts to 0."""
+        self.launches = 0
+        self.shapes.clear()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -186,11 +203,12 @@ def _entry(symbol: str, n_pointers: int, n_ints: int):
     return entry(library().lib, symbol, n_pointers, n_ints)
 
 
-def check_planes(name: str, t: torch.Tensor, shape: tuple[int, ...], device: torch.device):
-    """Raise unless ``t`` is a contiguous int32 tensor of ``shape`` on ``device``."""
-    if t.device != device or t.dtype != torch.int32 or tuple(t.shape) != shape:
+def check_planes(name: str, t: torch.Tensor, shape: tuple[int, ...], device: torch.device,
+                 dtype: torch.dtype = torch.int32):
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on ``device``."""
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != shape:
         raise ValueError(
-            f"{name}: expected int32 {shape} on {device}, got {t.dtype} "
+            f"{name}: expected {dtype} {shape} on {device}, got {t.dtype} "
             f"{tuple(t.shape)} on {t.device}"
         )
     if not t.is_contiguous():

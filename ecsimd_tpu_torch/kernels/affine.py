@@ -63,7 +63,7 @@ def affine_planes(x, y, z, curve: CurveSpec = P256):
         _build.check_planes(name, t, shape, x.device)
     ax, ay = (torch.empty(shape, dtype=torch.int32, device=x.device) for _ in range(2))
     _build.launch(kernel, [x, y, z, ax, ay], shape[1])
-    kernel.launches += 1
+    kernel.count(shape[1])
     return ax, ay
 
 

@@ -36,11 +36,15 @@ multi-chain adds cross-chain sums, a wider class of the same measure;
 
 No kernel reads a table word at an address that depends on the scalar, as
 the TPU kernel's one-hot read of the whole position does not: the block
-stages each position in shared memory and every lane scans all of it with
-masks. Their table layout (``kernel_tables``) keeps a position's entries as
-32-bit limbs, and only the positive half of positions 1..31 (the sign is a
-masked negation). The plain versions keep the indexed gather: they are the
-comparators, and run on the main path only for CPU tensors.
+stages each position in shared memory. Kernels B and the generic L select
+each lane's entry as the TPU kernel does, by a one-hot product, on the
+tensor cores (``csrc/comb_mma.cuh``): their table (``mma_tables``) holds
+each position as a u8 matrix, K-major. Kernels J, K and the templated L
+scan every entry with masks: their table (``kernel_tables``) keeps a
+position's entries as 32-bit limbs. Both keep only the positive half of
+positions 1..npos-1 (the sign is a masked negation). The plain versions
+keep the indexed gather: they are the comparators, and run on the main
+path only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -66,36 +70,42 @@ KERNEL = _build.Kernel(
     source="ecsimd_tpu_torch/csrc/comb.cu",
     replaces="ecsimd_tpu/kernels/comb.py:213 _comb_kernel",
     n_pointers=6,
+    layout="mma",
 )
 KERNEL_STRICT = _build.Kernel(
     symbol="ec_comb_p256_strict",
     source="ecsimd_tpu_torch/csrc/comb.cu",
     replaces="ecsimd_tpu/kernels/comb.py:213 _comb_kernel (strict=True)",
     n_pointers=6,
+    layout="mma",
 )
 KERNEL_SECP256K1 = _build.Kernel(
     symbol="ec_comb_secp256k1",
     source="ecsimd_tpu_torch/csrc/comb.cu",
     replaces="ecsimd_tpu/kernels/comb.py:213 _comb_kernel (secp256k1)",
     n_pointers=6,
+    layout="mma",
 )
 KERNEL_SECP256K1_STRICT = _build.Kernel(
     symbol="ec_comb_secp256k1_strict",
     source="ecsimd_tpu_torch/csrc/comb.cu",
     replaces="ecsimd_tpu/kernels/comb.py:213 _comb_kernel (secp256k1, strict=True)",
     n_pointers=6,
+    layout="mma",
 )
 KERNEL_W25519 = _build.Kernel(
     symbol="ec_comb_w25519",
     source="ecsimd_tpu_torch/csrc/comb.cu",
     replaces="ecsimd_tpu/kernels/comb.py:213 _comb_kernel (Wei25519, X25519 keygen)",
     n_pointers=6,
+    layout="mma",
 )
 KERNEL_W25519_STRICT = _build.Kernel(
     symbol="ec_comb_w25519_strict",
     source="ecsimd_tpu_torch/csrc/comb.cu",
     replaces="ecsimd_tpu/kernels/comb.py:213 _comb_kernel (Wei25519, strict=True)",
     n_pointers=6,
+    layout="mma",
 )
 # (curve, strict) -> kernel B instantiation
 KERNELS = {
@@ -112,6 +122,7 @@ for _curve in _build.WIDE_CURVES:
             replaces=f"ecsimd_tpu/kernels/comb.py:213 _comb_kernel ({_name}"
                      f"{', strict=True' if _st else ''})",
             n_pointers=6,
+            layout="mma",
         )
 # kernel L's (chains, unroll, strict) instantiations on every curve; chains
 # = unroll = 1 is kernel B
@@ -131,6 +142,7 @@ def _schedule_kernel(curve: CurveSpec, stem: str, source: str, replaces: str,
         source=f"ecsimd_tpu_torch/csrc/{source.format(tag='' if curve == P256 else '_' + tag)}",
         replaces=replaces + (f" ({opts})" if opts else ""),
         n_pointers=6,
+        layout="limbs",
     )
 
 
@@ -158,7 +170,7 @@ KERNELS_GENERAL = {
         curve, f"comb_general_{{tag}}{'_strict' if st else ''}", "comb_general{tag}.cu",
         "ecsimd_tpu/kernels/comb.py:213 _comb_kernel",
         f"any chains and unroll{', strict=True' if st else ''}; grid and permutation :624"),
-        n_ints=2)
+        n_ints=2, layout="mma")
     for curve in _build.CURVES for st in (False, True)
 }
 CHAINS = ("serial", "tree", "pipe")
@@ -334,8 +346,45 @@ def limb_layout(np_tables):
 @functools.cache
 def kernel_tables(curve: CurveSpec, bx: int, by: int, device: torch.device) -> torch.Tensor:
     """``limb_layout`` of the base's tables on ``device``, built once per
-    (curve, base, device)."""
+    (curve, base, device): the table of kernels J, K and the templated L."""
     return torch.tensor(limb_layout(base_tables(curve, bx, by)[0]), device=device)
+
+
+# the row buffers of kernels B and the generic L: per warp of a 128-thread
+# block, two slots of 32 rows of 8 bytes (csrc/comb_mma.cuh)
+MMA_ROW_BYTES = 4 * 2 * 32 * 8
+
+
+def mma_entry_bytes(d: int) -> int:
+    """Bytes of an entry of ``mma_layout`` at ``d`` digits a coordinate: x's
+    ceil(d / 2) 32-bit limbs then y's, no padding (64, 96, 136)."""
+    return 8 * ((d + 1) // 2)
+
+
+def mma_layout(np_tables):
+    """Kernels B's and the generic L's table layout from (npos, 256, 2D)
+    int32 digit tables: u8, position j a K-major matrix of
+    ``mma_entry_bytes(D)`` rows and K columns (row n: byte n of each entry,
+    its x limbs then its y limbs, each 32-bit limb little-endian; column k:
+    entry k), K = 256 for position 0 and 128 (magnitudes, the entries that
+    ``limb_layout`` keeps) for the others, the positions one after the
+    other. A one-hot row times a position's matrix is the entry: what the
+    kernels compute on the tensor cores."""
+    rows = limb_layout(np_tables).view(np.uint32)
+    d = np.asarray(np_tables).shape[2] // 2
+    n, w = (d + 1) // 2, coord_words(d)
+    entries = np.concatenate([rows[:, :n], rows[:, w:w + n]], axis=1)  # drop the padding
+    entries = np.ascontiguousarray(entries.astype("<u4")).view(np.uint8)  # (kept, 8n)
+    blocks = [entries[:NENT].T] + [entries[NENT + k:NENT + k + NENT // 2].T
+                                   for k in range(0, len(entries) - NENT, NENT // 2)]
+    return np.concatenate([b.reshape(-1) for b in blocks])
+
+
+@functools.cache
+def mma_tables(curve: CurveSpec, bx: int, by: int, device: torch.device) -> torch.Tensor:
+    """``mma_layout`` of the base's tables on ``device``, built once per
+    (curve, base, device): the table of kernels B and the generic L."""
+    return torch.tensor(mma_layout(base_tables(curve, bx, by)[0]), device=device)
 
 
 # --- entry indices and the plain comb ---------------------------------------------
@@ -569,11 +618,11 @@ def tree_schedule_header() -> str:
 
 def general_group(curve: CurveSpec, unroll: int) -> int:
     """Positions the generic kernel L stages a step at ``unroll``: unroll,
-    at most 4 at 256 bits (72 KiB of shared memory, three blocks an SM) and
-    2 on the wider curves (60 KiB on P-384, 100 KiB on P-521, two blocks an
-    SM), lowered to a divisor of npos (no accepted schedule needs that on
-    the port's curves). Its launcher computes the same; ``unroll`` changes
-    no value."""
+    at most 4 at 256 bits (74 KiB of shared memory, three blocks an SM) and
+    2 on the wider curves (62 KiB on P-384, 87 KiB on P-521, two blocks an
+    SM at their registers), lowered to a divisor of npos (no accepted
+    schedule needs that on the port's curves). Its launcher computes the
+    same; ``unroll`` changes no value."""
     npos = _npos(curve.field.nbits)
     group = min(unroll, 4 if curve.field.ndigits <= 16 else 2)
     while npos % group:
@@ -584,9 +633,17 @@ def general_group(curve: CurveSpec, unroll: int) -> int:
 def general_smem_bytes(curve: CurveSpec, unroll: int) -> int:
     """The dynamic shared memory of the generic kernel L at ``unroll``:
     position 0's slot (256 entries) and 2 g - 1 slots of 128 entries, g =
-    ``general_group``, each entry 2 ``coord_words(D)`` words."""
+    ``general_group``, each entry ``mma_entry_bytes(D)``, then the row
+    buffers."""
     g = general_group(curve, unroll)
-    return (NENT + (2 * g - 1) * NENT // 2) * 2 * coord_words(curve.field.ndigits) * 4
+    return (NENT + (2 * g - 1) * NENT // 2) * mma_entry_bytes(curve.field.ndigits) + MMA_ROW_BYTES
+
+
+def serial_smem_bytes(curve: CurveSpec) -> int:
+    """The dynamic shared memory of kernel B: position 0's buffer (256
+    entries, also every even position's), the odd positions' (128), the
+    row buffers."""
+    return (NENT + NENT // 2) * mma_entry_bytes(curve.field.ndigits) + MMA_ROW_BYTES
 
 
 def check_schedule(curve: CurveSpec, chain: str, chains: int, unroll: int, strict: bool):
@@ -607,30 +664,33 @@ def check_schedule(curve: CurveSpec, chain: str, chains: int, unroll: int, stric
 
 
 def _launch(kernel, scalars, tables, negbase_digits, curve: CurveSpec, *ints: int):
-    """Check the operands of a comb kernel (B, J, K or L) and launch it
-    with its ``ints``. Returns Jacobian (ax, ay, z) planes (internal
-    domain)."""
+    """Check the operands of a comb kernel (B, J, K or L), ``tables`` in the
+    kernel's own layout, and launch it with its ``ints``. Returns Jacobian
+    (ax, ay, z) planes (internal domain)."""
     d = curve.field.ndigits
     shape = (d, scalars.shape[-1])
     dev = scalars.device
-    npos = _npos(curve.field.nbits)
+    kept = NENT + (_npos(curve.field.nbits) - 1) * NENT // 2
     _build.check_planes("scalars", scalars, shape, dev)
-    _build.check_planes("tables", tables, (NENT + (npos - 1) * NENT // 2, 2 * coord_words(d)),
-                        dev)
+    if kernel.layout == "mma":
+        _build.check_planes("tables (mma_tables)", tables, (kept * mma_entry_bytes(d),), dev,
+                            torch.uint8)
+    else:
+        _build.check_planes("tables (kernel_tables)", tables, (kept, 2 * coord_words(d)), dev)
     _build.check_planes("negbase", negbase_digits, (2 * d,), dev)
     if tables.data_ptr() % 16:
         raise ValueError("tables: the comb kernels stage entries as 16-byte words; need "
                          "16-byte alignment")
     ax, ay, z = (torch.empty(shape, dtype=torch.int32, device=dev) for _ in range(3))
     _build.launch(kernel, [scalars, tables, negbase_digits, ax, ay, z], shape[1], *ints)
-    kernel.launches += 1
+    kernel.count(shape[1], *ints)
     return ax, ay, z
 
 
 def comb_planes(scalars, tables, negbase_digits, curve: CurveSpec = P256, strict: bool = False):
     """Run kernel B (``strict``: its complete-add instantiation) on (D, B)
-    int32 CUDA scalar planes with ``kernel_tables`` and the negbase digits
-    of ``device_tables``. Returns Jacobian (ax, ay, z) planes (internal
+    int32 CUDA scalar planes with ``mma_tables`` and the negbase digits of
+    ``device_tables``. Returns Jacobian (ax, ay, z) planes (internal
     domain)."""
     _build.require_cuda(scalars, "comb")
     kernel = KERNELS.get((curve, bool(strict)))
@@ -642,14 +702,16 @@ def comb_planes(scalars, tables, negbase_digits, curve: CurveSpec = P256, strict
 
 def comb_tree_planes(scalars, tables, negbase_digits, curve: CurveSpec = P256):
     """Run kernel J, the pairwise tree, on CUDA planes (operands as
-    ``comb_planes``); bit-exact with ``comb_tree_plain``."""
+    ``comb_planes``, but ``kernel_tables``); bit-exact with
+    ``comb_tree_plain``."""
     _build.require_cuda(scalars, "comb tree")
     return _launch(KERNELS_TREE[curve], scalars, tables, negbase_digits, curve)
 
 
 def comb_pipe_planes(scalars, tables, negbase_digits, curve: CurveSpec = P256):
     """Run kernel K, the pipelined serial chain, on CUDA planes (operands
-    as ``comb_planes``); bit-exact with kernel B and ``comb_plain``."""
+    as ``comb_planes``, but ``kernel_tables``); bit-exact with kernel B and
+    ``comb_plain``."""
     _build.require_cuda(scalars, "comb pipe")
     return _launch(KERNELS_PIPE[curve], scalars, tables, negbase_digits, curve)
 
@@ -658,44 +720,48 @@ def comb_general_planes(scalars, tables, negbase_digits, curve: CurveSpec = P256
                         chains: int = 1, unroll: int = 1, strict: bool = False):
     """Run the generic kernel L, any schedule of the serial chain that
     ``check_schedule`` accepts (``chains`` and ``unroll`` are the kernel's
-    int arguments), on CUDA planes (operands as ``comb_planes``);
-    bit-exact with ``comb_chains_plain`` (with one chain, with kernel B)."""
+    int arguments), on CUDA planes (operands as ``comb_planes``:
+    ``mma_tables``); bit-exact with ``comb_chains_plain`` (with one chain,
+    with kernel B)."""
     _build.require_cuda(scalars, "comb chains")
     check_schedule(curve, "serial", chains, unroll, strict)
     return _launch(KERNELS_GENERAL[(curve, bool(strict))], scalars, tables, negbase_digits,
                    curve, chains, unroll)
 
 
-def comb_chains_planes(scalars, tables, negbase_digits, curve: CurveSpec = P256,
+def comb_chains_planes(scalars, limbs, mma, negbase_digits, curve: CurveSpec = P256,
                        chains: int = 2, unroll: int = 1, strict: bool = False):
     """Run kernel L, ``chains`` independent chains taking ``unroll``
     positions each per staging step, on CUDA planes (operands as
-    ``comb_planes``): its templated instantiation where ``KERNELS_CHAINS``
-    has one, else the generic kernel (``comb_general_planes``); bit-exact
-    with ``comb_chains_plain`` (with one chain, with kernel B)."""
+    ``comb_planes``, with both tables: ``kernel_tables`` as ``limbs``,
+    ``mma_tables`` as ``mma``): its templated instantiation where
+    ``KERNELS_CHAINS`` has one (on ``limbs``), else the generic kernel
+    (``comb_general_planes``, on ``mma``); bit-exact with
+    ``comb_chains_plain`` (with one chain, with kernel B)."""
     _build.require_cuda(scalars, "comb chains")
     check_schedule(curve, "serial", chains, unroll, strict)
     kernel = KERNELS_CHAINS.get((curve, chains, unroll, bool(strict)))
     if kernel is None:
-        return comb_general_planes(scalars, tables, negbase_digits, curve, chains, unroll, strict)
-    return _launch(kernel, scalars, tables, negbase_digits, curve)
+        return comb_general_planes(scalars, mma, negbase_digits, curve, chains, unroll, strict)
+    return _launch(kernel, scalars, limbs, negbase_digits, curve)
 
 
-def schedule_planes(scalars, tables, negbase_digits, curve: CurveSpec = P256,
+def schedule_planes(scalars, limbs, mma, negbase_digits, curve: CurveSpec = P256,
                     chain: str = "serial", chains: int = 1, unroll: int = 1,
                     strict: bool = False):
     """The kernel of a schedule on CUDA planes (operands as
-    ``comb_planes``): J for the tree, K for the pipe, B for one chain at
-    unroll 1, else L (``comb_chains_planes``). Raises ``ValueError`` on a
-    schedule the JAX package rejects."""
+    ``comb_chains_planes``), each handed its own table: J for the tree, K
+    for the pipe (``limbs``), B for one chain at unroll 1 (``mma``), else L
+    (``comb_chains_planes``). Raises ``ValueError`` on a schedule the JAX
+    package rejects."""
     check_schedule(curve, chain, chains, unroll, strict)
     if chain == "tree":
-        return comb_tree_planes(scalars, tables, negbase_digits, curve)
+        return comb_tree_planes(scalars, limbs, negbase_digits, curve)
     if chain == "pipe":
-        return comb_pipe_planes(scalars, tables, negbase_digits, curve)
+        return comb_pipe_planes(scalars, limbs, negbase_digits, curve)
     if chains == unroll == 1:
-        return comb_planes(scalars, tables, negbase_digits, curve, strict)
-    return comb_chains_planes(scalars, tables, negbase_digits, curve, chains, unroll, strict)
+        return comb_planes(scalars, mma, negbase_digits, curve, strict)
+    return comb_chains_planes(scalars, limbs, mma, negbase_digits, curve, chains, unroll, strict)
 
 
 def scalar_mult_base(
@@ -728,7 +794,8 @@ def scalar_mult_base(
         else:
             ax, ay, z = comb_plain(scalars, tables, curve, negbase)
     else:
-        limbs = kernel_tables(curve, bx, by, scalars.device)
-        ax, ay, z = schedule_planes(scalars.contiguous(), limbs, negbase_digits, curve, chain,
+        dev = scalars.device
+        ax, ay, z = schedule_planes(scalars.contiguous(), kernel_tables(curve, bx, by, dev),
+                                    mma_tables(curve, bx, by, dev), negbase_digits, curve, chain,
                                     chains, unroll, strict)
     return JacobianPoint(GFp(ax, fs), GFp(ay, fs), GFp(z, fs), curve)

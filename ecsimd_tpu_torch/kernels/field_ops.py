@@ -95,7 +95,7 @@ def probe(a, b, fs: FieldSpec = P256_FIELD):
     _build.check_planes("b", b, shape, a.device)
     out = torch.empty((len(OPS),) + shape, dtype=torch.int32, device=a.device)
     _build.launch(kernel, [a, b, out], shape[1])
-    kernel.launches += 1
+    kernel.count(shape[1])
     return out
 
 
@@ -121,5 +121,5 @@ def constants(fs: FieldSpec, device="cuda"):
         raise NotImplementedError(f"{fs.name}: the constant-operand probe covers P-384 and P-521")
     out = torch.empty((len(CONST_OPS), fs.ndigits, 1), dtype=torch.int32, device=device)
     _build.launch(kernel, [out], 1)
-    kernel.launches += 1
+    kernel.count(1)
     return out

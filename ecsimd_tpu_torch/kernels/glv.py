@@ -161,7 +161,7 @@ def glv_planes(packed, xm, ym, curve: CurveSpec = SECP256K1, strict: bool = True
     kernel = KERNEL_STRICT if strict else KERNEL
     ax, ay, z = (torch.empty((d, b), dtype=torch.int32, device=dev) for _ in range(3))
     _build.launch(kernel, [packed, xm, ym, _beta_digits(curve, dev), ax, ay, z], b)
-    kernel.launches += 1
+    kernel.count(b)
     return ax, ay, z
 
 

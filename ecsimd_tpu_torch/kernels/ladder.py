@@ -67,7 +67,7 @@ def ladder_planes(scalars, xm, ym, curve: CurveSpec = P256):
         _build.check_planes(name, t, shape, scalars.device)
     ax, ay, z = (torch.empty(shape, dtype=torch.int32, device=scalars.device) for _ in range(3))
     _build.launch(kernel, [scalars, xm, ym, ax, ay, z], shape[1])
-    kernel.launches += 1
+    kernel.count(shape[1])
     return ax, ay, z
 
 

@@ -106,7 +106,7 @@ def mladder_planes(scalars, u, fs: FieldSpec, a24: int, nbits_scan: int):
     _build.check_planes("u", u, shape, scalars.device)
     x2, z2 = (torch.empty(shape, dtype=torch.int32, device=scalars.device) for _ in range(2))
     _build.launch(KERNEL, [scalars, u, x2, z2], shape[1])
-    KERNEL.launches += 1
+    KERNEL.count(shape[1])
     return x2, z2
 
 
@@ -129,5 +129,5 @@ def xdivz(x2, z2, fs: FieldSpec = W25519_FIELD):
     _build.check_planes("z2", z2, shape, x2.device)
     out = torch.empty(shape, dtype=torch.int32, device=x2.device)
     _build.launch(KERNEL_XDIVZ, [x2, z2, out], shape[1])
-    KERNEL_XDIVZ.launches += 1
+    KERNEL_XDIVZ.count(shape[1])
     return out

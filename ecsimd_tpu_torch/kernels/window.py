@@ -236,7 +236,7 @@ def window_planes(scalars, x, y, curve: CurveSpec = P256, strict: bool = False):
         _build.launch(kernel, [scalars, x, y, ax, ay, z, scratch], shape[1], slots)
     else:
         _build.launch(kernel, [scalars, x, y, ax, ay, z], shape[1])
-    kernel.launches += 1
+    kernel.count(shape[1])
     return ax, ay, z
 
 

@@ -145,8 +145,10 @@ def test_unported_options_raise(kw):
                                    tcomb.comb_chains_planes], ids=lambda f: f.__name__)
 def test_schedule_kernel_entries_take_cuda_tensors_only(entry):
     tables, _, nb = tcomb.device_tables(TP256, P256.gx, P256.gy, CPU)
+    # comb_chains_planes takes both tables (templated L: limbs, generic L: mma)
+    both = (tables,) if entry is tcomb.comb_chains_planes else ()
     with pytest.raises(ValueError, match="CUDA"):
-        entry(api.scalars_from_ints([3], TP256, device="cpu"), tables, nb)
+        entry(api.scalars_from_ints([3], TP256, device="cpu"), tables, *both, nb)
 
 
 @pytest.mark.parametrize("strict", [False, True])

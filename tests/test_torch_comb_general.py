@@ -209,15 +209,16 @@ def test_chains_times_unroll_8_vs_oracle(chains, unroll):
 
 def test_general_group_and_smem():
     """The positions the generic kernel L stages a step, and its shared
-    memory: unroll capped at 4 on the 256-bit curves (72 KiB) and 2 on
-    P-384 / P-521 (60 / 100 KiB)."""
+    memory (``comb.mma_layout``'s positions and the row buffers): unroll
+    capped at 4 on the 256-bit curves (74 KiB) and 2 on P-384 / P-521 (62 /
+    87 KiB)."""
     assert [tcomb.general_group(P256, u) for u in (1, 2, 4, 8, 32)] == [1, 2, 4, 4, 4]
     assert [tcomb.general_group(P384, u) for u in (1, 2, 3, 48)] == [1, 2, 2, 2]
     assert [tcomb.general_group(P521, u) for u in (1, 2, 3, 11, 66)] == [1, 2, 2, 2, 2]
-    assert tcomb.general_smem_bytes(P256, 32) == 72 * 1024
-    assert tcomb.general_smem_bytes(P384, 48) == 60 * 1024
-    assert tcomb.general_smem_bytes(P521, 2) == 100 * 1024
-    assert tcomb.general_smem_bytes(P521, 1) == 60 * 1024
+    assert tcomb.general_smem_bytes(P256, 32) == 74 * 1024
+    assert tcomb.general_smem_bytes(P384, 48) == 62 * 1024
+    assert tcomb.general_smem_bytes(P521, 2) == 87 * 1024
+    assert tcomb.general_smem_bytes(P521, 1) == 53 * 1024
 
 
 # --- the card route of every schedule ------------------------------------------------
@@ -247,24 +248,28 @@ def test_every_schedule_reaches_its_kernel(monkeypatch, curve):
     the tree reaches J, the pipe K, one chain at unroll 1 kernel B (strict:
     B strict), a schedule of SCHEDULES_L on a 256-bit curve its templated
     L, every other the curve's generic L with (chains, unroll) as its ints
-    — once each, on the curve's planes; nothing raises."""
+    — once each, on the curve's planes and its own table (J, K and the
+    templated L ``kernel_tables``' int32 limbs, B and the generic L
+    ``mma_tables``' bytes); nothing raises."""
     monkeypatch.setattr(_build, "require_cuda", lambda t, what: None)
     calls = []
     monkeypatch.setattr(_build, "launch", lambda kernel, tensors, batch, *ints:
-                        calls.append((kernel.symbol, ints, tuple(tensors[0].shape))))
+                        calls.append((kernel.symbol, ints, tuple(tensors[0].shape),
+                                      tensors[1].dtype)))
     tag = _build.CURVE_TAGS[curve][0]
     d = curve.field.ndigits
     npos = curve.field.nbits // tcomb.W
     s = torch.zeros((d, 4), dtype=torch.int32)
-    tables = torch.zeros((tcomb.NENT + (npos - 1) * tcomb.NENT // 2,
-                          2 * tcomb.coord_words(d)), dtype=torch.int32)
+    kept = tcomb.NENT + (npos - 1) * tcomb.NENT // 2
+    limbs = torch.zeros((kept, 2 * tcomb.coord_words(d)), dtype=torch.int32)
+    mma = torch.zeros(kept * tcomb.mma_entry_bytes(d), dtype=torch.uint8)
     nb = torch.zeros(2 * d, dtype=torch.int32)
     schedules = _accepted(curve)
     assert len(schedules) > 3 * len([m for m in range(1, npos + 1) if npos % m == 0])
     general = set()
     for chain, c, u, st in schedules:
         calls.clear()
-        tcomb.schedule_planes(s, tables, nb, curve, chain, c, u, st)
+        tcomb.schedule_planes(s, limbs, mma, nb, curve, chain, c, u, st)
         sfx = "_strict" if st else ""
         if chain != "serial":
             want = (f"ec_comb_{chain}_{tag}", ())
@@ -275,7 +280,9 @@ def test_every_schedule_reaches_its_kernel(monkeypatch, curve):
         else:
             want = (f"ec_comb_general_{tag}{sfx}", (c, u))
             general.add((c, u, st))
-        assert calls == [(*want, (d, 4))], (chain, c, u, st)
+        table = torch.uint8 if want[0].startswith((f"ec_comb_{tag}", "ec_comb_general")) \
+            else torch.int32
+        assert calls == [(*want, (d, 4), table)], (chain, c, u, st)
     # the generic kernel takes every schedule of the serial chain the
     # templated instantiations do not: on P-384 / P-521 all of them but B's
     n_serial = len([v for v in schedules if v[0] == "serial" and v[1:3] != (1, 1)])

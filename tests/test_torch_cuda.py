@@ -67,8 +67,10 @@ def _scalars(n, seed, dev, curve=P256):
 
 
 def _comb_tables(curve, dev):
+    """The plain comb's tables and -B, the kernels' negbase digits, and kernel
+    B's and the generic L's u8 table (``comb.mma_tables``)."""
     tables, negbase, nb = comb.device_tables(curve, curve.gx, curve.gy, dev)
-    return tables, negbase, nb, comb.kernel_tables(curve, curve.gx, curve.gy, dev)
+    return tables, negbase, nb, comb.mma_tables(curve, curve.gx, curve.gy, dev)
 
 
 def test_field_probe_kernel_matches_plain(cuda):
@@ -86,9 +88,9 @@ def test_field_probe_kernel_matches_plain(cuda):
 
 def test_comb_kernel_matches_plain_and_oracle(cuda):
     ks, s = _scalars(1024, 41, cuda)
-    tables, negbase, nb, limbs = _comb_tables(P256, cuda)
+    tables, negbase, nb, mma = _comb_tables(P256, cuda)
     before = comb.KERNEL.launches
-    got = comb.comb_planes(s, limbs, nb)
+    got = comb.comb_planes(s, mma, nb)
     assert comb.KERNEL.launches == before + 1
     for k, w in zip(got, comb.comb_plain(s, tables, P256, negbase)):
         assert torch.equal(k, w)
@@ -165,9 +167,9 @@ def test_strict_comb_kernel_matches_plain_and_oracle(cuda):
     ks, _ = _scalars(1024, 45, cuda)
     ks[4] = P256.order - 1
     s = _planes(ks, cuda)
-    tables, negbase, nb, limbs = _comb_tables(P256, cuda)
+    tables, negbase, nb, mma = _comb_tables(P256, cuda)
     before = comb.KERNEL_STRICT.launches
-    got = comb.comb_planes(s, limbs, nb, strict=True)
+    got = comb.comb_planes(s, mma, nb, strict=True)
     assert comb.KERNEL_STRICT.launches == before + 1
     for k, w in zip(got, comb.comb_plain(s, tables, P256, negbase, strict=True)):
         assert torch.equal(k, w)
@@ -214,8 +216,8 @@ def test_comb_one_chain_kernels_match_kernel_b(cuda, kw):
     if strict:
         ks[4] = P256.order - 1
     s = _planes(ks, cuda)
-    _, _, nb, limbs = _comb_tables(P256, cuda)
-    want = comb.comb_planes(s, limbs, nb, strict=strict)
+    _, _, nb, mma = _comb_tables(P256, cuda)
+    want = comb.comb_planes(s, mma, nb, strict=strict)
     kernel = (comb.KERNELS_PIPE[P256] if "chain" in kw
               else comb.KERNELS_CHAINS[(P256, 1, kw["unroll"], strict)])
     before = kernel.launches
@@ -297,10 +299,11 @@ def test_generic_kernel_l_matches_the_templated_one(cuda):
     takes (chains 2, unroll 1; one chain, unroll 4, strict) gives the
     templated kernel's planes word for word on 65,536 lanes."""
     ks, s = _scalars(65536, 94, cuda)
-    _, _, nb, limbs = _comb_tables(P256, cuda)
+    _, _, nb, mma = _comb_tables(P256, cuda)
+    limbs = comb.kernel_tables(P256, P256.gx, P256.gy, cuda)
     for c, u, st in ((2, 1, False), (1, 4, True)):
-        want = comb.comb_chains_planes(s, limbs, nb, P256, c, u, st)
-        got = comb.comb_general_planes(s, limbs, nb, P256, c, u, st)
+        want = comb.comb_chains_planes(s, limbs, mma, nb, P256, c, u, st)
+        got = comb.comb_general_planes(s, mma, nb, P256, c, u, st)
         for k, w in zip(got, want):
             assert torch.equal(k, w)
 
@@ -367,10 +370,10 @@ def test_comb_kernel_secp256k1(cuda, strict):
     if strict:
         ks[4] = SECP256K1.order - 1
     s = _planes(ks, cuda)
-    tables, negbase, nb, limbs = _comb_tables(SECP256K1, cuda)
+    tables, negbase, nb, mma = _comb_tables(SECP256K1, cuda)
     kernel = comb.KERNELS[(SECP256K1, strict)]
     before = kernel.launches
-    got = comb.comb_planes(s, limbs, nb, SECP256K1, strict=strict)
+    got = comb.comb_planes(s, mma, nb, SECP256K1, strict=strict)
     assert kernel.launches == before + 1
     for k, w in zip(got, comb.comb_plain(s, tables, SECP256K1, negbase, strict=strict)):
         assert torch.equal(k, w)
@@ -515,9 +518,9 @@ def test_x25519_keygen_and_exchange_on_the_card(cuda):
     rng = np.random.default_rng(82)
     ks = _clamped(rng, 512)
     s = _planes(ks, cuda)
-    tables, negbase, nb, limbs = _comb_tables(WEI25519, cuda)
+    tables, negbase, nb, mma = _comb_tables(WEI25519, cuda)
     before = (comb.KERNEL_W25519.launches, affine.KERNEL_W25519.launches)
-    jac = comb.comb_planes(s, limbs, nb, WEI25519)
+    jac = comb.comb_planes(s, mma, nb, WEI25519)
     for kk, w in zip(jac, comb.comb_plain(s, tables, WEI25519, negbase)):
         assert torch.equal(kk, w)
     ax, ay = affine.affine_planes(*jac, WEI25519)
@@ -633,10 +636,10 @@ def test_strict_comb_kernel_w25519(cuda):
     ks, _ = _scalars(1024, 96, cuda, WEI25519)
     ks[4] = WEI25519.order - 1
     s = _planes(ks, cuda)
-    tables, negbase, nb, limbs = _comb_tables(WEI25519, cuda)
+    tables, negbase, nb, mma = _comb_tables(WEI25519, cuda)
     kernel = comb.KERNELS[(WEI25519, True)]
     before = kernel.launches
-    got = comb.comb_planes(s, limbs, nb, WEI25519, strict=True)
+    got = comb.comb_planes(s, mma, nb, WEI25519, strict=True)
     assert kernel.launches == before + 1
     for k, w in zip(got, comb.comb_plain(s, tables, WEI25519, negbase, strict=True)):
         assert torch.equal(k, w)
@@ -854,10 +857,10 @@ def test_comb_and_affine_kernels_wide(cuda, curve, strict):
     16 lanes against the oracle."""
     ks, s = _wide_scalars(curve, 1024, 101, cuda, curve.order - 1 if strict else None)
     tables, negbase, nb = comb.device_tables(curve, curve.gx, curve.gy, cuda)
-    limbs = comb.kernel_tables(curve, curve.gx, curve.gy, cuda)
+    mma = comb.mma_tables(curve, curve.gx, curve.gy, cuda)
     kernel = comb.KERNELS[(curve, strict)]
     before = kernel.launches
-    got = comb.comb_planes(s, limbs, nb, curve, strict)
+    got = comb.comb_planes(s, mma, nb, curve, strict)
     assert kernel.launches == before + 1
     for k, w in zip(got, comb.comb_plain(s, tables, curve, negbase, strict)):
         assert torch.equal(k, w)
@@ -954,3 +957,37 @@ def test_ecdh_and_ecdsa_p384_on_the_card(cuda):
                                                               device=cuda), curve)
         found |= okr.bool() & (qx == q1x).all(0) & (qy == q1y).all(0)
     assert bool(found.all())
+
+
+# --- kernels B and the generic L: the table read on the tensor cores -------------------
+
+MMA_CURVES = [P256, SECP256K1, WEI25519, P384, P521]
+
+
+@pytest.mark.parametrize("strict", [False, True], ids=["plain", "strict"])
+@pytest.mark.parametrize("curve", MMA_CURVES, ids=lambda c: c.name)
+def test_comb_mma_kernels_match_plain(cuda, curve, strict):
+    """Kernel B and the generic kernel L (chains 2; strict: one chain,
+    unroll 2), which select their entries with u8 one-hot products on the
+    tensor cores, against comb_plain / comb_chains_plain word for word on
+    4,133 lanes (not a multiple of the 128-lane block): the first 160 lanes
+    share one scalar, so whole warps pick one entry at every position, the
+    rest are uniform mod n (edges 1, 2, 5, n - 2 first; strict: n - 1 on
+    lane 4). Each is one launch of its kernel."""
+    n, same = 4133, 160
+    ks, _ = _wide_scalars(curve, n, 211, cuda, curve.order - 1 if strict else None)
+    ks[5:5 + same] = [ks[5]] * same
+    s = _wide_planes(ks, curve, cuda)
+    tables, negbase, nb, mma = _comb_tables(curve, cuda)
+    chains, unroll = (1, 2) if strict else (2, 1)
+    b, l = comb.KERNELS[(curve, strict)], comb.KERNELS_GENERAL[(curve, strict)]
+    before = (b.launches, l.launches)
+    got_b = comb.comb_planes(s, mma, nb, curve, strict)
+    got_l = comb.comb_general_planes(s, mma, nb, curve, chains, unroll, strict)
+    assert (b.launches, l.launches) == (before[0] + 1, before[1] + 1)
+    want_b = comb.comb_plain(s, tables, curve, negbase, strict)
+    want_l = comb.comb_chains_plain(s, tables, curve, negbase, chains, unroll, strict)
+    for k, w in (*zip(got_b, want_b), *zip(got_l, want_l)):
+        assert torch.equal(k, w)
+    for t in got_b:
+        assert torch.equal(t[:, 5:5 + same], t[:, 5:6].expand(-1, same))

@@ -159,8 +159,8 @@ def test_kernel_table_covers_the_256_bit_curves(table):
     nothing else — A, B, D, E, J, K and the generic L the three 256-bit
     curves, P-384 and P-521; L's templated instantiations the 256-bit
     curves — each an extern "C" entry of its named source (J's and L's, and
-    the wide B's, E's and K's, with their _smem query), with distinct
-    symbols."""
+    the wide B's, E's and K's, with their _smem query; B's and the generic
+    L's also with their _blocks query), with distinct symbols."""
     kernels = TABLES[table]
     keys = {_curve_and_mode(k) for k in kernels}
     covered = CURVES if table == "comb_chains" else CURVES + WIDE
@@ -173,6 +173,8 @@ def test_kernel_table_covers_the_256_bit_curves(table):
                 table in ("comb", "window", "comb_pipe")
                 and k.source.endswith(("_p384.cu", "_p521.cu"))):
             assert f'extern "C" int {k.symbol}_smem(void)' in text, k.symbol
+        if table in ("comb", "comb_strict", "comb_general"):
+            assert f'extern "C" int {k.symbol}_blocks(void)' in text, k.symbol
 
 
 def _wrapper_calls(curve):
@@ -180,18 +182,19 @@ def _wrapper_calls(curve):
     d = curve.field.ndigits
     z = torch.zeros((d, 4), dtype=torch.int32)
     npos = curve.field.nbits // comb.W
-    tables = torch.zeros((comb.NENT + (npos - 1) * comb.NENT // 2, 2 * comb.coord_words(d)),
-                         dtype=torch.int32)
+    kept = comb.NENT + (npos - 1) * comb.NENT // 2
+    tables = torch.zeros((kept, 2 * comb.coord_words(d)), dtype=torch.int32)
+    mma = torch.zeros(kept * comb.mma_entry_bytes(d), dtype=torch.uint8)
     nb = torch.zeros(2 * d, dtype=torch.int32)
     return {
         "ladder": lambda: ladder.ladder_planes(z, z, z, curve),
         "window": lambda: window.window_planes(z, z, z, curve),
         "window_strict": lambda: window.window_planes(z, z, z, curve, strict=True),
-        "comb": lambda: comb.comb_planes(z, tables, nb, curve),
-        "comb_strict": lambda: comb.comb_planes(z, tables, nb, curve, strict=True),
+        "comb": lambda: comb.comb_planes(z, mma, nb, curve),
+        "comb_strict": lambda: comb.comb_planes(z, mma, nb, curve, strict=True),
         "comb_tree": lambda: comb.comb_tree_planes(z, tables, nb, curve),
         "comb_pipe": lambda: comb.comb_pipe_planes(z, tables, nb, curve),
-        "comb_chains": lambda: comb.comb_chains_planes(z, tables, nb, curve, 2, 1),
+        "comb_chains": lambda: comb.comb_chains_planes(z, tables, mma, nb, curve, 2, 1),
         "affine": lambda: affine.affine_planes(z, z, z, curve),
     }
 
@@ -214,9 +217,9 @@ def test_wrappers_raise_on_the_wider_curves(monkeypatch, wrapper, curve):
     (both modes), J (tree), K (pipe) and L (chains 2: the generic kernel,
     handed chains and unroll as ints): one launch of the curve's own kernel,
     ``ec_<kind>_<tag>[_strict]``, handed (24, B) / (33, B) planes (the
-    comb's tables in the padded limb layout; E also its scratch, one column
-    a resident thread, and the slot count as an int), counted once. None
-    raises."""
+    comb's tables: J's and K's in the padded limb layout, B's and the
+    generic L's in the u8 layout; E also its scratch, one column a resident
+    thread, and the slot count as an int), counted once. None raises."""
     monkeypatch.setattr(_build, "require_cuda", lambda t, what: None)
     monkeypatch.setattr(window, "resident_slots", lambda kernel, curve, device: SLOTS)
     calls = []
@@ -233,8 +236,11 @@ def test_wrappers_raise_on_the_wider_curves(monkeypatch, wrapper, curve):
     shapes = [tuple(t.shape) for t in tensors]
     if wrapper.startswith("comb"):
         npos = curve.field.nbits // comb.W
-        assert shapes == [(d, 4), (comb.NENT + (npos - 1) * comb.NENT // 2,
-                                   2 * comb.coord_words(d)), (2 * d,)] + [(d, 4)] * 3
+        kept = comb.NENT + (npos - 1) * comb.NENT // 2
+        table = ((kept * comb.mma_entry_bytes(d),) if wrapper in ("comb", "comb_strict",
+                                                                    "comb_chains")
+                 else (kept, 2 * comb.coord_words(d)))
+        assert shapes == [(d, 4), table, (2 * d,)] + [(d, 4)] * 3
     elif wrapper.startswith("window"):
         assert shapes == [(d, 4)] * 6 + [(window.table_split(curve).scratch_vecs, SLOTS, 4)]
     else:

@@ -129,3 +129,39 @@ def test_callees_enter_the_per_lane_count():
     assert per_lane["ldg128"] == 3 and per_lane["ldg_nc"] == 1 and per_lane["ldg"] == 4
     rep = sass.TRIPS["window_p521_kernel"]
     assert rep[0][0] == "lane" and rep[0][2][1][2][0][1] * 17 == 132
+
+
+SELECT = """
+	code for sm_90a
+		Function : _ZN12_GLOBAL__N_116comb_p256_kernelEPKiPKhS1_PiS4_S4_l
+        /*0000*/                   SHFL.IDX PT, R3, R2, R0, 0x1f ;
+        /*0010*/                   LDSM.16.M88.4 R4, [R9] ;
+        /*0020*/                   IMMA.16832.U8.U8 R12, R16.ROW, R4.COL, RZ ;
+        /*0030*/                   IMMA.16832.U8.U8 R12, R20.ROW, R6.COL, R12 ;
+        /*0040*/                   STS.U16 [R10], R12 ;
+        /*0050*/                   WARPSYNC.ALL ;
+        /*0060*/                   LDS.64 R24, [R11] ;
+        /*0070*/                   EXIT ;
+"""
+
+
+def test_tensor_core_select_classes():
+    """The instructions of the comb's table read on the tensor cores
+    (csrc/comb_mma.cuh) on a captured snippet: IMMA in its own class, the
+    ldmatrix loads (LDSM) and the 8-byte row-buffer reads among the shared
+    loads, the shuffles in theirs; kernels B and the generic L are read by
+    default on their five curves, plain and strict."""
+    assert sass.classify("IMMA.16832.U8.U8") == "imma"
+    assert sass.classify("LDSM.16.M88.4") == "ldsm"
+    assert sass.classify("SHFL.IDX") == "shfl"
+    mix = sass._mix(sass.parse(SELECT)["_ZN12_GLOBAL__N_116comb_p256_kernelEPKiPKhS1_PiS4_S4_l"])
+    assert mix == {"shfl": 1, "ldsm": 1, "lds": 2, "imma": 2, "sts": 1, "control": 2,
+                   "total": 8}
+    for tag in ("p256", "secp256k1", "w25519", "p384", "p521"):
+        for st in ("", "_strict"):
+            assert f"comb{st}_{tag}_kernel" in sass.DEFAULT_KERNELS
+            assert f"comb_general{st}_{tag}_kernel" in sass.DEFAULT_KERNELS
+    # the per-lane loop nests: kernel B's positions 1 .. npos - 1 (position 0
+    # before the loop), and the parent's masked scan for an older library
+    assert sass.TRIPS["comb_p521_kernel"][2][:2] == ("position", 65)
+    assert sass.TRIPS_SCAN["comb_p256_kernel"][1][2][1] == ("scan0", 2, [])
