@@ -21,10 +21,10 @@ any failed check raises and the script exits non-zero:
   1. build: compiles every CUDA source of the port with nvcc (sm_90a), one
      process per source, and prints the build seconds, each kernel's
      registers, spills, stack frame and shared memory, each source's nvcc
-     seconds, and the SASS of kernels E and F, and of B and the generic L
-     on their five curves, by instruction class (bench/sass.py: cuobjdump
-     -sass, each loop's body times its runs; B's and L's tensor-core
-     products, IMMA, among them).
+     seconds, and the SASS of kernels E and F, and of B, the generic L, A
+     and D on their five curves, by instruction class (bench/sass.py:
+     cuobjdump -sass, each loop's body times its runs; B's and L's
+     tensor-core products, IMMA, among them; D's a thread's G lanes over G).
   2. field probe (kernel C) against the plain GFp: 65,536 lanes, the pairs
      of carry_edges (p - 1, p - 2^32, all-ones words, ...) first, exact; 64
      lanes also against Python ints.
@@ -34,8 +34,14 @@ any failed check raises and the script exits non-zero:
      scalars 1, 2, 5, n-2 first) against the oracle.
   4. ladder (kernel A): 512 lanes carrying distinct points (i+1)G against
      the oracle (against group.scalar_mult in phase 6, at full width).
-  5. affine conversion (kernel D) against the plain JacobianPoint.to_affine
-     on phase 3's 65,536 comb results, one lane set to infinity; exact.
+  5. affine conversion (kernel D, a Montgomery batch inversion: G lanes a
+     thread, on P-384 and P-521 a block sharing one inversion) against the plain
+     JacobianPoint.to_affine on phase 3's 65,536 comb results with lanes
+     set to infinity at group edges (a group's first and last lanes, two in
+     one group, a whole group, a warp's edge, the batch's last lane); exact;
+     then a ragged batch (65,536 - 333 lanes, no multiple of a block's)
+     equal to the full run's lanes. Phases 11, 14 and 19 do the same on the
+     other curves.
   6. the first main path through api.scalar_mult_base and api.scalar_mult
      at B = 524,288: launch counts, CUDA-event times of each kernel, its
      plain version and the end-to-end call, and 64 lanes of each result
@@ -365,11 +371,15 @@ RFC6979_SHA256 = [
 # 2M + 8S) and the complete add that calls it. An inversion z^(p - 2) is charged the shortest known addition
 # chain, not the kernels' square-and-multiply: 255 S + 12 M on P-256 (runs
 # of 32, 1 and 94 ones), 255 S + 15 M on secp256k1 (libsecp256k1's chain).
+# Kernel D is charged the reference's own algorithm (GFp.batch_inverse,
+# Montgomery's trick): 3 M a lane, the tail, and one inversion a launch
+# (ONCE_MS), not one a lane.
 # Every kernel is constant-time, so the count does not depend on the data.
 FORMULA_MS = {
     "add_z2_1": (7, 4), "zdau": (9, 7), "tplu": (6, 7), "jac_dbl": (3, 5),
     "jac_add": (12, 4), "aff_add": (4, 2), "add_complete": (15, 9), "fe_inv": (12, 255),
     "affine_tail": (3, 1),  # z^-2, then x z^-2 and y z^-2 z^-1
+    "batch_trick": (3, 0),  # a lane's share of Montgomery's trick
     "probe": (1, 1),
     # secp256k1 (a = 0): dbl-2007-bl 1M + 7S; the complete add is jac_add
     # + that doubling; to_classical is 1M per output
@@ -419,11 +429,11 @@ LANE_MS = {
     "comb_strict": lane_ms((32, "add_complete")),
     **{k: v for k, v in schedule_ms("p256").items()
        if k in ("ladder", "window", "window_strict")},
-    "affine": lane_ms((1, "fe_inv"), (1, "affine_tail")),
+    "affine": lane_ms((1, "batch_trick"), (1, "affine_tail")),
     "field_probe": lane_ms((1, "probe")),
     "comb_secp256k1": lane_ms((32, "add_z2_1")),
     "comb_strict_secp256k1": lane_ms((32, "k1_add_complete")),
-    "affine_secp256k1": lane_ms((1, "k1_fe_inv"), (1, "k1_affine_tail")),
+    "affine_secp256k1": lane_ms((1, "batch_trick"), (1, "k1_affine_tail")),
     "field_probe_secp256k1": lane_ms((1, "probe")),
     # table (1 dbl + 7 adds), beta x of the 8 entries, the first add, 36
     # windows (4 dbl, 2 adds), 2 fix-ups
@@ -436,7 +446,7 @@ LANE_MS = {
     "mladder": lane_ms((255, "ladder_step")),
     "x25519_xdivz": lane_ms((1, "xdivz")),
     "comb_w25519": lane_ms((32, "add_z2_1")),
-    "affine_w25519": lane_ms((1, "w_fe_inv"), (1, "affine_tail")),
+    "affine_w25519": lane_ms((1, "batch_trick"), (1, "affine_tail")),
     "field_probe_w25519": lane_ms((1, "probe")),
     # phase 17
     **{k: v for k, v in schedule_ms("p256").items() if k in SCHEDULES},
@@ -460,7 +470,7 @@ def wide_ms(tag, d):
                                         (windows + 1, "add_complete")),
         f"comb_{tag}": lane_ms((2 * d, "add_z2_1")),
         f"comb_strict_{tag}": lane_ms((2 * d, "add_complete")),
-        f"affine_{tag}": lane_ms((1, f"{tag}_fe_inv"), (1, "affine_tail")),
+        f"affine_{tag}": lane_ms((1, "batch_trick"), (1, "affine_tail")),
         f"field_probe_{tag}": lane_ms((1, "probe")),
         # kernel C's constant-operand form: one lane, 2 multiplies, 2 squarings
         f"field_consts_{tag}": lane_ms((2, "probe")),
@@ -469,6 +479,12 @@ def wide_ms(tag, d):
 
 for _c, _tag in CURVES19.items():
     LANE_MS |= wide_ms(_tag, _c.field.ndigits)
+
+
+# (M, S) a launch, whatever its lanes: kernel D's one inversion of the batch
+ONCE_MS = {"affine": FORMULA_MS["fe_inv"], "affine_secp256k1": FORMULA_MS["k1_fe_inv"],
+           "affine_w25519": FORMULA_MS["w_fe_inv"],
+           **{f"affine_{t}": FORMULA_MS[f"{t}_fe_inv"] for t in CURVES19.values()}}
 
 
 def schedules_ms(curve, schedules):
@@ -878,6 +894,47 @@ def oracle_sign(z, d, k, curve):
     return r, pow(k, -1, n) * (z % n + r * d) % n
 
 
+def infinity_lanes(n, threads, group):
+    """Lanes of an ``n``-lane batch that kernel D's checks set to infinity
+    (z = 0), in its last two blocks of ``threads`` x ``group`` lanes, away
+    from the first lanes the oracle reads; thread t of a block takes lanes
+    base + t + j threads, j < group. In the last block: thread 0's first
+    and last lanes, thread 33's lanes j = 1 and 2 (two in one group),
+    thread threads - 1's last lane (the batch's last lane); in the block
+    before: every lane of thread 7's group (a whole group), and the first
+    lanes of threads 31 and 32 (a warp's edge)."""
+    block = threads * group
+    last, prev = n - block, n - 2 * block
+    lanes = {last, last + (group - 1) * threads, last + 33 + threads, last + 33 + 2 * threads,
+             n - 1, prev + 31, prev + 32}
+    lanes |= {prev + 7 + j * threads for j in range(group)}
+    return sorted(lanes)
+
+
+def affine_edge_input(jac, curve):
+    """Kernel D's check input: copies of the Jacobian planes ``jac`` with
+    ``infinity_lanes`` at z = 0 (the kernel's layout on ``curve`` read from
+    the library)."""
+    jx, jy, jz = (t.clone() for t in jac)
+    threads, group, _ = affine.layout(curve)
+    jz[:, infinity_lanes(jz.shape[1], threads, group)] = 0
+    return jx, jy, jz
+
+
+def affine_edge_check(got, jac, curve, what):
+    """The infinity lanes of kernel D's output ``got`` are (0, 0), and a
+    ragged batch (the first n - 333 lanes, no multiple of a block's lanes)
+    gives the full run's lanes."""
+    n = jac[2].shape[1]
+    threads, group, _ = affine.layout(curve)
+    lanes = infinity_lanes(n, threads, group)
+    check(not any(bool(g[:, lanes].any()) for g in got), f"{what}: infinity lanes -> (0, 0)")
+    cut = n - 333
+    ragged = affine.affine_planes(*(t[:, :cut].contiguous() for t in jac), curve)
+    check(max_abs_diff(ragged, [g[:, :cut] for g in got]) == 0,
+          f"{what}: a ragged batch of {cut} lanes == the full run's lanes")
+
+
 def max_abs_diff(xs, ys):
     return max(int((a.to(torch.int64) - b.to(torch.int64)).abs().max()) for a, b in zip(xs, ys))
 
@@ -931,6 +988,8 @@ def bound(name, lanes, sm_clock_mhz, reps=0):
         per_mul, per_sqr = WIDE_IMADS.get(name.rpartition("_")[2], (IMADS_PER_MUL, IMADS_PER_SQR))
         ops = (muls * (per_mul + extra) + sqrs * (per_sqr + extra)
                + SMALL_IMADS.get(name, 0)) * lanes
+        once_m, once_s = ONCE_MS.get(name, (0, 0))
+        ops += once_m * (per_mul + extra) + once_s * (per_sqr + extra)
     tag = name.rpartition("_")[2]
     table = (BYTES_PER_LANE[f"comb_table_{tag}"] if tag in WIDE_IMADS else COMB_TABLE_BYTES)
     nbytes = BYTES_PER_LANE[name] * lanes + (table if name.startswith("comb") else 0)
@@ -1059,13 +1118,12 @@ def x25519_phases(rng, dev, card, counted):
     jac = comb.comb_planes(k14, mma_w, nb_w, WEI25519)
     out["comb_check_err"] = max_abs_diff(jac, comb.comb_plain(k14, tables_w, WEI25519, negbase_w))
     check(out["comb_check_err"] == 0, "Wei25519 comb kernel == comb_plain (Jacobian)")
-    jx, jy, jz = (t.clone() for t in jac)
-    jz[:, -1] = 0  # a lane at infinity maps to (0, 0)
+    jx, jy, jz = affine_edge_input(jac, WEI25519)
     got = affine.affine_planes(jx, jy, jz, WEI25519)
     plain = JacobianPoint(*(GFp(t, fs) for t in (jx, jy, jz)), WEI25519).to_affine()
     out["affine_check_err"] = max_abs_diff(got, (plain.x, plain.y))
     check(out["affine_check_err"] == 0, "Wei25519 affine kernel == JacobianPoint.to_affine")
-    check(not bool(got[0][:, -1].any() or got[1][:, -1].any()), "w25519 lane at infinity -> (0, 0)")
+    affine_edge_check(got, (jx, jy, jz), WEI25519, "Wei25519 affine")
     xs = convert.planes_to_ints(got[0][:, :ORACLE_LANES].cpu().numpy())
     check([(x - x25519.A_OVER_3) % pw for x in xs] == [x25519_int(k, 9) for k in k_ints],
           "comb + affine keys vs the int ladder X25519(k, 9)")
@@ -1073,7 +1131,8 @@ def x25519_phases(rng, dev, card, counted):
     say(f"phase 14 X25519 kernels: G (x-only ladder) and H (x / z) {CHECK_LANES} lanes exact vs "
           f"mladder_plain / batch-inverse x / z, {ORACLE_LANES} lanes vs the int ladder (u = 0, 1, "
           f"p-1, 9 first); RFC 7748 §5.2 vectors and iteration 1; Wei25519 comb (B) and affine "
-          f"(D) {CHECK_LANES} lanes exact vs comb_plain / to_affine (one lane at infinity), "
+          f"(D) {CHECK_LANES} lanes exact vs comb_plain / to_affine (lanes at infinity at group "
+          f"edges; a ragged batch), "
           f"{ORACLE_LANES} keys vs the int ladder")
 
     # -- phase 15: the fourth main path, batched X25519 at B = 524,288 --------------
@@ -1872,12 +1931,11 @@ def wide_phase(rng, dev, card, counted, curve):
 
     # the plain versions of the kernel checks below, on the first CHECK_LANES
     # lanes of the path's inputs, start now in the plain pool; kernel B's
-    # output (one lane at infinity) is kernel D's input (launched before the
-    # counts are reset, so not counted)
+    # output (lanes at infinity at group edges) is kernel D's input (launched
+    # before the counts are reset, so not counted)
     m = CHECK_LANES
     s_c, x_c, y_c = (t[:, :m].contiguous() for t in (scalars, xm, ym))
-    jx, jy, jz = (t.clone() for t in comb.comb_planes(s_c, mma, nb, curve))
-    jz[:, -1] = 0  # a lane at infinity maps to (0, 0)
+    jx, jy, jz = affine_edge_input(comb.comb_planes(s_c, mma, nb, curve), curve)
     host = [t.cpu().numpy() for t in (s_c, x_c, y_c, jx, jy, jz)]
     plain = {f"ladder_{tag}": plain_submit("ladder", curve, False, host[:3], dev.type),
              f"affine_{tag}": plain_submit("affine", curve, False, host[3:], dev.type)}
@@ -1960,6 +2018,7 @@ def wide_phase(rng, dev, card, counted, curve):
         runs_c[f"comb{sfx}_{tag}"] = lambda st=st: comb.comb_planes(s_c, mma, nb, curve, st)
     for kname, job in plain.items():
         check_against(kname, runs_c[kname], *job.result())
+    affine_edge_check(runs_c[f"affine_{tag}"](), (jx, jy, jz), curve, f"{curve.name} affine")
     # kernel C: the edge pairs first, then draws below p
     edges = wide_edges(p, (d + 1) // 2)
     pairs = [(x, y) for x in edges for y in edges]
@@ -2116,17 +2175,17 @@ def run():
           f"group.scalar_mult in phase 6)")
 
     # -- phase 5: affine conversion ----------------------------------------------
-    jx, jy, jz = (t.clone() for t in comb_got)
-    jz[:, -1] = 0  # a lane at infinity maps to (0, 0)
+    jx, jy, jz = affine_edge_input(comb_got, P256)
     got = affine.affine_planes(jx, jy, jz)
     plain = JacobianPoint(*(GFp(t, P256.field) for t in (jx, jy, jz)), P256).to_affine()
     torch.cuda.synchronize()
     affine_check_err = max_abs_diff(got, (plain.x, plain.y))
     check(affine_check_err == 0, "affine kernel == JacobianPoint.to_affine")
-    check(not bool(got[0][:, -1].any() or got[1][:, -1].any()), "lane at infinity -> (0, 0)")
+    affine_edge_check(got, (jx, jy, jz), P256, "P-256 affine")
     check(affine_ints(AffinePoint(*got, P256), ORACLE_LANES) == want_base, "affine vs oracle")
-    say(f"phase 5 affine: {CHECK_LANES} comb results exact vs JacobianPoint.to_affine "
-          f"(one lane at infinity); {ORACLE_LANES} lanes vs oracle")
+    say(f"phase 5 affine (threads, lanes a thread, block tree: {affine.layout()}): "
+          f"{CHECK_LANES} comb results exact vs JacobianPoint.to_affine (lanes at infinity at "
+          f"group edges); a ragged batch; {ORACLE_LANES} lanes vs oracle")
 
     # -- phase 6: the first main path at B = 524,288 ------------------------------
     s_np = scalar_planes(rng, BATCH)
@@ -2398,19 +2457,18 @@ def run():
         check(jacobian_affine_ints(got, ORACLE_LANES, k1)
               == oracle_base(s_ints[:ORACLE_LANES], k1), f"{kname} vs oracle")
         comb_k1_got, comb_k1_ints = got, s_ints
-    jx, jy, jz = (t.clone() for t in comb_k1_got)
-    jz[:, -1] = 0  # a lane at infinity maps to (0, 0)
+    jx, jy, jz = affine_edge_input(comb_k1_got, k1)
     got = affine.affine_planes(jx, jy, jz, k1)
     plain = JacobianPoint(*(GFp(t, fs_k1) for t in (jx, jy, jz)), k1).to_affine()
     affine_k1_check = max_abs_diff(got, (plain.x, plain.y))
     check(affine_k1_check == 0, "secp256k1 affine kernel == JacobianPoint.to_affine")
-    check(not bool(got[0][:, -1].any() or got[1][:, -1].any()), "k1 lane at infinity -> (0, 0)")
+    affine_edge_check(got, (jx, jy, jz), k1, "secp256k1 affine")
     check(affine_ints(AffinePoint(*got, k1), ORACLE_LANES)
           == oracle_base(comb_k1_ints[:ORACLE_LANES], k1), "secp256k1 affine vs oracle")
     del got, plain, jx, jy, jz, comb_k1_got
     say(f"phase 11 comb, comb_strict, affine on secp256k1: {CHECK_LANES} lanes exact vs "
-          f"comb_plain / to_affine (one lane at infinity); {ORACLE_LANES} lanes vs oracle "
-          f"(edge scalars 1, 2, 5, n-2; n-1 strict)")
+          f"comb_plain / to_affine (lanes at infinity at group edges; a ragged batch); "
+          f"{ORACLE_LANES} lanes vs oracle (edge scalars 1, 2, 5, n-2; n-1 strict)")
 
     # -- phase 12: the third main path, batched ECDSA, on both curves ----------------
     path12 = {c.name: ecdsa_path(rng, dev, card, counted, c) for c in (P256, SECP256K1)}
@@ -2461,9 +2519,9 @@ def run():
     for kname, mix in sass_mix.items():
         check(mix is not None, f"cuobjdump -sass found {kname}")
     say("phase 1 SASS of kernels E (five curves), F, B and the generic L (five curves, chains 2, "
-        "unroll 1), instructions a lane issues by class "
+        "unroll 1), A and D (five curves), instructions a lane issues by class "
         "(cuobjdump -sass, loop bodies times their runs, called functions times their calls): "
-        + json.dumps({k: v["per_lane"] for k, v in sass_mix.items()}) + "; the wide E's called "
+        + json.dumps({k: v["per_lane"] for k, v in sass_mix.items()}) + "; the called "
         "functions, once each (multiply, then squaring): " + json.dumps(
             {k: [c["static"] for c in v["callees"]] for k, v in sass_mix.items()
              if v["callees"]}))
@@ -2473,6 +2531,9 @@ def run():
         mix = sass_mix[kname]["static"]
         check(mix.get("ldg128", 0) > 0 and mix.get("ldg128_nc", 0) == 0,
               f"{kname} reads its scratch with 16-byte ld.global, not the read-only path")
+    for kname in sass.LADDER_KERNELS:
+        check(sass_mix[kname]["per_lane"] is not None,
+              f"{kname}'s loops are the scalar's words by their bits")
     for kname in sass.COMB_KERNELS:
         # B and the generic L select on the tensor cores: IMMA, and no scan
         # loop over a position's entries (their loop nests are TRIPS')

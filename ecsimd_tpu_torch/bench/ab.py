@@ -171,6 +171,8 @@ def workloads(batch: int, dev) -> dict:
     _, _, nbw = comb.device_tables(WEI25519, WEI25519.gx, WEI25519.gy, dev)
     jacw = comb.comb_planes(kw, mmaw, nbw, WEI25519)
     aw, bw = _below(rng, batch, wf.p, dev), _below(rng, batch, wf.p, dev)
+    sw = _planes(_scalars(rng, batch, WEI25519.order), dev)
+    ptw = api.scalar_mult_base(_planes(_scalars(rng, batch, WEI25519.order), dev), WEI25519)
 
     chains = {f"comb_chains{c}" + (f"_unroll{u}" if u > 1 else ""): (c, u, False)
               for c, u in ((2, 1), (2, 2), (4, 1))}
@@ -194,12 +196,19 @@ def workloads(batch: int, dev) -> dict:
         "comb_secp256k1": lambda: comb.comb_planes(s1, mma1, nb1, k1),
         "comb_strict_secp256k1": lambda: comb.comb_planes(s1, mma1, nb1, k1, strict=True),
         "affine_secp256k1": lambda: affine.affine_planes(*jac1, k1),
+        "ladder_secp256k1": lambda: ladder.ladder_planes(s1, xm, ym, k1),
+        "window_secp256k1": lambda: window.window_planes(s1, xm, ym, k1),
+        "window_strict_secp256k1": lambda: window.window_planes(s1, xm, ym, k1, strict=True),
         "field_probe_secp256k1": lambda: field_ops.probe(a1, b1, k1.field),
         "mladder": lambda: mladder.mladder_planes(kw, uw, wf, x25519.A24, 255),
         "x25519_xdivz": lambda: mladder.xdivz(x2, z2),
         "comb_w25519": lambda: comb.comb_planes(kw, mmaw, nbw, WEI25519),
         "comb_strict_w25519": lambda: comb.comb_planes(kw, mmaw, nbw, WEI25519, strict=True),
         "affine_w25519": lambda: affine.affine_planes(*jacw, WEI25519),
+        "ladder_w25519": lambda: ladder.ladder_planes(sw, ptw.x, ptw.y, WEI25519),
+        "window_w25519": lambda: window.window_planes(sw, ptw.x, ptw.y, WEI25519),
+        "window_strict_w25519": lambda: window.window_planes(sw, ptw.x, ptw.y, WEI25519,
+                                                             strict=True),
         "field_probe_w25519": lambda: field_ops.probe(aw, bw, wf),
         **_schedules("secp256k1", k1, s1, limbs1, mma1, nb1, chains),
         **_schedules("w25519", WEI25519, kw, limbsw, mmaw, nbw, chains),

@@ -99,12 +99,18 @@ def _source(csrc: Path, tag: str) -> str:
 
 
 def _inline_copy(csrc: Path, into: Path) -> Path:
-    """A copy of ``csrc`` whose wide fields inline fe_mul and fe_sqr."""
+    """A copy of ``csrc`` whose wide fields inline fe_mul and fe_sqr: the
+    field headers define EC_INLINE_FIELD_MULS first where their multiplies
+    take that switch (``mul_wide.cuh``'s EC_FIELD_MULS), else their
+    ``__noinline__`` becomes ``__forceinline__`` (an older checkout)."""
     out = into / "csrc_inline"
     subprocess.run(["cp", "-r", str(csrc), str(out)], check=True)
     for name in ("field_p384.cuh", "field_p521.cuh"):
         f = out / name
         text = f.read_text()
+        if text.count("EC_FIELD_MULS fe fe_") == 2:
+            f.write_text("#define EC_INLINE_FIELD_MULS\n" + text)
+            continue
         new = text
         for fn in ("fe_mul", "fe_sqr"):
             new = new.replace(f"static __device__ __noinline__ fe {fn}(",

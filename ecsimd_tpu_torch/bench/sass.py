@@ -3,8 +3,9 @@
     python -m ecsimd_tpu_torch.bench.sass [--lib PATH] [KERNEL_SUBSTRING ...]
 
 prints one JSON object: for each kernel whose (mangled) name contains one of
-the given substrings (default: kernels E, on its five curves, F, and B
-and the generic L on their five curves, plain and strict), its
+the given substrings (default: kernels E, on its five curves, F, B and
+the generic L on their five curves, plain and strict, A and D on their
+five curves), its
 static count of SASS instructions by class, the loops (the address ranges
 of backward branches) with the classes of the instructions each holds
 outside its inner loops, and, where the loop nest has the shape the source
@@ -18,7 +19,9 @@ kernel's own loops, and its instructions enter the dynamic count a lane
 once for each call the lane makes. The generic L's loops run as its
 launch's ints say: the count is at chains 2, unroll 1 (one position a
 step), and code in a branch that a lane takes only at some positions (a
-chain's fold) counts at every position. Without ``--lib`` it
+chain's fold) counts at every position. Kernel D's count is a thread's
+(``per_thread``), which converts G lanes (``AFFINE_GROUPS``), and
+``per_lane`` is that over G. Without ``--lib`` it
 builds (or reuses) this checkout's library. Needs the CUDA toolkit's
 ``cuobjdump``.
 
@@ -53,10 +56,14 @@ WIDE_KERNELS = tuple(f"window{st}_{tag}_kernel" for tag in ("p384", "p521")
 COMB_TAGS = ("p256", "secp256k1", "w25519", "p384", "p521")
 COMB_KERNELS = tuple(f"comb{kind}{st}_{tag}_kernel" for kind in ("", "_general")
                      for tag in COMB_TAGS for st in ("", "_strict"))
+# kernels A and D
+LADDER_KERNELS = tuple(f"ladder_{tag}_kernel" for tag in COMB_TAGS)
+AFFINE_KERNELS = tuple(f"affine_{tag}_kernel" for tag in COMB_TAGS)
 DEFAULT_KERNELS = ("window_p256_kernel", "window_strict_p256_kernel", "glv_secp256k1_kernel",
                    "glv_strict_secp256k1_kernel", "window_secp256k1_kernel",
                    "window_strict_secp256k1_kernel", "window_w25519_kernel",
-                   "window_strict_w25519_kernel") + WIDE_KERNELS + COMB_KERNELS
+                   "window_strict_w25519_kernel") + WIDE_KERNELS + COMB_KERNELS + (
+                   LADDER_KERNELS + AFFINE_KERNELS)
 
 # Loop nests as the sources write them, outermost first, loops in address
 # order: (name, iterations each time the loop is entered, inner loops).
@@ -122,6 +129,53 @@ def _scan_general(npos, n):
                                               [])])])]
 
 
+# Kernel A (ladder_lane.cuh): the scalar's words, then each word's bits: 16 D
+# - 2 ZDAU steps over kWords words (bits 2 .. 31 of word 0, 16 in P-521's
+# top word), the bit loop's trips a word on average.
+def _ladder(words, digits):
+    return [("word", words, [("bit", Fraction(16 * digits - 2, words), [])])]
+
+
+# Kernel D (affine.cu, affine_lane.cuh): a thread's G lanes, and whether
+# the block of 4 warps shares one inversion, a curve as affine.cu chooses
+# them; its loops are its field's inversion chain's rolled squarings
+# (field_<curve>.cuh's fe_inv, fe_sqr_n), in address order, P-521's doubling
+# loop holding one of them (k = 8 .. 256: 504 squarings in 6 trips). On the
+# 256-bit curves (a thread's own inversion) the walk back over the G lanes
+# follows as a loop that ptxas unrolls four lanes a trip ((G - 1) // 4
+# trips, the other lanes after it); with the block tree, one thread's
+# forward and backward walks over the 4 warps' products (3 trips each)
+# come before and after, and the count gives every thread that thread's
+# walks and inversion (3 of the block's 4 warps skip them: an upper bound).
+AFFINE_GROUPS = {"p256": (16, False), "secp256k1": (16, False), "w25519": (16, False),
+                 "p384": (16, True), "p521": (8, True)}
+_INV_SQUARINGS = {
+    "p256": (3, 6, 3, 15, 2, 32, 128, 32, 30, 2),
+    "secp256k1": (3, 3, 2, 11, 22, 44, 88, 44, 3, 23, 5, 3, 2),
+    "w25519": (2, 5, 10, 20, 10, 50, 100, 50, 5),
+    "p384": (3, 6, 3, 15, 2, 30, 60, 120, 15, 33, 94, 2),
+    "p521": (2, 3, 4, (6, 504), 7, 2),
+}
+
+
+def _affine(tag):
+    group, tree = AFFINE_GROUPS[tag]
+    chain = [("sqr", n, []) if isinstance(n, int)
+             else ("k", n[0], [("sqr", Fraction(n[1], n[0]), [])])
+             for n in _INV_SQUARINGS[tag]]
+    if tree:
+        return [("warps", 3, [])] + chain + [("warps_back", 3, [])]
+    return chain + [("back", (group - 1) // 4, [])]
+
+
+# Kernel D before its batch inversion (a library built before it, --lib):
+# each lane's square-and-multiply over the 8 words of p - 2 on P-256 and
+# secp256k1, 32 bits a word, one rolled loop a word. The multiply sits in a
+# branch on the exponent's bit, so the count takes it at every bit of a
+# loop that holds it: an upper bound (P-256: 160 counted, 128 run;
+# secp256k1: 256 counted, 249 run).
+TRIPS_FERMAT = {f"affine_{tag}_kernel": [("word", 32, [])] * 8 for tag in ("p256", "secp256k1")}
+
 _COMB_SIZES = {"p256": (32, 8), "secp256k1": (32, 8), "w25519": (32, 8), "p384": (48, 12),
                "p521": (66, 17)}
 TRIPS = {"glv_secp256k1_kernel": _F, "glv_strict_secp256k1_kernel": _F} | {
@@ -131,7 +185,10 @@ TRIPS = {"glv_secp256k1_kernel": _F, "glv_strict_secp256k1_kernel": _F} | {
     for tag, words, digits in (("p384", 12, 24), ("p521", 17, 33))} | {
     f"comb{kind}{st}_{tag}_kernel": fn(*size) for kind, fn in (("", _comb_b),
                                                                 ("_general", _comb_general))
-    for tag, size in _COMB_SIZES.items() for st in ("", "_strict")}
+    for tag, size in _COMB_SIZES.items() for st in ("", "_strict")} | {
+    f"ladder_{tag}_kernel": _ladder(n, 2 * n - (tag == "p521"))
+    for tag, (_, n) in _COMB_SIZES.items()} | {
+    f"affine_{tag}_kernel": _affine(tag) for tag in _COMB_SIZES}
 TRIPS_SCAN = {f"comb{kind}{st}_{tag}_kernel": fn(*size)
               for kind, fn in (("", _scan_b), ("_general", _scan_general))
               for tag, size in _COMB_SIZES.items() for st in ("", "_strict")}
@@ -300,23 +357,35 @@ def dynamic(instrs, tree, trips) -> dict[str, int] | None:
 
 def ptxas(log: str) -> dict[str, dict[str, int]]:
     """{mangled kernel name: {"registers", "smem_bytes", "stack_frame_bytes",
-    "spill_stores", "spill_loads"}} from nvcc's -Xptxas -v output."""
-    out, cur = {}, None
+    "spill_stores", "spill_loads"}} from nvcc's -Xptxas -v output. A stack
+    frame line belongs to the function its "Function properties for" line
+    names: the properties of a device function a kernel calls (P-384's and
+    P-521's ``fe_mul`` and ``fe_sqr``), which ptxas prints among the
+    kernel's own lines, are the callee's and go under its own name (with
+    no registers), not the kernel's."""
+    out, cur, props = {}, None, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            cur = out.setdefault(m.group(1), {})
-        elif cur is not None:
-            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                          r"(\d+) bytes spill loads", line)
-            if m:
-                cur["stack_frame_bytes"], cur["spill_stores"], cur["spill_loads"] = map(
-                    int, m.groups())
-            m = re.search(r"Used (\d+) registers", line)
-            if m:
-                smem = re.search(r"(\d+) bytes smem", line)
-                cur["registers"] = int(m.group(1))
-                cur["smem_bytes"] = int(smem.group(1)) if smem else 0
+            cur = props = m.group(1)
+            out.setdefault(cur, {})
+            continue
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and props is not None:
+            entry = out.setdefault(props, {})
+            entry["stack_frame_bytes"], entry["spill_stores"], entry["spill_loads"] = map(
+                int, m.groups())
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[cur]["registers"] = int(m.group(1))
+            out[cur]["smem_bytes"] = int(smem.group(1)) if smem else 0
     return out
 
 
@@ -343,13 +412,17 @@ def cuobjdump() -> str:
 
 def report(lib: Path, names=DEFAULT_KERNELS) -> dict:
     """The mix of each kernel of ``lib`` whose name contains one of ``names``
-    (the first match, shortest name first): static, by loop, and per lane."""
+    after a non-identifier character (the shortest such name): static, by
+    loop, and per lane."""
     text = subprocess.run([cuobjdump(), "-sass", str(lib)], capture_output=True, text=True,
                           check=True).stdout
     funcs = parse(text)
     out = {}
     for name in names:
-        match = sorted((f for f in funcs if name in f), key=len)
+        # after a non-identifier character, as ``resources`` matches:
+        # ``ladder_w25519_kernel`` is not ``mladder_w25519_kernel``
+        pat = re.compile(r"(?<![A-Za-z_])" + re.escape(name))
+        match = sorted((f for f in funcs if pat.search(f)), key=len)
         if not match:
             out[name] = None
             continue
@@ -357,12 +430,17 @@ def report(lib: Path, names=DEFAULT_KERNELS) -> dict:
         tree = loops(own(instrs))
         called = sorted(callees(instrs).items(), key=lambda kv: -_mix(kv[1]).get("imad", 0))
         per_lane = None
-        for trips in (TRIPS.get(name), TRIPS_SCAN.get(name)):
+        for trips in (TRIPS.get(name), TRIPS_SCAN.get(name), TRIPS_FERMAT.get(name)):
             if per_lane is None and trips is not None:
                 per_lane = dynamic(instrs, tree, trips)
+                current = trips is TRIPS.get(name)
         out[name] = {"function": match[0], "static": _mix(own(instrs)), "loops": tree,
                      "callees": [{"address": tgt, "static": _mix(fn)} for tgt, fn in called],
                      "per_lane": per_lane}
+        group = AFFINE_GROUPS.get(name.removeprefix("affine_").removesuffix("_kernel"))
+        if name.startswith("affine_") and group and per_lane and current:
+            out[name]["per_thread"] = per_lane
+            out[name]["per_lane"] = {k: round(v / group[0]) for k, v in per_lane.items()}
     return out
 
 

@@ -1,25 +1,31 @@
 // Kernel D: Jacobian -> affine on P-256, secp256k1, Wei25519, P-384 and
-// P-521, one lane per thread (NVIDIA Hopper, sm_90a).
+// P-521 by a Montgomery batch inversion inside the kernel (NVIDIA Hopper,
+// sm_90a).
 //
 // Replaces the affine conversion at the end of the JAX package's API,
 // ecsimd_tpu/curves/point.py:JacobianPoint.to_affine, which runs as plain
-// XLA there (no Pallas kernel). Its plain PyTorch version,
-// curves/point.py:JacobianPoint.to_affine, shares one inversion across the
-// batch through a product tree (GFp.batch_inverse), which eager PyTorch
-// runs as thousands of small launches. Here every lane inverts its own z
-// with the Fermat power z^(p-2) (fe_inv), then forms x / z^2 and y / z^3 and
-// converts them to classical residues (a Montgomery multiply by 1 on
-// secp256k1, nothing on P-256). inverse(0) = 0, so a lane at infinity gives
-// (0, 0), as in the plain version; the residues are canonical, so both
-// agree bit for bit.
+// XLA there (no Pallas kernel) and shares one inversion across the batch
+// (GFp.batch_inverse, Montgomery's trick). Its plain PyTorch version,
+// curves/point.py:JacobianPoint.to_affine, does the same through a product
+// tree, which eager PyTorch runs as thousands of small launches; here the
+// trick costs no launch. Each thread takes G lanes (16, but 8 on P-521),
+// forms their z values' prefix products, inverts their product once and
+// unwinds it, 3 multiplies a lane (affine_lane.cuh); on P-384 and P-521 a
+// block's 128 threads also share that one inversion (a block tree). Then x
+// / z^2 and y / z^3 become classical residues (a Montgomery reduction on
+// secp256k1, nothing elsewhere). A lane at infinity (z = 0) gives (0, 0),
+// as in the plain version; the residues are canonical, so both agree bit
+// for bit.
 //
-// What bounds it: 32-bit integer multiply-add throughput, about 387 field
-// multiplies per lane on P-256, 510 on secp256k1 (p - 2 has 249 set bits)
-// and 270 on Wei25519 (the 2^255 - 19 addition chain); on P-384 and P-521
-// the addition chains of field_p384.cuh and field_p521.cuh, 403 and 541
-// field operations of 144 / 78 and 289 / 153 products; memory traffic is
-// five planes of D words per lane. Constant time per lane: the exponent is
-// public and the same for every lane.
+// What bounds it: not the bytes (six planes of D words a lane, z read
+// twice) nor the issue slots (a P-256 lane issues about 5,800
+// instructions, a sixteenth of the per-lane Fermat power's), but latency:
+// at G lanes a thread the batch fills few warps an SM (8 at 524,288 lanes
+// and G = 16), and each runs the inversion chain's 255 to 524 dependent
+// squarings. A larger G cuts the inversions and the warps together; the
+// block tree cuts the inversions alone, and pays where a field operation
+// is long (PERF.md). Constant time per lane: every exponent, loop and
+// address is public.
 
 #include "field_p256.cuh"
 #include "field_p384.cuh"
@@ -27,36 +33,73 @@
 #include "field_secp256k1.cuh"
 #include "field_w25519.cuh"
 
+namespace p256 {
+#include "affine_lane.cuh"
+}  // namespace p256
+
+namespace secp256k1 {
+#include "affine_lane.cuh"
+}  // namespace secp256k1
+
+namespace w25519 {
+#include "affine_lane.cuh"
+}  // namespace w25519
+
+namespace p384 {
+#include "affine_lane.cuh"
+}  // namespace p384
+
+namespace p521 {
+#include "affine_lane.cuh"
+}  // namespace p521
+
 namespace {
 
 constexpr int kThreads = 128;
 
-#define EC_AFFINE_KERNEL(NAME, NS)                                                         \
+// Dynamic shared memory a block: the prefixes, G - 1 of N words a thread.
+template <int N, int G>
+constexpr int smem_bytes() {
+  return (G - 1) * N * 4 * kThreads;
+}
+
+// Kernel D on NS with G lanes a thread, the inversion a thread's (TREE
+// false) or the block's. Lanes past the end of the batch run with the
+// others (the block tree's shuffles and barriers need the whole block) and
+// store nothing; the launcher and the queries below share its G and TREE.
+#define EC_AFFINE_KERNEL(TAG, NS, G, TREE)                                                 \
+  constexpr int kGroup_##TAG = G;                                                          \
+  constexpr bool kTree_##TAG = TREE;                                                       \
   __global__ void __launch_bounds__(kThreads)                                              \
-  NAME(const int32_t* __restrict__ xs, const int32_t* __restrict__ ys,                     \
-       const int32_t* __restrict__ zs, int32_t* __restrict__ ax, int32_t* __restrict__ ay, \
-       int64_t B) {                                                                        \
-    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;                      \
-    if (i >= B) return;                                                                    \
-    const NS::fe zi = NS::fe_inv(NS::fe_load(zs, B, i));                                   \
-    const NS::fe zi2 = NS::fe_sqr(zi);                                                     \
-    NS::fe_store(ax, B, i, NS::fe_to_classical(NS::fe_mul(NS::fe_load(xs, B, i), zi2)));   \
-    NS::fe_store(ay, B, i,                                                                 \
-                 NS::fe_to_classical(NS::fe_mul(NS::fe_mul(NS::fe_load(ys, B, i), zi2), zi))); \
+  affine_##TAG##_kernel(const int32_t* __restrict__ xs, const int32_t* __restrict__ ys,    \
+                        const int32_t* __restrict__ zs, int32_t* __restrict__ ax,          \
+                        int32_t* __restrict__ ay, int64_t B) {                             \
+    extern __shared__ uint32_t smem[];                                                     \
+    NS::affine_group<G, TREE, kThreads>(xs, ys, zs, ax, ay, B,                             \
+                                        (int64_t)blockIdx.x * kThreads * G, smem);         \
   }
 
-EC_AFFINE_KERNEL(affine_p256_kernel, p256)
-EC_AFFINE_KERNEL(affine_secp256k1_kernel, secp256k1)
-EC_AFFINE_KERNEL(affine_w25519_kernel, w25519)
-EC_AFFINE_KERNEL(affine_p384_kernel, p384)
-EC_AFFINE_KERNEL(affine_p521_kernel, p521)
+// G and the inversion a curve, by the card's times (bench/variants.py,
+// PERF.md): on the 256-bit curves 16 lanes a thread, each thread inverting
+// its own product (the block tree ran 5-10 % slower there); on P-384 16
+// lanes and on P-521 8, the block sharing one inversion (thread by thread
+// ran 21 % and 10 % slower).
+EC_AFFINE_KERNEL(p256, p256, 16, false)
+EC_AFFINE_KERNEL(secp256k1, secp256k1, 16, false)
+EC_AFFINE_KERNEL(w25519, w25519, 16, false)
+EC_AFFINE_KERNEL(p384, p384, 16, true)
+EC_AFFINE_KERNEL(p521, p521, 8, true)
 
 template <class Kernel>
 int launch(Kernel kernel, const int32_t* xs, const int32_t* ys, const int32_t* zs, int32_t* ax,
-           int32_t* ay, int64_t B, void* stream) {
+           int32_t* ay, int64_t B, int group, int smem, void* stream) {
   if (B > 0) {
-    const int64_t blocks = (B + kThreads - 1) / kThreads;
-    kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(xs, ys, zs, ax, ay, B);
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+    const int64_t lanes = (int64_t)kThreads * group;
+    const int64_t blocks = (B + lanes - 1) / lanes;
+    kernel<<<(unsigned)blocks, kThreads, smem, (cudaStream_t)stream>>>(xs, ys, zs, ax, ay, B);
   }
   return (int)cudaGetLastError();
 }
@@ -64,29 +107,50 @@ int launch(Kernel kernel, const int32_t* xs, const int32_t* ys, const int32_t* z
 }  // namespace
 
 // xs, ys, zs: (D, B) int32 Jacobian digit planes (internal form; D = 16,
-// or 24 on P-384 and 33 on P-521); ax, ay: (D, B) classical affine outputs. Launches on `stream` and returns
-// cudaGetLastError().
+// or 24 on P-384 and 33 on P-521); ax, ay: (D, B) classical affine outputs.
+// Launches on `stream` and returns cudaGetLastError().
 extern "C" int ec_affine_p256(const int32_t* xs, const int32_t* ys, const int32_t* zs,
                               int32_t* ax, int32_t* ay, int64_t B, void* stream) {
-  return launch(affine_p256_kernel, xs, ys, zs, ax, ay, B, stream);
+  return launch(affine_p256_kernel, xs, ys, zs, ax, ay, B, kGroup_p256,
+                smem_bytes<p256::kWords, kGroup_p256>(), stream);
 }
 
 extern "C" int ec_affine_secp256k1(const int32_t* xs, const int32_t* ys, const int32_t* zs,
                                    int32_t* ax, int32_t* ay, int64_t B, void* stream) {
-  return launch(affine_secp256k1_kernel, xs, ys, zs, ax, ay, B, stream);
+  return launch(affine_secp256k1_kernel, xs, ys, zs, ax, ay, B, kGroup_secp256k1,
+                smem_bytes<secp256k1::kWords, kGroup_secp256k1>(), stream);
 }
 
 extern "C" int ec_affine_w25519(const int32_t* xs, const int32_t* ys, const int32_t* zs,
                                 int32_t* ax, int32_t* ay, int64_t B, void* stream) {
-  return launch(affine_w25519_kernel, xs, ys, zs, ax, ay, B, stream);
+  return launch(affine_w25519_kernel, xs, ys, zs, ax, ay, B, kGroup_w25519,
+                smem_bytes<w25519::kWords, kGroup_w25519>(), stream);
 }
 
 extern "C" int ec_affine_p384(const int32_t* xs, const int32_t* ys, const int32_t* zs,
                               int32_t* ax, int32_t* ay, int64_t B, void* stream) {
-  return launch(affine_p384_kernel, xs, ys, zs, ax, ay, B, stream);
+  return launch(affine_p384_kernel, xs, ys, zs, ax, ay, B, kGroup_p384,
+                smem_bytes<p384::kWords, kGroup_p384>(), stream);
 }
 
 extern "C" int ec_affine_p521(const int32_t* xs, const int32_t* ys, const int32_t* zs,
                               int32_t* ax, int32_t* ay, int64_t B, void* stream) {
-  return launch(affine_p521_kernel, xs, ys, zs, ax, ay, B, stream);
+  return launch(affine_p521_kernel, xs, ys, zs, ax, ay, B, kGroup_p521,
+                smem_bytes<p521::kWords, kGroup_p521>(), stream);
 }
+
+// A curve's G and whether its block shares one inversion.
+#define EC_AFFINE_QUERIES(TAG)                                                             \
+  extern "C" int ec_affine_##TAG##_group(void) { return kGroup_##TAG; }                    \
+  extern "C" int ec_affine_##TAG##_tree(void) { return kTree_##TAG ? 1 : 0; }
+
+EC_AFFINE_QUERIES(p256)
+EC_AFFINE_QUERIES(secp256k1)
+EC_AFFINE_QUERIES(w25519)
+EC_AFFINE_QUERIES(p384)
+EC_AFFINE_QUERIES(p521)
+
+// The threads a block: thread t of block b takes lanes b kThreads G + t + j
+// kThreads, j < G (the curve's `_group`); `_tree` says whether the block
+// shares one inversion.
+extern "C" int ec_affine_threads(void) { return kThreads; }

@@ -201,24 +201,31 @@ __device__ __forceinline__ fe fe_mul4(const fe& a, const fe& b) {
 
 __device__ __forceinline__ fe fe_mul2(const fe& a, const fe& b) { return fe_dbl(fe_mul(a, b)); }
 
-// Fermat inversion a^(p-2), inverse(0) = 0: left-to-right square-and-multiply
-// over the 256 bits of the public exponent from acc = 1 (256 squarings and
-// 128 multiplies). The exponent is a constant, so every lane of a warp
-// takes the same branches and the time does not depend on a. The bit loop
-// stays rolled to keep the code small.
-__device__ __forceinline__ fe fe_inv(const fe& a) {
-  const uint32_t E[8] = {0xFFFFFFFDu, 0xFFFFFFFFu, 0xFFFFFFFFu, 0u, 0u, 0u, 1u, 0xFFFFFFFFu};
-  fe acc = fe_from_u32(1u);
-#pragma unroll
-  for (int w = 7; w >= 0; --w) {
-    const uint32_t e = E[w];
+// a^(2^n): n squarings, the loop kept rolled.
+__device__ __forceinline__ fe fe_sqr_n(fe a, int n) {
 #pragma unroll 1
-    for (int bit = 31; bit >= 0; --bit) {
-      acc = fe_sqr(acc);
-      if ((e >> bit) & 1u) acc = fe_mul(acc, a);
-    }
-  }
-  return acc;
+  for (int i = 0; i < n; ++i) a = fe_sqr(a);
+  return a;
+}
+
+// Fermat inversion a^(p-2), inverse(0) = 0, by an addition chain: x_k =
+// a^(2^k - 1) for k = 2, 3, 6, 12, 15, 30, 32, then p - 2's bits from the
+// top (32 ones, 31 zeros, a one, 96 zeros, 94 ones, then 01): 255
+// squarings and 12 multiplies. The exponent is public, so every lane runs
+// the same instructions.
+__device__ __forceinline__ fe fe_inv(const fe& a) {
+  const fe x2 = fe_mul(fe_sqr(a), a);
+  const fe x3 = fe_mul(fe_sqr(x2), a);
+  const fe x6 = fe_mul(fe_sqr_n(x3, 3), x3);
+  const fe x12 = fe_mul(fe_sqr_n(x6, 6), x6);
+  const fe x15 = fe_mul(fe_sqr_n(x12, 3), x3);
+  const fe x30 = fe_mul(fe_sqr_n(x15, 15), x15);
+  const fe x32 = fe_mul(fe_sqr_n(x30, 2), x2);
+  fe t = fe_mul(fe_sqr_n(x32, 32), a);  // bits 255 .. 192
+  t = fe_mul(fe_sqr_n(t, 128), x32);    // 96 zeros, then bits 95 .. 64
+  t = fe_mul(fe_sqr_n(t, 32), x32);     // bits 63 .. 32
+  t = fe_mul(fe_sqr_n(t, 30), x30);     // bits 31 .. 2
+  return fe_mul(fe_sqr_n(t, 2), a);     // bits 1, 0: 01
 }
 
 }  // namespace p256

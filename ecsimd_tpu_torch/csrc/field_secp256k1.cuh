@@ -155,24 +155,34 @@ __device__ __forceinline__ fe fe_to_classical(const fe& a) {
   return fe_redc(t);
 }
 
-// Fermat inversion a^(p-2) in Montgomery form, inverse(0) = 0: left-to-right
-// square-and-multiply over the 256 bits of the public exponent from acc = 1
-// (256 squarings and 249 multiplies: p - 2 has 249 set bits). The exponent
-// is a constant, so every lane takes the same branches.
-__device__ __forceinline__ fe fe_inv(const fe& a) {
-  const uint32_t E[8] = {0xFFFFFC2Du, 0xFFFFFFFEu, 0xFFFFFFFFu, 0xFFFFFFFFu,
-                         0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu, 0xFFFFFFFFu};
-  fe acc = fe_one();
-#pragma unroll
-  for (int w = 7; w >= 0; --w) {
-    const uint32_t e = E[w];
+// a^(2^n): n squarings, the loop kept rolled.
+__device__ __forceinline__ fe fe_sqr_n(fe a, int n) {
 #pragma unroll 1
-    for (int bit = 31; bit >= 0; --bit) {
-      acc = fe_sqr(acc);
-      if ((e >> bit) & 1u) acc = fe_mul(acc, a);
-    }
-  }
-  return acc;
+  for (int i = 0; i < n; ++i) a = fe_sqr(a);
+  return a;
+}
+
+// Fermat inversion a^(p-2) in Montgomery form, inverse(0) = 0, by
+// libsecp256k1's addition chain: x_k = a^(2^k - 1) for k = 2, 3, 6, 9, 11,
+// 22, 44, 88, 176, 220, 223, then p - 2's bits below the top 223 ones (a
+// zero, 22 ones, then 00001, 011, 01): 255 squarings and 15 multiplies.
+// The exponent is public, so every lane runs the same instructions.
+__device__ __forceinline__ fe fe_inv(const fe& a) {
+  const fe x2 = fe_mul(fe_sqr(a), a);
+  const fe x3 = fe_mul(fe_sqr(x2), a);
+  const fe x6 = fe_mul(fe_sqr_n(x3, 3), x3);
+  const fe x9 = fe_mul(fe_sqr_n(x6, 3), x3);
+  const fe x11 = fe_mul(fe_sqr_n(x9, 2), x2);
+  const fe x22 = fe_mul(fe_sqr_n(x11, 11), x11);
+  const fe x44 = fe_mul(fe_sqr_n(x22, 22), x22);
+  const fe x88 = fe_mul(fe_sqr_n(x44, 44), x44);
+  const fe x176 = fe_mul(fe_sqr_n(x88, 88), x88);
+  const fe x220 = fe_mul(fe_sqr_n(x176, 44), x44);
+  const fe x223 = fe_mul(fe_sqr_n(x220, 3), x3);
+  fe t = fe_mul(fe_sqr_n(x223, 23), x22);  // bit 32 is 0, bits 31 .. 10 are 1
+  t = fe_mul(fe_sqr_n(t, 5), a);           // bits 9 .. 5: 00001
+  t = fe_mul(fe_sqr_n(t, 3), x2);          // bits 4 .. 2: 011
+  return fe_mul(fe_sqr_n(t, 2), a);        // bits 1, 0: 01
 }
 
 }  // namespace secp256k1

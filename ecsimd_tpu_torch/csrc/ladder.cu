@@ -10,14 +10,16 @@
 // the field's internal form (Montgomery form on secp256k1), bit-identical
 // to the plain PyTorch version.
 //
-// What bounds it: 32-bit integer multiply-add throughput — 254 ZDAU steps
-// of 16 field multiplies each, per lane, with nothing to read from memory in
-// the loop. The design keeps the whole ladder state (two co-Z points and
-// the shared Z, 40 words) in registers for all 254 steps and re-reads each
-// 32-bit scalar word from global memory once per 32 bits, so the loop body
-// is pure arithmetic; masked swaps keep control flow uniform across the
-// warp (and constant-time per lane). Lanes past the end of the batch
-// return at once (i < B), so the batch needs no padding.
+// What bounds it: the integer ALU pipe. A P-256 lane issues 1.1 M
+// instructions, 72 % ALU (the field layer's carry chains and the formulas'
+// adds) and 23 % IMAD, in 254 ZDAU steps of 16 field multiplies with
+// nothing to read from memory in the loop (bench/sass.py; secp256k1 and
+// Wei25519 55 % and 51 % ALU). The whole ladder state (two co-Z points and
+// the shared Z, 40 words) stays in registers for all 254 steps, and each
+// 32-bit scalar word is read from global memory once per 32 bits; masked
+// swaps keep control flow uniform across the warp (and constant-time per
+// lane). Lanes past the end of the batch return at once (i < B), so the
+// batch needs no padding.
 
 #include "coz_p256.cuh"
 #include "coz_secp256k1.cuh"
@@ -39,19 +41,25 @@ namespace {
 
 constexpr int kThreads = 128;
 
-#define EC_LADDER_KERNEL(NAME, NS)                                                         \
-  __global__ void __launch_bounds__(kThreads)                                              \
+#define EC_LADDER_KERNEL(NAME, NS, BLOCKS, ONE_SWAP, REREAD)                               \
+  __global__ void __launch_bounds__(kThreads, BLOCKS)                                      \
   NAME(const int32_t* __restrict__ scalars, const int32_t* __restrict__ xs,                \
        const int32_t* __restrict__ ys, int32_t* __restrict__ ax, int32_t* __restrict__ ay,  \
        int32_t* __restrict__ z, int64_t B) {                                               \
     const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;                      \
     if (i >= B) return;                                                                    \
-    NS::ladder_lane(scalars, xs, ys, ax, ay, z, B, i);                                     \
+    NS::ladder_lane<ONE_SWAP, REREAD>(scalars, xs, ys, ax, ay, z, B, i);                   \
   }
 
-EC_LADDER_KERNEL(ladder_p256_kernel, p256)
-EC_LADDER_KERNEL(ladder_secp256k1_kernel, secp256k1)
-EC_LADDER_KERNEL(ladder_w25519_kernel, w25519)
+// Registers a curve (BLOCKS: the least blocks of kThreads an SM ptxas must
+// leave room for) and the lane's two choices, by the card's times
+// (bench/variants.py, PERF.md): P-256 at 3 blocks (152 registers, no
+// spill), secp256k1 and Wei25519 at 4 (128 registers: 4 and 7 spill
+// stores a step, yet faster than 3 blocks without), all three with one
+// swap a step and P read again.
+EC_LADDER_KERNEL(ladder_p256_kernel, p256, 3, true, true)
+EC_LADDER_KERNEL(ladder_secp256k1_kernel, secp256k1, 4, true, true)
+EC_LADDER_KERNEL(ladder_w25519_kernel, w25519, 4, true, true)
 
 template <class Kernel>
 int launch(Kernel kernel, const int32_t* scalars, const int32_t* xs, const int32_t* ys,

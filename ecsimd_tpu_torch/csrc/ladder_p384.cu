@@ -2,10 +2,12 @@
 // thread (NVIDIA Hopper, sm_90a): ladder_lane.cuh over coz.cuh's formulas
 // on the P-384 field (field_p384.cuh, 12 32-bit words). ladder.cu
 // says what the kernel computes and what bounds it; here one ZDAU step is
-// 9 multiplies and 7 squarings of 144 and 78 products, the multiplies
-// called, not inlined. One source a curve, so that the builds run side by
-// side. Replaces ecsimd_tpu/kernels/ladder.py:_ladder_kernel.
+// 9 multiplies and 7 squarings of 144 and 78 products, inlined here (the
+// lane holds no table; the other P-384 kernels call them). One source a
+// curve, so that the builds run side by side. Replaces
+// ecsimd_tpu/kernels/ladder.py:_ladder_kernel.
 
+#define EC_INLINE_FIELD_MULS
 #include "coz_p384.cuh"
 
 namespace p384 {
@@ -16,13 +18,16 @@ namespace {
 
 constexpr int kThreads = 128;
 
-__global__ void __launch_bounds__(kThreads)
+// Two blocks an SM, fe_mul and fe_sqr inlined (EC_INLINE_FIELD_MULS: 215
+// registers, no spill; called, the lane took 254), two swaps a step and P
+// held, by the card's times (bench/variants.py, PERF.md).
+__global__ void __launch_bounds__(kThreads, 2)
 ladder_p384_kernel(const int32_t* __restrict__ scalars, const int32_t* __restrict__ xs,
                    const int32_t* __restrict__ ys, int32_t* __restrict__ ax,
                    int32_t* __restrict__ ay, int32_t* __restrict__ z, int64_t B) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= B) return;
-  p384::ladder_lane(scalars, xs, ys, ax, ay, z, B, i);
+  p384::ladder_lane<false, false>(scalars, xs, ys, ax, ay, z, B, i);
 }
 
 }  // namespace

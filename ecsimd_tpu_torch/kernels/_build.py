@@ -49,7 +49,7 @@ HEADERS = ("limbs.cuh", "limbs_ns.cuh", "mul256.cuh", "mul_wide.cuh", "field_p25
            "comb_tree_lane.cuh", "comb_pipe_lane.cuh", "comb_chains.cuh",
            "comb_chains_lane.cuh", "comb_wide.cuh", "smem.cuh", "comb_general.cuh",
            "comb_general_lane.cuh", "comb_tree_wide.cuh", "comb_tree_wide_lane.cuh",
-           "comb_tree_schedule.cuh", "comb_mma.cuh", "comb_mma_lane.cuh")
+           "comb_tree_schedule.cuh", "comb_mma.cuh", "comb_mma_lane.cuh", "affine_lane.cuh")
 # curve -> (the tag of its kernels' C names, the curve as a kernel's
 # ``replaces`` names it; none for P-256, the first curve ported)
 CURVE_TAGS = {P256: ("p256", None), SECP256K1: ("secp256k1", "secp256k1"),

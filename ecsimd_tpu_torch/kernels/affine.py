@@ -2,13 +2,17 @@
 Wei25519, P-384 and P-521) and its wrapper.
 
 The JAX package converts with plain XLA (``ecsimd_tpu/curves/point.py``
-``JacobianPoint.to_affine``: one batch inversion through a product tree),
-with no Pallas kernel. The plain PyTorch version is this package's
-``JacobianPoint.to_affine``, which does the same; on the card that tree is
-thousands of small launches, so kernel D inverts each lane's z with its own
-Fermat power instead, and returns classical residues (leaving the
-Montgomery form on secp256k1). Every result is a canonical residue, so the
-two agree bit for bit, lanes at infinity (z = 0) giving (0, 0) in both.
+``JacobianPoint.to_affine``: one batch inversion, Montgomery's trick), with
+no Pallas kernel. The plain PyTorch version is this package's
+``JacobianPoint.to_affine``, which does the same through a product tree; on
+the card that tree is thousands of small launches, so kernel D runs the
+trick inside one launch instead: each thread takes ``group`` lanes
+(``threads`` a block: thread t of block b takes lanes b threads group + t +
+j threads), and on P-384 and P-521 a block's threads share one inversion
+(``layout``, ``csrc/affine_lane.cuh``).
+It returns classical residues (leaving the Montgomery form on secp256k1).
+Every result is a canonical residue, so the two agree bit for bit, lanes
+at infinity (z = 0) giving (0, 0) in both.
 """
 
 from __future__ import annotations
@@ -47,6 +51,15 @@ for _curve in _build.WIDE_CURVES:
                  "Pallas kernel)",
         n_pointers=5,
     )
+
+
+def layout(curve: CurveSpec = P256) -> tuple[int, int, bool]:
+    """(threads a block, lanes a thread, whether a block shares one
+    inversion) of kernel D on ``curve`` (asks the card's library)."""
+    lib = _build.library().lib
+    symbol = KERNELS[curve].symbol
+    return (lib.ec_affine_threads(), getattr(lib, f"{symbol}_group")(),
+            bool(getattr(lib, f"{symbol}_tree")()))
 
 
 def affine_planes(x, y, z, curve: CurveSpec = P256):

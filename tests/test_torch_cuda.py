@@ -991,3 +991,70 @@ def test_comb_mma_kernels_match_plain(cuda, curve, strict):
         assert torch.equal(k, w)
     for t in got_b:
         assert torch.equal(t[:, 5:5 + same], t[:, 5:6].expand(-1, same))
+
+
+ALL_CURVES = [P256, SECP256K1, WEI25519, P384, P521]
+
+
+@pytest.mark.parametrize("curve", ALL_CURVES, ids=lambda c: c.name)
+def test_affine_batch_inversion_edges(cuda, curve):
+    """Kernel D's batch inversion on a ragged batch (3 blocks and 37 lanes)
+    with z = 0 at every position of a group (thread j of block 1 at its
+    lane j, j < G), a whole group (thread G), a group's first and last
+    lanes (thread G + 1), a warp's edge (threads 31 and 32 of block 2) and
+    the batch's last lane: word for word against JacobianPoint.to_affine,
+    one launch, and the first 16 lanes ((i+1)G, random z) against the
+    oracle."""
+    threads, group_, _ = affine.layout(curve)
+    n = 3 * threads * group_ + 37
+    p, fs = curve.p, curve.field
+    rng = np.random.default_rng(130)
+    nbytes = (p.bit_length() + 7) // 8 + 8
+    zs = [int.from_bytes(rng.bytes(nbytes), "little") % (p - 1) + 1 for _ in range(n)]
+    pts = multiples(curve, 16)
+    xs = [x * z * z % p for (x, _), z in zip(pts, zs)] + [
+        int.from_bytes(rng.bytes(nbytes), "little") % p for _ in range(n - 16)]
+    ys = [y * z * z * z % p for (_, y), z in zip(pts, zs)] + [
+        int.from_bytes(rng.bytes(nbytes), "little") % p for _ in range(n - 16)]
+    block = threads * group_  # block 1 from lane `block`
+    zero = {block + j + j * threads for j in range(group_)}  # position j of thread j's group
+    zero |= {block + group_ + j * threads for j in range(group_)}  # thread G: a whole group
+    zero |= {block + group_ + 1, block + group_ + 1 + (group_ - 1) * threads}  # first, last
+    zero |= {2 * block + 31, 2 * block + 32, n - 1}
+    for i in zero:
+        zs[i] = 0
+    x, y, z = (GFp.from_classical(_wide_planes(v, curve, cuda), fs).planes.contiguous()
+               for v in (xs, ys, zs))
+    kernel = affine.KERNELS[curve]
+    before = kernel.launches
+    got = affine.affine_planes(x, y, z, curve)
+    assert kernel.launches == before + 1
+    want = JacobianPoint(GFp(x, fs), GFp(y, fs), GFp(z, fs), curve).to_affine()
+    assert torch.equal(got[0], want.x) and torch.equal(got[1], want.y)
+    assert not any(bool(g[:, sorted(zero)].any()) for g in got)
+    assert list(zip(ints(got[0][:, :16]), ints(got[1][:, :16]))) == pts
+
+
+@pytest.mark.parametrize("curve", ALL_CURVES, ids=lambda c: c.name)
+def test_ladder_kernel_edge_scalars_all_curves(cuda, curve):
+    """Kernel A (one swap a step, P's coordinates read again after the
+    loop) on 256 lanes with scalars 1, 2, 5, n - 2 and n - 1 first, word
+    for word against the plain group.scalar_mult, one launch, and 16
+    lanes against the oracle (n - 1, outside the ladder's domain: against
+    the plain ladder only)."""
+    ks, s = _wide_scalars(curve, 256, 131, cuda, curve.order - 1)
+    pts, pt = _wide_points(curve, 256, cuda)
+    kernel = ladder.KERNELS[curve]
+    before = kernel.launches
+    got = ladder.scalar_mult(s, pt)
+    assert kernel.launches == before + 1
+    xm = GFp.from_classical(pt.x, curve.field)
+    ym = GFp.from_classical(pt.y, curve.field)
+    want = group.scalar_mult(s, JacobianPoint(xm, ym, GFp.one(curve.field, xm.planes), curve))
+    for k, w in zip((got.x, got.y, got.z), (want.x, want.y, want.z)):
+        assert torch.equal(k.planes, w.planes)
+    out = affine.to_affine(got)
+    lanes = [i for i in range(16) if i != 4]
+    got16 = list(zip(ints(out.x[:, :16]), ints(out.y[:, :16])))
+    want16 = _curve_oracle(ks[:16], pts[:16], curve)
+    assert [got16[i] for i in lanes] == [want16[i] for i in lanes]

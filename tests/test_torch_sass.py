@@ -165,3 +165,114 @@ def test_tensor_core_select_classes():
     # before the loop), and the parent's masked scan for an older library
     assert sass.TRIPS["comb_p521_kernel"][2][:2] == ("position", 65)
     assert sass.TRIPS_SCAN["comb_p256_kernel"][1][2][1] == ("scan0", 2, [])
+
+
+# ptxas -v on a kernel that calls two device functions (P-521's fe_mul and
+# fe_sqr, __noinline__): their property lines follow the kernel's (as CUDA
+# 12.8's ptxas prints them), or come first
+PTXAS_CALLS = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118comb_p521_kernelEPKiPKhS1_PiS4_S4_l' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_118comb_p521_kernelEPKiPKhS1_PiS4_S4_l
+    152 bytes stack frame, 152 bytes spill stores, 152 bytes spill loads
+ptxas info    : Used 255 registers, 54272 bytes smem, 400 bytes cmem[0]
+ptxas info    : Compile time = 3808.190 ms
+ptxas info    : Function properties for _ZN4p521L6fe_mulEN2ec4fe_tILi17EEES2_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Function properties for _ZN4p521L6fe_sqrEN2ec4fe_tILi17EEE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120ladder_p521_kernelEPKiS1_S1_PiS2_S2_l' for 'sm_90a'
+ptxas info    : Function properties for _ZN4p521L6fe_sqrEN2ec4fe_tILi17EEE
+    8 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Function properties for _ZN12_GLOBAL__N_120ladder_p521_kernelEPKiS1_S1_PiS2_S2_l
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 255 registers, 392 bytes cmem[0]
+"""
+
+
+def test_ptxas_gives_a_callee_its_own_properties():
+    """A called function's stack frame and spill line stays its own: the
+    wide kernel B keeps its 152 spill bytes (the parser gave it the last
+    callee's 0 before), a kernel whose callee's lines come first keeps its
+    own 0, and the callees appear under their own names, with no
+    registers."""
+    rep = sass.ptxas(PTXAS_CALLS)
+    comb = sass.resources(rep, "comb_p521_kernel")
+    assert comb == {"stack_frame_bytes": 152, "spill_stores": 152, "spill_loads": 152,
+                    "registers": 255, "smem_bytes": 54272}
+    lad = sass.resources(rep, "ladder_p521_kernel")
+    assert lad == {"stack_frame_bytes": 0, "spill_stores": 0, "spill_loads": 0,
+                   "registers": 255, "smem_bytes": 0}
+    mul = rep["_ZN4p521L6fe_mulEN2ec4fe_tILi17EEES2_"]
+    assert mul == {"stack_frame_bytes": 0, "spill_stores": 0, "spill_loads": 0}
+    assert rep["_ZN4p521L6fe_sqrEN2ec4fe_tILi17EEE"]["stack_frame_bytes"] == 8
+
+
+LADDER = """
+	code for sm_90a
+		Function : _ZN12_GLOBAL__N_118ladder_p256_kernelEPKiS1_S1_PiS2_S2_l
+        /*0000*/                   LDG.E R2, desc[UR4][R4.64] ;
+        /*0010*/                   LDG.E R3, desc[UR4][R6.64] ;
+        /*0020*/                   SHF.R.U32.HI R8, RZ, R9, R2 ;
+        /*0030*/                   IMAD.WIDE.U32 R10, R12, R13, R10 ;
+        /*0040*/                   STL [R1], R10 ;
+        /*0050*/               @P0 BRA 0x20 ;
+        /*0060*/               @P1 BRA 0x10 ;
+        /*0070*/                   STG.E desc[UR4][R4.64], R10 ;
+        /*0080*/                   EXIT ;
+"""
+
+
+def test_kernels_a_and_d_are_read():
+    """Kernels A and D are read by default on their five curves. A's loop
+    nest is the scalar's words, then their bits (254 ZDAU steps over 8
+    words on P-256, 526 over 17 on P-521): on a listing of that shape the
+    spill store inside the bit loop runs 254 times a lane. D's loops are
+    its inversion chain's squarings, which sum to the chain's squarings
+    less those made outside a loop, with the walks over a thread's lanes or
+    the block's warps that are loops."""
+    for tag in ("p256", "secp256k1", "w25519", "p384", "p521"):
+        assert f"ladder_{tag}_kernel" in sass.DEFAULT_KERNELS
+        assert f"affine_{tag}_kernel" in sass.DEFAULT_KERNELS
+    assert sass.TRIPS["ladder_p521_kernel"] == [("word", 17, [("bit", sass.Fraction(526, 17),
+                                                                 [])])]
+    instrs = sass.parse(LADDER)["_ZN12_GLOBAL__N_118ladder_p256_kernelEPKiS1_S1_PiS2_S2_l"]
+    tree = sass.loops(instrs)
+    per_lane = sass.dynamic(instrs, tree, sass.TRIPS["ladder_p256_kernel"])
+    # outside: LDG, STG, EXIT; the word loop's own LDG and BRA 8 times; the
+    # bit loop's 4 instructions 254 times
+    assert per_lane["stl"] == 254 and per_lane["ldg"] == 1 + 8
+    assert per_lane["total"] == 3 + 2 * 8 + 4 * 254
+    squarings = {tag: sum(n if isinstance(n, int) else n[1] for n in loops)
+                 for tag, loops in sass._INV_SQUARINGS.items()}
+    assert squarings == {"p256": 253, "secp256k1": 253, "w25519": 252, "p384": 383,
+                         "p521": 522}
+    assert sass.TRIPS["affine_p521_kernel"][4] == ("k", 6, [("sqr", 84, [])])
+    # P-521's block tree: the warps' walks around the chain; P-256: the walk
+    # back over a thread's 16 lanes after it, four lanes a trip
+    assert sass.TRIPS["affine_p521_kernel"][0] == ("warps", 3, [])
+    assert sass.TRIPS["affine_p256_kernel"][-1] == ("back", 3, [])
+
+
+def test_report_tells_kernel_a_from_the_x_only_ladder(monkeypatch, tmp_path):
+    """report() picks ``ladder_w25519_kernel`` and not the x-only ladder's
+    ``mladder_w25519_kernel``, whose mangled name holds it and may be the
+    shorter one."""
+    listing = """
+	code for sm_90a
+		Function : _ZN8_GLOBAL__N_121mladder_w25519_kernelEPKiS1_PiS2_l
+        /*0000*/                   EXIT ;
+		Function : _ZN47_GLOBAL__N__71e37721_14_ladder_cu_c5c0ba0820ladder_w25519_kernelEPKiS1_S1_PiS2_S2_l
+        /*0000*/                   IMAD.WIDE.U32 R2, R4, R5, R2 ;
+        /*0010*/                   EXIT ;
+"""
+
+    class Done:
+        stdout = listing
+
+    monkeypatch.setattr(sass.subprocess, "run", lambda *a, **k: Done())
+    monkeypatch.setattr(sass, "cuobjdump", lambda: "cuobjdump")
+    rep = sass.report(tmp_path / "lib.so", ["ladder_w25519_kernel", "mladder_w25519_kernel"])
+    assert "20ladder_w25519_kernel" in rep["ladder_w25519_kernel"]["function"]
+    assert rep["ladder_w25519_kernel"]["static"]["imad"] == 1
+    assert "mladder" in rep["mladder_w25519_kernel"]["function"]
