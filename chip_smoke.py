@@ -41,7 +41,9 @@ any failed check raises and the script exits non-zero:
      one group, a whole group, a warp's edge, the batch's last lane); exact;
      then a ragged batch (65,536 - 333 lanes, no multiple of a block's)
      equal to the full run's lanes. Phases 11, 14 and 19 do the same on the
-     other curves.
+     other curves. A batch that small runs 4 lanes a thread; phases 6, 12,
+     15 and 19 repeat the edges and the ragged batch at 524,288 lanes, the
+     curve's own G, the last two blocks against to_affine.
   6. the first main path through api.scalar_mult_base and api.scalar_mult
      at B = 524,288: launch counts, CUDA-event times of each kernel, its
      plain version and the end-to-end call, and 64 lanes of each result
@@ -916,7 +918,7 @@ def affine_edge_input(jac, curve):
     ``infinity_lanes`` at z = 0 (the kernel's layout on ``curve`` read from
     the library)."""
     jx, jy, jz = (t.clone() for t in jac)
-    threads, group, _ = affine.layout(curve)
+    threads, group, _ = affine.layout(curve, jz.shape[1])
     jz[:, infinity_lanes(jz.shape[1], threads, group)] = 0
     return jx, jy, jz
 
@@ -926,13 +928,31 @@ def affine_edge_check(got, jac, curve, what):
     ragged batch (the first n - 333 lanes, no multiple of a block's lanes)
     gives the full run's lanes."""
     n = jac[2].shape[1]
-    threads, group, _ = affine.layout(curve)
+    threads, group, _ = affine.layout(curve, n)
     lanes = infinity_lanes(n, threads, group)
     check(not any(bool(g[:, lanes].any()) for g in got), f"{what}: infinity lanes -> (0, 0)")
     cut = n - 333
     ragged = affine.affine_planes(*(t[:, :cut].contiguous() for t in jac), curve)
     check(max_abs_diff(ragged, [g[:, :cut] for g in got]) == 0,
           f"{what}: a ragged batch of {cut} lanes == the full run's lanes")
+
+
+def affine_large_check(jac, curve, what):
+    """Kernel D on a batch that runs the curve's own lanes a thread (the
+    main path's; the CHECK_LANES checks run the small batch's): the
+    Jacobian planes ``jac`` with ``infinity_lanes`` at z = 0, its last two
+    blocks against JacobianPoint.to_affine on those lanes, the infinity
+    lanes (0, 0) and a ragged batch."""
+    jx, jy, jz = affine_edge_input(jac, curve)
+    got = affine.affine_planes(jx, jy, jz, curve)
+    n = jz.shape[1]
+    threads, group, _ = affine.layout(curve, n)
+    lo = n - 2 * threads * group
+    plain = JacobianPoint(*(GFp(t[:, lo:].contiguous(), curve.field) for t in (jx, jy, jz)),
+                          curve).to_affine()
+    check(max_abs_diff([g[:, lo:] for g in got], (plain.x, plain.y)) == 0,
+          f"{what} at {group} lanes a thread: its last two blocks == JacobianPoint.to_affine")
+    affine_edge_check(got, (jx, jy, jz), curve, f"{what} at {group} lanes a thread")
 
 
 def max_abs_diff(xs, ys):
@@ -1191,6 +1211,7 @@ def x25519_phases(rng, dev, card, counted):
         lambda: JacobianPoint(*(GFp(t, fs) for t in jac), WEI25519).to_affine())
     out["affine_err"] = max_abs_diff(affine.affine_planes(*jac, WEI25519), (plain.x, plain.y))
     check(out["affine_err"] == 0, "Wei25519 affine kernel == to_affine at B = 524,288")
+    affine_large_check(jac, WEI25519, "Wei25519 affine")
     del plain
     out["mladder_ms"] = time_ms(lambda: mladder.mladder_planes(kpa, upb, fs, x25519.A24, 255), 5)
     out["xdivz_ms"] = time_ms(lambda: mladder.xdivz(x2, z2), 10)
@@ -2055,6 +2076,7 @@ def wide_phase(rng, dev, card, counted, curve):
             f"affine_{tag}": lambda: affine.affine_planes(*jac, curve)}
     for name, run in runs.items():
         out[name]["ms"] = time_ms(run, 3 if name.startswith(("ladder", "window")) else 10)
+    affine_large_check(jac, curve, f"{curve.name} affine")
     del jac
     api_ms = {"scalar_mult": time_ms(lambda: api.scalar_mult(scalars, points), 3),
               "scalar_mult_fast": time_ms(lambda: api.scalar_mult_fast(scalars, points), 3),
@@ -2183,8 +2205,8 @@ def run():
     check(affine_check_err == 0, "affine kernel == JacobianPoint.to_affine")
     affine_edge_check(got, (jx, jy, jz), P256, "P-256 affine")
     check(affine_ints(AffinePoint(*got, P256), ORACLE_LANES) == want_base, "affine vs oracle")
-    say(f"phase 5 affine (threads, lanes a thread, block tree: {affine.layout()}): "
-          f"{CHECK_LANES} comb results exact vs JacobianPoint.to_affine (lanes at infinity at "
+    say(f"phase 5 affine (threads, lanes a thread, block tree: "
+          f"{affine.layout(P256, CHECK_LANES)}): {CHECK_LANES} comb results exact vs JacobianPoint.to_affine (lanes at infinity at "
           f"group edges); a ragged batch; {ORACLE_LANES} lanes vs oracle")
 
     # -- phase 6: the first main path at B = 524,288 ------------------------------
@@ -2225,6 +2247,7 @@ def run():
         lambda: JacobianPoint(*(GFp(t, P256.field) for t in jac_b), P256).to_affine())
     affine_err = max_abs_diff(affine.affine_planes(*jac_b), (plain.x, plain.y))
     check(affine_err == 0, "affine kernel == JacobianPoint.to_affine at B = 524,288")
+    affine_large_check(jac_b, P256, "P-256 affine")
     del plain, jac_b
     ladder_ms = time_ms(lambda: ladder.ladder_planes(scalars, points.x, points.y), 5)
     ladder_plain_ms, plain = time_once_ms(
@@ -2491,6 +2514,7 @@ def run():
         lambda: JacobianPoint(*(GFp(t, fs_k1) for t in pk1["jac"]), SECP256K1).to_affine())
     affine_k1_err = max_abs_diff(affine.affine_planes(*pk1["jac"], SECP256K1), (plain.x, plain.y))
     check(affine_k1_err == 0, "secp256k1 affine kernel == to_affine at B = 524,288")
+    affine_large_check(pk1["jac"], SECP256K1, "secp256k1 affine")
     del plain
     comb_k1_strict_ms = time_ms(
         lambda: comb.comb_planes(pk1["d"], mma_k1, nb_k1, SECP256K1, strict=True), 10)

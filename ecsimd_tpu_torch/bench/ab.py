@@ -2,7 +2,7 @@
 checkout's, on one card.
 
     python -m ecsimd_tpu_torch.bench.ab OTHER_CHECKOUT [--batch N] [--reps R]
-        [--rounds K] [--only NAME,...] [--sass]
+        [--rounds K] [--only NAME,...] [--sass] [--flags FLAG,...]
 
 Builds both libraries (the other from ``OTHER_CHECKOUT/ecsimd_tpu_torch/
 csrc``, every ``.cu`` there, into ``build/ab/``), calls each kernel's
@@ -16,6 +16,12 @@ library lacks (one this checkout added) is timed on this library alone
 and reported with ``other_ms`` and ``exact`` null.
 ``--sass`` also compares each kernel's SASS in the two libraries
 (``cuobjdump -sass``, instruction for instruction): ``sass_equal``.
+``--flags`` builds the other library with extra nvcc flags (say
+``-maxrregcount=168``), and its word ``inline`` forces P-384's and
+P-521's ``fe_mul`` / ``fe_sqr`` inline there (``bench/occupancy.py``'s
+copy of the sources): so one kernel is timed against itself built
+another way, the other checkout being this one or a copy of it with an
+edited source (only the ``.cu`` files it holds are built).
 Prints one JSON line: per kernel both times, their ratio, whether the
 outputs agreed, and each library's ptxas report (registers, spill bytes)
 for it; then the card's name and power limit.
@@ -42,13 +48,14 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import numpy as np
 import torch
 
 from ecsimd_tpu_torch import api, convert, x25519
-from ecsimd_tpu_torch.bench import sass
+from ecsimd_tpu_torch.bench import occupancy, sass
 from ecsimd_tpu_torch.field import GFp
 from ecsimd_tpu_torch.kernels import _build, affine, comb, field_ops, ladder, mladder, window
 from ecsimd_tpu_torch.kernels import glv as kglv
@@ -247,16 +254,24 @@ def main(argv=None):
     ap.add_argument("--rounds", type=int, default=2, help="0: compare the outputs only")
     ap.add_argument("--only", default="", help="comma-separated kernel names")
     ap.add_argument("--sass", action="store_true", help="compare the kernels' SASS too")
+    ap.add_argument("--flags", default="",
+                    help="comma-separated extra nvcc flags for the other library; inline: "
+                         "P-384's and P-521's fe_mul / fe_sqr inlined there")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: the A/B times kernels on an NVIDIA GPU")
     dev = torch.device("cuda", 0)
     this = _build.library()
     csrc = (args.other / "ecsimd_tpu_torch" / "csrc").resolve()
-    other = _build.compile_library(
-        csrc, _build.BUILD_DIR.parent / "ab",
-        sources=tuple(sorted(p.name for p in csrc.glob("*.cu"))),
-        headers=tuple(sorted(p.name for p in csrc.glob("*.cuh"))))
+    flags = [f for f in args.flags.split(",") if f]
+    with tempfile.TemporaryDirectory() as tmp:
+        if "inline" in flags:
+            csrc = occupancy._inline_copy(csrc, Path(tmp))
+        other = _build.compile_library(
+            csrc, _build.BUILD_DIR.parent / "ab",
+            sources=tuple(sorted(p.name for p in csrc.glob("*.cu"))),
+            headers=tuple(sorted(p.name for p in csrc.glob("*.cuh"))),
+            flags=tuple(f for f in flags if f != "inline"))
     other_args = declared(args.other)
     rep_this, rep_other = sass.ptxas(this.log), sass.ptxas(other.log)
     funcs = ({lab: _sass_functions(b.path) for lab, b in (("this", this), ("other", other))}
@@ -339,7 +354,7 @@ def main(argv=None):
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(json.dumps({"card": smi, "batch": args.batch, "reps": args.reps,
-                      "rounds": args.rounds, "kernels": results}))
+                      "rounds": args.rounds, "flags": flags, "kernels": results}))
     print(smi)
     if not all(r["exact"] is not False for r in results):
         raise SystemExit("outputs differ between the two libraries")

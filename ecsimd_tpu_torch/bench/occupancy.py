@@ -101,7 +101,7 @@ def _source(csrc: Path, tag: str) -> str:
 def _inline_copy(csrc: Path, into: Path) -> Path:
     """A copy of ``csrc`` whose wide fields inline fe_mul and fe_sqr: the
     field headers define EC_INLINE_FIELD_MULS first where their multiplies
-    take that switch (``mul_wide.cuh``'s EC_FIELD_MULS), else their
+    take that switch (``field_p384.cuh``'s EC_FIELD_MULS), else their
     ``__noinline__`` becomes ``__forceinline__`` (an older checkout)."""
     out = into / "csrc_inline"
     subprocess.run(["cp", "-r", str(csrc), str(out)], check=True)

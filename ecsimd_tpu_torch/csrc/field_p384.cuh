@@ -262,6 +262,13 @@ __device__ __forceinline__ fe fe_reduce(const uint32_t c[24]) {
   return fe_cond_sub_p(r, hi);
 }
 
+// Called, or inlined where a source defines EC_INLINE_FIELD_MULS first.
+#ifdef EC_INLINE_FIELD_MULS
+#define EC_FIELD_MULS __forceinline__
+#else
+#define EC_FIELD_MULS __noinline__
+#endif
+
 static __device__ EC_FIELD_MULS fe fe_mul(const fe a, const fe b) {
   uint32_t c[24];
   ec::mul_wide_n<kWords>(a, b, c);

@@ -20,9 +20,6 @@
 // fe_mul and fe_sqr are not inlined: each formula calls them, so a kernel
 // holds one copy of the 289-product grid (inlined, ptxas would take many
 // minutes on the window and comb sources).
-// A source that defines EC_INLINE_FIELD_MULS before including this
-// header inlines them (kernel A on P-384, ladder_p384.cu, whose lane holds
-// no table).
 //
 // What bounds it on the card: the multiply-add pipe (one IMAD-class
 // instruction a product) and the integer ALU pipe (the products' addc and
@@ -84,13 +81,13 @@ __device__ __forceinline__ fe fe_reduce(const uint32_t c[34]) {
   return ec::fe_cond_sub(s, carry, P);
 }
 
-static __device__ EC_FIELD_MULS fe fe_mul(const fe a, const fe b) {
+static __device__ __noinline__ fe fe_mul(const fe a, const fe b) {
   uint32_t c[34];
   ec::mul_wide_n<kWords>(a, b, c);
   return fe_reduce(c);
 }
 
-static __device__ EC_FIELD_MULS fe fe_sqr(const fe a) {
+static __device__ __noinline__ fe fe_sqr(const fe a) {
   uint32_t c[34];
   ec::sqr_wide_n<kWords>(a, c);
   return fe_reduce(c);

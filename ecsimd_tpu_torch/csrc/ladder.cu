@@ -41,25 +41,24 @@ namespace {
 
 constexpr int kThreads = 128;
 
-#define EC_LADDER_KERNEL(NAME, NS, BLOCKS, ONE_SWAP, REREAD)                               \
-  __global__ void __launch_bounds__(kThreads, BLOCKS)                                      \
+// The launch bounds a curve (after NS: the threads, then the least blocks
+// an SM ptxas must leave registers for), by the card's times (PERF.md):
+// P-256 at ptxas's own budget (128 registers; at a bound of four blocks it
+// ran 0.7 % slower), secp256k1 and Wei25519 at four blocks (128 registers,
+// a few spill stores a step, yet faster than three or ptxas's 156 / 168).
+#define EC_LADDER_KERNEL(NAME, NS, ...)                                                    \
+  __global__ void __launch_bounds__(__VA_ARGS__)                                           \
   NAME(const int32_t* __restrict__ scalars, const int32_t* __restrict__ xs,                \
        const int32_t* __restrict__ ys, int32_t* __restrict__ ax, int32_t* __restrict__ ay,  \
        int32_t* __restrict__ z, int64_t B) {                                               \
     const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;                      \
     if (i >= B) return;                                                                    \
-    NS::ladder_lane<ONE_SWAP, REREAD>(scalars, xs, ys, ax, ay, z, B, i);                   \
+    NS::ladder_lane(scalars, xs, ys, ax, ay, z, B, i);                                     \
   }
 
-// Registers a curve (BLOCKS: the least blocks of kThreads an SM ptxas must
-// leave room for) and the lane's two choices, by the card's times
-// (bench/variants.py, PERF.md): P-256 at 3 blocks (152 registers, no
-// spill), secp256k1 and Wei25519 at 4 (128 registers: 4 and 7 spill
-// stores a step, yet faster than 3 blocks without), all three with one
-// swap a step and P read again.
-EC_LADDER_KERNEL(ladder_p256_kernel, p256, 3, true, true)
-EC_LADDER_KERNEL(ladder_secp256k1_kernel, secp256k1, 4, true, true)
-EC_LADDER_KERNEL(ladder_w25519_kernel, w25519, 4, true, true)
+EC_LADDER_KERNEL(ladder_p256_kernel, p256, kThreads)
+EC_LADDER_KERNEL(ladder_secp256k1_kernel, secp256k1, kThreads, 4)
+EC_LADDER_KERNEL(ladder_w25519_kernel, w25519, kThreads, 4)
 
 template <class Kernel>
 int launch(Kernel kernel, const int32_t* scalars, const int32_t* xs, const int32_t* ys,

@@ -12,64 +12,35 @@
 
 // Lane i: k * P for the classical scalar planes and the affine point's
 // coordinates in the field's internal form (z = 1); stores Jacobian (X, Y,
-// Z) planes in the internal form. Two choices, made a curve by the card's
-// times (both keep the planes bit for bit): kOneSwap swaps once a step, on
-// m_i xor m_{i-1} (the swap after ZDAU i and the one before ZDAU i + 1
-// merged, the last bit's made after the loop), so ZDAU sees the values it
-// saw with two; kReread reads P's coordinates again after the loop, for the
-// final add only, instead of holding them (2N registers) through every
-// step.
-template <bool kOneSwap, bool kReread>
+// Z) planes in the internal form.
 __device__ __forceinline__ void ladder_lane(const int32_t* scalars, const int32_t* xs,
                                             const int32_t* ys, int32_t* ax_out,
                                             int32_t* ay_out, int32_t* z_out, int64_t B,
                                             int64_t i) {
+  const fe x = fe_load(xs, B, i);
+  const fe y = fe_load(ys, B, i);
   fe ax, ay, bx, by, z;
-  {
-    const fe x = fe_load(xs, B, i);
-    const fe y = fe_load(ys, B, i);
-    tplu(x, y, bx, by, ax, ay, z);  // base = 3P, acc = P
-  }
+  tplu(x, y, bx, by, ax, ay, z);  // base = 3P, acc = P
 
   const uint32_t k0 = scalar_word(scalars, B, i, 0);
-  uint32_t prev = (k0 >> 1) & 1u;  // the swap on bit 1
-  if constexpr (!kOneSwap) {
-    fe_swap_if(prev, ax, bx);
-    fe_swap_if(prev, ay, by);
-  }
+  const uint32_t m1 = (k0 >> 1) & 1u;
+  fe_swap_if(m1, ax, bx);
+  fe_swap_if(m1, ay, by);
 
   constexpr int kTopBits = kDigits % 2 ? 16 : 32;  // bits the top word holds
   for (int w = 0; w < kWords; ++w) {
     const uint32_t kw = scalar_word(scalars, B, i, w);
     for (int bit = (w == 0 ? 2 : 0); bit < (w == kWords - 1 ? kTopBits : 32); ++bit) {
       const uint32_t m = (kw >> bit) & 1u;
-      if constexpr (kOneSwap) {
-        fe_swap_if(m ^ prev, ax, bx);
-        fe_swap_if(m ^ prev, ay, by);
-        prev = m;
-        zdau(bx, by, ax, ay, z, bx, by, ax, ay, z);
-      } else {
-        fe_swap_if(m, ax, bx);
-        fe_swap_if(m, ay, by);
-        zdau(bx, by, ax, ay, z, bx, by, ax, ay, z);
-        fe_swap_if(m, ax, bx);
-        fe_swap_if(m, ay, by);
-      }
+      fe_swap_if(m, ax, bx);
+      fe_swap_if(m, ay, by);
+      zdau(bx, by, ax, ay, z, bx, by, ax, ay, z);
+      fe_swap_if(m, ax, bx);
+      fe_swap_if(m, ay, by);
     }
   }
-  if constexpr (kOneSwap) {
-    fe_swap_if(prev, ax, bx);  // the last bit's swap back
-    fe_swap_if(prev, ay, by);
-  }
 
-  // parity fixup: even scalars got (k+1)P; subtract P. With kReread the
-  // pointers pass through an empty asm statement, so the compiler cannot
-  // keep the first loads' registers live across the loop instead.
-  const int32_t* xs2 = xs;
-  const int32_t* ys2 = ys;
-  if constexpr (kReread) asm volatile("" : "+l"(xs2), "+l"(ys2));
-  const fe x = fe_load(xs2, B, i);
-  const fe y = fe_load(ys2, B, i);
+  // parity fixup: even scalars got (k+1)P; subtract P
   fe sx, sy, sz;
   add_z2_1(ax, ay, z, x, fe_neg(y), sx, sy, sz);
   const uint32_t even = (k0 & 1u) ^ 1u;

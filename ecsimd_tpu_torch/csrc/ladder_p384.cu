@@ -19,15 +19,15 @@ namespace {
 constexpr int kThreads = 128;
 
 // Two blocks an SM, fe_mul and fe_sqr inlined (EC_INLINE_FIELD_MULS: 215
-// registers, no spill; called, the lane took 254), two swaps a step and P
-// held, by the card's times (bench/variants.py, PERF.md).
+// registers, no spill; called, the lane took 254), by the card's times
+// (PERF.md).
 __global__ void __launch_bounds__(kThreads, 2)
 ladder_p384_kernel(const int32_t* __restrict__ scalars, const int32_t* __restrict__ xs,
                    const int32_t* __restrict__ ys, int32_t* __restrict__ ax,
                    int32_t* __restrict__ ay, int32_t* __restrict__ z, int64_t B) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= B) return;
-  p384::ladder_lane<false, false>(scalars, xs, ys, ax, ay, z, B, i);
+  p384::ladder_lane(scalars, xs, ys, ax, ay, z, B, i);
 }
 
 }  // namespace

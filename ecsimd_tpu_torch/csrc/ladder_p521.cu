@@ -17,15 +17,14 @@ namespace {
 constexpr int kThreads = 128;
 
 // Three blocks an SM (168 registers: ptxas spills, yet the lane runs faster
-// than at two), two swaps a step and P held, by the card's times
-// (bench/variants.py, PERF.md).
+// than at two), by the card's times (PERF.md).
 __global__ void __launch_bounds__(kThreads, 3)
 ladder_p521_kernel(const int32_t* __restrict__ scalars, const int32_t* __restrict__ xs,
                    const int32_t* __restrict__ ys, int32_t* __restrict__ ax,
                    int32_t* __restrict__ ay, int32_t* __restrict__ z, int64_t B) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= B) return;
-  p521::ladder_lane<false, false>(scalars, xs, ys, ax, ay, z, B, i);
+  p521::ladder_lane(scalars, xs, ys, ax, ay, z, B, i);
 }
 
 }  // namespace

@@ -27,14 +27,6 @@
 #include "limbs.cuh"
 #include "mul256.cuh"
 
-// The attribute of field_p384.cuh's and field_p521.cuh's fe_mul and fe_sqr:
-// called, or inlined where a source defines EC_INLINE_FIELD_MULS first.
-#ifdef EC_INLINE_FIELD_MULS
-#define EC_FIELD_MULS __forceinline__
-#else
-#define EC_FIELD_MULS __noinline__
-#endif
-
 namespace ec {
 
 // c[0 .. 2N-1] = a * b.

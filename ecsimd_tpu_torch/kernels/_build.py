@@ -130,19 +130,20 @@ def _nvcc() -> str:
     return found
 
 
-def _digest(csrc: Path, names) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _digest(csrc: Path, names, flags=()) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + tuple(flags)).encode())
     for name in names:
         h.update(name.encode())
         h.update((csrc / name).read_bytes())
     return h.hexdigest()[:16]
 
 
-def compile_library(csrc: Path, build_dir: Path, sources=SOURCES, headers=HEADERS) -> Build:
+def compile_library(csrc: Path, build_dir: Path, sources=SOURCES, headers=HEADERS,
+                    flags=()) -> Build:
     """Build (if needed) and load the library of ``sources`` in ``csrc``
     into ``build_dir``, the file named by a hash of the sources, the
-    ``headers`` and the flags."""
-    digest = _digest(csrc, tuple(headers) + tuple(sources))
+    ``headers`` and the flags (``flags``: nvcc flags after NVCC_FLAGS)."""
+    digest = _digest(csrc, tuple(headers) + tuple(sources), flags)
     so = build_dir / f"libecsimd_{digest}.so"
     log = build_dir / f"libecsimd_{digest}.log"
     seconds, source_seconds = 0.0, {}
@@ -155,7 +156,7 @@ def compile_library(csrc: Path, build_dir: Path, sources=SOURCES, headers=HEADER
             t0 = time.perf_counter()
             objs = [str(Path(tmp) / f"{src}.o") for src in sources]
             procs = [
-                subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(csrc / src)],
+                subprocess.Popen([nvcc, *NVCC_FLAGS, *flags, "-c", "-o", obj, str(csrc / src)],
                                  stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
                 for src, obj in zip(sources, objs)
             ]

@@ -6,16 +6,19 @@ The JAX package converts with plain XLA (``ecsimd_tpu/curves/point.py``
 no Pallas kernel. The plain PyTorch version is this package's
 ``JacobianPoint.to_affine``, which does the same through a product tree; on
 the card that tree is thousands of small launches, so kernel D runs the
-trick inside one launch instead: each thread takes ``group`` lanes
-(``threads`` a block: thread t of block b takes lanes b threads group + t +
-j threads), and on P-384 and P-521 a block's threads share one inversion
-(``layout``, ``csrc/affine_lane.cuh``).
+trick inside one launch instead: each thread takes ``group`` lanes (fewer
+in a batch too small to fill the card; ``threads`` a block: thread t of
+block b takes lanes b threads group + t + j threads), and on P-384 and
+P-521 a block's threads share one inversion (``layout``,
+``csrc/affine_lane.cuh``).
 It returns classical residues (leaving the Montgomery form on secp256k1).
 Every result is a canonical residue, so the two agree bit for bit, lanes
 at infinity (z = 0) giving (0, 0) in both.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -53,13 +56,16 @@ for _curve in _build.WIDE_CURVES:
     )
 
 
-def layout(curve: CurveSpec = P256) -> tuple[int, int, bool]:
+def layout(curve: CurveSpec, batch: int) -> tuple[int, int, bool]:
     """(threads a block, lanes a thread, whether a block shares one
-    inversion) of kernel D on ``curve`` (asks the card's library)."""
+    inversion) of kernel D on ``curve`` for a batch of ``batch`` lanes
+    (asks the card's library: a batch too small to fill the card's SMs at
+    the curve's own lanes a thread runs at fewer)."""
     lib = _build.library().lib
     symbol = KERNELS[curve].symbol
-    return (lib.ec_affine_threads(), getattr(lib, f"{symbol}_group")(),
-            bool(getattr(lib, f"{symbol}_tree")()))
+    group = getattr(lib, f"{symbol}_group")
+    group.argtypes, group.restype = [ctypes.c_int64], ctypes.c_int
+    return lib.ec_affine_threads(), group(batch), bool(getattr(lib, f"{symbol}_tree")())
 
 
 def affine_planes(x, y, z, curve: CurveSpec = P256):

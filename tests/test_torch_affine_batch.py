@@ -1,15 +1,14 @@
-"""Kernel D's batch inversion and kernel A's carried swap as Python-int
-models of the CUDA lanes (ecsimd_tpu_torch/csrc/affine_lane.cuh,
-ladder_lane.cuh), with no card: the models follow the kernels' schedules
-(D: thread t of a block of T threads takes lanes base + t + j T, j < G;
-prefix products forward; one inversion a thread, or one a block: each
-warp's shuffled prefix and suffix products, one thread inverting the
-block's product and unwinding it over the warps; two multiplies a lane
-back; zero and past-the-end lanes enter as 1), at small T, G and warp, and
-are held against the JAX package's JacobianPoint.to_affine, the port's
-plain to_affine and the Python-int oracle on TOY64 and P-256 (at most 16
-lanes). The inversion chains of the field headers are read from the
-sources and run on ints. Tolerance: exact."""
+"""Kernel D's batch inversion as a Python-int model of the CUDA lanes
+(ecsimd_tpu_torch/csrc/affine_lane.cuh), with no card: the model follows
+the kernel's schedule (thread t of a block of T threads takes lanes base +
+t + j T, j < G; prefix products forward; one inversion a thread, or one a
+block: each warp's shuffled prefix and suffix products, one thread
+inverting the block's product and unwinding it over the warps; two
+multiplies a lane back; zero and past-the-end lanes enter as 1), at small
+T, G and warp, and is held against the JAX package's
+JacobianPoint.to_affine, the port's plain to_affine and the Python-int
+oracle on TOY64 and P-256 (at most 16 lanes). The inversion chains of the
+field headers are read from the sources and run on ints. Tolerance: exact."""
 
 import math
 import re
@@ -271,37 +270,3 @@ def test_inversion_chains_of_the_sources(tag):
     want = {"p256": (12, 255), "secp256k1": (15, 255), "w25519": (11, 254),
             "p384": (14, 385), "p521": (13, 524)}[tag]
     assert (count["M"], count["S"]) == want
-
-
-# -- kernel A's carried swap --------------------------------------------------------
-
-def ladder_carried(k, pt, curve):
-    """ladder_lane.cuh with EC_LADDER_ONE_SWAP: one swap a step on m_i xor
-    m_{i-1}, the last bit's after the loop."""
-    base, acc = ocoz.tplu(pt, curve)
-    prev = (k >> 1) & 1
-    for i in range(2, curve.field.nbits):
-        m = (k >> i) & 1
-        if m ^ prev:
-            acc, base = base, acc
-        prev = m
-        base, acc = ocoz.zdau(base, acc, curve)
-    if prev:
-        acc, base = base, acc
-    if k & 1 == 0:
-        acc = ocoz.add_z2_1(acc, ocoz.point_opposite(pt, curve), curve)
-    return acc
-
-
-def test_ladder_carried_swap_matches_oracle_toy64():
-    """The carried swap gives the oracle's two-swap ladder's Jacobian
-    triple exactly (so ZDAU saw the same values at every step), and the
-    right affine multiple, edge scalars first."""
-    curve = TOY64
-    top = (1 << curve.field.nbits) - 1
-    ks = [1, 2, 3, 5, 6, top - 1, top] + rand_ints(np.random.default_rng(11), top, 20)
-    for (x, y), k in zip(multiples(curve, len(ks)), ks):
-        k = k or 1
-        pt = ocoz.jacobian_from_affine(x, y)
-        got = ladder_carried(k, pt, curve)
-        assert got == ocoz.scalar_mult(k, pt, curve)

@@ -996,17 +996,22 @@ def test_comb_mma_kernels_match_plain(cuda, curve, strict):
 ALL_CURVES = [P256, SECP256K1, WEI25519, P384, P521]
 
 
+@pytest.mark.parametrize("size", ["small", "large"])
 @pytest.mark.parametrize("curve", ALL_CURVES, ids=lambda c: c.name)
-def test_affine_batch_inversion_edges(cuda, curve):
-    """Kernel D's batch inversion on a ragged batch (3 blocks and 37 lanes)
-    with z = 0 at every position of a group (thread j of block 1 at its
-    lane j, j < G), a whole group (thread G), a group's first and last
-    lanes (thread G + 1), a warp's edge (threads 31 and 32 of block 2) and
-    the batch's last lane: word for word against JacobianPoint.to_affine,
-    one launch, and the first 16 lanes ((i+1)G, random z) against the
-    oracle."""
-    threads, group_, _ = affine.layout(curve)
-    n = 3 * threads * group_ + 37
+def test_affine_batch_inversion_edges(cuda, curve, size):
+    """Kernel D's batch inversion on a ragged batch (3 blocks and 37 lanes
+    when small; as many blocks as the card has SMs and 37 lanes when
+    large, so that it runs the curve's own lanes a thread G, not the small
+    batch's) with z = 0 at every position of a group (thread j of block 1
+    at its lane j, j < G), a whole group (thread G), a group's first and
+    last lanes (thread G + 1), a warp's edge (threads 31 and 32 of block
+    2) and the batch's last lane: word for word against
+    JacobianPoint.to_affine, one launch, and the first 16 lanes ((i+1)G,
+    random z) against the oracle."""
+    threads, group_, _ = affine.layout(curve, 1 if size == "small" else 1 << 30)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    n = (3 if size == "small" else max(3, sms)) * threads * group_ + 37
+    assert affine.layout(curve, n)[1] == group_
     p, fs = curve.p, curve.field
     rng = np.random.default_rng(130)
     nbytes = (p.bit_length() + 7) // 8 + 8
@@ -1037,11 +1042,10 @@ def test_affine_batch_inversion_edges(cuda, curve):
 
 @pytest.mark.parametrize("curve", ALL_CURVES, ids=lambda c: c.name)
 def test_ladder_kernel_edge_scalars_all_curves(cuda, curve):
-    """Kernel A (one swap a step, P's coordinates read again after the
-    loop) on 256 lanes with scalars 1, 2, 5, n - 2 and n - 1 first, word
-    for word against the plain group.scalar_mult, one launch, and 16
-    lanes against the oracle (n - 1, outside the ladder's domain: against
-    the plain ladder only)."""
+    """Kernel A at its register budget on 256 lanes with scalars 1, 2, 5,
+    n - 2 and n - 1 first, word for word against the plain
+    group.scalar_mult, one launch, and 16 lanes against the oracle (n - 1,
+    outside the ladder's domain: against the plain ladder only)."""
     ks, s = _wide_scalars(curve, 256, 131, cuda, curve.order - 1)
     pts, pt = _wide_points(curve, 256, cuda)
     kernel = ladder.KERNELS[curve]
