@@ -21,10 +21,11 @@ any failed check raises and the script exits non-zero:
   1. build: compiles every CUDA source of the port with nvcc (sm_90a), one
      process per source, and prints the build seconds, each kernel's
      registers, spills, stack frame and shared memory, each source's nvcc
-     seconds, and the SASS of kernels E and F, and of B, the generic L, A
-     and D on their five curves, by instruction class (bench/sass.py:
-     cuobjdump -sass, each loop's body times its runs; B's and L's
-     tensor-core products, IMMA, among them; D's a thread's G lanes over G).
+     seconds, and the SASS of kernels E and F, and of B, the generic L, A,
+     D, J and K on their five curves, by instruction class (bench/sass.py:
+     cuobjdump -sass, each loop's body times its runs; B's, J's, K's and
+     L's tensor-core products, IMMA, among them; D's a thread's G lanes
+     over G).
   2. field probe (kernel C) against the plain GFp: 65,536 lanes, the pairs
      of carry_edges (p - 1, p - 2^32, all-ones words, ...) first, exact; 64
      lanes also against Python ints.
@@ -694,9 +695,11 @@ def dynamic_smem(kernel):
     """{"dynamic_smem_bytes": n}: the dynamic shared memory the runtime gives
     a block of ``kernel`` (ptxas reports only the static part), read from
     its source's ``<symbol>_smem`` query, and where its source has a
-    ``<symbol>_blocks`` query (kernels B and the generic L) also
+    ``<symbol>_blocks`` query (kernels B, J, K and the generic L) also
     "blocks_per_sm", the blocks an SM holds at that size; {} for a kernel
-    launched with none, whose source has no such query."""
+    launched with none, whose source has no such query. Kernels B, J and K
+    are held to ``comb.serial_smem_bytes``, ``tree_smem_bytes`` and
+    ``pipe_smem_bytes``."""
     lib = _build.library().lib
     try:
         fn = getattr(lib, kernel.symbol + "_smem")
@@ -706,11 +709,13 @@ def dynamic_smem(kernel):
     n = fn()
     check(n > 0, f"{kernel.symbol}: dynamic shared memory query gave {n}")
     out = {"dynamic_smem_bytes": n}
-    curve = next((c for (c, _), k in comb.KERNELS.items() if k is kernel), None)
-    if curve is not None:  # kernel B: its two buffers and the row buffers
-        check(n == comb.serial_smem_bytes(curve), f"{kernel.symbol}: {n} bytes of shared memory, "
-                                                  f"serial_smem_bytes says "
-                                                  f"{comb.serial_smem_bytes(curve)}")
+    for table, size in ((((c, k) for (c, _), k in comb.KERNELS.items()), comb.serial_smem_bytes),
+                        (comb.KERNELS_TREE.items(), comb.tree_smem_bytes),
+                        (comb.KERNELS_PIPE.items(), comb.pipe_smem_bytes)):
+        curve = next((c for c, k in table if k is kernel), None)
+        if curve is not None:  # B, K: two buffers; J: a step's two positions, double buffered
+            check(n == size(curve), f"{kernel.symbol}: {n} bytes of shared memory, "
+                                    f"{size.__name__} says {size(curve)}")
     if hasattr(lib, kernel.symbol + "_blocks"):
         fn = getattr(lib, kernel.symbol + "_blocks")
         fn.argtypes, fn.restype = [], ctypes.c_int
@@ -1301,9 +1306,9 @@ def schedule_phase(rng, dev, card, counted, scalars, b_plain_ms):
 
     def run(kw, s):
         if kw.get("chain") == "tree":
-            return comb.comb_tree_planes(s, limbs, nb)
+            return comb.comb_tree_planes(s, mma, nb)
         if kw.get("chain") == "pipe":
-            return comb.comb_pipe_planes(s, limbs, nb)
+            return comb.comb_pipe_planes(s, mma, nb)
         return comb.comb_chains_planes(s, limbs, mma, nb, P256, kw["chains"], kw["unroll"],
                                        kw["strict"])
 
@@ -1409,7 +1414,8 @@ def schedule_path(dev, card, counted, curve, scalars, ks, phase):
     numbers of the kernels line."""
     fs, d = curve.field, curve.field.ndigits
     schedules = PATH_SCHEDULES[curve]
-    limbs = comb.kernel_tables(curve, curve.gx, curve.gy, dev)
+    limbs = (comb.kernel_tables(curve, curve.gx, curve.gy, dev)
+             if any(comb.uses_kernel_tables(curve, **kw) for kw in schedules.values()) else None)
     mma = comb.mma_tables(curve, curve.gx, curve.gy, dev)
     nb = comb.device_tables(curve, curve.gx, curve.gy, dev)[2]
     tables_np, negbase_ints = comb.base_tables(curve, curve.gx, curve.gy)
@@ -1722,9 +1728,9 @@ def curve_phase(rng, dev, card, counted, curve):
             r["comb_strict_w25519"] = lambda: comb.comb_planes(s, mma, nb, curve, True)
         for kname, kw in SCHEDULES.items():
             if kw.get("chain") == "tree":
-                r[f"{kname}_{tag}"] = lambda: comb.comb_tree_planes(s, limbs, nb, curve)
+                r[f"{kname}_{tag}"] = lambda: comb.comb_tree_planes(s, mma, nb, curve)
             elif kw.get("chain") == "pipe":
-                r[f"{kname}_{tag}"] = lambda: comb.comb_pipe_planes(s, limbs, nb, curve)
+                r[f"{kname}_{tag}"] = lambda: comb.comb_pipe_planes(s, mma, nb, curve)
             else:
                 r[f"{kname}_{tag}"] = (lambda kw=kw: comb.comb_chains_planes(
                     s, limbs, mma, nb, curve, kw["chains"], kw["unroll"], kw["strict"]))
@@ -2543,7 +2549,7 @@ def run():
     for kname, mix in sass_mix.items():
         check(mix is not None, f"cuobjdump -sass found {kname}")
     say("phase 1 SASS of kernels E (five curves), F, B and the generic L (five curves, chains 2, "
-        "unroll 1), A and D (five curves), instructions a lane issues by class "
+        "unroll 1), A, D, J and K (five curves), instructions a lane issues by class "
         "(cuobjdump -sass, loop bodies times their runs, called functions times their calls): "
         + json.dumps({k: v["per_lane"] for k, v in sass_mix.items()}) + "; the called "
         "functions, once each (multiply, then squaring): " + json.dumps(
@@ -2558,9 +2564,9 @@ def run():
     for kname in sass.LADDER_KERNELS:
         check(sass_mix[kname]["per_lane"] is not None,
               f"{kname}'s loops are the scalar's words by their bits")
-    for kname in sass.COMB_KERNELS:
-        # B and the generic L select on the tensor cores: IMMA, and no scan
-        # loop over a position's entries (their loop nests are TRIPS')
+    for kname in sass.COMB_KERNELS + sass.TREE_PIPE_KERNELS:
+        # B, J, K and the generic L select on the tensor cores: IMMA, and no
+        # scan loop over a position's entries (their loop nests are TRIPS')
         mix = sass_mix[kname]
         check(mix["static"].get("imma", 0) > 0 and mix["static"].get("lds128", 0) == 0
               and mix["per_lane"] is not None,

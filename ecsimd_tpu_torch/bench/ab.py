@@ -34,7 +34,8 @@ P-384 / P-521 gained a scratch and its slot count) is compared with
 its older self; and the comb table in the layout it declares
 (``layout``: a checkout whose kernel declares none, or ``"limbs"``, gets
 ``comb.kernel_tables`` where this one's takes ``comb.mma_tables``), so
-kernels B and the generic L are compared with their masked-scan selves.
+kernels B, J, K and the generic L are compared with their masked-scan
+selves.
 Scratch tensors (a ``Kernel``'s last ``n_scratch`` pointers) are not
 compared.
 """
@@ -102,7 +103,6 @@ def _wide(batch: int, dev, rng) -> dict:
         tag, d = _build.CURVE_TAGS[curve][0], curve.field.ndigits
         s = _planes(_scalars(rng, batch, curve.order), dev, d)
         pt = api.scalar_mult_base(_planes(_scalars(rng, batch, curve.order), dev, d), curve)
-        limbs = comb.kernel_tables(curve, curve.gx, curve.gy, dev)
         mma = comb.mma_tables(curve, curve.gx, curve.gy, dev)
         _, _, nb = comb.device_tables(curve, curve.gx, curve.gy, dev)
         jac = comb.comb_planes(s, mma, nb, curve)
@@ -118,20 +118,21 @@ def _wide(batch: int, dev, rng) -> dict:
             f"affine_{tag}": lambda jac=jac, c=curve: affine.affine_planes(*jac, c),
             f"field_probe_{tag}": lambda a=a, b=b, c=curve: field_ops.probe(a, b, c.field),
             f"field_consts_{tag}": lambda c=curve: field_ops.constants(c.field, dev),
-            f"comb_tree_{tag}": lambda s=s, lb=limbs, nb=nb, c=curve: comb.comb_tree_planes(
-                s, lb, nb, c),
-            f"comb_pipe_{tag}": lambda s=s, lb=limbs, nb=nb, c=curve: comb.comb_pipe_planes(
-                s, lb, nb, c),
+            f"comb_tree_{tag}": lambda s=s, mm=mma, nb=nb, c=curve: comb.comb_tree_planes(
+                s, mm, nb, c),
+            f"comb_pipe_{tag}": lambda s=s, mm=mma, nb=nb, c=curve: comb.comb_pipe_planes(
+                s, mm, nb, c),
             **_general(tag, curve, s, mma, nb),
         }
     return out
 
 
 def _schedules(tag, curve, s, limbs, mma, nb, chains) -> dict:
-    """Kernels J, K and L's templated instantiations (``chains``: name ->
-    (chains, unroll, strict)) on a 256-bit curve other than P-256."""
-    return {f"comb_tree_{tag}": lambda: comb.comb_tree_planes(s, limbs, nb, curve),
-            f"comb_pipe_{tag}": lambda: comb.comb_pipe_planes(s, limbs, nb, curve),
+    """Kernels J, K (on ``mma``) and L's templated instantiations
+    (``chains``: name -> (chains, unroll, strict)) on a 256-bit curve other
+    than P-256."""
+    return {f"comb_tree_{tag}": lambda: comb.comb_tree_planes(s, mma, nb, curve),
+            f"comb_pipe_{tag}": lambda: comb.comb_pipe_planes(s, mma, nb, curve),
             **{f"{k}_{tag}": (lambda c=c, u=u, st=st: comb.comb_chains_planes(
                 s, limbs, mma, nb, curve, c, u, st)) for k, (c, u, st) in chains.items()}}
 
@@ -193,8 +194,8 @@ def workloads(batch: int, dev) -> dict:
         "ladder": lambda: ladder.ladder_planes(s, pt.x, pt.y),
         "comb": lambda: comb.comb_planes(s, mma, nb),
         "comb_strict": lambda: comb.comb_planes(s, mma, nb, strict=True),
-        "comb_tree": lambda: comb.comb_tree_planes(s, limbs, nb),
-        "comb_pipe": lambda: comb.comb_pipe_planes(s, limbs, nb),
+        "comb_tree": lambda: comb.comb_tree_planes(s, mma, nb),
+        "comb_pipe": lambda: comb.comb_pipe_planes(s, mma, nb),
         **{k: (lambda c=c, u=u, st=st: comb.comb_chains_planes(s, limbs, mma, nb, P256, c, u,
                                                                st))
            for k, (c, u, st) in chains.items()},

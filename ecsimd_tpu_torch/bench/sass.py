@@ -4,8 +4,8 @@
 
 prints one JSON object: for each kernel whose (mangled) name contains one of
 the given substrings (default: kernels E, on its five curves, F, B and
-the generic L on their five curves, plain and strict, A and D on their
-five curves), its
+the generic L on their five curves, plain and strict, A, D, J and K on
+their five curves), its
 static count of SASS instructions by class, the loops (the address ranges
 of backward branches) with the classes of the instructions each holds
 outside its inner loops, and, where the loop nest has the shape the source
@@ -19,9 +19,13 @@ kernel's own loops, and its instructions enter the dynamic count a lane
 once for each call the lane makes. The generic L's loops run as its
 launch's ints say: the count is at chains 2, unroll 1 (one position a
 step), and code in a branch that a lane takes only at some positions (a
-chain's fold) counts at every position. Kernel D's count is a thread's
-(``per_thread``), which converts G lanes (``AFFINE_GROUPS``), and
-``per_lane`` is that over G. Without ``--lib`` it
+chain's fold; kernel J's pending sum, kept at the first clear bit of the
+step) counts at every position: an upper bound. Kernel D's count is a
+thread's (``per_thread``), which converts G lanes (``AFFINE_GROUPS``), and
+``per_lane`` is that over G; on P-384 and P-521 the block's one inversion
+(the code from its first loop to its last, ``ONE_THREAD``) counts a
+1 / 128 share in each thread, as thread 0 of the block's 128 runs it.
+Without ``--lib`` it
 builds (or reuses) this checkout's library. Needs the CUDA toolkit's
 ``cuobjdump``.
 
@@ -56,14 +60,16 @@ WIDE_KERNELS = tuple(f"window{st}_{tag}_kernel" for tag in ("p384", "p521")
 COMB_TAGS = ("p256", "secp256k1", "w25519", "p384", "p521")
 COMB_KERNELS = tuple(f"comb{kind}{st}_{tag}_kernel" for kind in ("", "_general")
                      for tag in COMB_TAGS for st in ("", "_strict"))
-# kernels A and D
+# kernels A and D; J and K, the comb's tree and pipe
 LADDER_KERNELS = tuple(f"ladder_{tag}_kernel" for tag in COMB_TAGS)
 AFFINE_KERNELS = tuple(f"affine_{tag}_kernel" for tag in COMB_TAGS)
+TREE_PIPE_KERNELS = tuple(f"comb_{kind}_{tag}_kernel" for kind in ("tree", "pipe")
+                          for tag in COMB_TAGS)
 DEFAULT_KERNELS = ("window_p256_kernel", "window_strict_p256_kernel", "glv_secp256k1_kernel",
                    "glv_strict_secp256k1_kernel", "window_secp256k1_kernel",
                    "window_strict_secp256k1_kernel", "window_w25519_kernel",
                    "window_strict_w25519_kernel") + WIDE_KERNELS + COMB_KERNELS + (
-                   LADDER_KERNELS + AFFINE_KERNELS)
+                   LADDER_KERNELS + AFFINE_KERNELS + TREE_PIPE_KERNELS)
 
 # Loop nests as the sources write them, outermost first, loops in address
 # order: (name, iterations each time the loop is entered, inner loops).
@@ -105,6 +111,31 @@ def _comb_general(npos, n):
                             ("position", Fraction(npos - 1, npos), [])])]
 
 
+# Kernel K (comb_pipe_lane.cuh): the copies of positions 0, 1 and 2 before
+# the loop, then positions 1 .. npos - 1, each staging position j + 2 but
+# the last two.
+def _comb_pipe(npos, n):
+    c1 = -(-n // 2)
+    return [("stage0", n, []), ("stage1", c1, []), ("stage2", c1, []),
+            ("position", npos - 1, [("stage", Fraction((npos - 3) * c1, npos - 1), [])])]
+
+
+# Kernel J (comb_tree_lane.cuh, comb_tree_wide_lane.cuh): step 0's copies
+# (position 0 and npos / 2) and step 1's before the loop, then steps 1 ..
+# kSteps - 1 (kSteps = npos / 2), each staging the next step's two
+# positions but the last, and folding pending sums: at 256 bits the level
+# loop runs once a level while the step's bit is set and once more where it
+# clears (29 trips over steps 1 .. 15; the pending sum's store is in it);
+# on P-384 / P-521 the fold loop once a pending sum folded (kSteps - 1 in
+# all).
+def _comb_tree(npos, n):
+    c1, steps = -(-n // 2), npos // 2
+    inner = Fraction(29, 15) if npos == 32 else Fraction(1)
+    copies = [(f"copy{h}", Fraction((steps - 2) * c1, steps - 1), []) for h in ("_lo", "_hi")]
+    return [("stage0", n, []), ("stage0_hi", c1, []), ("stage1_lo", c1, []),
+            ("stage1_hi", c1, []), ("step", steps - 1, copies + [("fold", inner, [])])]
+
+
 # The masked scan the two replaced (the parent of the tensor-core read), so
 # that a library built before it reads too (--lib): its copies of 16-byte
 # vectors (2 padded N words an entry), and its scan of each position, 4
@@ -127,6 +158,42 @@ def _scan_general(npos, n):
                             ("position", 1, [("scan0", Fraction(256 // per, npos), []),
                                              ("scan", Fraction((npos - 1) * (128 // per), npos),
                                               [])])])]
+
+
+# Kernels K and J before their tensor-core read (--lib of a library built
+# before it), as _scan_b: K's copies of positions 0, 1 and 2 and its scans
+# of positions 0 and 1 before the loop, then positions 1 .. npos - 1 (the
+# copy of j + 2, the scan of j + 1); J's copies of step 0's positions, then
+# every step's: the next step's two copies, the scans of its lower position
+# (position 0's at step 0 only) and of its upper one, the pending sums'
+# loop (30 trips over the 16 steps at 256 bits; a fold a step but the
+# first on P-384 / P-521).
+def _scan_pipe(npos, n):
+    ev = 2 * (-(-n // 4))
+    per = 4 if n == 8 else 2
+    return [("stage0", 2 * ev, []), ("stage1", ev, []), ("scan0", 256 // per, []),
+            ("stage2", ev, []), ("scan1", 128 // per, []),
+            ("position", npos - 1, [("stage", Fraction((npos - 3) * ev, npos - 1), []),
+                                    ("scan", 128 // per, [])])]
+
+
+def _scan_tree(npos, n):
+    ev = 2 * (-(-n // 4))
+    per = 4 if n == 8 else 2
+    steps = npos // 2
+    fold = Fraction(30, 16) if npos == 32 else Fraction(steps - 1, steps)
+    return [("stage0", 2 * ev, []), ("stage0_hi", ev, []),
+            ("step", steps, [("copy_lo", Fraction((steps - 1) * ev, steps), []),
+                             ("copy_hi", Fraction((steps - 1) * ev, steps), []),
+                             ("scan0", Fraction(256 // per, steps), []),
+                             ("scan_lo", Fraction((steps - 1) * (128 // per), steps), []),
+                             ("scan_hi", 128 // per, []), ("fold", fold, [])])]
+
+
+# Kernel D's block tree: thread 0 of the block's 128 alone runs the code from
+# the warps' walk forward (the first loop) to their walk back (the last),
+# the inversion chain between them: (first loop, last loop, threads).
+AFFINE_THREADS = 128
 
 
 # Kernel A (ladder_lane.cuh): the scalar's words, then each word's bits: 16 D
@@ -175,6 +242,8 @@ def _affine(tag):
 # loop that holds it: an upper bound (P-256: 160 counted, 128 run;
 # secp256k1: 256 counted, 249 run).
 TRIPS_FERMAT = {f"affine_{tag}_kernel": [("word", 32, [])] * 8 for tag in ("p256", "secp256k1")}
+ONE_THREAD = {f"affine_{tag}_kernel": (0, -1, AFFINE_THREADS)
+              for tag, (_, tree) in AFFINE_GROUPS.items() if tree}
 
 _COMB_SIZES = {"p256": (32, 8), "secp256k1": (32, 8), "w25519": (32, 8), "p384": (48, 12),
                "p521": (66, 17)}
@@ -188,10 +257,16 @@ TRIPS = {"glv_secp256k1_kernel": _F, "glv_strict_secp256k1_kernel": _F} | {
     for tag, size in _COMB_SIZES.items() for st in ("", "_strict")} | {
     f"ladder_{tag}_kernel": _ladder(n, 2 * n - (tag == "p521"))
     for tag, (_, n) in _COMB_SIZES.items()} | {
-    f"affine_{tag}_kernel": _affine(tag) for tag in _COMB_SIZES}
+    f"affine_{tag}_kernel": _affine(tag) for tag in _COMB_SIZES} | {
+    f"comb_{kind}_{tag}_kernel": fn(*size) for kind, fn in (("tree", _comb_tree),
+                                                            ("pipe", _comb_pipe))
+    for tag, size in _COMB_SIZES.items()}
 TRIPS_SCAN = {f"comb{kind}{st}_{tag}_kernel": fn(*size)
               for kind, fn in (("", _scan_b), ("_general", _scan_general))
-              for tag, size in _COMB_SIZES.items() for st in ("", "_strict")}
+              for tag, size in _COMB_SIZES.items() for st in ("", "_strict")} | {
+    f"comb_{kind}_{tag}_kernel": fn(*size) for kind, fn in (("tree", _scan_tree),
+                                                            ("pipe", _scan_pipe))
+    for tag, size in _COMB_SIZES.items()}
 
 _LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)\s*([^;]*);")
 _FUNC = re.compile(r"Function\s*:\s*(\S+)")
@@ -317,11 +392,14 @@ def loops(instrs) -> list[dict]:
     return tree
 
 
-def dynamic(instrs, tree, trips) -> dict[str, int] | None:
+def dynamic(instrs, tree, trips, one_thread=None) -> dict[str, int] | None:
     """Instructions a lane issues, by class: the code outside every loop
     once, each loop's own instructions times its runs, each callee's body
     times the calls that reach it (``tree``: the loops of ``own(instrs)``).
-    None when the loop nest differs from ``trips``."""
+    ``one_thread`` (first, last, threads): the code from the start of
+    top-level loop ``first`` to the end of ``last`` runs in one thread of
+    ``threads``, so it counts that share (rounded in the sum). None when
+    the loop nest differs from ``trips``."""
     shape = lambda nodes: [shape(n["inner"]) for n in nodes]  # noqa: E731
     spec_shape = lambda spec: [spec_shape(t[2]) for t in spec]  # noqa: E731
     if shape(tree) != spec_shape(trips):
@@ -338,6 +416,12 @@ def dynamic(instrs, tree, trips) -> dict[str, int] | None:
             walk(node["inner"], inner, k)
 
     walk(tree, trips, Fraction(1))
+    if one_thread is not None:
+        first, last, threads = one_thread
+        lo, hi = tree[first]["start"], tree[last]["end"]
+        for x in body:
+            if lo <= x[0] <= hi:
+                runs[x[0]] /= threads
     total: dict[str, Fraction] = {}
 
     def add(instr, times):
@@ -351,8 +435,9 @@ def dynamic(instrs, tree, trips) -> dict[str, int] | None:
                     and re.search(rf"0x0*{tgt:x}\b", x[2]))
         for x in fn:
             add(x, calls)
-    assert all(v.denominator == 1 for v in total.values() if isinstance(v, Fraction)), total
-    return {k: int(v) for k, v in total.items()}
+    assert one_thread is not None or all(
+        v.denominator == 1 for v in total.values() if isinstance(v, Fraction)), total
+    return {k: round(v) for k, v in total.items()}
 
 
 def ptxas(log: str) -> dict[str, dict[str, int]]:
@@ -432,8 +517,8 @@ def report(lib: Path, names=DEFAULT_KERNELS) -> dict:
         per_lane = None
         for trips in (TRIPS.get(name), TRIPS_SCAN.get(name), TRIPS_FERMAT.get(name)):
             if per_lane is None and trips is not None:
-                per_lane = dynamic(instrs, tree, trips)
                 current = trips is TRIPS.get(name)
+                per_lane = dynamic(instrs, tree, trips, ONE_THREAD.get(name) if current else None)
         out[name] = {"function": match[0], "static": _mix(own(instrs)), "loops": tree,
                      "callees": [{"address": tgt, "static": _mix(fn)} for tgt, fn in called],
                      "per_lane": per_lane}

@@ -3,7 +3,30 @@
 // sources of kernel L include this file inside the field's namespace,
 // after its coz header, comb_chains.cuh and comb_lane.cuh, so the lane is
 // written once; the file has no include guard and includes nothing.
-// comb_chains.cuh says what the kernel computes and how.
+// comb_chains.cuh says what the kernel computes and how. The templated L is
+// the last kernel that reads its entries by the masked scan (comb_scan.cuh);
+// every other comb kernel selects them on the tensor cores
+// (comb_mma_lane.cuh).
+
+// Entry e of a position j >= 1 staged in `buf`: +-(2m+1) 2^(8j) B, its
+// magnitude m read by masks and its sign applied by a masked negation.
+__device__ __forceinline__ void read_signed_entry(const uint4* buf, uint32_t e, fe& x, fe& y) {
+  const uint32_t neg = e < 128u ? 1u : 0u;
+  const uint32_t m = (e & 127u) ^ ((0u - neg) & 127u);
+  comb::scan<comb::kHalfEntries>(buf, m, x, y);
+  y = fe_select(neg, fe_neg(y), y);
+}
+
+// Entry e of position j staged in `buf`; position 0 keeps all 256 signed
+// entries (the top digit is folded in). j is a loop counter, never the
+// scalar.
+__device__ __forceinline__ void read_entry(const uint4* buf, int j, uint32_t e, fe& x, fe& y) {
+  if (j == 0) {
+    comb::scan<comb::kEntries0>(buf, e, x, y);
+  } else {
+    read_signed_entry(buf, e, x, y);
+  }
+}
 
 // One lane of kernel L; every thread takes part in the block's staging and
 // barriers, and only active lanes store.

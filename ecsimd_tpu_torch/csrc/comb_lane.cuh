@@ -1,38 +1,16 @@
-// The comb's per-lane entry read and fix-up, over the field of the
-// including namespace (sm_90a). Kernel B (comb.cu, comb_p384.cu,
-// comb_p521.cu), J (comb_tree*.cu), K (comb_pipe*.cu) and L (comb_chains*.cu,
+// The comb's per-lane add and fix-up, over the field of the including
+// namespace (sm_90a). Kernels B (comb.cu, comb_p384.cu, comb_p521.cu), J
+// (comb_tree*.cu), K (comb_pipe*.cu) and L (comb_chains*.cu,
 // comb_unroll*.cu, comb_general*.cu) include this file inside namespaces
 // p256, secp256k1, w25519, p384 and p521, each after the field's coz header
-// and comb_scan.cuh, so the code is written once; the file has no include
-// guard and includes nothing. The table staging and the masked scan, which
-// J, K and the templated L read entries with, are field-independent
-// (comb_scan.cuh, namespace comb); the layout of an entry is the width's
-// (comb::Layout<kWords>), and a chain has 2 D positions (nbits / 8: 32,
-// 48 or 66). Kernel B and the generic L select their entries on the tensor
-// cores instead (comb_mma.cuh, comb_mma_lane.cuh) and use only comb_add
-// and comb_finish from here.
+// and comb_scan.cuh (or comb_mma.cuh, which includes it), so the code is
+// written once; the file has no include guard and includes nothing. A
+// chain has 2 D positions (nbits / 8: 32, 48 or 66). How a lane reads an
+// entry: on the tensor cores in B, J, K and the generic L
+// (comb_mma_lane.cuh), by the masked scan in the templated L
+// (comb_chains_lane.cuh).
 
 constexpr int kCombPositions = 2 * kDigits;
-
-// Entry e of a position j >= 1 staged in `buf`: +-(2m+1) 2^(8j) B, its
-// magnitude m read by masks and its sign applied by a masked negation.
-__device__ __forceinline__ void read_signed_entry(const uint4* buf, uint32_t e, fe& x, fe& y) {
-  const uint32_t neg = e < 128u ? 1u : 0u;
-  const uint32_t m = (e & 127u) ^ ((0u - neg) & 127u);
-  comb::scan<comb::kHalfEntries>(buf, m, x, y);
-  y = fe_select(neg, fe_neg(y), y);
-}
-
-// Entry e of position j staged in `buf`; position 0 keeps all 256 signed
-// entries (the top digit is folded in). j is a loop counter, never the
-// scalar.
-__device__ __forceinline__ void read_entry(const uint4* buf, int j, uint32_t e, fe& x, fe& y) {
-  if (j == 0) {
-    comb::scan<comb::kEntries0>(buf, e, x, y);
-  } else {
-    read_signed_entry(buf, e, x, y);
-  }
-}
 
 // acc + (ex, ey, 1): the mixed add, or the complete add when strict.
 template <bool kStrict>

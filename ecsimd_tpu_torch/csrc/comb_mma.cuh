@@ -1,11 +1,12 @@
-// The comb's table read on the tensor cores, for kernel B (comb.cu,
-// comb_p384.cu, comb_p521.cu) and the generic kernel L (comb_general*.cu)
-// on every curve (sm_90a): the host's u8 layout, its staging into shared
-// memory, the warp-collective one-hot product that selects each lane's
-// entry, and kernel B's kernel template and launcher. Field-independent and
-// width-generic over ec::fe_t<N>; the lanes that call it are
-// comb_mma_lane.cuh's, inside each field's namespace. Kernels J, K and the
-// templated L keep comb_scan.cuh's masked scan.
+// The comb's table read on the tensor cores, for kernels B (comb.cu,
+// comb_p384.cu, comb_p521.cu), J (comb_tree*.cu), K (comb_pipe*.cu) and the
+// generic kernel L (comb_general*.cu) on every curve (sm_90a): the host's u8
+// layout, its staging into shared memory, the warp-collective one-hot
+// product that selects each lane's entry, and the kernel templates of B
+// and K and their launcher. Field-independent and width-generic over
+// ec::fe_t<N>; the lanes that call it are comb_mma_lane.cuh's and
+// comb_pipe_lane.cuh's, inside each field's namespace. Only the templated
+// L keeps comb_scan.cuh's masked scan.
 //
 // Layout (kernels/comb.mma_layout): position j is a u8 matrix of 8 N rows
 // and K columns, K-major: row n holds byte n of every entry of the
@@ -78,8 +79,9 @@ struct Layout {
   static constexpr int kBytes = kEntryBytes * kHalfEntries;
 };
 
-// The bytes of kernel B's shared memory: position 0's buffer (also every
-// even position's), the odd positions' buffer, the row buffers.
+// The bytes of kernel B's and kernel K's shared memory: position 0's
+// buffer (also every even position's), the odd positions' buffer, the row
+// buffers.
 template <int N>
 constexpr int serial_bytes() {
   return Layout<N>::kBytes0 + Layout<N>::kBytes + kRowBytes;
@@ -221,8 +223,21 @@ namespace {
                               i < B, reinterpret_cast<uint8_t*>(smem));                    \
   }
 
-// Launch kernel B (N words a coordinate) on `stream` with its buffers as
-// dynamic shared memory; return cudaGetLastError() (or the attribute's
+// Kernel K, the pipelined chain (comb_pipe_lane.cuh), in kernel B's shape:
+// the same arguments, shared memory and launcher.
+#define EC_COMB_PIPE_KERNEL(NAME, NS)                                                      \
+  __global__ void __launch_bounds__(comb::kThreads)                                        \
+  NAME(const int32_t* __restrict__ scalars, const uint8_t* __restrict__ tables,            \
+       const int32_t* __restrict__ negbase, int32_t* __restrict__ ax,                      \
+       int32_t* __restrict__ ay, int32_t* __restrict__ z, int64_t B) {                     \
+    extern __shared__ uint4 smem[];                                                        \
+    const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;                      \
+    NS::comb_pipe_lane(scalars, tables, negbase, ax, ay, z, B, i < B ? i : B - 1, i < B,   \
+                       reinterpret_cast<uint8_t*>(smem));                                  \
+  }
+
+// Launch kernel B or K (N words a coordinate) on `stream` with its buffers
+// as dynamic shared memory; return cudaGetLastError() (or the attribute's
 // error).
 template <int N, class Kernel>
 int launch_serial(Kernel kernel, const int32_t* scalars, const uint8_t* tables,

@@ -1,37 +1,43 @@
 // Kernel K: the fixed-base comb's serial chain, software-pipelined, on
 // P-521, one lane per thread (NVIDIA Hopper, sm_90a): comb_pipe_lane.cuh's
-// chain over the P-521 field (17 32-bit words, field_p521.cuh), launched by
-// comb_wide.cuh with two staging buffers of position 0 (80 KiB of dynamic
-// shared memory, 128 threads a block). comb_pipe.cu says what the kernel
-// computes, how it stays constant-time and what bounds it; here the chain
-// has 66 positions, position 0 is 40 KiB and each other 20 KiB, and the
-// pipeline holds one more entry (34 words) in registers than the serial chain.
+// chain over the P-521 field (17 32-bit words, field_p521.cuh),
+// launched by comb_mma.cuh in kernel B's shape (53 KiB of dynamic shared
+// memory, 128 threads a block). comb_pipe.cu says what the kernel computes,
+// how it stays constant-time and what bounds it; here the chain has 66
+// positions, an entry is 136 bytes (the x then the y limbs, 17 n-tiles of
+// the product), position 0 is 34 KiB and each other 17 KiB, and the pipeline
+// holds one more entry (34 words) in registers than the serial chain.
 // Its value is kernel B's, bit for bit. One source a curve, so that the
 // builds run side by side. Replaces
 // ecsimd_tpu/kernels/comb.py:_comb_kernel_pipe (chain="pipe").
 
 #include "coz_p521.cuh"
-#include "comb_wide.cuh"
+#include "comb_mma.cuh"
 
 namespace p521 {
 #include "comb_lane.cuh"
+#include "comb_mma_lane.cuh"
 #include "comb_pipe_lane.cuh"
 }  // namespace p521
 
 namespace {
-EC_COMB_PIPE_WIDE_KERNEL(comb_pipe_p521_kernel, p521)
+EC_COMB_PIPE_KERNEL(comb_pipe_p521_kernel, p521)
 }  // namespace
 
-// scalars: (33, B) int32 digit planes; tables: (8576, 40) int32 limbs
-// (kernels/comb.kernel_tables), 16-byte aligned; negbase: 66 int32 digits (x
+// scalars: (33, B) int32 digit planes; tables: 8576 x 136 bytes
+// (kernels/comb.mma_layout), 16-byte aligned; negbase: 66 int32 digits (x
 // then y) of -B; ax, ay, z: (33, B) outputs. Launches on `stream` and returns
-// cudaGetLastError(); <entry>_smem returns the dynamic shared memory of its
-// block (smem_granted).
-extern "C" int ec_comb_pipe_p521(const int32_t* scalars, const int32_t* tables,
+// cudaGetLastError(); <entry>_smem returns the dynamic shared memory a
+// block is given (smem_granted), <entry>_blocks the blocks an SM holds
+// (blocks_granted).
+extern "C" int ec_comb_pipe_p521(const int32_t* scalars, const uint8_t* tables,
                                  const int32_t* negbase, int32_t* ax, int32_t* ay, int32_t* z,
                                  int64_t B, void* stream) {
-  return launch_wide<p521::kWords>(comb_pipe_p521_kernel, scalars, tables, negbase, ax, ay, z,
-                                  B, stream);
+  return launch_serial<p521::kWords>(comb_pipe_p521_kernel, scalars, tables, negbase, ax, ay,
+                                     z, B, stream);
 }
 
 extern "C" int ec_comb_pipe_p521_smem(void) { return smem_granted(comb_pipe_p521_kernel); }
+extern "C" int ec_comb_pipe_p521_blocks(void) {
+  return blocks_granted(comb_pipe_p521_kernel, comb::kThreads);
+}

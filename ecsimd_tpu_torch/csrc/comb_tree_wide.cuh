@@ -18,53 +18,65 @@
 // at most 5 pending.
 //
 // Shared memory: a step stages its two positions whole (cp.async, double
-// buffered): buffer 0 holds position 0's slot (256 entries) and one of 128
-// entries, buffer 1 two of 128 — 60 KiB on P-384 (96-byte entries), 100 KiB
-// on P-521 (160-byte entries). The pending sums (3 coordinates of 12 or 17
-// words, 4 or 5 of them) would take another 72 KiB or 127.5 KiB in shared
-// memory at 128 threads a block, 512 bytes over what a P-521 block may have;
+// buffered) in comb.mma_layout: buffer 0 holds position 0's slot (256
+// entries) and one of 128 entries, buffer 1 two of 128, then the per-warp
+// row buffers of the selection (comb_mma.cuh) — 62 KiB on P-384 (96-byte
+// entries), 87 KiB on P-521 (136-byte entries: the u8 layout has no
+// padding words). The pending sums (3 coordinates of 12 or 17 words, 4 or
+// 5 of them) would take another 72 KiB or 127.5 KiB in shared memory at 128
+// threads a block, more than a P-521 block may have beside the staging;
 // 64-thread blocks would fit, at one block (2 warps) an SM. So the pending
 // sums live in thread-local memory (an array indexed by the schedule's
 // counter, cached in L1 / L2: 576 and 1,020 bytes a thread), and the blocks
-// keep kernel B's shape: 128 threads, two blocks an SM on P-521. No index of
-// that array, of the tables or of shared memory depends on the scalar: the
-// schedule table and the step counter set them, the same in every lane.
+// keep kernel B's shape: 128 threads, two blocks an SM on P-521 (its 255
+// registers). No index of that array, of the tables or of shared memory
+// depends on the scalar: the schedule table and the step counter set them,
+// the same in every lane, and each warp selects its lanes' two entries a
+// step with u8 one-hot products on the tensor cores (comb_mma::select,
+// which says how).
 //
 // What bounds it: the field multiplies of npos / 2 affine adds (4 M + 2 S),
-// npos / 2 - 1 general adds (12 M + 4 S) and the fix-up (7 M + 4 S), beside
-// the masked scan of every position (as kernel B).
+// npos / 2 - 1 general adds (12 M + 4 S) and the fix-up (7 M + 4 S); the two
+// selections a step add what one adds to kernel B (comb.cu, comb_mma.cuh).
 
 #pragma once
 
-#include "comb_scan.cuh"
+#include "comb_mma.cuh"
 #include "comb_tree_schedule.cuh"
 #include "smem.cuh"
 
 namespace tree_wide {
 
-// The staging slots at N words a coordinate, in 16-byte vectors.
+// The staging slots at N words a coordinate, in bytes: position 0's, any
+// other position's, the staging in all and, after it, the row buffers.
 template <int N>
 struct Slots {
-  static constexpr int kLarge = comb::Layout<N>::kBufVecs;  // position 0
-  static constexpr int kSmall = comb::kHalfEntries * comb::Layout<N>::kEntryVecs;
-  static constexpr int kVecs = kLarge + 3 * kSmall;
+  static constexpr int kLarge = comb_mma::Layout<N>::kBytes0;  // position 0
+  static constexpr int kSmall = comb_mma::Layout<N>::kBytes;
+  static constexpr int kStage = kLarge + 3 * kSmall;
+  static constexpr int kBytes = kStage + comb_mma::kRowBytes;
 };
 
 // Slot of a step's lower position (`hi` = 0) or its upper one (`hi` = 1)
 // in buffer b.
 template <int N>
-__device__ __forceinline__ uint4* slot(uint4* smem, int b, int hi) {
+__device__ __forceinline__ uint8_t* slot(uint8_t* smem, int b, int hi) {
   using S = Slots<N>;
   return smem + (b == 0 ? (hi ? S::kLarge : 0) : S::kLarge + (1 + hi) * S::kSmall);
 }
 
+// The calling warp's row buffer, after the staging.
+template <int N>
+__device__ __forceinline__ uint32_t* rows(uint8_t* smem) {
+  return comb_mma::warp_rows(smem + Slots<N>::kStage);
+}
+
 // Stage step k's positions p and p + npos / 2 into buffer k & 1, one group.
 template <int N, int kNpos>
-__device__ __forceinline__ void stage_pair(const uint4* tables, int k, uint4* smem) {
-  constexpr int kEV = comb::Layout<N>::kEntryVecs;
+__device__ __forceinline__ void stage_pair(const uint8_t* tables, int k, uint8_t* smem) {
   const int p = (int)(tree_schedule::Schedule<kNpos>::step(k) & 0xFFu);
-  comb::stage_copy<kEV>(tables, p, slot<N>(smem, k & 1, 0));
-  comb::stage_copy<kEV>(tables, p + kNpos / 2, slot<N>(smem, k & 1, 1));
+  comb_mma::stage_copy<N>(tables, p, slot<N>(smem, k & 1, 0));
+  comb_mma::stage_copy<N>(tables, p + kNpos / 2, slot<N>(smem, k & 1, 1));
   comb::commit_staged();
 }
 
@@ -75,33 +87,34 @@ namespace {
 using comb::kThreads;
 
 // Lanes past the end of the batch run the tree on the last lane and store
-// nothing: every thread takes part in the block's staging and barriers.
+// nothing: every thread takes part in the block's staging, barriers and
+// products.
 #define EC_COMB_TREE_WIDE_KERNEL(NAME, NS)                                                 \
   __global__ void __launch_bounds__(kThreads)                                              \
-  NAME(const int32_t* __restrict__ scalars, const uint4* __restrict__ tables,              \
+  NAME(const int32_t* __restrict__ scalars, const uint8_t* __restrict__ tables,            \
        const int32_t* __restrict__ negbase, int32_t* __restrict__ ax,                      \
        int32_t* __restrict__ ay, int32_t* __restrict__ z, int64_t B) {                     \
     extern __shared__ uint4 smem[];                                                        \
     const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;                      \
     NS::comb_tree_wide_lane(scalars, tables, negbase, ax, ay, z, B, i < B ? i : B - 1,     \
-                            i < B, smem);                                                  \
+                            i < B, reinterpret_cast<uint8_t*>(smem));                      \
   }
 
-// Launch `kernel` (N words a coordinate) on `stream` with its staging as
-// dynamic shared memory; return cudaGetLastError() (or the attribute's
-// error).
+// Launch `kernel` (N words a coordinate) on `stream` with its staging and
+// row buffers as dynamic shared memory; return cudaGetLastError() (or the
+// attribute's error).
 template <int N, class Kernel>
-int launch_tree_wide(Kernel kernel, const int32_t* scalars, const int32_t* tables,
+int launch_tree_wide(Kernel kernel, const int32_t* scalars, const uint8_t* tables,
                      const int32_t* negbase, int32_t* ax, int32_t* ay, int32_t* z, int64_t B,
                      void* stream) {
   if (B > 0) {
-    constexpr int bytes = tree_wide::Slots<N>::kVecs * (int)sizeof(uint4);
+    constexpr int bytes = tree_wide::Slots<N>::kBytes;
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (err != cudaSuccess) return (int)err;
     const int64_t blocks = (B + kThreads - 1) / kThreads;
     kernel<<<(unsigned)blocks, kThreads, bytes, (cudaStream_t)stream>>>(
-        scalars, reinterpret_cast<const uint4*>(tables), negbase, ax, ay, z, B);
+        scalars, tables, negbase, ax, ay, z, B);
   }
   return (int)cudaGetLastError();
 }

@@ -37,13 +37,6 @@ struct fe_t {
 
 using fe = fe_t<8>;
 
-// Words a coordinate takes in the tables' 16-byte-vector layouts
-// (window_table.cuh, comb_scan.cuh): N rounded up to a multiple of 4.
-template <int N>
-__host__ __device__ constexpr int padded_words() {
-  return (N + 3) / 4 * 4;
-}
-
 template <int N>
 __device__ __forceinline__ fe_t<N> zero_n() {
   fe_t<N> r;

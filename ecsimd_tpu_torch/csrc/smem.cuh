@@ -1,8 +1,9 @@
-// The query of the dynamic shared memory a kernel was given (host code),
-// shared by the launchers that raise it above 48 KiB: kernels J's and L's
-// (comb_tree.cu, comb_chains.cuh) and the P-384 / P-521 kernels B and E
-// (comb_wide.cuh, window.cuh). Each source exports it per kernel as an
-// `<entry>_smem` C function, which chip_smoke.py reads into its kernels line.
+// The queries of the dynamic shared memory a kernel was given and the
+// blocks an SM it holds (host code), for the kernels launched with dynamic
+// shared memory: B, J, K and L (comb*.cu) and the P-384 / P-521 kernel E
+// (window_<tag>.cu). Each source exports them per kernel as C functions,
+// `<entry>_smem` and (the comb's) `<entry>_blocks`, which chip_smoke.py
+// reads into its kernels line.
 
 #pragma once
 

@@ -47,7 +47,7 @@ HEADERS = ("limbs.cuh", "limbs_ns.cuh", "mul256.cuh", "mul_wide.cuh", "field_p25
            "coz_w25519.cuh", "coz_p384.cuh", "coz_p521.cuh", "ladder_lane.cuh", "window.cuh",
            "window_lane.cuh", "window_table.cuh", "comb_scan.cuh", "comb_lane.cuh",
            "comb_tree_lane.cuh", "comb_pipe_lane.cuh", "comb_chains.cuh",
-           "comb_chains_lane.cuh", "comb_wide.cuh", "smem.cuh", "comb_general.cuh",
+           "comb_chains_lane.cuh", "smem.cuh", "comb_general.cuh",
            "comb_general_lane.cuh", "comb_tree_wide.cuh", "comb_tree_wide_lane.cuh",
            "comb_tree_schedule.cuh", "comb_mma.cuh", "comb_mma_lane.cuh", "affine_lane.cuh")
 # curve -> (the tag of its kernels' C names, the curve as a kernel's

@@ -36,12 +36,12 @@ multi-chain adds cross-chain sums, a wider class of the same measure;
 
 No kernel reads a table word at an address that depends on the scalar, as
 the TPU kernel's one-hot read of the whole position does not: the block
-stages each position in shared memory. Kernels B and the generic L select
-each lane's entry as the TPU kernel does, by a one-hot product, on the
-tensor cores (``csrc/comb_mma.cuh``): their table (``mma_tables``) holds
-each position as a u8 matrix, K-major. Kernels J, K and the templated L
-scan every entry with masks: their table (``kernel_tables``) keeps a
-position's entries as 32-bit limbs. Both keep only the positive half of
+stages each position in shared memory. Kernels B, J, K and the generic L
+select each lane's entry as the TPU kernel does, by a one-hot product, on
+the tensor cores (``csrc/comb_mma.cuh``): their table (``mma_tables``)
+holds each position as a u8 matrix, K-major. The templated L alone scans
+every entry with masks: its table (``kernel_tables``) keeps a position's
+entries as 32-bit limbs. Both keep only the positive half of
 positions 1..npos-1 (the sign is a masked negation). The plain versions
 keep the indexed gather: they are the comparators, and run on the main
 path only for CPU tensors.
@@ -131,10 +131,10 @@ SCHEDULES_L = ((2, 1, False), (2, 2, False), (4, 1, False), (1, 2, False), (1, 4
 
 
 def _schedule_kernel(curve: CurveSpec, stem: str, source: str, replaces: str,
-                     opts: str = "") -> _build.Kernel:
-    """Kernel J, K or L on ``curve``. ``{tag}`` in ``stem``, its C name,
-    becomes the curve's tag; in ``source`` it becomes ``_<tag>``, or
-    nothing on P-256."""
+                     opts: str = "", layout: str = "mma") -> _build.Kernel:
+    """Kernel J, K or L on ``curve``, taking the comb table in ``layout``.
+    ``{tag}`` in ``stem``, its C name, becomes the curve's tag; in
+    ``source`` it becomes ``_<tag>``, or nothing on P-256."""
     tag, name = _build.CURVE_TAGS[curve]
     opts = ", ".join(o for o in (name, opts) if o)
     return _build.Kernel(
@@ -142,7 +142,7 @@ def _schedule_kernel(curve: CurveSpec, stem: str, source: str, replaces: str,
         source=f"ecsimd_tpu_torch/csrc/{source.format(tag='' if curve == P256 else '_' + tag)}",
         replaces=replaces + (f" ({opts})" if opts else ""),
         n_pointers=6,
-        layout="limbs",
+        layout=layout,
     )
 
 
@@ -160,7 +160,8 @@ KERNELS_CHAINS = {
         curve, f"comb_chains_{{tag}}_c{c}u{u}{'_strict' if st else ''}",
         f"{'comb_unroll' if c == 1 else 'comb_chains'}{{tag}}.cu",
         "ecsimd_tpu/kernels/comb.py:213 _comb_kernel",
-        f"chains={c}, unroll={u}{', strict=True' if st else ''}; grid and permutation :624")
+        f"chains={c}, unroll={u}{', strict=True' if st else ''}; grid and permutation :624",
+        layout="limbs")
     for curve in _build.CURVES_256 for c, u, st in SCHEDULES_L
 }
 # (curve, strict) -> the generic kernel L, every schedule of the serial
@@ -170,7 +171,7 @@ KERNELS_GENERAL = {
         curve, f"comb_general_{{tag}}{'_strict' if st else ''}", "comb_general{tag}.cu",
         "ecsimd_tpu/kernels/comb.py:213 _comb_kernel",
         f"any chains and unroll{', strict=True' if st else ''}; grid and permutation :624"),
-        n_ints=2, layout="mma")
+        n_ints=2)
     for curve in _build.CURVES for st in (False, True)
 }
 CHAINS = ("serial", "tree", "pipe")
@@ -346,12 +347,13 @@ def limb_layout(np_tables):
 @functools.cache
 def kernel_tables(curve: CurveSpec, bx: int, by: int, device: torch.device) -> torch.Tensor:
     """``limb_layout`` of the base's tables on ``device``, built once per
-    (curve, base, device): the table of kernels J, K and the templated L."""
+    (curve, base, device): the table of the templated L, the last kernel that
+    reads its entries by the masked scan."""
     return torch.tensor(limb_layout(base_tables(curve, bx, by)[0]), device=device)
 
 
-# the row buffers of kernels B and the generic L: per warp of a 128-thread
-# block, two slots of 32 rows of 8 bytes (csrc/comb_mma.cuh)
+# the row buffers of kernels B, J, K and the generic L: per warp of a
+# 128-thread block, two slots of 32 rows of 8 bytes (csrc/comb_mma.cuh)
 MMA_ROW_BYTES = 4 * 2 * 32 * 8
 
 
@@ -362,7 +364,7 @@ def mma_entry_bytes(d: int) -> int:
 
 
 def mma_layout(np_tables):
-    """Kernels B's and the generic L's table layout from (npos, 256, 2D)
+    """Kernels B's, J's, K's and the generic L's table layout from (npos, 256, 2D)
     int32 digit tables: u8, position j a K-major matrix of
     ``mma_entry_bytes(D)`` rows and K columns (row n: byte n of each entry,
     its x limbs then its y limbs, each 32-bit limb little-endian; column k:
@@ -383,7 +385,7 @@ def mma_layout(np_tables):
 @functools.cache
 def mma_tables(curve: CurveSpec, bx: int, by: int, device: torch.device) -> torch.Tensor:
     """``mma_layout`` of the base's tables on ``device``, built once per
-    (curve, base, device): the table of kernels B and the generic L."""
+    (curve, base, device): the table of kernels B, J, K and the generic L."""
     return torch.tensor(mma_layout(base_tables(curve, bx, by)[0]), device=device)
 
 
@@ -646,6 +648,22 @@ def serial_smem_bytes(curve: CurveSpec) -> int:
     return (NENT + NENT // 2) * mma_entry_bytes(curve.field.ndigits) + MMA_ROW_BYTES
 
 
+def pipe_smem_bytes(curve: CurveSpec) -> int:
+    """The dynamic shared memory of kernel K: kernel B's
+    (``serial_smem_bytes``). Entry j + 1 waits in registers while entry j
+    is added, so position j + 2 takes position j's buffer and two buffers
+    suffice."""
+    return serial_smem_bytes(curve)
+
+
+def tree_smem_bytes(curve: CurveSpec) -> int:
+    """The dynamic shared memory of kernel J: a step's two positions,
+    double buffered (buffer 0: position 0's slot of 256 entries and one of
+    128; buffer 1: two of 128), then the row buffers. The pending sums live
+    in thread-local memory."""
+    return (NENT + 3 * NENT // 2) * mma_entry_bytes(curve.field.ndigits) + MMA_ROW_BYTES
+
+
 def check_schedule(curve: CurveSpec, chain: str, chains: int, unroll: int, strict: bool):
     """Raise ``ValueError`` on a schedule the JAX package's
     ``comb_mont_planes`` rejects: ``chain`` not serial, tree or pipe;
@@ -702,15 +720,14 @@ def comb_planes(scalars, tables, negbase_digits, curve: CurveSpec = P256, strict
 
 def comb_tree_planes(scalars, tables, negbase_digits, curve: CurveSpec = P256):
     """Run kernel J, the pairwise tree, on CUDA planes (operands as
-    ``comb_planes``, but ``kernel_tables``); bit-exact with
-    ``comb_tree_plain``."""
+    ``comb_planes``: ``mma_tables``); bit-exact with ``comb_tree_plain``."""
     _build.require_cuda(scalars, "comb tree")
     return _launch(KERNELS_TREE[curve], scalars, tables, negbase_digits, curve)
 
 
 def comb_pipe_planes(scalars, tables, negbase_digits, curve: CurveSpec = P256):
     """Run kernel K, the pipelined serial chain, on CUDA planes (operands
-    as ``comb_planes``, but ``kernel_tables``); bit-exact with kernel B and
+    as ``comb_planes``: ``mma_tables``); bit-exact with kernel B and
     ``comb_plain``."""
     _build.require_cuda(scalars, "comb pipe")
     return _launch(KERNELS_PIPE[curve], scalars, tables, negbase_digits, curve)
@@ -736,8 +753,9 @@ def comb_chains_planes(scalars, limbs, mma, negbase_digits, curve: CurveSpec = P
     ``comb_planes``, with both tables: ``kernel_tables`` as ``limbs``,
     ``mma_tables`` as ``mma``): its templated instantiation where
     ``KERNELS_CHAINS`` has one (on ``limbs``), else the generic kernel
-    (``comb_general_planes``, on ``mma``); bit-exact with
-    ``comb_chains_plain`` (with one chain, with kernel B)."""
+    (``comb_general_planes``, on ``mma``; ``limbs`` may then be None);
+    bit-exact with ``comb_chains_plain`` (with one chain, with kernel
+    B)."""
     _build.require_cuda(scalars, "comb chains")
     check_schedule(curve, "serial", chains, unroll, strict)
     kernel = KERNELS_CHAINS.get((curve, chains, unroll, bool(strict)))
@@ -751,17 +769,25 @@ def schedule_planes(scalars, limbs, mma, negbase_digits, curve: CurveSpec = P256
                     strict: bool = False):
     """The kernel of a schedule on CUDA planes (operands as
     ``comb_chains_planes``), each handed its own table: J for the tree, K
-    for the pipe (``limbs``), B for one chain at unroll 1 (``mma``), else L
-    (``comb_chains_planes``). Raises ``ValueError`` on a schedule the JAX
-    package rejects."""
+    for the pipe, B for one chain at unroll 1 (all on ``mma``), else L
+    (``comb_chains_planes``; ``limbs`` is read only where the templated L
+    runs, ``uses_kernel_tables``). Raises ``ValueError`` on a schedule the
+    JAX package rejects."""
     check_schedule(curve, chain, chains, unroll, strict)
     if chain == "tree":
-        return comb_tree_planes(scalars, limbs, negbase_digits, curve)
+        return comb_tree_planes(scalars, mma, negbase_digits, curve)
     if chain == "pipe":
-        return comb_pipe_planes(scalars, limbs, negbase_digits, curve)
+        return comb_pipe_planes(scalars, mma, negbase_digits, curve)
     if chains == unroll == 1:
         return comb_planes(scalars, mma, negbase_digits, curve, strict)
     return comb_chains_planes(scalars, limbs, mma, negbase_digits, curve, chains, unroll, strict)
+
+
+def uses_kernel_tables(curve: CurveSpec, chain: str = "serial", chains: int = 1,
+                       unroll: int = 1, strict: bool = False) -> bool:
+    """Whether the schedule runs the templated L, the one kernel that takes
+    ``kernel_tables``."""
+    return chain == "serial" and (curve, chains, unroll, bool(strict)) in KERNELS_CHAINS
 
 
 def scalar_mult_base(
@@ -795,7 +821,8 @@ def scalar_mult_base(
             ax, ay, z = comb_plain(scalars, tables, curve, negbase)
     else:
         dev = scalars.device
-        ax, ay, z = schedule_planes(scalars.contiguous(), kernel_tables(curve, bx, by, dev),
-                                    mma_tables(curve, bx, by, dev), negbase_digits, curve, chain,
-                                    chains, unroll, strict)
+        limbs = (kernel_tables(curve, bx, by, dev)
+                 if uses_kernel_tables(curve, chain, chains, unroll, strict) else None)
+        ax, ay, z = schedule_planes(scalars.contiguous(), limbs, mma_tables(curve, bx, by, dev),
+                                    negbase_digits, curve, chain, chains, unroll, strict)
     return JacobianPoint(GFp(ax, fs), GFp(ay, fs), GFp(z, fs), curve)

@@ -248,8 +248,8 @@ def test_every_schedule_reaches_its_kernel(monkeypatch, curve):
     the tree reaches J, the pipe K, one chain at unroll 1 kernel B (strict:
     B strict), a schedule of SCHEDULES_L on a 256-bit curve its templated
     L, every other the curve's generic L with (chains, unroll) as its ints
-    — once each, on the curve's planes and its own table (J, K and the
-    templated L ``kernel_tables``' int32 limbs, B and the generic L
+    — once each, on the curve's planes and its own table (the templated L
+    ``kernel_tables``' int32 limbs; B, J, K and the generic L
     ``mma_tables``' bytes); nothing raises."""
     monkeypatch.setattr(_build, "require_cuda", lambda t, what: None)
     calls = []
@@ -280,8 +280,7 @@ def test_every_schedule_reaches_its_kernel(monkeypatch, curve):
         else:
             want = (f"ec_comb_general_{tag}{sfx}", (c, u))
             general.add((c, u, st))
-        table = torch.uint8 if want[0].startswith((f"ec_comb_{tag}", "ec_comb_general")) \
-            else torch.int32
+        table = torch.int32 if want[0].startswith("ec_comb_chains") else torch.uint8
         assert calls == [(*want, (d, 4), table)], (chain, c, u, st)
     # the generic kernel takes every schedule of the serial chain the
     # templated instantiations do not: on P-384 / P-521 all of them but B's

@@ -67,8 +67,8 @@ def _scalars(n, seed, dev, curve=P256):
 
 
 def _comb_tables(curve, dev):
-    """The plain comb's tables and -B, the kernels' negbase digits, and kernel
-    B's and the generic L's u8 table (``comb.mma_tables``)."""
+    """The plain comb's tables and -B, the kernels' negbase digits, and kernels
+    B's, J's, K's and the generic L's u8 table (``comb.mma_tables``)."""
     tables, negbase, nb = comb.device_tables(curve, curve.gx, curve.gy, dev)
     return tables, negbase, nb, comb.mma_tables(curve, curve.gx, curve.gy, dev)
 
@@ -657,13 +657,15 @@ def test_comb_schedule_kernels_other_curves(cuda, curve, kw):
     """Kernels J, K and L through comb.scalar_mult_base on 1,024 lanes
     against their plain versions (K and one-chain L: comb_plain, strict with
     k = n - 1 on lane 4), and 16 lanes against the oracle (lanes where the
-    schedule's composition on ints meets a degenerate add excluded)."""
+    schedule's composition on ints meets a degenerate add excluded). J and
+    K take the u8 table alone: comb.schedule_planes with no limb table
+    gives the same planes."""
     strict = kw.get("strict", False)
     ks, _ = _scalars(1024, 97, cuda, curve)
     if strict:
         ks[4] = curve.order - 1
     s = _planes(ks, cuda)
-    tables, negbase, _, _ = _comb_tables(curve, cuda)
+    tables, negbase, nb, mma = _comb_tables(curve, cuda)
     chains, unroll = kw.get("chains", 1), kw.get("unroll", 1)
     if kw.get("chain") == "tree":
         kernel, want = comb.KERNELS_TREE[curve], comb.comb_tree_plain(s, tables, curve, negbase)
@@ -677,6 +679,9 @@ def test_comb_schedule_kernels_other_curves(cuda, curve, kw):
     assert kernel.launches == before + 1
     for k, w in zip(_jacobian_planes(out), want):
         assert torch.equal(k, w)
+    if "chain" in kw:
+        for k, w in zip(comb.schedule_planes(s, None, mma, nb, curve, **kw), want):
+            assert torch.equal(k, w)
     tables_np, negbase_ints = comb.base_tables(curve, curve.gx, curve.gy)
     classical = ocomb.classical_tables(tables_np, curve.field)
 
@@ -889,11 +894,12 @@ def test_comb_schedules_refuse_the_wide_curves_on_the_card(cuda, curve, kw):
     kernel, Jacobian planes exact against comb_tree_plain / comb_plain /
     comb_chains_plain on 1,024 lanes (strict: k = n - 1 on lane 4), 16
     lanes against the oracle (lanes whose composition on ints degenerates
-    excluded)."""
+    excluded). J and K take the u8 table: comb.schedule_planes with no limb
+    table gives the same planes."""
     strict = kw.get("strict", False)
     c, u = kw.get("chains", 1), kw.get("unroll", 1)
     ks, s = _wide_scalars(curve, 1024, 102, cuda, curve.order - 1 if strict else None)
-    tables, negbase, _ = comb.device_tables(curve, curve.gx, curve.gy, cuda)
+    tables, negbase, nb, mma = _comb_tables(curve, cuda)
     if kw.get("chain") == "tree":
         kernel, want = comb.KERNELS_TREE[curve], comb.comb_tree_plain(s, tables, curve, negbase)
     elif kw.get("chain") == "pipe":
@@ -906,6 +912,9 @@ def test_comb_schedules_refuse_the_wide_curves_on_the_card(cuda, curve, kw):
     assert kernel.launches == before + 1
     for k, w in zip(_jacobian_planes(out), want):
         assert torch.equal(k, w)
+    if "chain" in kw:
+        for k, w in zip(comb.schedule_planes(s, None, mma, nb, curve, **kw), want):
+            assert torch.equal(k, w)
     tables_np, negbase_ints = comb.base_tables(curve, curve.gx, curve.gy)
     classical = ocomb.classical_tables(tables_np, curve.field)
 
@@ -991,6 +1000,42 @@ def test_comb_mma_kernels_match_plain(cuda, curve, strict):
         assert torch.equal(k, w)
     for t in got_b:
         assert torch.equal(t[:, 5:5 + same], t[:, 5:6].expand(-1, same))
+
+
+@pytest.mark.parametrize("curve", MMA_CURVES, ids=lambda c: c.name)
+def test_comb_tree_pipe_mma_kernels(cuda, curve):
+    """Kernels J and K, which select two entries a step (J) or entry j + 1
+    beside the add of entry j (K) on the tensor cores, against
+    comb_tree_plain / comb_plain word for word on 4,133 lanes, the first
+    160 on one scalar (whole warps on one entry at every position), edges
+    1, 2, 5, n - 2 first; one launch each. Their ``_smem`` queries give
+    comb.tree_smem_bytes / pipe_smem_bytes and ``_blocks`` at least one
+    block an SM; the limb table is refused, naming mma_tables."""
+    n, same = 4133, 160
+    ks, _ = _wide_scalars(curve, n, 212, cuda)
+    ks[5:5 + same] = [ks[5]] * same
+    s = _wide_planes(ks, curve, cuda)
+    tables, negbase, nb, mma = _comb_tables(curve, cuda)
+    j, k = comb.KERNELS_TREE[curve], comb.KERNELS_PIPE[curve]
+    before = (j.launches, k.launches)
+    got_j = comb.comb_tree_planes(s, mma, nb, curve)
+    got_k = comb.comb_pipe_planes(s, mma, nb, curve)
+    assert (j.launches, k.launches) == (before[0] + 1, before[1] + 1)
+    want_j = comb.comb_tree_plain(s, tables, curve, negbase)
+    want_k = comb.comb_plain(s, tables, curve, negbase)
+    for got, want in (*zip(got_j, want_j), *zip(got_k, want_k)):
+        assert torch.equal(got, want)
+    torch.cuda.synchronize()
+    lib = _build.library().lib
+    for kernel, size in ((j, comb.tree_smem_bytes(curve)), (k, comb.pipe_smem_bytes(curve))):
+        smem, blocks = (getattr(lib, f"{kernel.symbol}_{q}") for q in ("smem", "blocks"))
+        for fn in (smem, blocks):
+            fn.argtypes, fn.restype = [], ctypes.c_int
+        assert smem() == size and blocks() >= 1, kernel.symbol
+    limbs = comb.kernel_tables(curve, curve.gx, curve.gy, cuda)
+    for wrapper in (comb.comb_tree_planes, comb.comb_pipe_planes):
+        with pytest.raises(ValueError, match="mma_tables"):
+            wrapper(s, limbs, nb, curve)
 
 
 ALL_CURVES = [P256, SECP256K1, WEI25519, P384, P521]

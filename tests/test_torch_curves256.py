@@ -158,9 +158,10 @@ def test_kernel_table_covers_the_256_bit_curves(table):
     """Each table holds one kernel for every (curve, mode) it covers and
     nothing else — A, B, D, E, J, K and the generic L the three 256-bit
     curves, P-384 and P-521; L's templated instantiations the 256-bit
-    curves — each an extern "C" entry of its named source (J's and L's, and
-    the wide B's, E's and K's, with their _smem query; B's and the generic
-    L's also with their _blocks query), with distinct symbols."""
+    curves — each an extern "C" entry of its named source (J's, K's and
+    L's, and the wide B's and E's, with their _smem query; B's, J's, K's and
+    the generic L's also with their _blocks query), with distinct
+    symbols."""
     kernels = TABLES[table]
     keys = {_curve_and_mode(k) for k in kernels}
     covered = CURVES if table == "comb_chains" else CURVES + WIDE
@@ -169,11 +170,10 @@ def test_kernel_table_covers_the_256_bit_curves(table):
     for k in kernels.values():
         text = (ROOT / k.source).read_text()
         assert f'extern "C" int {k.symbol}(' in text, k.symbol
-        if table in ("comb_tree", "comb_chains", "comb_general") or (
-                table in ("comb", "window", "comb_pipe")
-                and k.source.endswith(("_p384.cu", "_p521.cu"))):
+        if table in ("comb_tree", "comb_pipe", "comb_chains", "comb_general") or (
+                table in ("comb", "window") and k.source.endswith(("_p384.cu", "_p521.cu"))):
             assert f'extern "C" int {k.symbol}_smem(void)' in text, k.symbol
-        if table in ("comb", "comb_strict", "comb_general"):
+        if table in ("comb", "comb_tree", "comb_pipe", "comb_general"):
             assert f'extern "C" int {k.symbol}_blocks(void)' in text, k.symbol
 
 
@@ -192,8 +192,8 @@ def _wrapper_calls(curve):
         "window_strict": lambda: window.window_planes(z, z, z, curve, strict=True),
         "comb": lambda: comb.comb_planes(z, mma, nb, curve),
         "comb_strict": lambda: comb.comb_planes(z, mma, nb, curve, strict=True),
-        "comb_tree": lambda: comb.comb_tree_planes(z, tables, nb, curve),
-        "comb_pipe": lambda: comb.comb_pipe_planes(z, tables, nb, curve),
+        "comb_tree": lambda: comb.comb_tree_planes(z, mma, nb, curve),
+        "comb_pipe": lambda: comb.comb_pipe_planes(z, mma, nb, curve),
         "comb_chains": lambda: comb.comb_chains_planes(z, tables, mma, nb, curve, 2, 1),
         "affine": lambda: affine.affine_planes(z, z, z, curve),
     }
@@ -217,9 +217,9 @@ def test_wrappers_raise_on_the_wider_curves(monkeypatch, wrapper, curve):
     (both modes), J (tree), K (pipe) and L (chains 2: the generic kernel,
     handed chains and unroll as ints): one launch of the curve's own kernel,
     ``ec_<kind>_<tag>[_strict]``, handed (24, B) / (33, B) planes (the
-    comb's tables: J's and K's in the padded limb layout, B's and the
-    generic L's in the u8 layout; E also its scratch, one column a resident
-    thread, and the slot count as an int), counted once. None raises."""
+    comb's tables: B's, J's, K's and the generic L's in the u8 layout; E
+    also its scratch, one column a resident thread, and the slot count as
+    an int), counted once. None raises."""
     monkeypatch.setattr(_build, "require_cuda", lambda t, what: None)
     monkeypatch.setattr(window, "resident_slots", lambda kernel, curve, device: SLOTS)
     calls = []
@@ -237,9 +237,7 @@ def test_wrappers_raise_on_the_wider_curves(monkeypatch, wrapper, curve):
     if wrapper.startswith("comb"):
         npos = curve.field.nbits // comb.W
         kept = comb.NENT + (npos - 1) * comb.NENT // 2
-        table = ((kept * comb.mma_entry_bytes(d),) if wrapper in ("comb", "comb_strict",
-                                                                    "comb_chains")
-                 else (kept, 2 * comb.coord_words(d)))
+        table = (kept * comb.mma_entry_bytes(d),)
         assert shapes == [(d, 4), table, (2 * d,)] + [(d, 4)] * 3
     elif wrapper.startswith("window"):
         assert shapes == [(d, 4)] * 6 + [(window.table_split(curve).scratch_vecs, SLOTS, 4)]

@@ -276,3 +276,71 @@ def test_report_tells_kernel_a_from_the_x_only_ladder(monkeypatch, tmp_path):
     assert "20ladder_w25519_kernel" in rep["ladder_w25519_kernel"]["function"]
     assert rep["ladder_w25519_kernel"]["static"]["imad"] == 1
     assert "mladder" in rep["mladder_w25519_kernel"]["function"]
+
+
+def _listing(name, body):
+    """A cuobjdump listing of one kernel from (opcode and operands) lines,
+    16 bytes apart."""
+    lines = [f"        /*{16 * i:04x}*/                   {op} ;" for i, op in enumerate(body)]
+    return "\n\tcode for sm_90a\n\t\tFunction : " + name + "\n" + "\n".join(lines) + "\n"
+
+
+def test_kernels_j_and_k_are_read():
+    """Kernels J and K are read by default on their five curves, with their
+    loop nests: K's copies of positions 0, 1 and 2, then positions 1 ..
+    npos - 1 each staging j + 2 (IMMA outside every loop but the position
+    loop: the selection is unrolled); J's copies of steps 0 and 1, then
+    steps 1 .. npos / 2 - 1 with the next step's two copies and the pending
+    sums' loop (29 trips at 256 bits, a fold a step on P-384 / P-521). On a
+    listing of K's shape an IMMA in the position loop runs npos - 1 times a
+    lane; the parent's masked scan reads as TRIPS_SCAN."""
+    for tag in ("p256", "secp256k1", "w25519", "p384", "p521"):
+        for kind in ("tree", "pipe"):
+            assert f"comb_{kind}_{tag}_kernel" in sass.DEFAULT_KERNELS
+    pipe = sass.TRIPS["comb_pipe_p521_kernel"]
+    assert [t[:2] for t in pipe] == [("stage0", 17), ("stage1", 9), ("stage2", 9),
+                                     ("position", 65)]
+    assert pipe[3][2] == [("stage", sass.Fraction(63 * 9, 65), [])]
+    tree = sass.TRIPS["comb_tree_p256_kernel"]
+    assert [t[:2] for t in tree] == [("stage0", 8), ("stage0_hi", 4), ("stage1_lo", 4),
+                                     ("stage1_hi", 4), ("step", 15)]
+    assert tree[4][2][2] == ("fold", sass.Fraction(29, 15), [])
+    assert sass.TRIPS["comb_tree_p384_kernel"][4][2][2] == ("fold", 1, [])
+    assert sass.TRIPS_SCAN["comb_pipe_p256_kernel"][2] == ("scan0", 64, [])
+    assert sass.TRIPS_SCAN["comb_tree_p521_kernel"][2][2][5] == (
+        "fold", sass.Fraction(32, 33), [])
+    body = ["IMMA.16832.U8.U8 R4, R8, R12, R4", "BRA 0x0",  # stage0
+            "LDSM.16.M88.4 R4, [R2]", "BRA 0x20",  # stage1
+            "SHFL.IDX R3, R3, R4, 0x1f", "BRA 0x40",  # stage2
+            "IMMA.16832.U8.U8 R4, R8, R12, R4",  # position
+            "STS.U16 [R2], R4", "BRA 0x70",  # its stage loop
+            "BRA 0x60", "EXIT"]
+    name = "_ZN12_GLOBAL__N_121comb_pipe_p256_kernelEPKiPKhS1_PiS4_S4_l"
+    instrs = sass.parse(_listing(name, body))[name]
+    per_lane = sass.dynamic(instrs, sass.loops(instrs), sass.TRIPS["comb_pipe_p256_kernel"])
+    assert per_lane["imma"] == 8 + 31 and per_lane["ldsm"] == 4 and per_lane["shfl"] == 4
+    assert per_lane["sts"] == 29 * 4  # positions 3 .. 31 staged, 4 chunks a thread each
+
+
+def test_block_tree_inversion_counts_one_threads_share():
+    """Kernel D's block tree on P-384 / P-521: the code from its first loop
+    (the warps' walk forward) to its last (the walk back), the inversion
+    chain's straight-line multiplies between them included, counts 1 / 128
+    of its runs in each thread; code before and after counts in full."""
+    assert sass.ONE_THREAD == {"affine_p384_kernel": (0, -1, 128),
+                               "affine_p521_kernel": (0, -1, 128)}
+    body = ["IMAD R2, R3, R4, R5",  # every thread
+            "IMAD R2, R3, R4, R5", "BRA 0x10",  # the warps' walk: 3 trips
+            "IMAD R2, R3, R4, R5",  # the chain, straight-line
+            "IMAD R2, R3, R4, R5", "BRA 0x40",  # a squaring loop: 128 trips
+            "IMAD R2, R3, R4, R5", "BRA 0x60",  # the walk back: 3 trips
+            "IMAD R2, R3, R4, R5", "EXIT"]  # every thread
+    name = "_ZN12_GLOBAL__N_118affine_p384_kernelEPKiS1_S1_PiS2_l"
+    instrs = sass.parse(_listing(name, body))[name]
+    tree = sass.loops(instrs)
+    trips = [("warps", 3, []), ("sqr", 128, []), ("warps_back", 3, [])]
+    full = sass.dynamic(instrs, tree, trips)
+    assert full["imad"] == 1 + 3 + 1 + 128 + 3 + 1
+    share = sass.dynamic(instrs, tree, trips, (0, -1, 128))
+    inside = 3 + 1 + 128 + 3  # the region's IMADs, counted in one thread of 128
+    assert share["imad"] == round(2 + sass.Fraction(inside, 128))
