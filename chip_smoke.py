@@ -21,8 +21,8 @@ any failed check raises and the script exits non-zero:
   1. build: compiles every CUDA source of the port with nvcc (sm_90a), one
      process per source, and prints the build seconds, each kernel's
      registers, spills, stack frame and shared memory, each source's nvcc
-     seconds, and the SASS of kernels E and F, and of B, the generic L, A,
-     D, J and K on their five curves, by instruction class (bench/sass.py:
+     seconds, and the SASS of kernels E and F, of B, L, A, D, J and K on
+     their five curves, and of G and H, by instruction class (bench/sass.py:
      cuobjdump -sass, each loop's body times its runs; B's, J's, K's and
      L's tensor-core products, IMMA, among them; D's a thread's G lanes
      over G).
@@ -105,18 +105,19 @@ any failed check raises and the script exits non-zero:
      measured int32 operations and IMADs per second beside the 64 per SM
      per clock that bound() assumes.
  17. the comb's other schedules on P-256: kernels J (pairwise tree) and L
-     with chains 2 and 4 (unroll 1 and 2) against comb_tree_plain /
-     comb_chains_plain, K (pipe) and L with one chain (unroll 2, 4; strict,
-     n-1 included) against kernel B / B strict, on 65,536 lanes, exact; 512
+     with chains 2 and 4 (unroll 1 and 2) and with one chain (unroll 2, 4;
+     strict, n-1 included) against comb_tree_plain / comb_chains_plain, K
+     (pipe) against kernel B, on 65,536 lanes, exact; 512
      lanes of each through kernel D against the oracle, lanes where the
      schedule's composition on ints hits a degenerate add excluded and
      counted. Then the path bench.py times under BENCH_CHAIN / BENCH_UNROLL
      at B = 524,288 on phase 6's scalars: comb.scalar_mult_base(chain,
      chains, unroll) and kernel D for each schedule, launch counts, 64
      lanes against the oracle; each kernel exact against its plain version
-     or kernel B on the path's own inputs; CUDA-event times of each kernel,
-     of the entry point with D, and of the plain versions. Then its B9 part
-     (general_phase): the generic kernel L (chains and unroll as run-time
+     (K: kernel B) on the path's own inputs; L's shared memory at each
+     schedule; CUDA-event times of each kernel, of the entry point with D,
+     and of the plain versions. Then its B9 part
+     (general_phase): kernel L (chains and unroll as run-time
      ints) at chains 8, 32, chains 4 with unroll 2, unroll 8, 32, strict
      unroll 8, 32 on P-256 (phase 6's scalars), and at chains 8 and strict
      unroll 8 on secp256k1 and Wei25519 (edge scalars 1, 2, 5, n-2, n-1
@@ -125,9 +126,7 @@ any failed check raises and the script exits non-zero:
      oracle (degenerate lanes of each schedule's composition excluded and
      counted), each schedule exact against comb_chains_plain / comb_plain on
      the path's first 65,536 lanes, the positions staged a step and the
-     shared memory (against comb.general_smem_bytes), CUDA-event times; and
-     the generic kernel L word for word the templated one at each of the
-     seven schedules of comb.SCHEDULES_L on P-256, both timed in turns.
+     shared memory (against comb.general_smem_bytes), CUDA-event times.
  18. the main path on secp256k1 and on Wei25519 at B = 524,288 (edge
      scalars 1, 2, 5, n-2, n-1 first; points (i+1)G, lane 0 and every lane
      from 512 on the generator itself): api.scalar_mult (kernel A),
@@ -173,7 +172,7 @@ any failed check raises and the script exits non-zero:
  20. the comb's schedules on P-384 and on P-521 at B = 524,288
      (wide_schedule_phase; edge scalars 1, 2, 5, n-2, n-1 first): the tree
      (kernel J, its walk the table of comb_tree_schedule.cuh), the pipe
-     (K), and the generic kernel L at chains 2, 3 and npos, unroll 2 and
+     (K), and kernel L at chains 2, 3 and npos, unroll 2 and
      npos, strict unroll 2 and npos (and on P-384 chains 4, chains 2 with
      unroll 2, which P-521 refuses with ValueError, as the JAX package
      does), each through comb.scalar_mult_base and kernel D, each curve a
@@ -237,14 +236,14 @@ PTXAS_NAMES = {k: f"{v}_kernel" for k, v in {
     "affine_w25519": "affine_w25519", "field_probe_w25519": "field_probe_w25519",
     "calib": "calib", "comb_tree": "comb_tree_p256", "comb_pipe": "comb_pipe_p256",
 }.items()}
-# kernel L, phase 17: JSON name -> (chains, unroll, strict), and the
-# entry point's keyword arguments
+# kernel L at comb.SCHEDULES_L, phases 17 and 18: JSON name -> (chains,
+# unroll, strict), and the entry point's keyword arguments
 SCHEDULES_L = {
     "comb_chains2": (2, 1, False), "comb_chains2_unroll2": (2, 2, False),
     "comb_chains4": (4, 1, False), "comb_unroll2": (1, 2, False), "comb_unroll4": (1, 4, False),
     "comb_unroll2_strict": (1, 2, True), "comb_unroll4_strict": (1, 4, True),
 }
-PTXAS_NAMES |= {k: f"comb_chains_p256_kernelILi{c}ELi{u}ELb{int(st)}E"
+PTXAS_NAMES |= {k: f"comb_general{'_strict' if st else ''}_p256_kernel"
                 for k, (c, u, st) in SCHEDULES_L.items()}
 SCHEDULES = {"comb_tree": {"chain": "tree"}, "comb_pipe": {"chain": "pipe"}} | {
     k: {"chains": c, "unroll": u, "strict": st} for k, (c, u, st) in SCHEDULES_L.items()}
@@ -261,14 +260,15 @@ def curve_kernels(curve):
         out["comb_strict_w25519"] = comb.KERNELS[(curve, True)]
     out[f"comb_tree_{tag}"] = comb.KERNELS_TREE[curve]
     out[f"comb_pipe_{tag}"] = comb.KERNELS_PIPE[curve]
-    out |= {f"{k}_{tag}": comb.KERNELS_CHAINS[(curve, *v)] for k, v in SCHEDULES_L.items()}
+    out |= {f"{k}_{tag}": comb.KERNELS_GENERAL[(curve, st)]
+            for k, (_, _, st) in SCHEDULES_L.items()}
     return out
 
 
 for _tag in CURVES18.values():
     PTXAS_NAMES |= {f"{k}_{_tag}": f"{k}_{_tag}_kernel"
                     for k in ("ladder", "window", "window_strict", "comb_tree", "comb_pipe")}
-    PTXAS_NAMES |= {f"{k}_{_tag}": f"comb_chains_{_tag}_kernelILi{c}ELi{u}ELb{int(st)}E"
+    PTXAS_NAMES |= {f"{k}_{_tag}": f"comb_general{'_strict' if st else ''}_{_tag}_kernel"
                     for k, (c, u, st) in SCHEDULES_L.items()}
 PTXAS_NAMES["comb_strict_w25519"] = "comb_strict_w25519_kernel"
 # phase 19: P-384 and P-521 and their tag in the C names
@@ -294,7 +294,7 @@ def wide_kernels(curve):
 
 
 def schedule_name(chains, unroll, strict):
-    """JSON name of the generic kernel L at a schedule (without a curve's
+    """JSON name of kernel L at a schedule (without a curve's
     tag)."""
     return ("comb_general" + (f"_chains{chains}" if chains > 1 else "")
             + (f"_unroll{unroll}" if unroll > 1 else "") + ("_strict" if strict else ""))
@@ -307,9 +307,8 @@ def general_schedules(triples):
             for c, u, st in triples}
 
 
-# phase 17, its B9 part: the generic kernel L at schedules that kernel
-# L's templated instantiations do not take; all on P-256, B9_OTHER on
-# secp256k1 and Wei25519
+# phase 17, its B9 part: kernel L at larger schedules than SCHEDULES_L's;
+# all on P-256, B9_OTHER on secp256k1 and Wei25519
 SCHEDULES_B9 = general_schedules(((8, 1, False), (32, 1, False), (4, 2, False), (1, 8, False),
                                   (1, 32, False), (1, 8, True), (1, 32, True)))
 B9_OTHER = ("comb_general_chains8", "comb_general_unroll8_strict")
@@ -318,7 +317,7 @@ B9_OTHER = ("comb_general_chains8", "comb_general_unroll8_strict")
 def wide_schedules(curve):
     """Phase 20's schedules on P-384 or P-521: JSON name (without the tag)
     -> the entry point's keyword arguments. The tree, the pipe, and the
-    generic kernel L at chains 2, 3 and npos, unroll 2 and npos, strict
+    kernel L at chains 2, 3 and npos, unroll 2 and npos, strict
     unroll 2 and npos; on P-384 also chains 4 and chains 2 with unroll 2,
     which P-521 (66 positions) refuses (WIDE_REFUSED)."""
     npos = curve.field.nbits // comb.W
@@ -344,8 +343,7 @@ def schedule_kernel(curve, kw):
         return comb.KERNELS_TREE[curve]
     if kw.get("chain") == "pipe":
         return comb.KERNELS_PIPE[curve]
-    key = (curve, kw.get("chains", 1), kw.get("unroll", 1), kw.get("strict", False))
-    return comb.KERNELS_CHAINS.get(key) or comb.KERNELS_GENERAL[(curve, key[3])]
+    return comb.KERNELS_GENERAL[(curve, kw.get("strict", False))]
 
 
 def tagged(curve, name):
@@ -695,25 +693,24 @@ def dynamic_smem(kernel):
     """{"dynamic_smem_bytes": n}: the dynamic shared memory the runtime gives
     a block of ``kernel`` (ptxas reports only the static part), read from
     its source's ``<symbol>_smem`` query, and where its source has a
-    ``<symbol>_blocks`` query (kernels B, J, K and the generic L) also
-    "blocks_per_sm", the blocks an SM holds at that size; {} for a kernel
-    launched with none, whose source has no such query. Kernels B, J and K
-    are held to ``comb.serial_smem_bytes``, ``tree_smem_bytes`` and
+    ``<symbol>_blocks`` query (kernels B, J, K and L; G, launched with
+    none) "blocks_per_sm", the blocks an SM holds at that size; {} for a
+    kernel with neither query. Kernels B, J and K are held to
+    ``comb.serial_smem_bytes``, ``tree_smem_bytes`` and
     ``pipe_smem_bytes``."""
     lib = _build.library().lib
-    try:
+    out = {}
+    if hasattr(lib, kernel.symbol + "_smem"):
         fn = getattr(lib, kernel.symbol + "_smem")
-    except AttributeError:
-        return {}
-    fn.argtypes, fn.restype = [], ctypes.c_int
-    n = fn()
-    check(n > 0, f"{kernel.symbol}: dynamic shared memory query gave {n}")
-    out = {"dynamic_smem_bytes": n}
+        fn.argtypes, fn.restype = [], ctypes.c_int
+        out["dynamic_smem_bytes"] = n = fn()
+        check(n > 0, f"{kernel.symbol}: dynamic shared memory query gave {n}")
     for table, size in ((((c, k) for (c, _), k in comb.KERNELS.items()), comb.serial_smem_bytes),
                         (comb.KERNELS_TREE.items(), comb.tree_smem_bytes),
                         (comb.KERNELS_PIPE.items(), comb.pipe_smem_bytes)):
         curve = next((c for c, k in table if k is kernel), None)
         if curve is not None:  # B, K: two buffers; J: a step's two positions, double buffered
+            n = out["dynamic_smem_bytes"]
             check(n == size(curve), f"{kernel.symbol}: {n} bytes of shared memory, "
                                     f"{size.__name__} says {size(curve)}")
     if hasattr(lib, kernel.symbol + "_blocks"):
@@ -722,6 +719,23 @@ def dynamic_smem(kernel):
         out["blocks_per_sm"] = fn()
         check(out["blocks_per_sm"] > 0, f"{kernel.symbol}: {out['blocks_per_sm']} blocks an SM")
     return out
+
+
+def general_smem(curve, name, kernel, kw):
+    """Kernel L's positions staged a step and its dynamic shared memory (and
+    blocks an SM) at the schedule ``kw`` it last ran, the memory held to
+    comb.general_smem_bytes."""
+    torch.cuda.synchronize()
+    smem = dynamic_smem(kernel)
+    want = comb.general_smem_bytes(curve, kw["unroll"])
+    check(smem["dynamic_smem_bytes"] == want, f"{curve.name} {name}: "
+          f"{smem['dynamic_smem_bytes']} bytes of shared memory, general_smem_bytes says {want}")
+    return {"group": comb.general_group(curve, kw["unroll"]), **smem}
+
+
+def staged_smem(rows):
+    """{name: [positions a step, shared memory bytes]} of kernel L's rows."""
+    return {k: [v["group"], v["dynamic_smem_bytes"]] for k, v in rows.items() if "group" in v}
 
 
 def table_split(kernel, dev):
@@ -1291,35 +1305,28 @@ def comb_degenerate(k, tables_np, negbase, kw, curve=P256):
 
 def schedule_phase(rng, dev, card, counted, scalars, b_plain_ms):
     """Phase 17: the comb's other schedules on P-256 — kernels J (tree), K
-    (pipe) and L (chains / unroll) — against their plain versions or kernel
-    B, the oracle, and on the path that bench.py times under BENCH_CHAIN /
-    BENCH_UNROLL: comb.scalar_mult_base(chain, chains, unroll) then kernel D,
-    at B = 524,288 on phase 6's scalars. ``b_plain_ms``: comb_plain's times
-    on those scalars (phases 6 and 9), the plain version of K and of L with
-    one chain. Returns the numbers of the kernels line."""
+    (pipe) and L (chains / unroll, SCHEDULES_L) — against their plain
+    versions (K: kernel B), the oracle, and on the path that bench.py times
+    under BENCH_CHAIN / BENCH_UNROLL: comb.scalar_mult_base(chain, chains,
+    unroll) then kernel D, at B = 524,288 on phase 6's scalars.
+    ``b_plain_ms``: comb_plain's time on those scalars (phase 6), K's plain
+    version. Returns the numbers of the kernels line."""
     tables, negbase, nb = comb.device_tables(P256, P256.gx, P256.gy, dev)
-    limbs = comb.kernel_tables(P256, P256.gx, P256.gy, dev)
     mma = comb.mma_tables(P256, P256.gx, P256.gy, dev)
     tables_np, negbase_ints = comb.base_tables(P256, P256.gx, P256.gy)
-    kernels = {"comb_tree": comb.KERNELS_TREE[P256], "comb_pipe": comb.KERNELS_PIPE[P256]} | {
-        k: comb.KERNELS_CHAINS[(P256, *v)] for k, v in SCHEDULES_L.items()}
+    kernels = {k: schedule_kernel(P256, kw) for k, kw in SCHEDULES.items()}
 
     def run(kw, s):
-        if kw.get("chain") == "tree":
-            return comb.comb_tree_planes(s, mma, nb)
-        if kw.get("chain") == "pipe":
-            return comb.comb_pipe_planes(s, mma, nb)
-        return comb.comb_chains_planes(s, limbs, mma, nb, P256, kw["chains"], kw["unroll"],
-                                       kw["strict"])
+        return comb.schedule_planes(s, mma, nb, P256, **kw)
 
     def reference(kw, s):
-        """The plain version (J, L with chains > 1) or kernel B (K, L with
-        one chain) on the same inputs."""
+        """The plain version (J, L) or kernel B (K) on the same inputs."""
         if kw.get("chain") == "tree":
             return comb.comb_tree_plain(s, tables, P256, negbase)
-        if kw.get("chains", 1) > 1:
-            return comb.comb_chains_plain(s, tables, P256, negbase, kw["chains"], kw["unroll"])
-        return comb.comb_planes(s, mma, nb, strict=kw.get("strict", False))
+        if kw.get("chain") == "pipe":
+            return comb.comb_planes(s, mma, nb)
+        return comb.comb_chains_plain(s, tables, P256, negbase, kw["chains"], kw["unroll"],
+                                      kw["strict"])
 
     out = {k: {} for k in SCHEDULES}
     # -- 65,536 lanes against the plain versions / kernel B, 512 against the oracle
@@ -1333,17 +1340,17 @@ def schedule_phase(rng, dev, card, counted, scalars, b_plain_ms):
         s, ks, want = sets[kw.get("strict", False)]
         got = run(kw, s)
         out[kname]["check_err"] = max_abs_diff(got, reference(kw, s))
-        check(out[kname]["check_err"] == 0, f"{kname} kernel == its plain version / kernel B "
-                                             f"({CHECK_LANES} lanes)")
+        check(out[kname]["check_err"] == 0, f"{kname} kernel == its plain version (K: kernel "
+                                             f"B; {CHECK_LANES} lanes)")
         lanes = [i for i, k in enumerate(ks) if kw.get("strict") or not comb_degenerate(
             k, tables_np, negbase_ints, kw)]
         excluded[kname] = ORACLE_LANES - len(lanes)
         aff = affine_ints(AffinePoint(*affine.affine_planes(*got), P256), ORACLE_LANES)
         check([aff[i] for i in lanes] == [want[i] for i in lanes], f"{kname} vs oracle")
     del got, sets
-    say(f"phase 17 comb schedules: J (tree), L (chains 2, 4) {CHECK_LANES} lanes exact vs "
-          f"comb_tree_plain / comb_chains_plain; K (pipe) and L with one chain (unroll 2, 4; "
-          f"strict, n-1 included) exact vs kernel B / B strict; {ORACLE_LANES} lanes of each "
+    say(f"phase 17 comb schedules: J (tree), L (chains 2, 4; one chain at unroll 2, 4; "
+          f"strict, n-1 included) {CHECK_LANES} lanes exact vs comb_tree_plain / "
+          f"comb_chains_plain; K (pipe) exact vs kernel B; {ORACLE_LANES} lanes of each "
           f"through kernel D vs oracle (degenerate lanes excluded: {json.dumps(excluded)})")
 
     # -- the path: entry point -> kernel J, K or L -> kernel D, at B = 524,288
@@ -1370,29 +1377,30 @@ def schedule_phase(rng, dev, card, counted, scalars, b_plain_ms):
         check([got[i] for i in lanes] == [want[i] for i in lanes], f"{kname} path vs oracle")
     del results
 
-    # -- each kernel against its plain version / kernel B on the path's inputs
-    # (these launches come after the counts were read)
-    b_out = {st: comb.comb_planes(scalars, mma, nb, strict=st) for st in (False, True)}
+    # -- each kernel against its plain version (K: kernel B) on the path's
+    # inputs (these launches come after the counts were read)
     for kname, kw in SCHEDULES.items():
         got = run(kw, scalars)
-        if kw.get("chain") == "tree" or kw.get("chains", 1) > 1:
-            out[kname]["plain_ms"], want_planes = time_once_ms(lambda: reference(kw, scalars))
+        if kw.get("chain") == "pipe":
+            out[kname]["plain_ms"] = b_plain_ms
+            want_planes = reference(kw, scalars)
         else:
-            out[kname]["plain_ms"] = b_plain_ms[kw.get("strict", False)]
-            want_planes = b_out[kw.get("strict", False)]
+            out[kname]["plain_ms"], want_planes = time_once_ms(lambda: reference(kw, scalars))
         out[kname]["err"] = max_abs_diff(got, want_planes)
-        check(out[kname]["err"] == 0, f"{kname} kernel == its plain version / kernel B at "
+        check(out[kname]["err"] == 0, f"{kname} kernel == its plain version (K: kernel B) at "
                                       f"B = {BATCH}")
         del got, want_planes
-    del b_out
     for kname, kw in SCHEDULES.items():
         out[kname]["ms"] = time_ms(lambda: run(kw, scalars), 20)
+        if "chains" in kw:  # kernel L: its shared memory at this schedule
+            out[kname] |= general_smem(P256, kname, kernels[kname], kw)
         out[kname]["api_ms"] = time_ms(
             lambda: affine.to_affine(comb.scalar_mult_base(scalars, P256, **kw)), 10)
     say(f"phase 17 comb schedules main path B={BATCH} (comb.scalar_mult_base -> kernel, then "
           f"kernel D): launches {json.dumps(launches17)}; {MAIN_ORACLE_LANES} lanes of each vs "
           f"oracle (degenerate lanes excluded: {json.dumps(main_excluded)}); each kernel exact vs "
-          f"its plain version or kernel B on the path's inputs; kernel ms "
+          f"its plain version (K: kernel B) on the path's inputs; L's staged positions a step "
+          f"and shared memory {json.dumps(staged_smem(out))}; kernel ms "
           f"{json.dumps({k: round(v['ms'], 3) for k, v in out.items()})}; entry point + D ms "
           f"{json.dumps({k: round(v['api_ms'], 3) for k, v in out.items()})}; plain ms "
           f"{json.dumps({k: round(v['plain_ms'], 1) for k, v in out.items()})} {card}")
@@ -1409,13 +1417,11 @@ def schedule_path(dev, card, counted, curve, scalars, ks, phase):
     the launch counts reset before and read after; ORACLE_LANES lanes of
     each against the oracle (lanes where the schedule's composition on ints
     degenerates excluded and counted); each kernel exact against its plain
-    version on the first CHECK_LANES lanes; the generic kernel L's shared
-    memory equal to comb.general_smem_bytes; the times. Returns the
-    numbers of the kernels line."""
+    version on the first CHECK_LANES lanes; kernel L's shared memory equal
+    to comb.general_smem_bytes; the times. Returns the numbers of the
+    kernels line."""
     fs, d = curve.field, curve.field.ndigits
     schedules = PATH_SCHEDULES[curve]
-    limbs = (comb.kernel_tables(curve, curve.gx, curve.gy, dev)
-             if any(comb.uses_kernel_tables(curve, **kw) for kw in schedules.values()) else None)
     mma = comb.mma_tables(curve, curve.gx, curve.gy, dev)
     nb = comb.device_tables(curve, curve.gx, curve.gy, dev)[2]
     tables_np, negbase_ints = comb.base_tables(curve, curve.gx, curve.gy)
@@ -1470,38 +1476,32 @@ def schedule_path(dev, card, counted, curve, scalars, ks, phase):
         f"vs oracle (edge scalars first; degenerate lanes excluded: {json.dumps(excluded)})")
 
     # -- each kernel against its plain version on the first CHECK_LANES lanes
-    # (these launches come after the counts were read), the generic kernel
-    # L's shared memory, and the times at full width
+    # (these launches come after the counts were read), kernel L's shared
+    # memory, and the times at full width
     out = {}
     for name, kw in schedules.items():
         want_np, plain_ms = jobs[plain_key(kw)].result()
-        got = comb.schedule_planes(s_c, limbs, mma, nb, curve, **kw)
+        got = comb.schedule_planes(s_c, mma, nb, curve, **kw)
         err = max_abs_diff(got, [torch.from_numpy(w).to(dev) for w in want_np])
         check(err == 0, f"{curve.name} {name} kernel == its plain version on {m} lanes")
         row = {"err": err, "plain_ms": plain_ms, "plain_lanes": m, "schedule": kw}
         kernel = kernels[tagged(curve, name)]
         if kernel is comb.KERNELS_GENERAL[(curve, kw.get("strict", False))]:
-            torch.cuda.synchronize()
-            smem = dynamic_smem(kernel)["dynamic_smem_bytes"]
-            want_smem = comb.general_smem_bytes(curve, kw["unroll"])
-            check(smem == want_smem, f"{curve.name} {name}: {smem} bytes of shared memory, "
-                                     f"general_smem_bytes says {want_smem}")
-            row |= {"group": comb.general_group(curve, kw["unroll"]), **dynamic_smem(kernel)}
+            row |= general_smem(curve, name, kernel, kw)
         out[tagged(curve, name)] = row
     del got
     wide = curve in CURVES19
     api_ms = {}
     for name, kw in schedules.items():
         out[tagged(curve, name)]["ms"] = time_ms(
-            lambda kw=kw: comb.schedule_planes(scalars, limbs, mma, nb, curve, **kw),
+            lambda kw=kw: comb.schedule_planes(scalars, mma, nb, curve, **kw),
             10 if wide else 20)
         api_ms[f"{curve.name} comb.scalar_mult_base({schedule_args(kw)}) + affine"] = time_ms(
             lambda kw=kw: affine.to_affine(comb.scalar_mult_base(scalars, curve, **kw)),
             5 if wide else 10)
-    staged = {k: [v["group"], v["dynamic_smem_bytes"]] for k, v in out.items() if "group" in v}
     say(f"phase {phase} {curve.name} comb schedules: each kernel exact vs its plain version "
         f"(comb_tree_plain, comb_chains_plain, comb_plain) on the path's first {m} lanes; "
-        f"generic L's staged positions a step and shared memory {json.dumps(staged)}; "
+        f"L's staged positions a step and shared memory {json.dumps(staged_smem(out))}; "
         f"kernel ms at B={BATCH} {json.dumps({k: round(v['ms'], 3) for k, v in out.items()})}; "
         f"entry point + D ms {json.dumps({k: round(v, 3) for k, v in api_ms.items()})}; plain ms "
         f"at {m} lanes {json.dumps({k: round(v['plain_ms'], 1) for k, v in out.items()})} {card}")
@@ -1509,43 +1509,23 @@ def schedule_path(dev, card, counted, curve, scalars, ks, phase):
 
 
 def general_phase(rng, dev, card, counted, scalars):
-    """Phase 17, its B9 part: the generic kernel L at PATH_SCHEDULES[curve]
-    — SCHEDULES_B9 on P-256 (on phase 6's 524,288 scalars), B9_OTHER on
+    """Phase 17, its B9 part: kernel L at PATH_SCHEDULES[curve] —
+    SCHEDULES_B9 on P-256 (on phase 6's 524,288 scalars), B9_OTHER on
     secp256k1 and Wei25519 (edge scalars 1, 2, 5, n-2, n-1 first) — each a
-    path of its own (schedule_path); then on P-256 the generic kernel at
-    each schedule of comb.SCHEDULES_L against the templated instantiation:
-    word for word on the 524,288 lanes, and CUDA-event times in turns.
-    Returns {curve: schedule_path's numbers} and the times."""
+    path of its own (schedule_path). Returns {curve: schedule_path's
+    numbers}."""
     ks = convert.planes_to_ints(scalars[:, :ORACLE_LANES].cpu().numpy())
     out = {P256: schedule_path(dev, card, counted, P256, scalars, ks, "17 (B9)")}
     for curve in CURVES18:
         n = curve.order
         ks_c = scalar_ints(rng, BATCH, [1, 2, 5, n - 2, n - 1], curve)
         out[curve] = schedule_path(dev, card, counted, curve, to_dev(ks_c, dev), ks_c, "17 (B9)")
-    limbs = comb.kernel_tables(P256, P256.gx, P256.gy, dev)
-    mma = comb.mma_tables(P256, P256.gx, P256.gy, dev)
-    nb = comb.device_tables(P256, P256.gx, P256.gy, dev)[2]
-    versus = {}
-    for c, u, st in comb.SCHEDULES_L:
-        templated = functools.partial(comb.comb_chains_planes, scalars, limbs, mma, nb, P256, c,
-                                      u, st)
-        generic = functools.partial(comb.comb_general_planes, scalars, mma, nb, P256, c, u, st)
-        err = max_abs_diff(generic(), templated())
-        check(err == 0, f"generic kernel L == templated kernel L at chains={c}, unroll={u}, "
-                        f"strict={st}, word for word on {BATCH} lanes")
-        t = [time_ms(f, 10) for f in (templated, generic, generic, templated)]
-        versus[schedule_name(c, u, st)] = {"templated_ms": (t[0] + t[3]) / 2,
-                                           "generic_ms": (t[1] + t[2]) / 2}
-    pairs = {k: [round(v["templated_ms"], 3), round(v["generic_ms"], 3)] for k, v in versus.items()}
-    say(f"phase 17 (B9) P-256: the generic kernel L word for word the templated one at each of "
-        f"its seven schedules on {BATCH} lanes; ms (templated, generic; in turns) "
-        f"{json.dumps(pairs)} {card}")
-    return out, versus
+    return out
 
 
 def wide_schedule_phase(rng, dev, card, counted, curve):
     """Phase 20 on ``curve`` (P-384 or P-521): the comb's schedules of
-    PATH_SCHEDULES[curve] — kernels J, K and the generic L — through the
+    PATH_SCHEDULES[curve] — kernels J, K and L — through the
     entry point and kernel D at B = 524,288 (schedule_path; edge scalars 1,
     2, 5, n-2, n-1 first); first, on P-521, the schedules of WIDE_REFUSED
     refused by check_schedule (ValueError), as the JAX package refuses
@@ -1649,7 +1629,6 @@ def curve_phase(rng, dev, card, counted, curve):
     ym = GFp.from_classical(points.y, fs).planes.contiguous()
     k_shared = scalar_ints(rng, 1, [], curve)[0]
     nb = comb.device_tables(curve, curve.gx, curve.gy, dev)[2]
-    limbs = comb.kernel_tables(curve, curve.gx, curve.gy, dev)
     mma = comb.mma_tables(curve, curve.gx, curve.gy, dev)
     tables_np, negbase_ints = comb.base_tables(curve, curve.gx, curve.gy)
     classical = ocomb.classical_tables(tables_np, fs)
@@ -1727,13 +1706,7 @@ def curve_phase(rng, dev, card, counted, curve):
         if curve == WEI25519:
             r["comb_strict_w25519"] = lambda: comb.comb_planes(s, mma, nb, curve, True)
         for kname, kw in SCHEDULES.items():
-            if kw.get("chain") == "tree":
-                r[f"{kname}_{tag}"] = lambda: comb.comb_tree_planes(s, mma, nb, curve)
-            elif kw.get("chain") == "pipe":
-                r[f"{kname}_{tag}"] = lambda: comb.comb_pipe_planes(s, mma, nb, curve)
-            else:
-                r[f"{kname}_{tag}"] = (lambda kw=kw: comb.comb_chains_planes(
-                    s, limbs, mma, nb, curve, kw["chains"], kw["unroll"], kw["strict"]))
+            r[f"{kname}_{tag}"] = lambda kw=kw: comb.schedule_planes(s, mma, nb, curve, **kw)
         return r
 
     runs, chk = kernel_runs(scalars, xm, ym), kernel_runs(sc, xc, yc)
@@ -1776,6 +1749,9 @@ def curve_phase(rng, dev, card, counted, curve):
     del b_out, chk
     for name, run in runs.items():
         out[name]["ms"] = time_ms(run, 5 if name.startswith(("ladder", "window")) else 20)
+        kw = SCHEDULES.get(name.removesuffix(f"_{tag}"), {})
+        if "chains" in kw:  # kernel L: its shared memory at this schedule
+            out[name] |= general_smem(curve, name, kern[name], kw)
     api_ms = {"scalar_mult": time_ms(lambda: api.scalar_mult(scalars, points), 5),
               "scalar_mult_fast": time_ms(lambda: api.scalar_mult_fast(scalars, points), 5),
               "scalar_mult_fast_strict": time_ms(
@@ -1787,7 +1763,8 @@ def curve_phase(rng, dev, card, counted, curve):
                   10) for k, kw in SCHEDULES.items()},
               **time_calls(ecdh_calls)}
     say(f"phase 18 {curve.name} kernels exact vs their plain versions (K, one-chain L: kernel "
-          f"B, itself exact vs comb_plain) on the path's first {CHECK_LANES} lanes; kernel ms "
+          f"B, itself exact vs comb_plain) on the path's first {CHECK_LANES} lanes; L's staged "
+          f"positions a step and shared memory {json.dumps(staged_smem(out))}; kernel ms "
           f"{json.dumps({k: round(v['ms'], 3) for k, v in out.items()})}; plain ms "
           f"{json.dumps({k: round(v['plain_ms'], 1) for k, v in out.items()})}; entry points ms "
           f"{json.dumps({k: round(v, 3) for k, v in api_ms.items()})} {card}")
@@ -2224,7 +2201,7 @@ def run():
                *field_ops.KERNELS_CONSTS.values(), kglv.KERNEL,
                kglv.KERNEL_STRICT, mladder.KERNEL, mladder.KERNEL_XDIVZ, roofline.KERNEL,
                *comb.KERNELS_TREE.values(), *comb.KERNELS_PIPE.values(),
-               *comb.KERNELS_CHAINS.values(), *comb.KERNELS_GENERAL.values())
+               *comb.KERNELS_GENERAL.values())
     zero_counts(counted)
     out_base = api.scalar_mult_base(scalars)
     out_var = api.scalar_mult(scalars, points)
@@ -2538,9 +2515,8 @@ def run():
           f"{CHECK_LANES} lanes {card}")
 
     xp = x25519_phases(rng, dev, card, counted)
-    sp = schedule_phase(rng, dev, card, counted, scalars,
-                        {False: comb_plain_ms, True: comb_strict_plain_ms})
-    b9, b9_versus = general_phase(rng, dev, card, counted, scalars)
+    sp = schedule_phase(rng, dev, card, counted, scalars, comb_plain_ms)
+    b9 = general_phase(rng, dev, card, counted, scalars)
     p18 = {c: curve_phase(rng, dev, card, counted, c) for c in CURVES18}
     launches18 = sum_counts([p["launches"] for p in p18.values()])
     p19 = {c: wide_phase(rng, dev, card, counted, c) for c in CURVES19}
@@ -2548,8 +2524,8 @@ def run():
     sass_mix = sass_job.result()
     for kname, mix in sass_mix.items():
         check(mix is not None, f"cuobjdump -sass found {kname}")
-    say("phase 1 SASS of kernels E (five curves), F, B and the generic L (five curves, chains 2, "
-        "unroll 1), A, D, J and K (five curves), instructions a lane issues by class "
+    say("phase 1 SASS of kernels E (five curves), F, B and L (five curves, chains 2, "
+        "unroll 1), A, D, J and K (five curves), G and H, instructions a lane issues by class "
         "(cuobjdump -sass, loop bodies times their runs, called functions times their calls): "
         + json.dumps({k: v["per_lane"] for k, v in sass_mix.items()}) + "; the called "
         "functions, once each (multiply, then squaring): " + json.dumps(
@@ -2561,11 +2537,11 @@ def run():
         mix = sass_mix[kname]["static"]
         check(mix.get("ldg128", 0) > 0 and mix.get("ldg128_nc", 0) == 0,
               f"{kname} reads its scratch with 16-byte ld.global, not the read-only path")
-    for kname in sass.LADDER_KERNELS:
+    for kname in sass.LADDER_KERNELS + ("mladder_w25519_kernel",):
         check(sass_mix[kname]["per_lane"] is not None,
               f"{kname}'s loops are the scalar's words by their bits")
     for kname in sass.COMB_KERNELS + sass.TREE_PIPE_KERNELS:
-        # B, J, K and the generic L select on the tensor cores: IMMA, and no
+        # B, J, K and L select on the tensor cores: IMMA, and no
         # scan loop over a position's entries (their loop nests are TRIPS')
         mix = sass_mix[kname]
         check(mix["static"].get("imma", 0) > 0 and mix["static"].get("lds128", 0) == 0
@@ -2581,12 +2557,12 @@ def run():
 
     def entry(kernel, kname, err, ms, plain_ms, lanes=BATCH, reps=0, schedule=None):
         """One kernel of the kernels line: its launches on the main paths
-        (the generic L's at ``schedule`` only), by path with the lanes of
+        (L's at ``schedule`` only), by path with the lanes of
         each, and weighted by lanes (launches of ``lanes`` lanes that do
         the same work), beside its times at ``lanes``."""
         bound_ms, bound_by = bound(kname, lanes, sm_clock_mhz, reps)
         ints = None
-        if schedule is not None and kernel.n_ints == 2:  # the generic L: count its schedule
+        if schedule is not None and kernel.n_ints == 2:  # L: count its schedule
             ints = (schedule.get("chains", 1), schedule.get("unroll", 1))
         by_path = {}
         for path, counts in paths.items():
@@ -2650,10 +2626,16 @@ def run():
         {**entry(roofline.KERNEL, "calib", xp["calib_err"], xp["ceiling"]["ms_per_launch"],
                  xp["calib_plain_ms"], lanes=xp["calib_elements"], reps=CALIB_REPS),
          "reps": CALIB_REPS, "plain_reps": CALIB_CHECK_REPS},
-        *(entry(sp["kernels"][k], k, max(v["err"], v["check_err"]), v["ms"], v["plain_ms"])
+        # phases 17 and 18: kernel L's launches at its schedule, its staged
+        # positions a step and shared memory at that schedule
+        *({**entry(sp["kernels"][k], k, max(v["err"], v["check_err"]), v["ms"], v["plain_ms"],
+                   schedule=SCHEDULES[k]),
+           **{x: v[x] for x in ("group", "dynamic_smem_bytes", "blocks_per_sm") if x in v}}
           for k, v in sp["by_kernel"].items()),
-        *({**entry(p["kernels"][k], k, v["err"], v["ms"], v["plain_ms"]),
-           "plain_lanes": v["plain_lanes"]}
+        *({**entry(p["kernels"][k], k, v["err"], v["ms"], v["plain_ms"],
+                   schedule=SCHEDULES.get(k.rsplit("_", 1)[0])),
+           **{x: v[x] for x in ("plain_lanes", "group", "dynamic_smem_bytes", "blocks_per_sm")
+              if x in v}}
           for p in p18.values() for k, v in p["by_kernel"].items()),
         # phase 19: ms and bound at B (kernel C at CHECK_LANES), plain_ms on
         # the path's first plain_lanes lanes
@@ -2662,7 +2644,7 @@ def run():
           for p in p19.values() for k, v in p["by_kernel"].items()),
         # phase 17's B9 part and phase 20: one entry a (kernel, curve,
         # schedule); ms and bound at B, plain_ms on the path's first
-        # plain_lanes lanes; the generic kernel L's staged positions a step
+        # plain_lanes lanes; kernel L's staged positions a step
         # (group) and shared memory at that schedule
         *({**entry(p["kernels"][k], k, v["err"], v["ms"], v["plain_ms"],
                    schedule=v.get("schedule")),
@@ -2699,7 +2681,6 @@ def run():
     print(json.dumps({"kernels": kernels, "card": smi,
                       "sm_clock_max_mhz": sm_clock_mhz, "batch": BATCH,
                       "build_s": build.seconds, "api_ms": api_ms, "int32_ceiling": ceiling,
-                      "generic_vs_templated_l_ms": b9_versus,
                       "wall_s": time.perf_counter() - t_start}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                             "count": torch.cuda.device_count()}}))

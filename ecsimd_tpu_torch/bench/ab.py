@@ -31,11 +31,7 @@ Each library gets the arguments its own checkout's ``Kernel`` declares
 ``n_pointers`` of the captured tensors and the first ``n_ints`` of the
 ints, so a kernel whose interface grew by trailing arguments (kernel E on
 P-384 / P-521 gained a scratch and its slot count) is compared with
-its older self; and the comb table in the layout it declares
-(``layout``: a checkout whose kernel declares none, or ``"limbs"``, gets
-``comb.kernel_tables`` where this one's takes ``comb.mma_tables``), so
-kernels B, J, K and the generic L are compared with their masked-scan
-selves.
+its older self.
 Scratch tensors (a ``Kernel``'s last ``n_scratch`` pointers) are not
 compared.
 """
@@ -127,19 +123,30 @@ def _wide(batch: int, dev, rng) -> dict:
     return out
 
 
-def _schedules(tag, curve, s, limbs, mma, nb, chains) -> dict:
-    """Kernels J, K (on ``mma``) and L's templated instantiations
-    (``chains``: name -> (chains, unroll, strict)) on a 256-bit curve other
-    than P-256."""
-    return {f"comb_tree_{tag}": lambda: comb.comb_tree_planes(s, mma, nb, curve),
-            f"comb_pipe_{tag}": lambda: comb.comb_pipe_planes(s, mma, nb, curve),
-            **{f"{k}_{tag}": (lambda c=c, u=u, st=st: comb.comb_chains_planes(
-                s, limbs, mma, nb, curve, c, u, st)) for k, (c, u, st) in chains.items()}}
+# kernel L at comb.SCHEDULES_L: name (with the curve's tag but on P-256)
+# -> (chains, unroll, strict)
+SCHEDULES_L = {
+    "comb_chains2": (2, 1, False), "comb_chains2_unroll2": (2, 2, False),
+    "comb_chains4": (4, 1, False), "comb_unroll2": (1, 2, False), "comb_unroll4": (1, 4, False),
+    "comb_unroll2_strict": (1, 2, True), "comb_unroll4_strict": (1, 4, True),
+}
+
+
+def _schedules(tag, curve, s, mma, nb) -> dict:
+    """Kernel L at SCHEDULES_L on a 256-bit curve, and kernels J and K on
+    one other than P-256."""
+    sfx = "" if curve == P256 else f"_{tag}"
+    out = {f"{k}{sfx}": (lambda c=c, u=u, st=st: comb.comb_general_planes(
+        s, mma, nb, curve, c, u, st)) for k, (c, u, st) in SCHEDULES_L.items()}
+    if curve != P256:
+        out |= {f"comb_tree_{tag}": lambda: comb.comb_tree_planes(s, mma, nb, curve),
+                f"comb_pipe_{tag}": lambda: comb.comb_pipe_planes(s, mma, nb, curve)}
+    return out
 
 
 def _general(tag, curve, s, mma, nb) -> dict:
-    """The generic kernel L on ``curve``: chains 2 (unroll 2 where npos
-    allows it, else 1), and strict with one chain at unroll 2."""
+    """Kernel L on P-384 or P-521: chains 2 (unroll 2 where npos allows it,
+    else 1), and strict with one chain at unroll 2."""
     u = 2 if (curve.field.nbits // comb.W) % 4 == 0 else 1
     return {f"comb_general_{tag}": lambda: comb.comb_general_planes(s, mma, nb, curve, 2, u),
             f"comb_general_strict_{tag}": lambda: comb.comb_general_planes(
@@ -152,7 +159,6 @@ def workloads(batch: int, dev) -> dict:
     rng = np.random.default_rng(SEED)
     s = _planes(_scalars(rng, batch, P256.order), dev)
     pt = api.scalar_mult_base(_planes(_scalars(rng, batch, P256.order), dev))
-    limbs = comb.kernel_tables(P256, P256.gx, P256.gy, dev)
     mma = comb.mma_tables(P256, P256.gx, P256.gy, dev)
     _, _, nb = comb.device_tables(P256, P256.gx, P256.gy, dev)
     jac = comb.comb_planes(s, mma, nb)
@@ -164,7 +170,6 @@ def workloads(batch: int, dev) -> dict:
     xm = GFp.from_classical(pt1.x, k1.field).planes.contiguous()
     ym = GFp.from_classical(pt1.y, k1.field).planes.contiguous()
     packed = kglv.pack_scalars(s1, k1).contiguous()
-    limbs1 = comb.kernel_tables(k1, k1.gx, k1.gy, dev)
     mma1 = comb.mma_tables(k1, k1.gx, k1.gy, dev)
     _, _, nb1 = comb.device_tables(k1, k1.gx, k1.gy, dev)
     jac1 = comb.comb_planes(s1, mma1, nb1, k1)
@@ -174,7 +179,6 @@ def workloads(batch: int, dev) -> dict:
     kw = x25519._byte_planes([rng.bytes(32) for _ in range(batch)], True, dev)
     uw = _below(rng, batch, wf.p, dev)
     x2, z2 = mladder.mladder_planes(kw, uw, wf, x25519.A24, 255)
-    limbsw = comb.kernel_tables(WEI25519, WEI25519.gx, WEI25519.gy, dev)
     mmaw = comb.mma_tables(WEI25519, WEI25519.gx, WEI25519.gy, dev)
     _, _, nbw = comb.device_tables(WEI25519, WEI25519.gx, WEI25519.gy, dev)
     jacw = comb.comb_planes(kw, mmaw, nbw, WEI25519)
@@ -182,10 +186,6 @@ def workloads(batch: int, dev) -> dict:
     sw = _planes(_scalars(rng, batch, WEI25519.order), dev)
     ptw = api.scalar_mult_base(_planes(_scalars(rng, batch, WEI25519.order), dev), WEI25519)
 
-    chains = {f"comb_chains{c}" + (f"_unroll{u}" if u > 1 else ""): (c, u, False)
-              for c, u in ((2, 1), (2, 2), (4, 1))}
-    chains |= {f"comb_unroll{u}" + ("_strict" if st else ""): (1, u, st)
-               for u in (2, 4) for st in (False, True)}
     return {
         "window": lambda: window.window_planes(s, pt.x, pt.y),
         "window_strict": lambda: window.window_planes(s, pt.x, pt.y, strict=True),
@@ -196,9 +196,6 @@ def workloads(batch: int, dev) -> dict:
         "comb_strict": lambda: comb.comb_planes(s, mma, nb, strict=True),
         "comb_tree": lambda: comb.comb_tree_planes(s, mma, nb),
         "comb_pipe": lambda: comb.comb_pipe_planes(s, mma, nb),
-        **{k: (lambda c=c, u=u, st=st: comb.comb_chains_planes(s, limbs, mma, nb, P256, c, u,
-                                                               st))
-           for k, (c, u, st) in chains.items()},
         "affine": lambda: affine.affine_planes(*jac),
         "field_probe": lambda: field_ops.probe(a, b),
         "comb_secp256k1": lambda: comb.comb_planes(s1, mma1, nb1, k1),
@@ -218,11 +215,9 @@ def workloads(batch: int, dev) -> dict:
         "window_strict_w25519": lambda: window.window_planes(sw, ptw.x, ptw.y, WEI25519,
                                                              strict=True),
         "field_probe_w25519": lambda: field_ops.probe(aw, bw, wf),
-        **_schedules("secp256k1", k1, s1, limbs1, mma1, nb1, chains),
-        **_schedules("w25519", WEI25519, kw, limbsw, mmaw, nbw, chains),
-        **_general("p256", P256, s, mma, nb),
-        **_general("secp256k1", k1, s1, mma1, nb1),
-        **_general("w25519", WEI25519, kw, mmaw, nbw),
+        **_schedules("p256", P256, s, mma, nb),
+        **_schedules("secp256k1", k1, s1, mma1, nb1),
+        **_schedules("w25519", WEI25519, kw, mmaw, nbw),
         **_wide(batch, dev, rng),
     }
 
@@ -233,13 +228,13 @@ import ecsimd_tpu_torch
 from ecsimd_tpu_torch.kernels import _build
 for m in pkgutil.walk_packages(ecsimd_tpu_torch.__path__, "ecsimd_tpu_torch."):
     importlib.import_module(m.name)
-print(json.dumps({k.symbol: [k.n_pointers, k.n_ints, getattr(k, "layout", None)]
+print(json.dumps({k.symbol: [k.n_pointers, k.n_ints]
                   for k in gc.get_objects() if isinstance(k, _build.Kernel)}))
 """
 
 
-def declared(checkout: Path) -> dict[str, tuple[int, int, str | None]]:
-    """{C entry: (n_pointers, n_ints, layout)} as ``checkout``'s own package
+def declared(checkout: Path) -> dict[str, tuple[int, int]]:
+    """{C entry: (n_pointers, n_ints)} as ``checkout``'s own package
     declares its kernels, read by a Python process run in that checkout."""
     env = {**os.environ, "PYTHONPATH": str(checkout.resolve())}
     out = subprocess.run([sys.executable, "-c", _DECLARED], cwd=checkout, env=env,
@@ -288,21 +283,18 @@ def main(argv=None):
         torch.cuda.synchronize()
         new = any(not hasattr(other.lib, k.symbol) for k, *_ in launches)
         labs = ("this",) if new else ("other", "this")
-        counts = {"this": {k.symbol: (k.n_pointers, k.n_ints, k.layout) for k, *_ in launches},
+        counts = {"this": {k.symbol: (k.n_pointers, k.n_ints) for k, *_ in launches},
                   "other": other_args}
         fns = {}
         for lab, b in (("this", this), ("other", other)):
             if lab in labs:
                 fns[lab] = []
                 for k, ts, n, ints in launches:
-                    n_ptr, n_int, layout = counts[lab][k.symbol]
+                    n_ptr, n_int = counts[lab][k.symbol]
                     if n_ptr > len(ts) or n_int > len(ints):
                         raise RuntimeError(f"{name} ({lab}): {k.symbol} takes more arguments "
                                            f"than this checkout's wrapper gave it")
-                    ts = ts[:n_ptr]
-                    if k.layout == "mma" and layout != "mma":
-                        ts = [ts[0], _limbs_for(ts[1], dev), *ts[2:]]
-                    fns[lab].append((_build.entry(b.lib, k.symbol, n_ptr, n_int), ts, n,
+                    fns[lab].append((_build.entry(b.lib, k.symbol, n_ptr, n_int), ts[:n_ptr], n,
                                      ints[:n_int]))
         # the results: every tensor but the scratch
         tensors = [t for k, ts, _, _ in launches for t in ts[:len(ts) - k.n_scratch]]
@@ -361,15 +353,6 @@ def main(argv=None):
         raise SystemExit("outputs differ between the two libraries")
 
 
-def _limbs_for(mma: torch.Tensor, dev) -> torch.Tensor:
-    """``comb.kernel_tables`` of the curve whose generator's
-    ``comb.mma_tables`` is ``mma`` (the tables the workloads build)."""
-    for curve in _build.CURVES:
-        if comb.mma_tables(curve, curve.gx, curve.gy, dev).data_ptr() == mma.data_ptr():
-            return comb.kernel_tables(curve, curve.gx, curve.gy, dev)
-    raise ValueError("not the u8 comb table of a curve's generator")
-
-
 def _sass_functions(lib: Path) -> dict:
     text = subprocess.run([sass.cuobjdump(), "-sass", str(lib)], capture_output=True, text=True,
                           check=True).stdout
@@ -399,9 +382,6 @@ def _kernel_part(symbol: str) -> str:
     name that ptxas reports: <name>[_strict]_kernel, the strict word moved
     to where the sources put it."""
     base = symbol.removeprefix("ec_")
-    m = re.fullmatch(r"comb_chains_(\w+?)_c(\d)u(\d)(_strict)?", base)
-    if m:  # the template instantiation comb_chains_<curve>_kernel<c, u, strict>
-        return f"comb_chains_{m[1]}_kernelILi{m[2]}ELi{m[3]}ELb{int(bool(m[4]))}E"
     if base.endswith("_strict"):
         stem = base.removesuffix("_strict")
         head, _, curve = stem.rpartition("_")

@@ -5,7 +5,7 @@
 prints one JSON object: for each kernel whose (mangled) name contains one of
 the given substrings (default: kernels E, on its five curves, F, B and
 the generic L on their five curves, plain and strict, A, D, J and K on
-their five curves), its
+their five curves, G and H), its
 static count of SASS instructions by class, the loops (the address ranges
 of backward branches) with the classes of the instructions each holds
 outside its inner loops, and, where the loop nest has the shape the source
@@ -65,11 +65,14 @@ LADDER_KERNELS = tuple(f"ladder_{tag}_kernel" for tag in COMB_TAGS)
 AFFINE_KERNELS = tuple(f"affine_{tag}_kernel" for tag in COMB_TAGS)
 TREE_PIPE_KERNELS = tuple(f"comb_{kind}_{tag}_kernel" for kind in ("tree", "pipe")
                           for tag in COMB_TAGS)
+# kernels G (X25519's x-only ladder; not kernel A's ladder_w25519_kernel,
+# whose name it holds) and H (x / z)
+X25519_KERNELS = ("mladder_w25519_kernel", "xdivz_w25519_kernel")
 DEFAULT_KERNELS = ("window_p256_kernel", "window_strict_p256_kernel", "glv_secp256k1_kernel",
                    "glv_strict_secp256k1_kernel", "window_secp256k1_kernel",
                    "window_strict_secp256k1_kernel", "window_w25519_kernel",
                    "window_strict_w25519_kernel") + WIDE_KERNELS + COMB_KERNELS + (
-                   LADDER_KERNELS + AFFINE_KERNELS + TREE_PIPE_KERNELS)
+                   LADDER_KERNELS + AFFINE_KERNELS + TREE_PIPE_KERNELS + X25519_KERNELS)
 
 # Loop nests as the sources write them, outermost first, loops in address
 # order: (name, iterations each time the loop is entered, inner loops).
@@ -245,6 +248,13 @@ TRIPS_FERMAT = {f"affine_{tag}_kernel": [("word", 32, [])] * 8 for tag in ("p256
 ONE_THREAD = {f"affine_{tag}_kernel": (0, -1, AFFINE_THREADS)
               for tag, (_, tree) in AFFINE_GROUPS.items() if tree}
 
+# Kernel G (mladder.cu): the scalar's 16 digit words, then each word's
+# bits: 255 steps, 15 in the top word (before the lazy ladder: one loop of
+# 255 steps, ``TRIPS_G_BITS``). Kernel H: its inversion chain's rolled
+# squarings (field_w25519.cuh's fe_inv, as kernel D's on Wei25519).
+_G = [("word", 16, [("bit", Fraction(255, 16), [])])]
+TRIPS_G_BITS = {"mladder_w25519_kernel": [("bit", 255, [])]}
+
 _COMB_SIZES = {"p256": (32, 8), "secp256k1": (32, 8), "w25519": (32, 8), "p384": (48, 12),
                "p521": (66, 17)}
 TRIPS = {"glv_secp256k1_kernel": _F, "glv_strict_secp256k1_kernel": _F} | {
@@ -260,7 +270,9 @@ TRIPS = {"glv_secp256k1_kernel": _F, "glv_strict_secp256k1_kernel": _F} | {
     f"affine_{tag}_kernel": _affine(tag) for tag in _COMB_SIZES} | {
     f"comb_{kind}_{tag}_kernel": fn(*size) for kind, fn in (("tree", _comb_tree),
                                                             ("pipe", _comb_pipe))
-    for tag, size in _COMB_SIZES.items()}
+    for tag, size in _COMB_SIZES.items()} | {
+    "mladder_w25519_kernel": _G,
+    "xdivz_w25519_kernel": [("sqr", n, []) for n in _INV_SQUARINGS["w25519"]]}
 TRIPS_SCAN = {f"comb{kind}{st}_{tag}_kernel": fn(*size)
               for kind, fn in (("", _scan_b), ("_general", _scan_general))
               for tag, size in _COMB_SIZES.items() for st in ("", "_strict")} | {
@@ -515,7 +527,8 @@ def report(lib: Path, names=DEFAULT_KERNELS) -> dict:
         tree = loops(own(instrs))
         called = sorted(callees(instrs).items(), key=lambda kv: -_mix(kv[1]).get("imad", 0))
         per_lane = None
-        for trips in (TRIPS.get(name), TRIPS_SCAN.get(name), TRIPS_FERMAT.get(name)):
+        for trips in (TRIPS.get(name), TRIPS_SCAN.get(name), TRIPS_FERMAT.get(name),
+                      TRIPS_G_BITS.get(name)):
             if per_lane is None and trips is not None:
                 current = trips is TRIPS.get(name)
                 per_lane = dynamic(instrs, tree, trips, ONE_THREAD.get(name) if current else None)

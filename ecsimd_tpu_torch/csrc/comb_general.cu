@@ -4,8 +4,7 @@
 // say what the kernel computes, how it stays constant-time and what bounds
 // it. Here npos = 32.
 // 128 threads a block, three blocks an SM asked of ptxas (the most that
-// four staged positions and the row buffers, 74 KiB, let in), as the
-// templated kernel L.
+// four staged positions and the row buffers, 74 KiB, let in).
 // Replaces ecsimd_tpu/kernels/comb.py:_comb_kernel with chains > 1 or
 // unroll > 1.
 

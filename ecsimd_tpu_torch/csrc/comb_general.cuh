@@ -4,10 +4,8 @@
 // unroll are run-time ints, one lane per thread (NVIDIA Hopper, sm_90a).
 //
 // Replaces ecsimd_tpu/kernels/comb.py:_comb_kernel with chains > 1 and/or
-// unroll > 1 (the grid of comb_mont_planes and its position permutation)
-// wherever kernel L's seven templated instantiations (comb_chains.cuh) do
-// not: chains * unroll in {8, 16, 32} on the 256-bit curves, and every
-// schedule on P-384 and P-521.
+// unroll > 1 (the grid of comb_mont_planes and its position permutation),
+// every such schedule on every curve.
 //
 // Chain c covers the contiguous positions c P .. (c + 1) P - 1, P = npos /
 // chains, and the chains are combined left to right, so one walk over the
@@ -18,14 +16,13 @@
 // chain from the entry with z = 1; every other position is an ADD_Z2_1 (the
 // complete add when strict, which allows one chain only); at the end the
 // last chain is folded in the same way, then the parity fix-up. Whatever
-// `chains` is, the lane holds two Jacobian points (the templated kernel L
-// holds `chains` of them), so chains = npos costs no more registers than
-// chains = 2. With one chain this is kernel B's chain, bit for bit.
+// `chains` is, the lane holds two Jacobian points, so chains = npos costs
+// no more registers than chains = 2. With one chain this is kernel B's chain, bit for bit.
 //
 // `unroll` changes no value. It sets how many positions a step stages in
 // shared memory as one group (cp.async, double buffered; one pair of
 // barriers a group): g = unroll, at most 4 at 256 bits (74 KiB with the
-// row buffers, three blocks an SM, as the templated kernel L) and 2 on
+// row buffers, three blocks an SM) and 2 on
 // P-384 and P-521 (62 and 87 KiB: the first slot holds position 0, 256
 // entries; two blocks an SM at their registers), lowered to a divisor of
 // npos (kernels/comb.general_group computes the same on the host).

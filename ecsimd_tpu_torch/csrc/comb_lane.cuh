@@ -1,14 +1,11 @@
 // The comb's per-lane add and fix-up, over the field of the including
 // namespace (sm_90a). Kernels B (comb.cu, comb_p384.cu, comb_p521.cu), J
-// (comb_tree*.cu), K (comb_pipe*.cu) and L (comb_chains*.cu,
-// comb_unroll*.cu, comb_general*.cu) include this file inside namespaces
-// p256, secp256k1, w25519, p384 and p521, each after the field's coz header
-// and comb_scan.cuh (or comb_mma.cuh, which includes it), so the code is
-// written once; the file has no include guard and includes nothing. A
-// chain has 2 D positions (nbits / 8: 32, 48 or 66). How a lane reads an
-// entry: on the tensor cores in B, J, K and the generic L
-// (comb_mma_lane.cuh), by the masked scan in the templated L
-// (comb_chains_lane.cuh).
+// (comb_tree*.cu), K (comb_pipe*.cu) and L (comb_general*.cu) include this
+// file inside namespaces p256, secp256k1, w25519, p384 and p521, each after
+// the field's coz header and comb_mma.cuh, so the code is written once; the
+// file has no include guard and includes nothing. A chain has 2 D
+// positions (nbits / 8: 32, 48 or 66). A lane reads an entry on the tensor
+// cores (comb_mma_lane.cuh).
 
 constexpr int kCombPositions = 2 * kDigits;
 

@@ -5,8 +5,7 @@
 // product that selects each lane's entry, and the kernel templates of B
 // and K and their launcher. Field-independent and width-generic over
 // ec::fe_t<N>; the lanes that call it are comb_mma_lane.cuh's and
-// comb_pipe_lane.cuh's, inside each field's namespace. Only the templated
-// L keeps comb_scan.cuh's masked scan.
+// comb_pipe_lane.cuh's, inside each field's namespace.
 //
 // Layout (kernels/comb.mma_layout): position j is a u8 matrix of 8 N rows
 // and K columns, K-major: row n holds byte n of every entry of the
@@ -55,7 +54,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "comb_scan.cuh"
+#include "comb_stage.cuh"
 #include "limbs.cuh"
 #include "smem.cuh"
 

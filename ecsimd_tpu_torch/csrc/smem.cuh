@@ -1,9 +1,10 @@
 // The queries of the dynamic shared memory a kernel was given and the
 // blocks an SM it holds (host code), for the kernels launched with dynamic
 // shared memory: B, J, K and L (comb*.cu) and the P-384 / P-521 kernel E
-// (window_<tag>.cu). Each source exports them per kernel as C functions,
-// `<entry>_smem` and (the comb's) `<entry>_blocks`, which chip_smoke.py
-// reads into its kernels line.
+// (window_<tag>.cu), and the blocks of kernel G (mladder.cu). Each source
+// exports them per kernel as C functions, `<entry>_smem` and (the comb's
+// and G's) `<entry>_blocks`, which chip_smoke.py reads into its kernels
+// line.
 
 #pragma once
 

@@ -34,9 +34,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ecsimd_tpu_torch"
 SOURCES = ("field_ops.cu", "ladder.cu", "comb.cu", "affine.cu", "window.cu",
            "window_secp256k1.cu", "window_w25519.cu", "glv.cu", "mladder.cu", "calib.cu",
-           "comb_tree.cu", "comb_pipe.cu", "comb_chains.cu", "comb_unroll.cu",
-           "comb_chains_secp256k1.cu", "comb_unroll_secp256k1.cu", "comb_chains_w25519.cu",
-           "comb_unroll_w25519.cu", "ladder_p384.cu", "ladder_p521.cu", "window_p384.cu",
+           "comb_tree.cu", "comb_pipe.cu", "ladder_p384.cu", "ladder_p521.cu", "window_p384.cu",
            "window_p521.cu", "comb_p384.cu", "comb_p521.cu", "comb_general.cu",
            "comb_general_secp256k1.cu", "comb_general_w25519.cu", "comb_general_p384.cu",
            "comb_general_p521.cu", "comb_pipe_p384.cu", "comb_pipe_p521.cu",
@@ -45,17 +43,15 @@ HEADERS = ("limbs.cuh", "limbs_ns.cuh", "mul256.cuh", "mul_wide.cuh", "field_p25
            "field_secp256k1.cuh", "field_w25519.cuh", "field_p384.cuh", "field_p521.cuh",
            "jacobian.cuh", "coz.cuh", "dbl_am3.cuh", "coz_p256.cuh", "coz_secp256k1.cuh",
            "coz_w25519.cuh", "coz_p384.cuh", "coz_p521.cuh", "ladder_lane.cuh", "window.cuh",
-           "window_lane.cuh", "window_table.cuh", "comb_scan.cuh", "comb_lane.cuh",
-           "comb_tree_lane.cuh", "comb_pipe_lane.cuh", "comb_chains.cuh",
-           "comb_chains_lane.cuh", "smem.cuh", "comb_general.cuh",
+           "window_lane.cuh", "window_table.cuh", "comb_stage.cuh", "comb_lane.cuh",
+           "comb_tree_lane.cuh", "comb_pipe_lane.cuh", "smem.cuh", "comb_general.cuh",
            "comb_general_lane.cuh", "comb_tree_wide.cuh", "comb_tree_wide_lane.cuh",
            "comb_tree_schedule.cuh", "comb_mma.cuh", "comb_mma_lane.cuh", "affine_lane.cuh")
 # curve -> (the tag of its kernels' C names, the curve as a kernel's
 # ``replaces`` names it; none for P-256, the first curve ported)
 CURVE_TAGS = {P256: ("p256", None), SECP256K1: ("secp256k1", "secp256k1"),
               WEI25519: ("w25519", "Wei25519"), P384: ("p384", "P-384"), P521: ("p521", "P-521")}
-# the 256-bit curves: kernel J and K instantiations in one source each,
-# kernel L's seven templated instantiations (comb.SCHEDULES_L)
+# the 256-bit curves: their kernel J and K instantiations in one source each
 CURVES_256 = (P256, SECP256K1, WEI25519)
 # the curves whose kernel A, B, D, E, J and K instantiations each have a
 # source of their own (``<kernel>_<tag>.cu``), so that their builds run side
@@ -74,10 +70,8 @@ class Kernel:
     """One CUDA kernel of the port: its C entry point, its source, the TPU
     kernel it replaces, its arguments (``n_pointers`` tensors, the last
     ``n_scratch`` of them scratch that holds no result, then the batch and
-    ``n_ints`` more int64 values), the layout of the comb table it takes
-    (``"limbs"``: ``comb.kernel_tables``, ``"mma"``: ``comb.mma_tables``;
-    None for a kernel that takes none), the number of times it was launched
-    and those launches by lanes and ints (``shapes``: ``(batch, *ints)`` ->
+    ``n_ints`` more int64 values), the number of times it was launched and
+    those launches by lanes and ints (``shapes``: ``(batch, *ints)`` ->
     launches)."""
 
     symbol: str
@@ -87,7 +81,6 @@ class Kernel:
     n_ints: int = 0
     launches: int = 0
     n_scratch: int = 0
-    layout: str | None = None
     shapes: dict = dataclasses.field(default_factory=dict)
 
     def count(self, batch: int, *ints: int):

@@ -4,9 +4,8 @@ P-521 — B (serial, ``csrc/comb.cu``, ``comb_p384.cu``, ``comb_p521.cu``),
 J (pairwise tree, ``csrc/comb_tree.cu``; on P-384 / P-521
 ``comb_tree_<tag>.cu``, walking ``tree_schedule``), K (pipelined serial
 chain, ``csrc/comb_pipe.cu``, ``comb_pipe_<tag>.cu``) and L (``chains``
-independent chains / ``unroll`` positions a step: seven template
-instantiations a 256-bit curve, ``csrc/comb_chains.cuh``, and one generic
-kernel a curve for every other schedule, ``csrc/comb_general.cuh``) —
+independent chains / ``unroll`` positions a step: one kernel a curve and
+mode for every such schedule, ``csrc/comb_general.cuh``) —
 their wrappers, their plain PyTorch versions and the host-built tables.
 
 Replaces ``ecsimd_tpu/kernels/comb.py`` (``comb_mont_planes`` and its
@@ -36,12 +35,10 @@ multi-chain adds cross-chain sums, a wider class of the same measure;
 
 No kernel reads a table word at an address that depends on the scalar, as
 the TPU kernel's one-hot read of the whole position does not: the block
-stages each position in shared memory. Kernels B, J, K and the generic L
-select each lane's entry as the TPU kernel does, by a one-hot product, on
-the tensor cores (``csrc/comb_mma.cuh``): their table (``mma_tables``)
-holds each position as a u8 matrix, K-major. The templated L alone scans
-every entry with masks: its table (``kernel_tables``) keeps a position's
-entries as 32-bit limbs. Both keep only the positive half of
+stages each position in shared memory. Kernels B, J, K and L select each
+lane's entry as the TPU kernel does, by a one-hot product, on the tensor
+cores (``csrc/comb_mma.cuh``): their table (``mma_tables``) holds each
+position as a u8 matrix, K-major, and keeps only the positive half of
 positions 1..npos-1 (the sign is a masked negation). The plain versions
 keep the indexed gather: they are the comparators, and run on the main
 path only for CPU tensors.
@@ -70,42 +67,36 @@ KERNEL = _build.Kernel(
     source="ecsimd_tpu_torch/csrc/comb.cu",
     replaces="ecsimd_tpu/kernels/comb.py:213 _comb_kernel",
     n_pointers=6,
-    layout="mma",
 )
 KERNEL_STRICT = _build.Kernel(
     symbol="ec_comb_p256_strict",
     source="ecsimd_tpu_torch/csrc/comb.cu",
     replaces="ecsimd_tpu/kernels/comb.py:213 _comb_kernel (strict=True)",
     n_pointers=6,
-    layout="mma",
 )
 KERNEL_SECP256K1 = _build.Kernel(
     symbol="ec_comb_secp256k1",
     source="ecsimd_tpu_torch/csrc/comb.cu",
     replaces="ecsimd_tpu/kernels/comb.py:213 _comb_kernel (secp256k1)",
     n_pointers=6,
-    layout="mma",
 )
 KERNEL_SECP256K1_STRICT = _build.Kernel(
     symbol="ec_comb_secp256k1_strict",
     source="ecsimd_tpu_torch/csrc/comb.cu",
     replaces="ecsimd_tpu/kernels/comb.py:213 _comb_kernel (secp256k1, strict=True)",
     n_pointers=6,
-    layout="mma",
 )
 KERNEL_W25519 = _build.Kernel(
     symbol="ec_comb_w25519",
     source="ecsimd_tpu_torch/csrc/comb.cu",
     replaces="ecsimd_tpu/kernels/comb.py:213 _comb_kernel (Wei25519, X25519 keygen)",
     n_pointers=6,
-    layout="mma",
 )
 KERNEL_W25519_STRICT = _build.Kernel(
     symbol="ec_comb_w25519_strict",
     source="ecsimd_tpu_torch/csrc/comb.cu",
     replaces="ecsimd_tpu/kernels/comb.py:213 _comb_kernel (Wei25519, strict=True)",
     n_pointers=6,
-    layout="mma",
 )
 # (curve, strict) -> kernel B instantiation
 KERNELS = {
@@ -122,19 +113,19 @@ for _curve in _build.WIDE_CURVES:
             replaces=f"ecsimd_tpu/kernels/comb.py:213 _comb_kernel ({_name}"
                      f"{', strict=True' if _st else ''})",
             n_pointers=6,
-            layout="mma",
         )
-# kernel L's (chains, unroll, strict) instantiations on every curve; chains
-# = unroll = 1 is kernel B
+# seven serial schedules (chains, unroll, strict) of kernel L, chains *
+# unroll <= 4: chip_smoke.py (phases 17 and 18) and bench/ab.py run kernel
+# L at each on the 256-bit curves
 SCHEDULES_L = ((2, 1, False), (2, 2, False), (4, 1, False), (1, 2, False), (1, 4, False),
                (1, 2, True), (1, 4, True))
 
 
 def _schedule_kernel(curve: CurveSpec, stem: str, source: str, replaces: str,
-                     opts: str = "", layout: str = "mma") -> _build.Kernel:
-    """Kernel J, K or L on ``curve``, taking the comb table in ``layout``.
-    ``{tag}`` in ``stem``, its C name, becomes the curve's tag; in
-    ``source`` it becomes ``_<tag>``, or nothing on P-256."""
+                     opts: str = "") -> _build.Kernel:
+    """Kernel J, K or L on ``curve``. ``{tag}`` in ``stem``, its C name,
+    becomes the curve's tag; in ``source`` it becomes ``_<tag>``, or
+    nothing on P-256."""
     tag, name = _build.CURVE_TAGS[curve]
     opts = ", ".join(o for o in (name, opts) if o)
     return _build.Kernel(
@@ -142,7 +133,6 @@ def _schedule_kernel(curve: CurveSpec, stem: str, source: str, replaces: str,
         source=f"ecsimd_tpu_torch/csrc/{source.format(tag='' if curve == P256 else '_' + tag)}",
         replaces=replaces + (f" ({opts})" if opts else ""),
         n_pointers=6,
-        layout=layout,
     )
 
 
@@ -154,18 +144,8 @@ KERNELS_TREE = {c: _schedule_kernel(
 KERNELS_PIPE = {c: _schedule_kernel(
     c, "comb_pipe_{tag}", "comb_pipe.cu" if c in _build.CURVES_256 else "comb_pipe{tag}.cu",
     "ecsimd_tpu/kernels/comb.py:337 _comb_kernel_pipe") for c in _build.CURVES}
-# (curve, chains, unroll, strict) -> kernel L instantiation
-KERNELS_CHAINS = {
-    (curve, c, u, st): _schedule_kernel(
-        curve, f"comb_chains_{{tag}}_c{c}u{u}{'_strict' if st else ''}",
-        f"{'comb_unroll' if c == 1 else 'comb_chains'}{{tag}}.cu",
-        "ecsimd_tpu/kernels/comb.py:213 _comb_kernel",
-        f"chains={c}, unroll={u}{', strict=True' if st else ''}; grid and permutation :624",
-        layout="limbs")
-    for curve in _build.CURVES_256 for c, u, st in SCHEDULES_L
-}
-# (curve, strict) -> the generic kernel L, every schedule of the serial
-# chain (chains and unroll are its two int arguments)
+# (curve, strict) -> kernel L, every schedule of the serial chain but kernel
+# B's (chains and unroll are its two int arguments)
 KERNELS_GENERAL = {
     (curve, st): dataclasses.replace(_schedule_kernel(
         curve, f"comb_general_{{tag}}{'_strict' if st else ''}", "comb_general{tag}.cu",
@@ -322,7 +302,8 @@ def coord_words(d: int) -> int:
 
 
 def limb_layout(np_tables):
-    """Kernel B's table layout from (npos, 256, 2D) int32 digit tables:
+    """The kept entries of (npos, 256, 2D) int32 digit tables as 32-bit limbs,
+    the rows ``mma_layout`` transposes into bytes:
     (256 + (npos - 1) * 128, 2 W) int32 rows, one per kept entry, each the
     W = ``coord_words(D)`` words of x then of y: a coordinate's 32-bit limbs
     (digits 2k, 2k + 1; with D odd the last limb holds one digit), then
@@ -344,16 +325,8 @@ def limb_layout(np_tables):
     return rows.astype(np.uint32).view(np.int32)
 
 
-@functools.cache
-def kernel_tables(curve: CurveSpec, bx: int, by: int, device: torch.device) -> torch.Tensor:
-    """``limb_layout`` of the base's tables on ``device``, built once per
-    (curve, base, device): the table of the templated L, the last kernel that
-    reads its entries by the masked scan."""
-    return torch.tensor(limb_layout(base_tables(curve, bx, by)[0]), device=device)
-
-
-# the row buffers of kernels B, J, K and the generic L: per warp of a
-# 128-thread block, two slots of 32 rows of 8 bytes (csrc/comb_mma.cuh)
+# the row buffers of kernels B, J, K and L: per warp of a 128-thread block,
+# two slots of 32 rows of 8 bytes (csrc/comb_mma.cuh)
 MMA_ROW_BYTES = 4 * 2 * 32 * 8
 
 
@@ -364,7 +337,7 @@ def mma_entry_bytes(d: int) -> int:
 
 
 def mma_layout(np_tables):
-    """Kernels B's, J's, K's and the generic L's table layout from (npos, 256, 2D)
+    """Kernels B's, J's, K's and L's table layout from (npos, 256, 2D)
     int32 digit tables: u8, position j a K-major matrix of
     ``mma_entry_bytes(D)`` rows and K columns (row n: byte n of each entry,
     its x limbs then its y limbs, each 32-bit limb little-endian; column k:
@@ -385,7 +358,7 @@ def mma_layout(np_tables):
 @functools.cache
 def mma_tables(curve: CurveSpec, bx: int, by: int, device: torch.device) -> torch.Tensor:
     """``mma_layout`` of the base's tables on ``device``, built once per
-    (curve, base, device): the table of kernels B, J, K and the generic L."""
+    (curve, base, device): the table of kernels B, J, K and L."""
     return torch.tensor(mma_layout(base_tables(curve, bx, by)[0]), device=device)
 
 
@@ -619,9 +592,9 @@ def tree_schedule_header() -> str:
 
 
 def general_group(curve: CurveSpec, unroll: int) -> int:
-    """Positions the generic kernel L stages a step at ``unroll``: unroll,
-    at most 4 at 256 bits (74 KiB of shared memory, three blocks an SM) and
-    2 on the wider curves (62 KiB on P-384, 87 KiB on P-521, two blocks an
+    """Positions kernel L stages a step at ``unroll``: unroll, at most 4 at
+    256 bits (74 KiB of shared memory, three blocks an SM) and 2 on the
+    wider curves (62 KiB on P-384, 87 KiB on P-521, two blocks an
     SM at their registers), lowered to a divisor of npos (no accepted
     schedule needs that on the port's curves). Its launcher computes the
     same; ``unroll`` changes no value."""
@@ -633,8 +606,8 @@ def general_group(curve: CurveSpec, unroll: int) -> int:
 
 
 def general_smem_bytes(curve: CurveSpec, unroll: int) -> int:
-    """The dynamic shared memory of the generic kernel L at ``unroll``:
-    position 0's slot (256 entries) and 2 g - 1 slots of 128 entries, g =
+    """The dynamic shared memory of kernel L at ``unroll``: position 0's
+    slot (256 entries) and 2 g - 1 slots of 128 entries, g =
     ``general_group``, each entry ``mma_entry_bytes(D)``, then the row
     buffers."""
     g = general_group(curve, unroll)
@@ -682,19 +655,16 @@ def check_schedule(curve: CurveSpec, chain: str, chains: int, unroll: int, stric
 
 
 def _launch(kernel, scalars, tables, negbase_digits, curve: CurveSpec, *ints: int):
-    """Check the operands of a comb kernel (B, J, K or L), ``tables`` in the
-    kernel's own layout, and launch it with its ``ints``. Returns Jacobian
-    (ax, ay, z) planes (internal domain)."""
+    """Check the operands of a comb kernel (B, J, K or L), ``tables`` from
+    ``mma_tables``, and launch it with its ``ints``. Returns Jacobian (ax,
+    ay, z) planes (internal domain)."""
     d = curve.field.ndigits
     shape = (d, scalars.shape[-1])
     dev = scalars.device
     kept = NENT + (_npos(curve.field.nbits) - 1) * NENT // 2
     _build.check_planes("scalars", scalars, shape, dev)
-    if kernel.layout == "mma":
-        _build.check_planes("tables (mma_tables)", tables, (kept * mma_entry_bytes(d),), dev,
-                            torch.uint8)
-    else:
-        _build.check_planes("tables (kernel_tables)", tables, (kept, 2 * coord_words(d)), dev)
+    _build.check_planes("tables (mma_tables)", tables, (kept * mma_entry_bytes(d),), dev,
+                        torch.uint8)
     _build.check_planes("negbase", negbase_digits, (2 * d,), dev)
     if tables.data_ptr() % 16:
         raise ValueError("tables: the comb kernels stage entries as 16-byte words; need "
@@ -735,8 +705,8 @@ def comb_pipe_planes(scalars, tables, negbase_digits, curve: CurveSpec = P256):
 
 def comb_general_planes(scalars, tables, negbase_digits, curve: CurveSpec = P256,
                         chains: int = 1, unroll: int = 1, strict: bool = False):
-    """Run the generic kernel L, any schedule of the serial chain that
-    ``check_schedule`` accepts (``chains`` and ``unroll`` are the kernel's
+    """Run kernel L, any schedule of the serial chain that ``check_schedule``
+    accepts (``chains`` and ``unroll`` are the kernel's
     int arguments), on CUDA planes (operands as ``comb_planes``:
     ``mma_tables``); bit-exact with ``comb_chains_plain`` (with one chain,
     with kernel B)."""
@@ -746,48 +716,21 @@ def comb_general_planes(scalars, tables, negbase_digits, curve: CurveSpec = P256
                    curve, chains, unroll)
 
 
-def comb_chains_planes(scalars, limbs, mma, negbase_digits, curve: CurveSpec = P256,
-                       chains: int = 2, unroll: int = 1, strict: bool = False):
-    """Run kernel L, ``chains`` independent chains taking ``unroll``
-    positions each per staging step, on CUDA planes (operands as
-    ``comb_planes``, with both tables: ``kernel_tables`` as ``limbs``,
-    ``mma_tables`` as ``mma``): its templated instantiation where
-    ``KERNELS_CHAINS`` has one (on ``limbs``), else the generic kernel
-    (``comb_general_planes``, on ``mma``; ``limbs`` may then be None);
-    bit-exact with ``comb_chains_plain`` (with one chain, with kernel
-    B)."""
-    _build.require_cuda(scalars, "comb chains")
-    check_schedule(curve, "serial", chains, unroll, strict)
-    kernel = KERNELS_CHAINS.get((curve, chains, unroll, bool(strict)))
-    if kernel is None:
-        return comb_general_planes(scalars, mma, negbase_digits, curve, chains, unroll, strict)
-    return _launch(kernel, scalars, limbs, negbase_digits, curve)
-
-
-def schedule_planes(scalars, limbs, mma, negbase_digits, curve: CurveSpec = P256,
+def schedule_planes(scalars, tables, negbase_digits, curve: CurveSpec = P256,
                     chain: str = "serial", chains: int = 1, unroll: int = 1,
                     strict: bool = False):
-    """The kernel of a schedule on CUDA planes (operands as
-    ``comb_chains_planes``), each handed its own table: J for the tree, K
-    for the pipe, B for one chain at unroll 1 (all on ``mma``), else L
-    (``comb_chains_planes``; ``limbs`` is read only where the templated L
-    runs, ``uses_kernel_tables``). Raises ``ValueError`` on a schedule the
-    JAX package rejects."""
+    """The kernel of a schedule on CUDA planes (operands as ``comb_planes``:
+    ``mma_tables``): J for the tree, K for the pipe, B for one chain at
+    unroll 1, else L (``comb_general_planes``). Raises ``ValueError`` on a
+    schedule the JAX package rejects."""
     check_schedule(curve, chain, chains, unroll, strict)
     if chain == "tree":
-        return comb_tree_planes(scalars, mma, negbase_digits, curve)
+        return comb_tree_planes(scalars, tables, negbase_digits, curve)
     if chain == "pipe":
-        return comb_pipe_planes(scalars, mma, negbase_digits, curve)
+        return comb_pipe_planes(scalars, tables, negbase_digits, curve)
     if chains == unroll == 1:
-        return comb_planes(scalars, mma, negbase_digits, curve, strict)
-    return comb_chains_planes(scalars, limbs, mma, negbase_digits, curve, chains, unroll, strict)
-
-
-def uses_kernel_tables(curve: CurveSpec, chain: str = "serial", chains: int = 1,
-                       unroll: int = 1, strict: bool = False) -> bool:
-    """Whether the schedule runs the templated L, the one kernel that takes
-    ``kernel_tables``."""
-    return chain == "serial" and (curve, chains, unroll, bool(strict)) in KERNELS_CHAINS
+        return comb_planes(scalars, tables, negbase_digits, curve, strict)
+    return comb_general_planes(scalars, tables, negbase_digits, curve, chains, unroll, strict)
 
 
 def scalar_mult_base(
@@ -820,9 +763,6 @@ def scalar_mult_base(
         else:
             ax, ay, z = comb_plain(scalars, tables, curve, negbase)
     else:
-        dev = scalars.device
-        limbs = (kernel_tables(curve, bx, by, dev)
-                 if uses_kernel_tables(curve, chain, chains, unroll, strict) else None)
-        ax, ay, z = schedule_planes(scalars.contiguous(), limbs, mma_tables(curve, bx, by, dev),
+        ax, ay, z = schedule_planes(scalars.contiguous(), mma_tables(curve, bx, by, scalars.device),
                                     negbase_digits, curve, chain, chains, unroll, strict)
     return JacobianPoint(GFp(ax, fs), GFp(ay, fs), GFp(z, fs), curve)

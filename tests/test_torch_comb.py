@@ -98,10 +98,12 @@ def test_tables_from_jax_array_give_same_result():
 
 @pytest.mark.parametrize("curve", [P256, SECP256K1], ids=lambda c: c.name)
 def test_kernel_tables_hold_every_signed_entry(curve):
-    """Kernel B's table layout, read the way csrc/comb.cu reads it: position
-    0 row e; position j >= 1 the row of magnitude m = (e & 127) ^ (127 if
-    e < 128), y negated where e < 128. Every (position, entry) equals the
-    digit tables' entry (internal form), and the negbase digits are -B's."""
+    """The kept entries as 32-bit limbs (comb.limb_layout, the rows that
+    comb.mma_layout transposes into the kernels' u8 table), read the way the
+    kernels read an entry: position 0 row e; position j >= 1 the row of
+    magnitude m = (e & 127) ^ (127 if e < 128), y negated where e < 128.
+    Every (position, entry) equals the digit tables' entry (internal form),
+    and the negbase digits are -B's."""
     tc = port_spec(curve)
     tables, negbase = tcomb.base_tables(tc, curve.gx, curve.gy)
     limbs = tcomb.limb_layout(tables).view(np.uint32)
@@ -123,8 +125,6 @@ def test_kernel_tables_hold_every_signed_entry(curve):
                                                         digit_int(tables[j, e, 16:]))
     _, _, nb = tcomb.device_tables(tc, curve.gx, curve.gy, CPU)
     assert [digit_int(nb[:16]), digit_int(nb[16:])] == [tcomb._to_internal(v, fs) for v in negbase]
-    assert torch.equal(tcomb.kernel_tables(tc, curve.gx, curve.gy, CPU),
-                       torch.from_numpy(tcomb.limb_layout(tables)))
 
 
 @pytest.mark.parametrize("kw", [
@@ -142,13 +142,11 @@ def test_unported_options_raise(kw):
 
 
 @pytest.mark.parametrize("entry", [tcomb.comb_tree_planes, tcomb.comb_pipe_planes,
-                                   tcomb.comb_chains_planes], ids=lambda f: f.__name__)
+                                   tcomb.comb_general_planes], ids=lambda f: f.__name__)
 def test_schedule_kernel_entries_take_cuda_tensors_only(entry):
     tables, _, nb = tcomb.device_tables(TP256, P256.gx, P256.gy, CPU)
-    # comb_chains_planes takes both tables (templated L: limbs, generic L: mma)
-    both = (tables,) if entry is tcomb.comb_chains_planes else ()
     with pytest.raises(ValueError, match="CUDA"):
-        entry(api.scalars_from_ints([3], TP256, device="cpu"), tables, *both, nb)
+        entry(api.scalars_from_ints([3], TP256, device="cpu"), tables, nb)
 
 
 @pytest.mark.parametrize("strict", [False, True])

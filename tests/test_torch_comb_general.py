@@ -246,11 +246,9 @@ def _accepted(curve):
 def test_every_schedule_reaches_its_kernel(monkeypatch, curve):
     """comb.schedule_planes with the device check and the launch stubbed:
     the tree reaches J, the pipe K, one chain at unroll 1 kernel B (strict:
-    B strict), a schedule of SCHEDULES_L on a 256-bit curve its templated
-    L, every other the curve's generic L with (chains, unroll) as its ints
-    — once each, on the curve's planes and its own table (the templated L
-    ``kernel_tables``' int32 limbs; B, J, K and the generic L
-    ``mma_tables``' bytes); nothing raises."""
+    B strict), every other schedule the curve's kernel L with (chains,
+    unroll) as its ints — once each, on the curve's planes and
+    ``mma_tables``' bytes; nothing raises."""
     monkeypatch.setattr(_build, "require_cuda", lambda t, what: None)
     calls = []
     monkeypatch.setattr(_build, "launch", lambda kernel, tensors, batch, *ints:
@@ -261,7 +259,6 @@ def test_every_schedule_reaches_its_kernel(monkeypatch, curve):
     npos = curve.field.nbits // tcomb.W
     s = torch.zeros((d, 4), dtype=torch.int32)
     kept = tcomb.NENT + (npos - 1) * tcomb.NENT // 2
-    limbs = torch.zeros((kept, 2 * tcomb.coord_words(d)), dtype=torch.int32)
     mma = torch.zeros(kept * tcomb.mma_entry_bytes(d), dtype=torch.uint8)
     nb = torch.zeros(2 * d, dtype=torch.int32)
     schedules = _accepted(curve)
@@ -269,22 +266,17 @@ def test_every_schedule_reaches_its_kernel(monkeypatch, curve):
     general = set()
     for chain, c, u, st in schedules:
         calls.clear()
-        tcomb.schedule_planes(s, limbs, mma, nb, curve, chain, c, u, st)
+        tcomb.schedule_planes(s, mma, nb, curve, chain, c, u, st)
         sfx = "_strict" if st else ""
         if chain != "serial":
             want = (f"ec_comb_{chain}_{tag}", ())
         elif c == u == 1:
             want = (f"ec_comb_{tag}{sfx}", ())
-        elif (curve, c, u, st) in tcomb.KERNELS_CHAINS:
-            want = (f"ec_comb_chains_{tag}_c{c}u{u}{sfx}", ())
         else:
             want = (f"ec_comb_general_{tag}{sfx}", (c, u))
             general.add((c, u, st))
-        table = torch.int32 if want[0].startswith("ec_comb_chains") else torch.uint8
-        assert calls == [(*want, (d, 4), table)], (chain, c, u, st)
-    # the generic kernel takes every schedule of the serial chain the
-    # templated instantiations do not: on P-384 / P-521 all of them but B's
+        assert calls == [(*want, (d, 4), torch.uint8)], (chain, c, u, st)
+    # kernel L takes every schedule of the serial chain but kernel B's
     n_serial = len([v for v in schedules if v[0] == "serial" and v[1:3] != (1, 1)])
-    n_templated = len([k for k in tcomb.KERNELS_CHAINS if k[0] == curve])
-    assert len(general) == n_serial - n_templated
+    assert len(general) == n_serial
     assert tcomb.KERNELS_GENERAL[(curve, False)].launches >= len(general) // 2

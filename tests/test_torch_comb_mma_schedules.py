@@ -20,7 +20,7 @@ BLOCK_SMEM = 232448  # the most a block may have (227 KiB)
 RESERVED = 1024  # shared memory the runtime keeps for each block
 # the blocks an SM that PERF.md states for J and K (their registers bind
 # before their shared memory does)
-STATED_BLOCKS = {"tree": {"p256": 4, "secp256k1": 3, "w25519": 3, "p384": 2, "p521": 2},
+STATED_BLOCKS = {"tree": {"p256": 4, "secp256k1": 3, "w25519": 4, "p384": 2, "p521": 2},
                  "pipe": {"p256": 3, "secp256k1": 3, "w25519": 4, "p384": 2, "p521": 2}}
 
 
@@ -213,9 +213,8 @@ def test_pipe_read_ahead_keeps_two_buffers_apart(npos):
 @pytest.mark.parametrize("name", list(CURVES))
 def test_schedule_planes_hands_j_and_k_the_u8_table(monkeypatch, name, chain):
     """comb.schedule_planes with the device check and the launch stubbed
-    hands J (tree) and K (pipe) the u8 table itself, no limb table needed;
-    their wrappers refuse the limb table, naming mma_tables; only the
-    templated L's schedules use kernel_tables."""
+    hands J (tree) and K (pipe) the u8 table itself; their wrappers refuse
+    a table of 32-bit limbs, naming mma_tables."""
     curve = CURVES[name]
     monkeypatch.setattr(_build, "require_cuda", lambda t, what: None)
     calls = []
@@ -227,14 +226,54 @@ def test_schedule_planes_hands_j_and_k_the_u8_table(monkeypatch, name, chain):
     mma = torch.zeros(kept * comb.mma_entry_bytes(d), dtype=torch.uint8)
     limbs = torch.zeros((kept, 2 * comb.coord_words(d)), dtype=torch.int32)
     nb = torch.zeros(2 * d, dtype=torch.int32)
-    comb.schedule_planes(s, None, mma, nb, curve, chain)
+    comb.schedule_planes(s, mma, nb, curve, chain)
     (kernel, tensors), = calls
     want = (comb.KERNELS_TREE if chain == "tree" else comb.KERNELS_PIPE)[curve]
-    assert kernel is want and kernel.layout == "mma" and tensors[1] is mma
+    assert kernel is want and tensors[1] is mma
     wrapper = comb.comb_tree_planes if chain == "tree" else comb.comb_pipe_planes
     with pytest.raises(ValueError, match="mma_tables"):
         wrapper(s, limbs, nb, curve)
-    assert not comb.uses_kernel_tables(curve, chain)
-    assert {k for k in comb.KERNELS_CHAINS if k[0] == curve} == {
-        (curve, c, u, st) for c, u, st in comb.SCHEDULES_L
-        if comb.uses_kernel_tables(curve, "serial", c, u, st)}
+
+
+@pytest.mark.parametrize("name", list(CURVES))
+def test_schedules_l_route_to_kernel_l(monkeypatch, name):
+    """Every schedule of comb.SCHEDULES_L that the curve accepts reaches
+    kernel L (KERNELS_GENERAL, chains and unroll as its ints, on the u8
+    table) through schedule_planes and scalar_mult_base; the ones it
+    refuses (P-521's 66 positions) raise ValueError on both."""
+    curve = CURVES[name]
+    monkeypatch.setattr(_build, "require_cuda", lambda t, what: None)
+    calls = []
+    monkeypatch.setattr(_build, "launch", lambda kernel, tensors, batch, *ints:
+                        calls.append((kernel, tensors[1].dtype, ints)))
+    d = curve.field.ndigits
+    kept = comb.NENT + (_npos(curve) - 1) * comb.NENT // 2
+    s = torch.zeros((d, 4), dtype=torch.int32)
+    mma = torch.zeros(kept * comb.mma_entry_bytes(d), dtype=torch.uint8)
+    nb = torch.zeros(2 * d, dtype=torch.int32)
+    routed = 0
+    for c, u, st in comb.SCHEDULES_L:
+        calls.clear()
+        if _npos(curve) % (c * u):
+            with pytest.raises(ValueError):
+                comb.schedule_planes(s, mma, nb, curve, "serial", c, u, st)
+            continue
+        comb.schedule_planes(s, mma, nb, curve, "serial", c, u, st)
+        assert calls == [(comb.KERNELS_GENERAL[(curve, st)], torch.uint8, (c, u))]
+        routed += 1
+    assert routed == (3 if curve == P521 else 7)
+
+
+def test_nothing_builds_a_limb_table_for_a_kernel():
+    """No comb kernel takes a table of 32-bit limbs any more: comb has no
+    kernel_tables, KERNELS_CHAINS or uses_kernel_tables, no source scans a
+    staged position with masks (comb_stage.cuh holds the constants, the
+    entry index and the cp.async groups), and the build has 27 sources."""
+    for gone in ("kernel_tables", "KERNELS_CHAINS", "uses_kernel_tables", "comb_chains_planes"):
+        assert not hasattr(comb, gone), gone
+    names = {p.name for p in _build.CSRC.iterdir()}
+    assert not {n for n in names if n.startswith(("comb_chains", "comb_unroll", "comb_scan"))}
+    stage = (_build.CSRC / "comb_stage.cuh").read_text()
+    assert "scan(" not in stage and "uint4" not in stage
+    assert len(_build.SOURCES) == 27
+    assert not any("comb_chains" in n or "comb_unroll" in n for n in _build.SOURCES)

@@ -68,7 +68,7 @@ def _scalars(n, seed, dev, curve=P256):
 
 def _comb_tables(curve, dev):
     """The plain comb's tables and -B, the kernels' negbase digits, and kernels
-    B's, J's, K's and the generic L's u8 table (``comb.mma_tables``)."""
+    B's, J's, K's and L's u8 table (``comb.mma_tables``)."""
     tables, negbase, nb = comb.device_tables(curve, curve.gx, curve.gy, dev)
     return tables, negbase, nb, comb.mma_tables(curve, curve.gx, curve.gy, dev)
 
@@ -193,7 +193,7 @@ def test_comb_schedule_kernels_match_plain_and_oracle(cuda, kw):
         kernel, want = comb.KERNELS_TREE[P256], comb.comb_tree_plain(s, tables, P256, negbase)
     else:
         c, u = kw["chains"], kw.get("unroll", 1)
-        kernel = comb.KERNELS_CHAINS[(P256, c, u, False)]
+        kernel = comb.KERNELS_GENERAL[(P256, False)]
         want = comb.comb_chains_plain(s, tables, P256, negbase, c, u)
     before = kernel.launches
     out = comb.scalar_mult_base(s, P256, **kw)
@@ -219,7 +219,7 @@ def test_comb_one_chain_kernels_match_kernel_b(cuda, kw):
     _, _, nb, mma = _comb_tables(P256, cuda)
     want = comb.comb_planes(s, mma, nb, strict=strict)
     kernel = (comb.KERNELS_PIPE[P256] if "chain" in kw
-              else comb.KERNELS_CHAINS[(P256, 1, kw["unroll"], strict)])
+              else comb.KERNELS_GENERAL[(P256, strict)])
     before = kernel.launches
     out = comb.scalar_mult_base(s, P256, **kw)
     assert kernel.launches == before + 1
@@ -228,25 +228,26 @@ def test_comb_one_chain_kernels_match_kernel_b(cuda, kw):
 
 
 def test_comb_schedule_dynamic_smem_queries(cuda):
-    """After a launch, each of J's and L's ``<entry>_smem`` queries gives the
-    dynamic shared memory the runtime holds for it: positive, within the
-    227 KiB a Hopper block may have, and larger with four positions staged
-    a step than with two."""
+    """After a launch, J's and L's ``<entry>_smem`` queries give the dynamic
+    shared memory the runtime holds for it (L's at the schedule it last ran):
+    positive, within the 227 KiB a Hopper block may have, and larger with
+    four positions staged a step than with two."""
     _, s = _scalars(256, 93, cuda)
-    comb.scalar_mult_base(s, P256, chain="tree")
-    for c, u, strict in comb.SCHEDULES_L:
-        comb.scalar_mult_base(s, P256, chains=c, unroll=u, strict=strict)
-    torch.cuda.synchronize()
 
     def smem(kernel):
+        torch.cuda.synchronize()
         fn = getattr(_build.library().lib, kernel.symbol + "_smem")
         fn.argtypes, fn.restype = [], ctypes.c_int
         return fn()
 
-    got = {key: smem(comb.KERNELS_CHAINS[(P256, *key)]) for key in comb.SCHEDULES_L}
+    got = {}
+    for c, u, strict in comb.SCHEDULES_L:
+        comb.scalar_mult_base(s, P256, chains=c, unroll=u, strict=strict)
+        got[(c, u, strict)] = smem(comb.KERNELS_GENERAL[(P256, strict)])
+    comb.scalar_mult_base(s, P256, chain="tree")
     got["tree"] = smem(comb.KERNELS_TREE[P256])
     assert all(0 < v <= 227 * 1024 for v in got.values()), got
-    assert got[(1, 4, False)] > got[(1, 2, False)] and got[(4, 1, False)] > got[(2, 1, False)]
+    assert got[(1, 4, False)] > got[(1, 2, False)] > got[(2, 1, False)] == got[(4, 1, False)]
 
 
 @pytest.mark.parametrize("kw", [{"chains": 8}, {"chains": 2, "unroll": 4}, {"unroll": 8},
@@ -254,8 +255,7 @@ def test_comb_schedule_dynamic_smem_queries(cuda):
                                 {"unroll": 32, "strict": True}],
                          ids=lambda kw: "-".join(f"{k}{v}" for k, v in kw.items()))
 def test_comb_schedules_beyond_kernel_l_raise(cuda, kw):
-    """Valid schedules with chains * unroll > 4, which kernel L's templated
-    instantiations do not take, run on the generic kernel L through
+    """Valid schedules with chains * unroll > 4 run on kernel L through
     comb.scalar_mult_base: one launch of it, Jacobian planes exact against
     comb_chains_plain on 4,096 lanes (strict: k = n - 1 on lane 4), 16
     lanes against the oracle; its shared memory is what
@@ -294,18 +294,22 @@ def _chains_degenerate(curve, k, chains):
         return True
 
 
-def test_generic_kernel_l_matches_the_templated_one(cuda):
-    """The generic kernel L at a schedule a templated instantiation also
-    takes (chains 2, unroll 1; one chain, unroll 4, strict) gives the
-    templated kernel's planes word for word on 65,536 lanes."""
-    ks, s = _scalars(65536, 94, cuda)
-    _, _, nb, mma = _comb_tables(P256, cuda)
-    limbs = comb.kernel_tables(P256, P256.gx, P256.gy, cuda)
-    for c, u, st in ((2, 1, False), (1, 4, True)):
-        want = comb.comb_chains_planes(s, limbs, mma, nb, P256, c, u, st)
-        got = comb.comb_general_planes(s, mma, nb, P256, c, u, st)
-        for k, w in zip(got, want):
-            assert torch.equal(k, w)
+@pytest.mark.parametrize("curve", [P256, SECP256K1, WEI25519], ids=lambda c: c.name)
+def test_kernel_l_at_the_small_schedules_matches_plain(cuda, curve):
+    """Kernel L at every schedule of comb.SCHEDULES_L (chains * unroll <= 4)
+    through comb_general_planes gives comb_chains_plain's planes word for
+    word on 4,096 lanes (k = n - 1 on lane 4), one launch each."""
+    ks, _ = _scalars(4096, 94, cuda, curve)
+    ks[4] = curve.order - 1
+    s = _planes(ks, cuda)
+    tables, negbase, nb, mma = _comb_tables(curve, cuda)
+    for c, u, st in comb.SCHEDULES_L:
+        kernel = comb.KERNELS_GENERAL[(curve, st)]
+        before = kernel.launches
+        got = comb.comb_general_planes(s, mma, nb, curve, c, u, st)
+        assert kernel.launches == before + 1
+        for k, w in zip(got, comb.comb_chains_plain(s, tables, curve, negbase, c, u, st)):
+            assert torch.equal(k, w), (c, u, st)
 
 
 def test_ecdh_on_the_card(cuda):
@@ -658,8 +662,7 @@ def test_comb_schedule_kernels_other_curves(cuda, curve, kw):
     against their plain versions (K and one-chain L: comb_plain, strict with
     k = n - 1 on lane 4), and 16 lanes against the oracle (lanes where the
     schedule's composition on ints meets a degenerate add excluded). J and
-    K take the u8 table alone: comb.schedule_planes with no limb table
-    gives the same planes."""
+    K take the u8 table: comb.schedule_planes gives the same planes."""
     strict = kw.get("strict", False)
     ks, _ = _scalars(1024, 97, cuda, curve)
     if strict:
@@ -672,7 +675,7 @@ def test_comb_schedule_kernels_other_curves(cuda, curve, kw):
     elif kw.get("chain") == "pipe":
         kernel, want = comb.KERNELS_PIPE[curve], comb.comb_plain(s, tables, curve, negbase)
     else:
-        kernel = comb.KERNELS_CHAINS[(curve, chains, unroll, strict)]
+        kernel = comb.KERNELS_GENERAL[(curve, strict)]
         want = comb.comb_chains_plain(s, tables, curve, negbase, chains, unroll, strict)
     before = kernel.launches
     out = comb.scalar_mult_base(s, curve, **kw)
@@ -680,7 +683,7 @@ def test_comb_schedule_kernels_other_curves(cuda, curve, kw):
     for k, w in zip(_jacobian_planes(out), want):
         assert torch.equal(k, w)
     if "chain" in kw:
-        for k, w in zip(comb.schedule_planes(s, None, mma, nb, curve, **kw), want):
+        for k, w in zip(comb.schedule_planes(s, mma, nb, curve, **kw), want):
             assert torch.equal(k, w)
     tables_np, negbase_ints = comb.base_tables(curve, curve.gx, curve.gy)
     classical = ocomb.classical_tables(tables_np, curve.field)
@@ -894,8 +897,8 @@ def test_comb_schedules_refuse_the_wide_curves_on_the_card(cuda, curve, kw):
     kernel, Jacobian planes exact against comb_tree_plain / comb_plain /
     comb_chains_plain on 1,024 lanes (strict: k = n - 1 on lane 4), 16
     lanes against the oracle (lanes whose composition on ints degenerates
-    excluded). J and K take the u8 table: comb.schedule_planes with no limb
-    table gives the same planes."""
+    excluded). J and K take the u8 table: comb.schedule_planes gives the
+    same planes."""
     strict = kw.get("strict", False)
     c, u = kw.get("chains", 1), kw.get("unroll", 1)
     ks, s = _wide_scalars(curve, 1024, 102, cuda, curve.order - 1 if strict else None)
@@ -913,7 +916,7 @@ def test_comb_schedules_refuse_the_wide_curves_on_the_card(cuda, curve, kw):
     for k, w in zip(_jacobian_planes(out), want):
         assert torch.equal(k, w)
     if "chain" in kw:
-        for k, w in zip(comb.schedule_planes(s, None, mma, nb, curve, **kw), want):
+        for k, w in zip(comb.schedule_planes(s, mma, nb, curve, **kw), want):
             assert torch.equal(k, w)
     tables_np, negbase_ints = comb.base_tables(curve, curve.gx, curve.gy)
     classical = ocomb.classical_tables(tables_np, curve.field)
@@ -1032,7 +1035,8 @@ def test_comb_tree_pipe_mma_kernels(cuda, curve):
         for fn in (smem, blocks):
             fn.argtypes, fn.restype = [], ctypes.c_int
         assert smem() == size and blocks() >= 1, kernel.symbol
-    limbs = comb.kernel_tables(curve, curve.gx, curve.gy, cuda)
+    limbs = torch.from_numpy(comb.limb_layout(comb.base_tables(curve, curve.gx, curve.gy)[0]))
+    limbs = limbs.to(cuda)
     for wrapper in (comb.comb_tree_planes, comb.comb_pipe_planes):
         with pytest.raises(ValueError, match="mma_tables"):
             wrapper(s, limbs, nb, curve)

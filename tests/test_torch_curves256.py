@@ -11,11 +11,9 @@
   spec's a in the field's internal form; no lane builds the field's 1 from
   a bare word (on secp256k1 the 1 is R mod p); every kernel table entry is
   an ``extern "C"`` entry of its source.
-* The wrappers of kernels A, B, D, E, J, K and the generic L cover
-  P-256, secp256k1, Wei25519, P-384 and P-521, in every mode the JAX
-  package runs, and hand a P-384 / P-521 launch its own kernel and
-  (24, B) / (33, B) planes; kernel L's templated instantiations cover the
-  256-bit curves.
+* The wrappers of kernels A, B, D, E, J, K and L cover P-256, secp256k1,
+  Wei25519, P-384 and P-521, in every mode the JAX package runs, and hand
+  a P-384 / P-521 launch its own kernel and (24, B) / (33, B) planes.
 
 Tolerance: exact."""
 
@@ -138,14 +136,13 @@ def test_no_lane_builds_the_field_one_from_a_word():
 TABLES = {
     "ladder": ladder.KERNELS, "window": window.KERNELS, "comb": comb.KERNELS,
     "comb_tree": comb.KERNELS_TREE, "comb_pipe": comb.KERNELS_PIPE,
-    "comb_chains": comb.KERNELS_CHAINS, "comb_general": comb.KERNELS_GENERAL,
+    "comb_general": comb.KERNELS_GENERAL,
     "affine": affine.KERNELS,
 }
 # the modes the JAX package runs each kernel in, on every curve
 MODES = {
     "ladder": {()}, "window": {(False,), (True,)}, "comb": {(False,), (True,)},
-    "comb_tree": {()}, "comb_pipe": {()}, "comb_chains": set(comb.SCHEDULES_L),
-    "comb_general": {(False,), (True,)}, "affine": {()},
+    "comb_tree": {()}, "comb_pipe": {()}, "comb_general": {(False,), (True,)}, "affine": {()},
 }
 
 
@@ -156,21 +153,18 @@ def _curve_and_mode(key):
 @pytest.mark.parametrize("table", sorted(TABLES))
 def test_kernel_table_covers_the_256_bit_curves(table):
     """Each table holds one kernel for every (curve, mode) it covers and
-    nothing else — A, B, D, E, J, K and the generic L the three 256-bit
-    curves, P-384 and P-521; L's templated instantiations the 256-bit
-    curves — each an extern "C" entry of its named source (J's, K's and
+    nothing else — A, B, D, E, J, K and L the three 256-bit curves, P-384
+    and P-521 — each an extern "C" entry of its named source (J's, K's and
     L's, and the wide B's and E's, with their _smem query; B's, J's, K's and
-    the generic L's also with their _blocks query), with distinct
-    symbols."""
+    L's also with their _blocks query), with distinct symbols."""
     kernels = TABLES[table]
     keys = {_curve_and_mode(k) for k in kernels}
-    covered = CURVES if table == "comb_chains" else CURVES + WIDE
-    assert keys == {(c, m) for c in covered for m in MODES[table]}
+    assert keys == {(c, m) for c in CURVES + WIDE for m in MODES[table]}
     assert len({k.symbol for k in kernels.values()}) == len(kernels)
     for k in kernels.values():
         text = (ROOT / k.source).read_text()
         assert f'extern "C" int {k.symbol}(' in text, k.symbol
-        if table in ("comb_tree", "comb_pipe", "comb_chains", "comb_general") or (
+        if table in ("comb_tree", "comb_pipe", "comb_general") or (
                 table in ("comb", "window") and k.source.endswith(("_p384.cu", "_p521.cu"))):
             assert f'extern "C" int {k.symbol}_smem(void)' in text, k.symbol
         if table in ("comb", "comb_tree", "comb_pipe", "comb_general"):
@@ -183,7 +177,6 @@ def _wrapper_calls(curve):
     z = torch.zeros((d, 4), dtype=torch.int32)
     npos = curve.field.nbits // comb.W
     kept = comb.NENT + (npos - 1) * comb.NENT // 2
-    tables = torch.zeros((kept, 2 * comb.coord_words(d)), dtype=torch.int32)
     mma = torch.zeros(kept * comb.mma_entry_bytes(d), dtype=torch.uint8)
     nb = torch.zeros(2 * d, dtype=torch.int32)
     return {
@@ -194,7 +187,7 @@ def _wrapper_calls(curve):
         "comb_strict": lambda: comb.comb_planes(z, mma, nb, curve, strict=True),
         "comb_tree": lambda: comb.comb_tree_planes(z, mma, nb, curve),
         "comb_pipe": lambda: comb.comb_pipe_planes(z, mma, nb, curve),
-        "comb_chains": lambda: comb.comb_chains_planes(z, tables, mma, nb, curve, 2, 1),
+        "comb_chains": lambda: comb.comb_general_planes(z, mma, nb, curve, 2, 1),
         "affine": lambda: affine.affine_planes(z, z, z, curve),
     }
 

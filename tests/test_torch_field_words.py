@@ -1,10 +1,12 @@
 """Word-level models of the CUDA field layer's carry-chain arithmetic
 (ecsimd_tpu_torch/csrc/mul256.cuh, limbs.cuh, field_p256.cuh,
-field_secp256k1.cuh), instruction for instruction, on Python ints.
+field_secp256k1.cuh, field_w25519.cuh), instruction for instruction, on
+Python ints.
 
 The kernels run only on the card, so these models are the check of the
 algorithms before any card time: each PTX instruction the headers issue
-(add.cc / addc / sub.cc / subc, mad.lo.cc / madc.hi.cc)
+(add.cc / addc / sub.cc / subc, mad.lo / mad.hi with and without the
+carry flag, mul.lo)
 is a method of ``Ptx`` below that keeps the carry flag and asserts that
 every word it writes is a 32-bit word. The models are held to ``pow``-free
 modular arithmetic on ints and to the port's Montgomery oracle
@@ -70,6 +72,19 @@ class Ptx:
 
     def madc_hi_cc(self, a, b, c):
         return self.addc_cc((self._word(a) * self._word(b)) >> 32, c)
+
+    def madc_lo_cc(self, a, b, c):
+        return self.addc_cc((self._word(a) * self._word(b)) & M32, c)
+
+    def mad_hi_cc(self, a, b, c):
+        return self.add_cc((self._word(a) * self._word(b)) >> 32, c)
+
+    def madc_hi(self, a, b, c):
+        return self.addc((self._word(a) * self._word(b)) >> 32, c)
+
+    @staticmethod
+    def mul_lo(a, b):
+        return (Ptx._word(a) * Ptx._word(b)) & M32
 
 
 def words(x, n=8):
@@ -273,6 +288,146 @@ def k1_redc(t):
     return cond_sub(r, top, K1_P)
 
 
+# -- 2^255 - 19: the product's reduction and the lazy arithmetic ----------------
+
+W_LAZY_BOUND = (1 << 255) + 1463  # fe_reduce_lazy: 2^255 + 19 (2 * 38 + 1)
+
+
+def w_fold19(t, t8):
+    """field_w25519.cuh:fe_fold19 — t[0..7] + t8 2^256 -> (t mod 2^255) +
+    19 (t >> 255): the bits from 255 up by one funnel shift (shf.l), then
+    one add chain that folds them in at 19 (mad.lo.cc, addc.cc ..., addc)
+    onto the words with bit 255 cleared."""
+    top = ((t8 << 1) | (t[7] >> 31)) & M32  # __funnelshift_l(t7, t8, 1)
+    x = Ptx()
+    r = [x.mad_lo_cc(top, 19, t[0])] + [x.addc_cc(t[j], 0) for j in range(1, 7)]
+    return r + [x.addc(t[7] & 0x7FFFFFFF, 0)]
+
+
+def w_reduce_lazy(c):
+    """field_w25519.cuh:fe_reduce_lazy — any 512-bit c[0..15]: t = lo + 38
+    hi, the products' low words on one chain (mad.lo.cc, madc.lo.cc ...,
+    addc into the top word), their high words one word up on the next
+    (mad.hi.cc, madc.hi.cc ..., madc.hi), top word <= 38; then w_fold19."""
+    x = Ptx()
+    t = [x.mad_lo_cc(c[8], 38, c[0])] + [x.madc_lo_cc(c[8 + j], 38, c[j]) for j in range(1, 8)]
+    t8 = x.addc(0, 0)
+    x = Ptx()
+    t[1] = x.mad_hi_cc(c[8], 38, t[1])
+    for j in range(2, 8):
+        t[j] = x.madc_hi_cc(c[7 + j], 38, t[j])
+    t8 = x.madc_hi(c[15], 38, t8)
+    assert t8 <= 38
+    return w_fold19(t, t8)
+
+
+def w_mul_small_lazy(a, k):
+    """field_w25519.cuh:fe_mul_small_lazy — k a for k < 2^26: the 8
+    products' low words (mul.lo), their high words one word up (mad.hi.cc,
+    madc.hi.cc ..., madc.hi into the top word, below k), then w_fold19."""
+    t = [Ptx.mul_lo(aj, k) for aj in a]
+    x = Ptx()
+    t[1] = x.mad_hi_cc(a[0], k, t[1])
+    for j in range(2, 8):
+        t[j] = x.madc_hi_cc(a[j - 1], k, t[j])
+    t8 = x.madc_hi(a[7], k, 0)
+    assert t8 < k
+    return w_fold19(t, t8)
+
+
+def w_add_lazy(a, b):
+    """field_w25519.cuh:fe_add_lazy — the 8-word add, then its carry out
+    times 38 (the mask -carry & 38) added back on a second chain, whose
+    carry out adds 38 once more to the low word (add.u32: no carry, the
+    value then being below 38)."""
+    x = Ptx()
+    r = [x.add_cc(a[0], b[0])] + [x.addc_cc(a[j], b[j]) for j in range(1, 8)]
+    m = (0 - x.addc(0, 0)) & M32 & 38
+    r = [x.add_cc(r[0], m)] + [x.addc_cc(r[j], 0) for j in range(1, 8)]
+    m = (0 - x.addc(0, 0)) & M32 & 38
+    assert r[0] + m <= M32
+    return [r[0] + m] + r[1:]
+
+
+def w_sub_lazy(a, b):
+    """field_w25519.cuh:fe_sub_lazy — the 8-word subtract, its borrow mask
+    (subc 0, 0) & 38 subtracted on a second chain, whose borrow mask & 38
+    comes off the low word (sub.u32: no borrow, the value then being at
+    least 2^256 - 38)."""
+    x = Ptx()
+    r = [x.sub_cc(a[0], b[0])] + [x.subc_cc(a[j], b[j]) for j in range(1, 8)]
+    m = x.subc(0, 0) & 38
+    r = [x.sub_cc(r[0], m)] + [x.subc_cc(r[j], 0) for j in range(1, 8)]
+    m = x.subc(0, 0) & 38
+    assert r[0] >= m
+    return [r[0] - m] + r[1:]
+
+
+def w_canonical(a):
+    """field_w25519.cuh:fe_canonical — w_fold19 with no top word (below
+    2^255 + 19 < 2p), then one conditional subtract."""
+    r = w_fold19(a, 0)
+    assert value(r) < (1 << 255) + 19
+    return cond_sub(r, 0, W_P)
+
+
+def w_mul_lazy(a, b):
+    """fe_mul_lazy / fe_sqr_lazy: mul256.cuh's 512-bit product (its words,
+    held to a * b by the mul_wide / sqr_wide tests: taken as an int here),
+    then w_reduce_lazy."""
+    return w_reduce_lazy(words(value(a) * value(b), 16))
+
+
+def w_ladder_lazy(k, u, a24=121665, nbits=255):
+    """csrc/mladder.cu's kernel G for one lane: clamped scalar ``k`` and u <
+    p as ints. The scalar's digit w (bits 16 w .. 16 w + 15) is read once
+    per 16 steps, shifted so that the next bit is bit 31 (the top digit's
+    bit 15, bit 255, not scanned); each step swaps (x2, z2) and (x3, z3)
+    by masks on swap ^ k_t, then the RFC 7748 step on the lazy arithmetic;
+    after the final swap x2 and z2 are made canonical. Returns (x2, z2) as
+    ints; asserts every product below 2^255 + 1463."""
+
+    def mul(a, b):
+        r = w_mul_lazy(a, b)
+        assert value(r) < W_LAZY_BOUND
+        return r
+
+    def swap_if(m, a, b):
+        mask = (0 - m) & M32
+        t = [(x ^ y) & mask for x, y in zip(a, b)]
+        return [x ^ s for x, s in zip(a, t)], [y ^ s for y, s in zip(b, t)]
+
+    uw = words(u)
+    x2, z2, x3, z3 = words(1), words(0), uw, words(1)
+    swap = 0
+    for w in range(15, -1, -1):
+        bits = nbits - 16 * 15 if w == 15 else 16
+        kw = (((k >> (16 * w)) & 0xFFFF) << (32 - bits)) & M32
+        for _ in range(bits):
+            kt, kw = kw >> 31, (kw << 1) & M32
+            sw = swap ^ kt
+            x2, x3 = swap_if(sw, x2, x3)
+            z2, z3 = swap_if(sw, z2, z3)
+            a = w_add_lazy(x2, z2)
+            aa = mul(a, a)
+            b = w_sub_lazy(x2, z2)
+            bb = mul(b, b)
+            e = w_sub_lazy(aa, bb)
+            c = w_add_lazy(x3, z3)
+            d = w_sub_lazy(x3, z3)
+            da, cb = mul(d, a), mul(c, b)
+            s = w_add_lazy(da, cb)
+            x3 = mul(s, s)
+            s = w_sub_lazy(da, cb)
+            z3 = mul(uw, mul(s, s))
+            x2 = mul(aa, bb)
+            z2 = mul(e, w_add_lazy(aa, w_mul_small_lazy(e, a24)))
+            swap = kt
+    x2, x3 = swap_if(swap, x2, x3)
+    z2, z3 = swap_if(swap, z2, z3)
+    return value(w_canonical(x2)), value(w_canonical(z2))
+
+
 # -- the checks ------------------------------------------------------------------
 
 EDGE = {
@@ -388,3 +543,142 @@ def test_modular_add_sub_neg(p):
     # 64-bit ripple it replaced did: a carry with no borrow takes a - p
     for a in (p, (1 << 256) - 1, 2 * p % (1 << 256)):
         assert value(cond_sub(words(a), 1, p)) == (a + (1 << 256) - p) % (1 << 256)
+
+
+W_EDGE = [0, 1, 2, 19, 37, 38, W_P - 1, W_P, W_P + 1, 2 * W_P, (1 << 255) - 19, (1 << 255) - 1,
+          1 << 255, (1 << 255) + 19, ALL_ONES - 37, ALL_ONES - 1, ALL_ONES]
+
+
+@pytest.mark.parametrize("a", W_EDGE, ids=hex)
+def test_w25519_lazy_edges(a):
+    """field_w25519.cuh's lazy add, subtract, product, squaring, small
+    multiply and canonicalisation on any 256-bit words, at the edges: 0, 1,
+    p - 1, p, 2p, 2^255 +- 19, 2^256 - 1, and the second fold of each add
+    (a + b >= 2^257 - 38) and subtract (b - a > 2^256 - 38: a borrow below
+    38). Every result is a 256-bit value congruent to the ints' result;
+    products below 2^255 + 1463; the canonical ones equal x mod p."""
+    aw = words(a)
+    assert value(w_canonical(aw)) == a % W_P
+    sq = w_mul_lazy(aw, aw)
+    assert value(sq) % W_P == a * a % W_P and value(sq) < W_LAZY_BOUND
+    sm = w_mul_small_lazy(aw, 121665)
+    assert value(sm) % W_P == 121665 * a % W_P and value(sm) < (1 << 255) + (1 << 32)
+    for b in W_EDGE:
+        bw = words(b)
+        r = w_mul_lazy(aw, bw)
+        assert value(r) % W_P == a * b % W_P and value(r) < W_LAZY_BOUND
+        assert value(w_add_lazy(aw, bw)) % W_P == (a + b) % W_P
+        assert value(w_sub_lazy(aw, bw)) % W_P == (a - b) % W_P
+        assert value(cond_sub(w_reduce_lazy(mul_wide(aw, bw)), 0, W_P)) == a * b % W_P
+
+
+def test_w25519_second_folds_are_taken():
+    """The inputs that take each lazy fold's second round: a carry out of
+    the add's first fold (the low words above 2^256 - 38) and a borrow out
+    of the subtract's (a - b + 2^256 below 38)."""
+    top = ALL_ONES
+    for a, b in ((top, top), (top, top - 36), (top - 18, top - 18)):
+        r = value(w_add_lazy(words(a), words(b)))
+        assert r == a + b - 2 * (1 << 256) + 2 * 38 and r % W_P == (a + b) % W_P
+    for a, b in ((0, top), (5, top - 1), (36, top)):
+        r = value(w_sub_lazy(words(a), words(b)))
+        assert r == a - b + 2 * (1 << 256) - 2 * 38 and r % W_P == (a - b) % W_P
+
+
+@pytest.mark.parametrize("c", [0, (1 << 512) - 1, (W_P - 1) ** 2, ALL_ONES ** 2,
+                               ((1 << 256) - 1) << 256, (1 << 511) + (1 << 255)],
+                         ids=["zero", "all-ones", "(p-1)^2", "(2^256-1)^2", "hi all ones",
+                              "bits 511 and 255"])
+def test_w25519_reduce_extreme_words(c):
+    """The reduction takes any 512-bit c: its top word reaches 38 and the
+    fold's top bits 77, and the result stays below 2^255 + 1463."""
+    r = value(w_reduce_lazy(words(c, 16)))
+    assert r % W_P == c % W_P and r < W_LAZY_BOUND
+
+
+@settings(max_examples=40, deadline=None)
+@given(st.integers(0, ALL_ONES), st.integers(0, ALL_ONES))
+def test_w25519_lazy_random(a, b):
+    aw, bw = words(a), words(b)
+    assert value(w_reduce_lazy(mul_wide(aw, bw))) % W_P == a * b % W_P
+    assert value(w_reduce_lazy(sqr_wide(aw))) % W_P == a * a % W_P
+    assert value(w_add_lazy(aw, bw)) % W_P == (a + b) % W_P
+    assert value(w_sub_lazy(aw, bw)) % W_P == (a - b) % W_P
+    assert value(w_canonical(aw)) == a % W_P
+
+
+def _run_asm(template, ops):
+    """One asm statement's PTX text on Python ints: add / sub (with .cc and
+    the c forms), mad / mul (.lo, .hi, with .cc and the c forms) and and,
+    on .u32 words, keeping the carry flag; %k is operand k, other names
+    the statement's own .reg registers."""
+    ops, regs, cf = list(ops), {}, 0
+
+    def val(tok):
+        return ops[int(tok[1:])] if tok.startswith("%") else regs[tok] if tok in regs else int(
+            tok, 0)
+
+    for raw in template.split("\n"):
+        line = raw.strip().rstrip(";").strip()
+        if line in ("", "{", "}") or line.startswith(".reg"):
+            continue
+        op, args = line.split(None, 1)
+        dst, *src = [a.strip() for a in args.split(",")]
+        x = [val(a) for a in src]
+        assert all(0 <= v <= M32 for v in x), line
+        if op.startswith(("mad", "mul")):
+            p = x[0] * x[1]
+            s = ((p >> 32) if ".hi" in op else (p & M32)) + (x[2] if op.startswith("mad") else 0)
+            s += cf if op.startswith("madc") else 0
+        elif op.startswith("add"):
+            s = x[0] + x[1] + (cf if op.startswith("addc") else 0)
+        elif op.startswith("sub"):
+            s = x[0] - x[1] - (cf if op.startswith("subc") else 0)
+        else:
+            assert op == "and.b32", op
+            s = x[0] & x[1]
+        if ".cc" in op:
+            cf = int(s < 0) if op.startswith("sub") else s >> 32
+        if dst.startswith("%"):
+            ops[int(dst[1:])] = s & M32
+        else:
+            regs[dst] = s & M32
+    return ops
+
+
+def test_w25519_asm_text_is_the_model():
+    """The asm text of field_w25519.cuh's fe_reduce_lazy, fe_fold19,
+    fe_mul_small_lazy, fe_add_lazy and fe_sub_lazy, run instruction by
+    instruction on the operands the C++ hands it, gives the models' words
+    (so the models above are the text nvcc compiles), on edge and seeded
+    random operands."""
+    import random
+
+    from tests.test_torch_field_words_wide import _asm_statements, _function
+
+    def text(name):
+        (template, _), = _asm_statements(_function("field_w25519.cuh",
+                                                   f"__device__ __forceinline__ fe {name}("))
+        return template
+
+    red, fold, small, add, sub = (text(n) for n in ("fe_reduce_lazy", "fe_fold19",
+                                                    "fe_mul_small_lazy", "fe_add_lazy",
+                                                    "fe_sub_lazy"))
+
+    def c_fold(t, t8):
+        top = ((t8 << 1) | (t[7] >> 31)) & M32
+        return _run_asm(fold, [0] * 8 + [top] + t[:7] + [t[7] & 0x7FFFFFFF])[:8]
+
+    rng = random.Random(7)
+    vals = W_EDGE + [rng.getrandbits(256) for _ in range(24)]
+    for a in vals:
+        aw = words(a)
+        t = _run_asm(small, [0] * 9 + aw + [121665])
+        assert c_fold(t[:8], t[8]) == w_mul_small_lazy(aw, 121665)
+        assert c_fold(aw, 0) == w_fold19(aw, 0)
+        for b in vals[::3]:
+            bw, c = words(b), words(a * b, 16)
+            t = _run_asm(red, [0] * 9 + c)
+            assert c_fold(t[:8], t[8]) == w_reduce_lazy(c)
+            assert _run_asm(add, [0] * 8 + aw + bw)[:8] == w_add_lazy(aw, bw)
+            assert _run_asm(sub, [0] * 8 + aw + bw)[:8] == w_sub_lazy(aw, bw)

@@ -25,7 +25,7 @@ PORT = Path(ecsimd_tpu_torch.__file__).resolve().parent
 KERNELS = (*comb.KERNELS.values(), *ladder.KERNELS.values(), *window.KERNELS.values(),
            *field_ops.KERNELS.values(), *affine.KERNELS.values(), glv.KERNEL, glv.KERNEL_STRICT,
            mladder.KERNEL, mladder.KERNEL_XDIVZ, roofline.KERNEL, *comb.KERNELS_TREE.values(),
-           *comb.KERNELS_PIPE.values(), *comb.KERNELS_CHAINS.values())
+           *comb.KERNELS_PIPE.values(), *comb.KERNELS_GENERAL.values())
 MODULES = sorted(
     "ecsimd_tpu_torch" + "".join("." + part for part in f.relative_to(PORT).with_suffix("").parts)
     for f in PORT.rglob("*.py")
@@ -44,7 +44,7 @@ def test_import_leaves_jax_out():
         " *window.KERNELS.values(), *field_ops.KERNELS.values(), *affine.KERNELS.values(),"
         " glv.KERNEL, glv.KERNEL_STRICT, mladder.KERNEL, mladder.KERNEL_XDIVZ, roofline.KERNEL,"
         " *comb.KERNELS_TREE.values(), *comb.KERNELS_PIPE.values(),"
-        " *comb.KERNELS_CHAINS.values())])\n"
+        " *comb.KERNELS_GENERAL.values())])\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, check=True, timeout=120).stdout.splitlines()

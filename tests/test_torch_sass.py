@@ -60,10 +60,8 @@ def test_ab_kernel_names():
     assert ab._kernel_part("ec_window_p256") == "window_p256_kernel"
     assert ab._kernel_part("ec_window_p256_strict") == "window_strict_p256_kernel"
     assert ab._kernel_part("ec_glv_secp256k1_strict") == "glv_strict_secp256k1_kernel"
-    assert ab._kernel_part("ec_comb_chains_p256_c1u4_strict") == (
-        "comb_chains_p256_kernelILi1ELi4ELb1E")
-    assert ab._kernel_part("ec_comb_chains_secp256k1_c2u1") == (
-        "comb_chains_secp256k1_kernelILi2ELi1ELb0E")
+    assert ab._kernel_part("ec_comb_general_secp256k1_strict") == (
+        "comb_general_strict_secp256k1_kernel")
     assert ab._kernel_part("ec_window_w25519_strict") == "window_strict_w25519_kernel"
     assert ab._kernel_part("ec_comb_w25519_strict") == "comb_strict_w25519_kernel"
     log = ("ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_118window_p256_kernelEv' "
@@ -344,3 +342,29 @@ def test_block_tree_inversion_counts_one_threads_share():
     share = sass.dynamic(instrs, tree, trips, (0, -1, 128))
     inside = 3 + 1 + 128 + 3  # the region's IMADs, counted in one thread of 128
     assert share["imad"] == round(2 + sass.Fraction(inside, 128))
+
+
+def test_kernels_g_and_h_are_read():
+    """Kernels G and H are read by default. G's loop nest is the scalar's 16
+    digit words, then their bits (255 steps, the top word's 15): on a
+    listing of that shape the word loop's load runs 16 times a lane and the
+    bit loop's product 255 times; a library built before G read its digit
+    word once per 16 steps has one loop of 255 steps (``TRIPS_G_BITS``).
+    H's loops are its inversion chain's squarings, as kernel D's on
+    Wei25519."""
+    assert {"mladder_w25519_kernel", "xdivz_w25519_kernel"} <= set(sass.DEFAULT_KERNELS)
+    assert sass.TRIPS["xdivz_w25519_kernel"] == [
+        ("sqr", n, []) for n in sass._INV_SQUARINGS["w25519"]]
+    body = ["LDG.E R4, desc[UR4][R2.64]",  # the word loop: its digit word
+            "IMAD.WIDE.U32 R6, R8, R9, R6", "BRA 0x10",  # the bit loop
+            "BRA 0x0", "STG.E desc[UR4][R2.64], R6", "EXIT"]
+    name = "_ZN12_GLOBAL__N_121mladder_w25519_kernelEPKiS1_PiS2_l"
+    instrs = sass.parse(_listing(name, body))[name]
+    per_lane = sass.dynamic(instrs, sass.loops(instrs), sass.TRIPS["mladder_w25519_kernel"])
+    assert per_lane["ldg"] == 16 and per_lane["imad"] == 255 and per_lane["stg"] == 1
+    assert per_lane["control"] == 255 + 16 + 1
+    old = ["LDG.E R4, desc[UR4][R2.64]", "IMAD.WIDE.U32 R6, R8, R9, R6", "BRA 0x0", "EXIT"]
+    instrs = sass.parse(_listing(name, old))[name]
+    tree = sass.loops(instrs)
+    assert sass.dynamic(instrs, tree, sass.TRIPS["mladder_w25519_kernel"]) is None
+    assert sass.dynamic(instrs, tree, sass.TRIPS_G_BITS["mladder_w25519_kernel"])["ldg"] == 255

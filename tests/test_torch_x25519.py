@@ -21,6 +21,7 @@ from ecsimd_tpu_torch import x25519
 from ecsimd_tpu_torch.kernels import comb as tcomb
 from ecsimd_tpu_torch.kernels import mladder
 from tests.test_mladder import host_xladder
+from tests.test_torch_field_words import w_ladder_lazy
 from tests.toy import CRAN64
 from tests.torch_helpers import ints, planes, port_spec, rand_ints, tplanes
 
@@ -61,10 +62,30 @@ RFC_LANES = {
 
 
 @functools.cache
-def _rfc_batch():
-    """Every RFC lane through one CPU call of the port's x25519_batch."""
+def _rfc_run():
+    """Every RFC lane through one CPU call of the port's x25519_batch, and
+    the (scalar, u) ints and projective (x2, z2) ints of the one
+    mladder_plain call it makes (recorded on the way, so the ladder runs
+    once for both)."""
     ks, us, _ = zip(*RFC_LANES.values())
-    return dict(zip(RFC_LANES, x25519.x25519_batch(list(ks), list(us), device="cpu")))
+    real, seen = mladder.mladder_plain, []
+
+    def record(*args):
+        seen.append((args, real(*args)))
+        return seen[-1][1]
+
+    mladder.mladder_plain = record
+    try:
+        out = x25519.x25519_batch(list(ks), list(us), device="cpu")
+    finally:
+        mladder.mladder_plain = real
+    ((kp, up, *_), (x2, z2)), = seen
+    return dict(zip(RFC_LANES, out)), dict(zip(RFC_LANES, zip(ints(kp), ints(up), ints(x2),
+                                                              ints(z2))))
+
+
+def _rfc_batch():
+    return _rfc_run()[0]
 
 
 @pytest.mark.parametrize("lane", list(RFC_LANES))
@@ -156,3 +177,17 @@ def test_clamp_decode_and_byte_planes_equal_jax():
         x25519.decode_u(b).to_bytes(32, "little") for b in raw]
     with pytest.raises(ValueError, match="32 bytes"):
         x25519._byte_planes([bytes(31)], True, "cpu")
+
+
+@pytest.mark.parametrize("lane", ["vector1", "vector2", "iteration1", "u0", "u_p_plus_1"])
+def test_lazy_ladder_model_rfc7748(lane):
+    """The word model of kernel G (csrc/mladder.cu: lazily reduced values,
+    the scalar's digit word read once per 16 steps, x2 and z2 made
+    canonical after the final swap; tests/test_torch_field_words.py's
+    w_ladder_lazy) on the RFC 7748 lanes: its (x2, z2) equal mladder_plain's
+    projective planes word for word (the ones x25519_batch computed) and the
+    host int ladder's."""
+    k, u, x2, z2 = _rfc_run()[1][lane]
+    assert k == x25519.clamp(RFC_LANES[lane][0]) and u < P
+    got = w_ladder_lazy(k, u)
+    assert got == (x2, z2) == host_xladder(k, u, P, x25519.A24, 255)
