@@ -13,7 +13,9 @@ window, strict GLV and affine kernels), batched X25519 keygen and exchange
 (Wei25519 comb, affine, x-only ladder and x / z kernels), the int32
 calibration, the comb's other schedules (tree, pipe, multi-chain and
 unrolled: kernels J, K, L), the variable-base kernels and the comb's
-schedules on secp256k1, Wei25519, P-384 and P-521. Phases, one line each;
+schedules on secp256k1, Wei25519, P-384 and P-521, and multi-scalar
+multiplication (kernel M, the reduction tree), the shared-scalar ladder and
+SEC1 encoding on all five. Phases, one line each;
 any failed check raises and the script exits non-zero:
 
   0. device: a CUDA card is required; prints its name, power limit and
@@ -177,6 +179,21 @@ any failed check raises and the script exits non-zero:
      unroll 2, which P-521 refuses with ValueError, as the JAX package
      does), each through comb.scalar_mult_base and kernel D, each curve a
      path of its own (schedule_path, as phase 17's B9 part).
+ 21. multi-scalar multiplication, the shared-scalar ladder and SEC1 on all
+     five curves (msm_phase), each a path of its own at B = 524,288 on
+     points c_i G from the strict comb: api.multi_scalar_mult (E strict, or
+     F strict on secp256k1, then kernel M's ceil(log2 B) = 19 launches), with
+     lanes i and i + B/2 equal pairs (4,096) and opposite pairs (4,096), its
+     sum against the oracle's (sum k_i c_i mod n) G, and a second batch whose
+     sum is infinity; api.scalar_mult_shared (k + 2^nbits: kernel A on the
+     broadcast planes of k, then D), 512 lanes against the oracle;
+     encoding.points_to_bytes / points_from_bytes on 65,536 mixed SEC1
+     encodings, 128 of them invalid (8 forms), masks and points exact.
+     Launch counts; kernel M word for word against the plain complete add on
+     the first level's 262,144 lanes and against the plain batch_sum's final
+     lane, on the path's own per-lane products (on Wei25519 also with its
+     point of order 2); CUDA-event times of M's tree and first level, of the
+     plain versions and of the entry points.
 
 Inputs come from numpy.random.default_rng(SEED). The line before the last
 is a JSON object with one entry per kernel; the last line is the device
@@ -197,12 +214,13 @@ import time
 import numpy as np
 import torch
 
-from ecsimd_tpu_torch import api, convert, ecdh, ecdsa, glv, x25519
+from ecsimd_tpu_torch import api, convert, ecdh, ecdsa, encoding, glv, x25519
 from ecsimd_tpu_torch.bench import roofline, sass
 from ecsimd_tpu_torch.curves import group
 from ecsimd_tpu_torch.curves.point import AffinePoint, JacobianPoint
 from ecsimd_tpu_torch.field import GFp
-from ecsimd_tpu_torch.kernels import _build, affine, comb, field_ops, ladder, mladder, window
+from ecsimd_tpu_torch.kernels import _build, affine, batch_sum, comb, field_ops, ladder, mladder
+from ecsimd_tpu_torch.kernels import window
 from ecsimd_tpu_torch.kernels import glv as kglv
 from ecsimd_tpu_torch.ops import mont
 from ecsimd_tpu_torch.oracle import comb as ocomb
@@ -271,6 +289,9 @@ for _tag in CURVES18.values():
     PTXAS_NAMES |= {f"{k}_{_tag}": f"comb_general{'_strict' if st else ''}_{_tag}_kernel"
                     for k, (c, u, st) in SCHEDULES_L.items()}
 PTXAS_NAMES["comb_strict_w25519"] = "comb_strict_w25519_kernel"
+# phase 21: kernel M on every curve
+PTXAS_NAMES |= {("batch_sum" if t == "p256" else f"batch_sum_{t}"): f"batch_sum_{t}_kernel"
+                for t, _ in _build.CURVE_TAGS.values()}
 # phase 19: P-384 and P-521 and their tag in the C names
 CURVES19 = {c: _build.CURVE_TAGS[c][0] for c in _build.WIDE_CURVES}
 WIDE_KINDS = ("ladder", "window", "window_strict", "comb", "comb_strict", "affine", "field_probe",
@@ -782,7 +803,9 @@ def scalar_ints(rng, n, edges=EDGE_SCALARS, curve=P256):
     P-384 and P-521)."""
     bits = curve.order.bit_length()
     nbytes = 32 if bits <= 256 else (bits + 7) // 8 + 8
-    ks = [int.from_bytes(rng.bytes(nbytes), "little") % curve.order or 1 for _ in range(n)]
+    raw = rng.bytes(nbytes * n)  # one draw: a call a lane took seconds at 524,288 lanes
+    ks = [int.from_bytes(raw[i:i + nbytes], "little") % curve.order or 1
+          for i in range(0, nbytes * n, nbytes)]
     ks[: len(edges)] = edges
     return ks
 
@@ -1019,6 +1042,8 @@ def bound(name, lanes, sm_clock_mhz, reps=0):
     ALU pipe: the shift and its add fuse; cuobjdump -sass of csrc/calib.cu
     on sm_90a), and the two pipes issue side by side at 64 lanes per SM per
     clock each."""
+    if name.startswith("batch_sum"):
+        return batch_sum_bound(name, lanes, sm_clock_mhz)
     if name == "calib":
         ops = CALIB_PIPE_INSTRS_PER_STEP * roofline.CHAINS * reps * lanes / 2  # per pipe
     else:
@@ -1032,6 +1057,30 @@ def bound(name, lanes, sm_clock_mhz, reps=0):
     tag = name.rpartition("_")[2]
     table = (BYTES_PER_LANE[f"comb_table_{tag}"] if tag in WIDE_IMADS else COMB_TABLE_BYTES)
     nbytes = BYTES_PER_LANE[name] * lanes + (table if name.startswith("comb") else 0)
+    op_ms = ops / (IMAD_PER_SM_PER_CLOCK * SMS * sm_clock_mhz * 1e6) * 1e3
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    return (op_ms, "operations") if op_ms >= byte_ms else (byte_ms, "bytes")
+
+
+def batch_sum_bound(name, lanes, sm_clock_mhz):
+    """(bound_ms, bound_by) of kernel M over a whole tree of ``lanes``
+    lanes: lanes - 1 complete adds (jac_add and the curve's doubling, both
+    always computed: FORMULA_MS's add_complete of the curve), and the bytes
+    the function must move: the batch's lanes read once and the one output
+    lane written once, three planes of D digits each. The levels' own
+    outputs, which the next level reads back, are this design's
+    intermediates, not the function's traffic."""
+    tag = name[len("batch_sum_"):] or "p256"
+    curve = next(c for c, (t, _) in _build.CURVE_TAGS.items() if t == tag)
+    if tag in WIDE_IMADS:
+        (per_mul, per_sqr), extra = WIDE_IMADS[tag], 0
+        muls, sqrs = FORMULA_MS["add_complete"]
+    else:
+        per_mul, per_sqr = IMADS_PER_MUL, IMADS_PER_SQR
+        extra = FOLD_IMADS if tag in CURVES18.values() else 0
+        muls, sqrs = FORMULA_MS[CURVE_FORMULAS[tag][1]]
+    ops = (lanes - 1) * (muls * (per_mul + extra) + sqrs * (per_sqr + extra))
+    nbytes = (lanes + 1) * 3 * curve.field.ndigits * 4
     op_ms = ops / (IMAD_PER_SM_PER_CLOCK * SMS * sm_clock_mhz * 1e6) * 1e3
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     return (op_ms, "operations") if op_ms >= byte_ms else (byte_ms, "bytes")
@@ -2079,6 +2128,187 @@ def wide_phase(rng, dev, card, counted, curve):
             "api_ms": {f"{curve.name} {k}": v for k, v in api_ms.items()}}
 
 
+# phase 21: lanes i and i + BATCH / 2 hold equal points times equal scalars
+# for i < MSM_PAIRS, opposite points times equal scalars for MSM_PAIRS <= i <
+# 2 MSM_PAIRS; the SEC1 round trip's lanes and its invalid forms
+MSM_PAIRS = 4096
+SEC1_LANES = 65536
+SEC1_BAD = 16  # lanes of each invalid form
+
+
+def sec1_blobs(rng, pts_x, pts_y, curve):
+    """SEC1_LANES encodings of the affine planes' first lanes (even lanes
+    compressed, odd uncompressed; encoding.points_to_bytes), then SEC1_BAD
+    lanes of each invalid form in place of some: a bad prefix, a bad length,
+    x = p, y = p, a point off the curve, the infinity 0x00, (0, 0)
+    uncompressed, and a compressed x with no square root. Returns the blobs
+    and the lanes of the invalid ones."""
+    p, length = curve.p, encoding.coordinate_bytes(curve)
+    m = SEC1_LANES
+    sub = AffinePoint(pts_x[:, :m], pts_y[:, :m], curve)
+    comp, unc = encoding.points_to_bytes(sub), encoding.points_to_bytes(sub, compressed=False)
+    blobs = [comp[i] if i % 2 == 0 else unc[i] for i in range(m)]
+    enc = lambda v: v.to_bytes(length, "big")  # noqa: E731
+    nonres = next(v for v in range(2, 1000)
+                  if pow((v ** 3 + curve.a * v + curve.b) % p, (p - 1) // 2, p) == p - 1)
+    lanes = rng.choice(np.arange(ORACLE_LANES, m), size=8 * SEC1_BAD, replace=False)
+    for j, i in enumerate(lanes.tolist()):
+        b, form = unc[i], j // SEC1_BAD
+        x, y = b[1:1 + length], b[1 + length:]
+        blobs[i] = [b"\x05" + x, b"\x02" + x[1:], b"\x03" + enc(p), b"\x04" + x + enc(p),
+                    b"\x04" + x + enc((int.from_bytes(y, "big") + 1) % p), b"\x00",
+                    b"\x04" + enc(0) + enc(0), b"\x02" + enc(nonres)][form]
+    return blobs, sorted(lanes.tolist())
+
+
+def batch_sum_order2_check(dev):
+    """Kernel M on Wei25519 with its point of order 2, T = (A / 3, 0): T + T
+    (z = 0, the general-a doubling's x and y), inf + T, T + P, P + T and
+    T + inf, on 64 lanes against the plain group.batch_sum level and tree."""
+    curve, p = WEI25519, WEI25519.p
+    t = (486662 * pow(3, -1, p) % p, 0)
+    pts = multiples_of_g(64, curve)[:64]
+    zs = [(5 * i + 2) % p for i in range(64)]
+    lanes = [(x * z * z % p, y * z ** 3 % p, z) for (x, y), z in zip(pts, zs)]
+    lanes[0] = lanes[32] = (t[0], 0, 1)
+    lanes[33] = (t[0] * 9 % p, 0, 3)
+    lanes[1] = (7, 11, 0)
+    lanes[2] = (t[0], 0, 1)
+    lanes[35] = (t[0] * 4 % p, 0, 2)
+    lanes[4], lanes[36] = (t[0], 0, 1), (13, 17, 0)
+    cols = [to_dev([v[j] for v in lanes], dev) for j in range(3)]
+    jac = JacobianPoint(*(GFp(c, curve.field) for c in cols), curve)
+    got = batch_sum.level_planes(*cols, curve)
+    h = 32
+    half = lambda lo, hi: JacobianPoint(  # noqa: E731
+        *(GFp(c[:, lo:hi].contiguous(), curve.field) for c in cols), curve)
+    want = group.jac_add_complete(half(0, h), half(h, 2 * h))
+    err = max_abs_diff(got, (want.x.planes, want.y.planes, want.z.planes))
+    check(err == 0 and not bool(got[2][:, 0].any()),
+          "Wei25519 kernel M == plain on its point of order 2 (T + T at z = 0)")
+    tree = batch_sum.batch_sum_planes(*cols, curve)
+    plain = group.batch_sum(jac)
+    err = max(err, max_abs_diff(tree, (plain.x.planes, plain.y.planes, plain.z.planes)))
+    check(err == 0, "Wei25519 kernel M tree == plain batch_sum with its point of order 2")
+    return err
+
+
+def msm_phase(rng, dev, card, counted, curve):
+    """Phase 21 on ``curve``: multi-scalar multiplication, the shared-scalar
+    ladder and SEC1 through the entry points at B = 524,288 (points c_i G
+    from the comb, launched before the counts are reset), their checks, then
+    kernel M against the plain batch sum on the path's own per-lane
+    products, and the times. Returns the numbers of the kernels line."""
+    tag = _build.CURVE_TAGS[curve][0]
+    n, p, d = curve.order, curve.p, curve.field.ndigits
+    kernel = batch_sum.KERNELS[curve]
+    kname = tagged(curve, "batch_sum")
+    h = BATCH // 2
+    cs = scalar_ints(rng, BATCH, [], curve)
+    ks = scalar_ints(rng, BATCH, [], curve)
+    for i in range(MSM_PAIRS):
+        cs[h + i], ks[h + i] = cs[i], ks[i]
+        j = MSM_PAIRS + i
+        cs[h + j], ks[h + j] = n - cs[j], ks[j]
+    # a second batch whose sum is infinity: its last scalar cancels the rest
+    k_last = -sum(k * c for k, c in zip(ks[:-1], cs[:-1])) * pow(cs[-1], -1, n) % n
+    check(k_last != 0, "phase 21: the cancelling scalar is not 0")
+    total = sum(k * c for k, c in zip(ks, cs)) % n
+    k_shared = scalar_ints(rng, 1, [], curve)[0]
+    points = api.scalar_mult_base(to_dev(cs, dev, d), curve, strict=True)
+    s_dev = to_dev(ks, dev, d)
+    s0_dev = s_dev.clone()
+    s0_dev[:, -1:] = to_dev([k_last], dev, d)
+    torch.cuda.synchronize()
+
+    # -- the path
+    zero_counts(counted)
+    t0 = time.perf_counter()
+    msm = api.multi_scalar_mult(s_dev, points)
+    msm0 = api.multi_scalar_mult(s0_dev, points)
+    shared = api.scalar_mult_shared(k_shared + (1 << curve.field.nbits), points)
+    blobs, bad = sec1_blobs(rng, points.x, points.y, curve)
+    decode_ms, (dec, ok) = time_once_ms(
+        lambda: encoding.points_from_bytes(blobs, curve, device=dev))
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    launches = read_counts(counted)
+    strict = kglv.KERNEL_STRICT if curve == SECP256K1 else window.KERNELS[(curve, True)]
+    for k in (kernel, strict, ladder.KERNELS[curve], affine.KERNELS[curve]):
+        check(launches[k.symbol] >= 1, f"phase 21 path on {curve.name} launched {k.symbol}")
+    check(launches[kernel.symbol] == 2 * (BATCH - 1).bit_length(),
+          f"phase 21 {curve.name}: kernel M launched ceil(log2 B) times a sum")
+
+    # -- the checks: the sums by linearity, the ladder and SEC1 exactly
+    check(msm.x.planes.shape == (d, 1) and bool(msm0.z.is_zero()[0]),
+          f"phase 21 {curve.name}: a 1-lane sum, and the cancelling batch's at infinity")
+    got = affine_ints(affine.to_affine(msm), 1)[0]
+    check(got == oracle_mult(total, (curve.gx, curve.gy), curve),
+          f"phase 21 {curve.name} multi_scalar_mult == (sum k_i c_i mod n) G")
+    want = oracle_base([k_shared * c % n for c in cs[:ORACLE_LANES]], curve)
+    check(affine_ints(shared, ORACLE_LANES) == want,
+          f"phase 21 {curve.name} scalar_mult_shared vs oracle on {ORACLE_LANES} lanes")
+    check(shared.x.shape == (d, BATCH) and bool(((shared.x >= 0) & (shared.x < 1 << 16)).all()),
+          f"phase 21 {curve.name} scalar_mult_shared output")
+    want_ok = np.ones(SEC1_LANES, bool)
+    want_ok[bad] = False
+    check(np.array_equal(ok, want_ok), f"phase 21 {curve.name} SEC1 masks exact")
+    okm = torch.from_numpy(want_ok).to(dev)
+    for got_c, src in ((dec.x, points.x), (dec.y, points.y)):
+        check(torch.equal(got_c[:, okm], src[:, :SEC1_LANES][:, okm])
+              and not bool(got_c[:, ~okm].any()),
+              f"phase 21 {curve.name} SEC1 points: the sources on valid lanes, 0 on the rest")
+    back = encoding.points_to_bytes(dec)
+    check(all(back[i] == blobs[i] for i in range(0, SEC1_LANES, 2) if want_ok[i]),
+          f"phase 21 {curve.name} SEC1 compressed lanes encode back to their bytes")
+    say(f"phase 21 {curve.name} path B={BATCH} ({path_s:.1f} s): launches "
+        f"{json.dumps(launches)}; multi_scalar_mult == the oracle's (sum k_i c_i) G with "
+        f"{MSM_PAIRS} equal and {MSM_PAIRS} opposite pairs at the first level, a second batch "
+        f"at infinity; scalar_mult_shared (k + 2^nbits) {ORACLE_LANES} lanes vs oracle; SEC1 "
+        f"{SEC1_LANES} mixed encodings, {len(bad)} invalid, masks exact")
+
+    # -- kernel M against the plain batch sum on the path's per-lane products
+    prod = kglv.strict_varbase(s_dev, points)
+    r = tuple(c.planes for c in (prod.x, prod.y, prod.z))
+    lvl = batch_sum.level_planes(*r, curve)
+    half = lambda lo, hi: JacobianPoint(  # noqa: E731
+        *(GFp(c[:, lo:hi].contiguous(), curve.field) for c in r), curve)
+    level_plain_ms, want = time_once_ms(lambda: group.jac_add_complete(half(0, h),
+                                                                       half(h, BATCH)))
+    err = max_abs_diff(lvl, (want.x.planes, want.y.planes, want.z.planes))
+    check(err == 0, f"{kname} == the plain complete add on the first level's {h} lanes")
+    check(not bool(lvl[2][:, MSM_PAIRS:2 * MSM_PAIRS].any()) and bool(
+        lvl[2][:, :MSM_PAIRS].any(dim=0).all()),
+        f"{kname}: opposite pairs at infinity, equal pairs doubled")
+    del want
+    plain_ms, plain = time_once_ms(lambda: group.batch_sum(prod))
+    tree = batch_sum.batch_sum_planes(*r, curve)
+    err = max(err, max_abs_diff(tree, (plain.x.planes, plain.y.planes, plain.z.planes)),
+              max_abs_diff(tree, (msm.x.planes, msm.y.planes, msm.z.planes)))
+    check(err == 0, f"{kname} tree == plain batch_sum's final lane == the path's sum")
+    if curve == WEI25519:
+        err = max(err, batch_sum_order2_check(dev))
+    ms = time_ms(lambda: batch_sum.batch_sum_planes(*r, curve), 20)
+    level_ms = time_ms(lambda: batch_sum.level_planes(*r, curve), 20)
+    del prod, r, lvl, plain, tree
+    api_ms = {"multi_scalar_mult": time_ms(lambda: api.multi_scalar_mult(s_dev, points), 3),
+              "scalar_mult_shared": time_ms(lambda: api.scalar_mult_shared(k_shared, points), 3)}
+    t0 = time.perf_counter()
+    encoding.points_to_bytes(AffinePoint(points.x[:, :SEC1_LANES], points.y[:, :SEC1_LANES],
+                                         curve))
+    api_ms["encoding.points_to_bytes"] = (time.perf_counter() - t0) * 1e3
+    api_ms["encoding.points_from_bytes"] = decode_ms  # the path's own call
+    say(f"phase 21 {curve.name} {kname} exact vs the plain batch sum (first level, {h} lanes; "
+        f"final lane); kernel M {ms:.3f} ms a tree of {BATCH} lanes "
+        f"({(BATCH - 1).bit_length()} launches), first level {level_ms:.3f} ms; plain "
+        f"{plain_ms:.1f} ms, its first level {level_plain_ms:.1f} ms; entry points ms "
+        f"{json.dumps({k: round(v, 3) for k, v in api_ms.items()})} (SEC1 on {SEC1_LANES} "
+        f"lanes, host clock for the encoder) {card}")
+    return {"launches": launches, "kernel": kernel, "name": kname, "err": err, "ms": ms,
+            "plain_ms": plain_ms, "level_ms": level_ms, "level_plain_ms": level_plain_ms,
+            "api_ms": {f"{curve.name} {k}": v for k, v in api_ms.items()}}
+
+
 def main():
     """Run the phases with the oracle pool (pmap) and the plain pool
     (plain_submit) up, and shut them down."""
@@ -2201,7 +2431,7 @@ def run():
                *field_ops.KERNELS_CONSTS.values(), kglv.KERNEL,
                kglv.KERNEL_STRICT, mladder.KERNEL, mladder.KERNEL_XDIVZ, roofline.KERNEL,
                *comb.KERNELS_TREE.values(), *comb.KERNELS_PIPE.values(),
-               *comb.KERNELS_GENERAL.values())
+               *comb.KERNELS_GENERAL.values(), *batch_sum.KERNELS.values())
     zero_counts(counted)
     out_base = api.scalar_mult_base(scalars)
     out_var = api.scalar_mult(scalars, points)
@@ -2521,6 +2751,7 @@ def run():
     launches18 = sum_counts([p["launches"] for p in p18.values()])
     p19 = {c: wide_phase(rng, dev, card, counted, c) for c in CURVES19}
     p20 = {c: wide_schedule_phase(rng, dev, card, counted, c) for c in CURVES19}
+    p21 = {c: msm_phase(rng, dev, card, counted, c) for c in _build.CURVES}
     sass_mix = sass_job.result()
     for kname, mix in sass_mix.items():
         check(mix is not None, f"cuobjdump -sass found {kname}")
@@ -2554,6 +2785,7 @@ def run():
     # phase 17's B9 part and phase 20: a path a curve
     paths |= {f"phase17_b9_{_build.CURVE_TAGS[c][0]}": p["launches"] for c, p in b9.items()}
     paths |= {f"phase20_{_build.CURVE_TAGS[c][0]}": p["launches"] for c, p in p20.items()}
+    paths |= {f"phase21_{_build.CURVE_TAGS[c][0]}": p["launches"] for c, p in p21.items()}
 
     def entry(kernel, kname, err, ms, plain_ms, lanes=BATCH, reps=0, schedule=None):
         """One kernel of the kernels line: its launches on the main paths
@@ -2651,6 +2883,12 @@ def run():
            **{x: v[x] for x in ("plain_lanes", "schedule", "group", "dynamic_smem_bytes",
                                 "blocks_per_sm") if x in v}}
           for p in (*b9.values(), *p20.values()) for k, v in p["by_kernel"].items()),
+        # phase 21: kernel M, ms and bound over a whole tree of B lanes
+        # (ceil(log2 B) launches), plain_ms the plain batch sum's on the same
+        # lanes; launches counted over both sums of the path
+        *({**entry(p["kernel"], p["name"], p["err"], p["ms"], p["plain_ms"]),
+           "launches_per_sum": (BATCH - 1).bit_length(), "first_level_ms": p["level_ms"],
+           "first_level_plain_ms": p["level_plain_ms"]} for p in p21.values()),
     ]
     api_ms = {"scalar_mult_base": base_api_ms, "scalar_mult": var_api_ms,
               "scalar_mult_fast": fast_ms, "scalar_mult_fast_strict": fast_strict_ms,
@@ -2663,7 +2901,8 @@ def run():
                  for k, v in sp["by_kernel"].items()},
               **{k: v for p in p18.values() for k, v in p["api_ms"].items()},
               **{k: v for p in p19.values() for k, v in p["api_ms"].items()},
-              **{k: v for p in (*b9.values(), *p20.values()) for k, v in p["api_ms"].items()}}
+              **{k: v for p in (*b9.values(), *p20.values(), *p21.values())
+                 for k, v in p["api_ms"].items()}}
     # the measured int32 rate against the 64 IMAD per SM per clock bound()
     # assumes: kernel I issues 2 of its 4 instructions a chain step on the
     # multiply-add pipe (IMAD, IMAD.IADD), so that pipe's rate is 2 / 5 of

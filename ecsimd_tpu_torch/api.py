@@ -1,11 +1,11 @@
 """L6: batched scalar-multiplication entry points.
 
-The port of ``ecsimd_tpu/api.py``'s main path. Every function runs on the
+The port of ``ecsimd_tpu/api.py``. Every function runs on the
 device of its input tensors: on a CUDA tensor through the hand-written
 kernels (``kernels/ladder.py``, ``kernels/window.py`` and ``kernels/glv.py``
-for k_i * P_i, ``kernels/comb.py`` for k_i * B, then ``kernels/affine.py``
-for the affine conversion), on a CPU tensor through their plain PyTorch
-versions. Both give
+for k_i * P_i, ``kernels/comb.py`` for k_i * B, ``kernels/batch_sum.py`` for
+the sum of a batch, then ``kernels/affine.py`` for the affine conversion),
+on a CPU tensor through their plain PyTorch versions. Both give
 the same planes, so the affine results equal the JAX package's.
 The constructors take ``device=`` and default to the card: with no card
 they raise, and the CPU is used only when the caller asks for it.
@@ -16,8 +16,8 @@ from __future__ import annotations
 import torch
 
 from ecsimd_tpu_torch import convert
-from ecsimd_tpu_torch.curves.point import AffinePoint
-from ecsimd_tpu_torch.kernels import affine, comb, glv, ladder, window
+from ecsimd_tpu_torch.curves.point import AffinePoint, JacobianPoint
+from ecsimd_tpu_torch.kernels import affine, batch_sum, comb, glv, ladder, window
 from ecsimd_tpu_torch.specs import P256, CurveSpec
 
 
@@ -51,6 +51,23 @@ def scalar_mult_glv(scalars, points: AffinePoint, strict: bool = True) -> Affine
     return affine.to_affine(glv.scalar_mult(scalars, points, strict=strict))
 
 
+def shared_scalar_planes(k: int, curve: CurveSpec, batch: int, device) -> torch.Tensor:
+    """The (D, batch) int32 planes of k mod 2^nbits in every lane: the bits
+    the JAX package's shared-scalar ladder reads from k."""
+    d = curve.field.ndigits
+    kk = int(k) % (1 << curve.field.nbits)
+    return _to(convert.broadcast_int(kk, d, 1), device).expand(d, batch).contiguous()
+
+
+def scalar_mult_shared(k: int, points: AffinePoint) -> AffinePoint:
+    """One host scalar k times every point of the batch through the co-Z
+    ladder (kernel A on the card): bits 0 .. nbits - 1 of k, broadcast into
+    the planes ``scalar_mult`` takes, so any int k is accepted. Scalar
+    domain as ``scalar_mult``'s: k mod n in [1, order-1)."""
+    scalars = shared_scalar_planes(k, points.curve, points.x.shape[-1], points.x.device)
+    return scalar_mult(scalars, points)
+
+
 def scalar_mult_shared_fast(k: int, points: AffinePoint) -> AffinePoint:
     """One host scalar k times every point of the batch: k broadcast into
     the planes that ``scalar_mult_fast`` takes."""
@@ -69,6 +86,24 @@ def scalar_mult_base(
     (curve, base, device). ``strict`` uses complete additions: scalar
     domain [1, order)."""
     return affine.to_affine(comb.scalar_mult_base(scalars, curve, base=base, strict=strict))
+
+
+def multi_scalar_mult(scalars, points: AffinePoint, use_kernel: bool = True) -> JacobianPoint:
+    """Multi-scalar multiplication: sum_i k_i * P_i over the whole flat batch,
+    as a 1-lane Jacobian point in the field's internal form (it may be the
+    point at infinity, z = 0: check before the affine conversion). Per-lane
+    strict multiplications (``kernels/glv.strict_varbase``: the strict GLV
+    chain on GLV-capable curves, the strict window otherwise; or, with
+    ``use_kernel=False``, the co-Z ladder), then the pairwise tree of
+    complete adds (``kernels/batch_sum.py``: kernel M on the card). Scalar
+    domain per lane: [1, order) (the ladder's: [1, order-1))."""
+    if not points.curve.order_exact:
+        raise AssertionError(f"{points.curve.name}: order is a placeholder (order_exact=False)")
+    if use_kernel:
+        res = glv.strict_varbase(scalars, points)
+    else:
+        res = ladder.scalar_mult(scalars, points)
+    return batch_sum.batch_sum(res)
 
 
 # --- host-friendly integer interfaces ----------------------------------------
@@ -97,6 +132,18 @@ def points_from_ints(xs, ys, curve: CurveSpec, device="cuda") -> AffinePoint:
 
 def scalars_from_ints(ks, curve: CurveSpec, device="cuda"):
     return _to(convert.ints_to_planes(ks, curve.field.ndigits), device)
+
+
+def multi_scalar_mult_ints(ks, xs, ys, curve: CurveSpec = P256, device="cuda", **kw):
+    """Int-list MSM: the (x, y) ints of sum_i k_i * (x_i, y_i), or None for
+    the point at infinity."""
+    res = multi_scalar_mult(scalars_from_ints(ks, curve, device),
+                            points_from_ints(xs, ys, curve, device), **kw)
+    if bool(res.z.is_zero()[0]):
+        return None
+    out = affine.to_affine(res)
+    return (convert.planes_to_ints(out.x.cpu().numpy())[0],
+            convert.planes_to_ints(out.y.cpu().numpy())[0])
 
 
 def scalar_mult_ints(ks, xs, ys, curve: CurveSpec = P256, device="cuda"):

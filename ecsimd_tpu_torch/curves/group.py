@@ -10,10 +10,14 @@ PyTorch version of the ladder kernel (``kernels/ladder.py``): the same
 formula sequence on GFp planes, one Python loop over the scalar bits, every
 step branch-free with per-lane swap masks. Since every field result is
 canonical in [0, p), the kernel and this version give the same Jacobian
-planes bit for bit.
+planes bit for bit. ``batch_sum``, the sum of a batch by the JAX package's
+tree of ``jac_add_complete``, is the plain version of kernel M
+(``kernels/batch_sum.py``).
 """
 
 from __future__ import annotations
+
+import torch
 
 from ecsimd_tpu_torch.specs import DIGIT_BITS, CurveSpec
 from ecsimd_tpu_torch.curves.point import AffinePoint, JacobianPoint
@@ -289,18 +293,35 @@ def scalar_mult(scalars, pt: JacobianPoint) -> JacobianPoint:
 
     Domain: k in [1, order-1). k = order-1 is even, so the parity fixup
     computes order*P = infinity and the lane degenerates (z = 0)."""
+    return _ladder(lambda i: _bit_at(scalars, i), pt)
+
+
+def scalar_mult_shared(kbits, pt: JacobianPoint) -> JacobianPoint:
+    """One shared scalar times a batch of points (the port of
+    ``ecsimd_tpu/curves/group.py:scalar_mult_shared``): the ladder of
+    ``scalar_mult`` with bit i of every lane's scalar taken from ``kbits``,
+    an (nbits,) LSB-first 0/1 int tensor on the points' device, broadcast
+    across the batch. Equal to ``scalar_mult`` on the planes of k mod
+    2^nbits in every lane."""
+    batch = pt.x.planes.shape[1:]
+    return _ladder(lambda i: kbits[i].expand(batch), pt)
+
+
+def _ladder(bit, pt: JacobianPoint) -> JacobianPoint:
+    """The force-odd co-Z ladder of ``scalar_mult``, bit i of the lanes'
+    scalars given by ``bit(i)`` (a per-lane 0/1 mask)."""
     curve = pt.curve
     nbits = curve.field.nbits
 
     opp_y = pt.y.opposite()
     bx, by, ax, ay, z = tplu(pt.x, pt.y, curve)  # base = 3P, acc = P
 
-    m1 = _bit_at(scalars, 1)
+    m1 = bit(1)
     ax, bx = gfp_swap_if(m1, ax, bx)
     ay, by = gfp_swap_if(m1, ay, by)
 
     for i in range(2, nbits):
-        m = _bit_at(scalars, i)
+        m = bit(i)
         ax, bx = gfp_swap_if(m, ax, bx)
         ay, by = gfp_swap_if(m, ay, by)
         bx, by, ax, ay, z = zdau(bx, by, ax, ay, z)
@@ -309,7 +330,43 @@ def scalar_mult(scalars, pt: JacobianPoint) -> JacobianPoint:
 
     # parity fixup: even scalars got (k+1)P in acc; subtract P
     sx, sy, sz = add_z2_1(ax, ay, z, pt.x, opp_y)
-    meven = 1 - _bit_at(scalars, 0)
+    meven = 1 - bit(0)
     acc = JacobianPoint(ax, ay, z, curve)
     sub = JacobianPoint(sx, sy, sz, curve)
     return sub.select(meven, acc)
+
+
+# --- batch reduction (multi-scalar multiplication epilogue) -----------------------
+
+
+def batch_sum(pt: JacobianPoint) -> JacobianPoint:
+    """Sum a flat (D, B) point batch into one point, returned as a 1-lane
+    batch (the port of ``ecsimd_tpu/curves/group.py:batch_sum``): each
+    level adds lane i to lane i + n // 2 with ``jac_add_complete`` and
+    carries an odd last lane, ceil(log2 B) levels. Any lane, and the result,
+    may be the point at infinity (z = 0). The tree fixes the output's
+    Jacobian representative, so kernel M (``kernels/batch_sum.py``) keeps
+    it. The plain version of kernel M."""
+    curve = pt.curve
+    fs = curve.field
+    x, y, z = pt.x.planes, pt.y.planes, pt.z.planes
+    assert x.ndim == 2, "batch_sum expects flat (D, B) planes"
+
+    def jac(xp, yp, zp):
+        return JacobianPoint(GFp.from_mont(xp, fs), GFp.from_mont(yp, fs),
+                             GFp.from_mont(zp, fs), curve)
+
+    while x.shape[1] > 1:
+        n = x.shape[1]
+        h = n // 2
+        res = jac_add_complete(
+            jac(x[:, :h], y[:, :h], z[:, :h]),
+            jac(x[:, h:2 * h], y[:, h:2 * h], z[:, h:2 * h]),
+        )
+        x, y, z = res.x.planes, res.y.planes, res.z.planes
+        if n % 2:
+            x = torch.cat([x, pt.x.planes[:, n - 1:n]], dim=1)
+            y = torch.cat([y, pt.y.planes[:, n - 1:n]], dim=1)
+            z = torch.cat([z, pt.z.planes[:, n - 1:n]], dim=1)
+        pt = jac(x, y, z)
+    return jac(x, y, z)

@@ -17,7 +17,7 @@ import dataclasses
 
 import torch
 
-from ecsimd_tpu_torch.specs import FieldSpec, int_to_digits
+from ecsimd_tpu_torch.specs import DIGIT_BITS, FieldSpec, int_to_digits
 from ecsimd_tpu_torch.ops import bignum as bn
 from ecsimd_tpu_torch.ops import crandall, mont, solinas
 
@@ -80,6 +80,12 @@ class GFp:
         return cls._of(mont.mont_from_classical(_wide(planes), fs), fs)
 
     @classmethod
+    def from_mont(cls, planes, fs: FieldSpec) -> "GFp":
+        """Planes already in the field's internal form (x R mod p on the
+        Montgomery fields, the residue itself on the plain ones)."""
+        return cls(planes, fs)
+
+    @classmethod
     def constant(cls, value: int, fs: FieldSpec, like) -> "GFp":
         """A host constant, converted to the internal domain on the host."""
         m = value % fs.p if fs.plain else (value << fs.nbits) % fs.p
@@ -89,6 +95,10 @@ class GFp:
     @classmethod
     def one(cls, fs: FieldSpec, like) -> "GFp":
         return cls.constant(1, fs, like)
+
+    @classmethod
+    def zero(cls, fs: FieldSpec, like) -> "GFp":
+        return cls(torch.zeros_like(like), fs)
 
     # -- accessors -----------------------------------------------------------
 
@@ -148,6 +158,23 @@ class GFp:
             if bit == "1":
                 acc = acc * self
         return acc
+
+    def pow_planes(self, e_planes) -> "GFp":
+        """x^e_i for a per-lane exponent (classical (D, *batch) digit
+        planes), over every D 16 bits MSB first: a squaring and a multiply a
+        bit, the product kept by the bit's mask: ``ops/mont.py``'s
+        ``mont_pow_planes`` over the field's own multiply, as the JAX
+        package's."""
+        fs = self.fs
+        am = _wide(self.planes)
+        e = _wide(e_planes)
+        acc = _one_planes(fs, am)
+        for i in range(fs.ndigits * DIGIT_BITS):
+            digit, off = divmod(fs.ndigits * DIGIT_BITS - 1 - i, DIGIT_BITS)
+            ebit = (e[digit] >> off) & 1
+            acc = _mul_planes(acc, acc, fs)
+            acc = bn.select(ebit, _mul_planes(acc, am, fs), acc)
+        return GFp._of(acc, fs)
 
     def inverse(self) -> "GFp":
         """Fermat inversion x^(p-2). inverse(0) = 0."""

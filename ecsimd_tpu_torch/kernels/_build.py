@@ -38,7 +38,8 @@ SOURCES = ("field_ops.cu", "ladder.cu", "comb.cu", "affine.cu", "window.cu",
            "window_p521.cu", "comb_p384.cu", "comb_p521.cu", "comb_general.cu",
            "comb_general_secp256k1.cu", "comb_general_w25519.cu", "comb_general_p384.cu",
            "comb_general_p521.cu", "comb_pipe_p384.cu", "comb_pipe_p521.cu",
-           "comb_tree_p384.cu", "comb_tree_p521.cu")
+           "comb_tree_p384.cu", "comb_tree_p521.cu", "batch_sum.cu", "batch_sum_p384.cu",
+           "batch_sum_p521.cu")
 HEADERS = ("limbs.cuh", "limbs_ns.cuh", "mul256.cuh", "mul_wide.cuh", "field_p256.cuh",
            "field_secp256k1.cuh", "field_w25519.cuh", "field_p384.cuh", "field_p521.cuh",
            "jacobian.cuh", "coz.cuh", "dbl_am3.cuh", "coz_p256.cuh", "coz_secp256k1.cuh",
@@ -46,14 +47,15 @@ HEADERS = ("limbs.cuh", "limbs_ns.cuh", "mul256.cuh", "mul_wide.cuh", "field_p25
            "window_lane.cuh", "window_table.cuh", "comb_stage.cuh", "comb_lane.cuh",
            "comb_tree_lane.cuh", "comb_pipe_lane.cuh", "smem.cuh", "comb_general.cuh",
            "comb_general_lane.cuh", "comb_tree_wide.cuh", "comb_tree_wide_lane.cuh",
-           "comb_tree_schedule.cuh", "comb_mma.cuh", "comb_mma_lane.cuh", "affine_lane.cuh")
+           "comb_tree_schedule.cuh", "comb_mma.cuh", "comb_mma_lane.cuh", "affine_lane.cuh",
+           "batch_sum_lane.cuh", "batch_sum_kernel.cuh")
 # curve -> (the tag of its kernels' C names, the curve as a kernel's
 # ``replaces`` names it; none for P-256, the first curve ported)
 CURVE_TAGS = {P256: ("p256", None), SECP256K1: ("secp256k1", "secp256k1"),
               WEI25519: ("w25519", "Wei25519"), P384: ("p384", "P-384"), P521: ("p521", "P-521")}
-# the 256-bit curves: their kernel J and K instantiations in one source each
+# the 256-bit curves: their kernel J, K and M instantiations in one source each
 CURVES_256 = (P256, SECP256K1, WEI25519)
-# the curves whose kernel A, B, D, E, J and K instantiations each have a
+# the curves whose kernel A, B, E, J, K and M instantiations each have a
 # source of their own (``<kernel>_<tag>.cu``), so that their builds run side
 # by side
 WIDE_CURVES = (P384, P521)

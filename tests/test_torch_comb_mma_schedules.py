@@ -268,12 +268,13 @@ def test_nothing_builds_a_limb_table_for_a_kernel():
     """No comb kernel takes a table of 32-bit limbs any more: comb has no
     kernel_tables, KERNELS_CHAINS or uses_kernel_tables, no source scans a
     staged position with masks (comb_stage.cuh holds the constants, the
-    entry index and the cp.async groups), and the build has 27 sources."""
+    entry index and the cp.async groups), and the build has 30 sources (27
+    after the templated L went, then kernel M's three)."""
     for gone in ("kernel_tables", "KERNELS_CHAINS", "uses_kernel_tables", "comb_chains_planes"):
         assert not hasattr(comb, gone), gone
     names = {p.name for p in _build.CSRC.iterdir()}
     assert not {n for n in names if n.startswith(("comb_chains", "comb_unroll", "comb_scan"))}
     stage = (_build.CSRC / "comb_stage.cuh").read_text()
     assert "scan(" not in stage and "uint4" not in stage
-    assert len(_build.SOURCES) == 27
+    assert len(_build.SOURCES) == 30
     assert not any("comb_chains" in n or "comb_unroll" in n for n in _build.SOURCES)

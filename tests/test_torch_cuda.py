@@ -14,12 +14,12 @@ import numpy as np
 import pytest
 import torch
 
-from ecsimd_tpu_torch import api, convert, ecdh, ecdsa, glv, x25519
+from ecsimd_tpu_torch import api, convert, ecdh, ecdsa, encoding, glv, x25519
 from ecsimd_tpu_torch.bench import roofline
 from ecsimd_tpu_torch.curves import group
 from ecsimd_tpu_torch.curves.point import AffinePoint, JacobianPoint
 from ecsimd_tpu_torch.field import GFp
-from ecsimd_tpu_torch.kernels import _build, affine, comb, field_ops, ladder, mladder, window
+from ecsimd_tpu_torch.kernels import _build, affine, batch_sum, comb, field_ops, ladder, mladder, window
 from ecsimd_tpu_torch.kernels import glv as kglv
 from ecsimd_tpu_torch.oracle import comb as ocomb
 from ecsimd_tpu_torch.oracle import coz
@@ -1111,3 +1111,107 @@ def test_ladder_kernel_edge_scalars_all_curves(cuda, curve):
     got16 = list(zip(ints(out.x[:, :16]), ints(out.y[:, :16])))
     want16 = _curve_oracle(ks[:16], pts[:16], curve)
     assert [got16[i] for i in lanes] == [want16[i] for i in lanes]
+
+
+# --- kernel M, the batch sum; multi-scalar multiplication, the shared-scalar
+# ladder and SEC1 on the card ------------------------------------------------
+
+ALL_CURVES = [P256, SECP256K1, WEI25519, P384, P521]
+MONTGOMERY_A = 486662  # Curve25519's A: Wei25519's x = u + A / 3
+
+
+def _jacobian_batch(curve, n, seed, dev):
+    """n Jacobian lanes (internal form, on ``dev``) of the multiples (i+1) G
+    with random z: lanes i and i + n // 2 equal (another z) for i < 8,
+    opposite for 8 <= i < 16, lanes 16 .. 23 and 40 at z = 0 with arbitrary
+    x and y; on Wei25519 the point of order 2 at lanes 24 and 24 + n // 2
+    (their sum, at z = 0, is the general-a doubling's) and at lane 30."""
+    rng = np.random.default_rng(seed)
+    p, h = curve.p, n // 2
+    pts = multiples(curve, 64)
+    pts = [pts[i % 64] for i in range(n)]
+    for i in range(8):
+        pts[h + i] = pts[i]
+        pts[h + 8 + i] = (pts[8 + i][0], (p - pts[8 + i][1]) % p)
+    if curve == WEI25519:
+        t = (MONTGOMERY_A * pow(3, -1, p) % p, 0)
+        pts[24] = pts[h + 24] = pts[30] = t
+    zs = [int.from_bytes(rng.bytes(80), "little") % (p - 1) + 1 for _ in range(n)]
+    lanes = [(x * z * z % p, y * z ** 3 % p, z) for (x, y), z in zip(pts, zs)]
+    for i in list(range(16, 24)) + [40]:
+        lanes[i] = (int.from_bytes(rng.bytes(80), "little") % p,
+                    int.from_bytes(rng.bytes(80), "little") % p, 0)
+    d = curve.field.ndigits
+    coords = [GFp.from_classical(torch.from_numpy(convert.ints_to_planes(
+        [t[j] for t in lanes], d)).to(dev), curve.field) for j in range(3)]
+    return JacobianPoint(*coords, curve)
+
+
+@pytest.mark.parametrize("curve", ALL_CURVES, ids=lambda c: c.name)
+def test_batch_sum_kernel_matches_plain(cuda, curve):
+    """Kernel M: one level of 1,001 lanes against the plain complete add of
+    the halves, word for word (the odd tail carried), and the whole tree
+    (10 launches) against the plain group.batch_sum."""
+    pt = _jacobian_batch(curve, 1001, 150, cuda)
+    kernel = batch_sum.KERNELS[curve]
+    before = kernel.launches
+    x, y, z = (c.planes for c in (pt.x, pt.y, pt.z))
+    got = batch_sum.level_planes(x, y, z, curve)
+    assert kernel.launches == before + 1
+    h = 500
+    half = lambda lo, hi: JacobianPoint(*(GFp(c.planes[:, lo:hi].contiguous(), curve.field)  # noqa: E731
+                                          for c in (pt.x, pt.y, pt.z)), curve)
+    want = group.jac_add_complete(half(0, h), half(h, 2 * h))
+    for g, w, c in zip(got, (want.x, want.y, want.z), (x, y, z)):
+        assert g.shape == (curve.field.ndigits, h + 1)
+        assert torch.equal(g[:, :h], w.planes) and torch.equal(g[:, h], c[:, 1000])
+    assert not bool(got[2][:, 8:16].any())  # opposite pairs: infinity
+    tree = batch_sum.batch_sum(pt)
+    assert kernel.launches == before + 11
+    plain = group.batch_sum(pt)
+    for g, w in ((tree.x, plain.x), (tree.y, plain.y), (tree.z, plain.z)):
+        assert torch.equal(g.planes, w.planes)
+
+
+@pytest.mark.parametrize("curve", ALL_CURVES, ids=lambda c: c.name)
+def test_msm_shared_ladder_and_sec1_on_the_card(cuda, curve):
+    """api.multi_scalar_mult (E strict or F strict, then M) on 64 lanes
+    against the oracle's sum, and a batch whose total is infinity;
+    api.scalar_mult_shared on 16 lanes against the oracle; SEC1 round trip
+    with invalid lanes on the card."""
+    n, p = curve.order, curve.p
+    rng = np.random.default_rng(151)
+    cs = rand_ints(rng, n - 1, 64)
+    cs = [c + 1 for c in cs]
+    ks = [k + 1 for k in rand_ints(rng, n - 1, 64)]
+    aff = [coz.scalar_mult_affine(c, curve.gx, curve.gy, curve) for c in cs]
+    d = curve.field.ndigits
+    pl = lambda v: torch.from_numpy(convert.ints_to_planes(v, d)).to(cuda)  # noqa: E731
+    pts = AffinePoint(pl([x for x, _ in aff]), pl([y for _, y in aff]), curve)
+    m = batch_sum.KERNELS[curve]
+    before = m.launches
+    res = api.multi_scalar_mult(pl(ks), pts)
+    assert m.launches == before + 6
+    total = sum(k * c for k, c in zip(ks, cs)) % n
+    out = affine.to_affine(res)
+    assert (ints(out.x)[0], ints(out.y)[0]) == coz.scalar_mult_affine(total, curve.gx, curve.gy,
+                                                                      curve)
+    ks0 = ks[:63] + [(-sum(k * c for k, c in zip(ks[:63], cs[:63])) * pow(cs[63], -1, n)) % n]
+    if ks0[63]:
+        assert api.multi_scalar_mult_ints(ks0, [x for x, _ in aff], [y for _, y in aff],
+                                          curve, device="cuda") is None
+    k = ks[0]
+    shared = api.scalar_mult_shared(k + (1 << curve.field.nbits), pts)
+    assert list(zip(ints(shared.x[:, :16]), ints(shared.y[:, :16]))) == [
+        coz.scalar_mult_affine(k * c % n, curve.gx, curve.gy, curve) for c in cs[:16]]
+    blobs = encoding.points_to_bytes(pts) + encoding.points_to_bytes(pts, compressed=False)
+    blobs[3] = b"\x05" + blobs[3][1:]
+    blobs[70] = blobs[70][:-1] + bytes([blobs[70][-1] ^ 1])  # y + 1 or y - 1: off the curve
+    blobs[5] = b"\x00"
+    dec, ok = encoding.points_from_bytes(blobs, curve, device="cuda")
+    want_ok = [i not in (3, 5, 70) for i in range(128)]
+    assert list(ok) == want_ok
+    assert dec.x.device.type == "cuda"
+    good = [i for i in range(64) if want_ok[i]]
+    assert [(ints(dec.x)[i], ints(dec.y)[i]) for i in good] == [aff[i] for i in good]
+    assert ints(dec.x)[3] == ints(dec.y)[70] == 0

@@ -32,7 +32,7 @@ from ecsimd_tpu_torch import api
 from ecsimd_tpu_torch.curves import group
 from ecsimd_tpu_torch.curves.point import AffinePoint, JacobianPoint
 from ecsimd_tpu_torch.field import GFp
-from ecsimd_tpu_torch.kernels import _build, affine, comb, ladder, window
+from ecsimd_tpu_torch.kernels import _build, affine, batch_sum, comb, ladder, window
 from ecsimd_tpu_torch.specs import P256, P384, P521, SECP256K1, WEI25519
 from tests.toy import TOYA5
 from tests.torch_helpers import ints, multiples, planes, port_spec, rand_ints, tplanes
@@ -137,12 +137,13 @@ TABLES = {
     "ladder": ladder.KERNELS, "window": window.KERNELS, "comb": comb.KERNELS,
     "comb_tree": comb.KERNELS_TREE, "comb_pipe": comb.KERNELS_PIPE,
     "comb_general": comb.KERNELS_GENERAL,
-    "affine": affine.KERNELS,
+    "affine": affine.KERNELS, "batch_sum": batch_sum.KERNELS,
 }
 # the modes the JAX package runs each kernel in, on every curve
 MODES = {
     "ladder": {()}, "window": {(False,), (True,)}, "comb": {(False,), (True,)},
     "comb_tree": {()}, "comb_pipe": {()}, "comb_general": {(False,), (True,)}, "affine": {()},
+    "batch_sum": {()},
 }
 
 
@@ -153,7 +154,7 @@ def _curve_and_mode(key):
 @pytest.mark.parametrize("table", sorted(TABLES))
 def test_kernel_table_covers_the_256_bit_curves(table):
     """Each table holds one kernel for every (curve, mode) it covers and
-    nothing else — A, B, D, E, J, K and L the three 256-bit curves, P-384
+    nothing else — A, B, D, E, J, K, L and M the three 256-bit curves, P-384
     and P-521 — each an extern "C" entry of its named source (J's, K's and
     L's, and the wide B's and E's, with their _smem query; B's, J's, K's and
     L's also with their _blocks query), with distinct symbols."""
@@ -189,6 +190,7 @@ def _wrapper_calls(curve):
         "comb_pipe": lambda: comb.comb_pipe_planes(z, mma, nb, curve),
         "comb_chains": lambda: comb.comb_general_planes(z, mma, nb, curve, 2, 1),
         "affine": lambda: affine.affine_planes(z, z, z, curve),
+        "batch_sum": lambda: batch_sum.level_planes(z, z, z, curve),
     }
 
 
@@ -199,7 +201,8 @@ WIDE_ROUTES = {"ladder": ("ladder", ()), "window": ("window", (SLOTS,)),
                "window_strict": ("window", (SLOTS,)), "comb": ("comb", ()),
                "comb_strict": ("comb", ()),
                "comb_tree": ("comb_tree", ()), "comb_pipe": ("comb_pipe", ()),
-               "comb_chains": ("comb_general", (2, 1)), "affine": ("affine", ())}
+               "comb_chains": ("comb_general", (2, 1)), "affine": ("affine", ()),
+               "batch_sum": ("batch_sum", ())}
 
 
 @pytest.mark.parametrize("curve", [P384, P521], ids=lambda c: c.name)
@@ -207,8 +210,8 @@ WIDE_ROUTES = {"ladder": ("ladder", ()), "window": ("window", (SLOTS,)),
 def test_wrappers_raise_on_the_wider_curves(monkeypatch, wrapper, curve):
     """On P-384 and P-521 (the tensors' device check passed by stubbing)
     every wrapper takes the card route — kernels A, B (both modes), D, E
-    (both modes), J (tree), K (pipe) and L (chains 2: the generic kernel,
-    handed chains and unroll as ints): one launch of the curve's own kernel,
+    (both modes), J (tree), K (pipe), L (chains 2: the generic kernel,
+    handed chains and unroll as ints) and M (one level): one launch of the curve's own kernel,
     ``ec_<kind>_<tag>[_strict]``, handed (24, B) / (33, B) planes (the
     comb's tables: B's, J's, K's and the generic L's in the u8 layout; E
     also its scratch, one column a resident thread, and the slot count as
@@ -234,5 +237,7 @@ def test_wrappers_raise_on_the_wider_curves(monkeypatch, wrapper, curve):
         assert shapes == [(d, 4), table, (2 * d,)] + [(d, 4)] * 3
     elif wrapper.startswith("window"):
         assert shapes == [(d, 4)] * 6 + [(window.table_split(curve).scratch_vecs, SLOTS, 4)]
+    elif wrapper == "batch_sum":  # one level of kernel M: 4 lanes in, 2 out
+        assert shapes == [(d, 4)] * 3 + [(d, 2)] * 3
     else:
         assert shapes == [(d, 4)] * kernel.n_pointers

@@ -16,7 +16,7 @@ from ecsimd_tpu.specs import P256_FIELD, P384_FIELD, P521_FIELD, SECP256K1_FIELD
 from ecsimd_tpu_torch import field as tfield
 from ecsimd_tpu_torch.ops import bignum as tbn
 from ecsimd_tpu_torch.ops import solinas as tsolinas
-from tests.toy import GOLDILOCKS
+from tests.toy import CRAN64, GOLDILOCKS, MONT64
 from tests.torch_helpers import ints, planes, port_spec, rand_ints, tplanes
 
 FIELDS = [P256_FIELD, GOLDILOCKS]
@@ -153,3 +153,24 @@ def test_unported_reductions_raise(fs):
     x = tfield.GFp.from_classical(tplanes([1, 2], fs.ndigits), port_spec(fs))
     assert ints(x.to_classical()) == [1, 2]
     assert ints((x * x).to_classical()) == [1, 4]
+
+
+@pytest.mark.parametrize("fs", [GOLDILOCKS, MONT64, CRAN64], ids=lambda f: f.name)
+def test_from_mont_zero_and_pow_planes_match_jax(fs):
+    """GFp.from_mont (internal-form planes kept as they are), GFp.zero and
+    pow_planes (a per-lane exponent over every D 16 bits) against the JAX
+    package's methods on a Solinas, a Montgomery and a Crandall field."""
+    rng = np.random.default_rng(170)
+    d, tfs = fs.ndigits, port_spec(fs)
+    a = rand_ints(rng, fs.p, 6, edges=[0, 1, fs.p - 1])
+    e = rand_ints(rng, 1 << (16 * d), 6, edges=[0, (1 << (16 * d)) - 1, fs.p - 2])
+    ja = jfield.GFp.from_classical(jnp.asarray(planes(a, d)), fs)
+    ta = tfield.GFp.from_classical(tplanes(a, d), tfs)
+    np.testing.assert_array_equal(tfield.GFp.from_mont(ta.planes, tfs).planes.numpy(),
+                                  np.asarray(jfield.GFp.from_mont(ja.planes, fs).planes))
+    np.testing.assert_array_equal(tfield.GFp.zero(tfs, ta.planes).planes.numpy(),
+                                  np.asarray(jfield.GFp.zero(fs, ja.planes).planes))
+    got = ta.pow_planes(tplanes(e, d))
+    np.testing.assert_array_equal(got.planes.numpy(),
+                                  np.asarray(ja.pow_planes(jnp.asarray(planes(e, d))).planes))
+    assert ints(got.to_classical()) == [pow(x, k, fs.p) for x, k in zip(a, e)]

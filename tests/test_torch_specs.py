@@ -79,6 +79,28 @@ def test_convert_equals_the_reference():
                                       jconvert.broadcast_int(vals[3], d, 5))
 
 
+@pytest.mark.parametrize("d", [4, 16, 33])
+def test_byte_packers_equal_the_reference(d):
+    """bytes <-> planes and 64-bit limbs -> planes: the port's numpy paths
+    against the JAX package's (its native packer where it is built)."""
+    rng = np.random.default_rng(81 + d)
+    vals = rand_ints(rng, 1 << (16 * d), 7, edges=[0, 1, (1 << (16 * d)) - 1, 0xFF00FF])
+    pl = tconvert.ints_to_planes(vals, d)
+    raw = tconvert.planes_to_bytes_be(pl)
+    assert raw == jconvert.planes_to_bytes_be(pl)
+    assert raw == b"".join(v.to_bytes(2 * d, "big") for v in vals)
+    np.testing.assert_array_equal(tconvert.bytes_be_to_planes(raw, d), pl)
+    np.testing.assert_array_equal(jconvert.bytes_be_to_planes(raw, d), pl)
+    # a (D, 2, B) batch of planes is read lane by lane, flattened
+    pl3 = np.stack([pl, pl[:, ::-1]], axis=1)
+    assert tconvert.planes_to_bytes_be(pl3) == jconvert.planes_to_bytes_be(pl3)
+    if d % 4 == 0:
+        limbs = np.array([[(v >> (64 * j)) & ((1 << 64) - 1) for j in range(d // 4)]
+                          for v in vals], dtype=np.uint64)
+        np.testing.assert_array_equal(tconvert.u64le_to_planes(limbs), pl)
+        np.testing.assert_array_equal(jconvert.u64le_to_planes(limbs), pl)
+
+
 def test_oracle_equals_the_reference():
     tc, jc = tspecs.P256, jspecs.P256
     n = jc.order
