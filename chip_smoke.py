@@ -182,18 +182,24 @@ any failed check raises and the script exits non-zero:
  21. multi-scalar multiplication, the shared-scalar ladder and SEC1 on all
      five curves (msm_phase), each a path of its own at B = 524,288 on
      points c_i G from the strict comb: api.multi_scalar_mult (E strict, or
-     F strict on secp256k1, then kernel M's ceil(log2 B) = 19 launches), with
-     lanes i and i + B/2 equal pairs (4,096) and opposite pairs (4,096), its
-     sum against the oracle's (sum k_i c_i mod n) G, and a second batch whose
-     sum is infinity; api.scalar_mult_shared (k + 2^nbits: kernel A on the
-     broadcast planes of k, then D), 512 lanes against the oracle;
-     encoding.points_to_bytes / points_from_bytes on 65,536 mixed SEC1
-     encodings, 128 of them invalid (8 forms), masks and points exact.
-     Launch counts; kernel M word for word against the plain complete add on
-     the first level's 262,144 lanes and against the plain batch_sum's final
-     lane, on the path's own per-lane products (on Wei25519 also with its
-     point of order 2); CUDA-event times of M's tree and first level, of the
-     plain versions and of the entry points.
+     F strict on secp256k1, then kernel M, the whole tree in one cooperative
+     launch: 2 launches a path), with lanes i and i + B/2 equal pairs (4,096)
+     and opposite pairs (4,096), its sum against the oracle's (sum k_i c_i
+     mod n) G, and a second batch whose sum is infinity;
+     api.scalar_mult_shared (k + 2^nbits: kernel A on the broadcast planes of
+     k, then D), 512 lanes against the oracle; encoding.points_to_bytes /
+     points_from_bytes on 65,536 mixed SEC1 encodings, 128 of them invalid (8
+     forms), masks and points exact. Launch counts; kernel M word for word
+     against the plain complete add on the first level's 262,144 lanes
+     (levels = 1), against the plain batch_sum's final lane and the path's
+     sum, and against the plain batch_sum at the sizes where its grid hands
+     off to one block (2, 3, the block's threads +- 1, twice them +- 1), 1,001
+     and 524,287 lanes, on the path's own per-lane products (on Wei25519
+     also with its point of order 2); CUDA-event times of M's tree (five
+     runs of 20), its first level and its depth floor (trees of 2^k lanes,
+     each call alone: bench/tree.py's depth_floor from lone one-launch
+     calls, the profiler off), of the plain versions and of the entry
+     points.
 
 Inputs come from numpy.random.default_rng(SEED). The line before the last
 is a JSON object with one entry per kernel; the last line is the device
@@ -216,6 +222,7 @@ import torch
 
 from ecsimd_tpu_torch import api, convert, ecdh, ecdsa, encoding, glv, x25519
 from ecsimd_tpu_torch.bench import roofline, sass
+from ecsimd_tpu_torch.bench import tree as btree
 from ecsimd_tpu_torch.curves import group
 from ecsimd_tpu_torch.curves.point import AffinePoint, JacobianPoint
 from ecsimd_tpu_torch.field import GFp
@@ -2236,8 +2243,9 @@ def msm_phase(rng, dev, card, counted, curve):
     strict = kglv.KERNEL_STRICT if curve == SECP256K1 else window.KERNELS[(curve, True)]
     for k in (kernel, strict, ladder.KERNELS[curve], affine.KERNELS[curve]):
         check(launches[k.symbol] >= 1, f"phase 21 path on {curve.name} launched {k.symbol}")
-    check(launches[kernel.symbol] == 2 * (BATCH - 1).bit_length(),
-          f"phase 21 {curve.name}: kernel M launched ceil(log2 B) times a sum")
+    check(launches[kernel.symbol] == 2 and launches.shapes[kernel.symbol] == {
+        (BATCH, (BATCH - 1).bit_length()): 2},
+          f"phase 21 {curve.name}: kernel M launched once a sum, the whole tree")
 
     # -- the checks: the sums by linearity, the ladder and SEC1 exactly
     check(msm.x.planes.shape == (d, 1) and bool(msm0.z.is_zero()[0]),
@@ -2288,8 +2296,18 @@ def msm_phase(rng, dev, card, counted, curve):
     check(err == 0, f"{kname} tree == plain batch_sum's final lane == the path's sum")
     if curve == WEI25519:
         err = max(err, batch_sum_order2_check(dev))
-    ms = time_ms(lambda: batch_sum.batch_sum_planes(*r, curve), 20)
+    threads, blocks = batch_sum.THREADS, batch_sum.blocks_per_sm(curve)
+    sizes = (2, 3, threads - 1, threads + 1, 2 * threads - 1, 2 * threads + 1, 1001, BATCH - 1)
+    for m in sizes:  # the grid's hand-off to one block, and odd tails
+        sub = tuple(c[:, :m].contiguous() for c in r)
+        got = batch_sum.batch_sum_planes(*sub, curve)
+        want = group.batch_sum(JacobianPoint(*(GFp(c, curve.field) for c in sub), curve))
+        err = max(err, max_abs_diff(got, (want.x.planes, want.y.planes, want.z.planes)))
+        check(err == 0, f"{kname} tree == plain batch_sum on {m} lanes")
+    runs = [time_ms(lambda: batch_sum.batch_sum_planes(*r, curve), 20) for _ in range(5)]
+    ms = sum(runs) / len(runs)
     level_ms = time_ms(lambda: batch_sum.level_planes(*r, curve), 20)
+    floor = btree.depth_floor(r, curve, 10, BATCH, profile=False)
     del prod, r, lvl, plain, tree
     api_ms = {"multi_scalar_mult": time_ms(lambda: api.multi_scalar_mult(s_dev, points), 3),
               "scalar_mult_shared": time_ms(lambda: api.scalar_mult_shared(k_shared, points), 3)}
@@ -2298,13 +2316,18 @@ def msm_phase(rng, dev, card, counted, curve):
                                          curve))
     api_ms["encoding.points_to_bytes"] = (time.perf_counter() - t0) * 1e3
     api_ms["encoding.points_from_bytes"] = decode_ms  # the path's own call
-    say(f"phase 21 {curve.name} {kname} exact vs the plain batch sum (first level, {h} lanes; "
-        f"final lane); kernel M {ms:.3f} ms a tree of {BATCH} lanes "
-        f"({(BATCH - 1).bit_length()} launches), first level {level_ms:.3f} ms; plain "
+    say(f"phase 21 {curve.name} {kname} ({threads} threads a block, {blocks} blocks an SM) "
+        f"exact vs the plain batch sum (first level, {h} lanes; final lane; trees of "
+        f"{', '.join(map(str, sizes))} lanes); kernel M {ms:.3f} ms a tree of {BATCH} lanes "
+        f"(one launch; five runs of 20: {', '.join(f'{v:.3f}' for v in runs)}), first level "
+        f"{level_ms:.3f} ms; depth floor {floor['depth_floor_ms']:.3f} ms (one level "
+        f"{floor['event_slope_ms']:.4f} ms, the slope of {floor['depth_floor_from']} over "
+        f"trees of 2^1 .. 2^10 lanes); plain "
         f"{plain_ms:.1f} ms, its first level {level_plain_ms:.1f} ms; entry points ms "
         f"{json.dumps({k: round(v, 3) for k, v in api_ms.items()})} (SEC1 on {SEC1_LANES} "
         f"lanes, host clock for the encoder) {card}")
     return {"launches": launches, "kernel": kernel, "name": kname, "err": err, "ms": ms,
+            "ms_runs": runs, "threads": threads, "handoff_sizes": sizes, "depth_floor": floor,
             "plain_ms": plain_ms, "level_ms": level_ms, "level_plain_ms": level_plain_ms,
             "api_ms": {f"{curve.name} {k}": v for k, v in api_ms.items()}}
 
@@ -2756,7 +2779,8 @@ def run():
     for kname, mix in sass_mix.items():
         check(mix is not None, f"cuobjdump -sass found {kname}")
     say("phase 1 SASS of kernels E (five curves), F, B and L (five curves, chains 2, "
-        "unroll 1), A, D, J and K (five curves), G and H, instructions a lane issues by class "
+        "unroll 1), A, D, J and K (five curves), G and H, M (five curves: a trip of its lane "
+        "loop, one output lane), instructions a lane issues by class "
         "(cuobjdump -sass, loop bodies times their runs, called functions times their calls): "
         + json.dumps({k: v["per_lane"] for k, v in sass_mix.items()}) + "; the called "
         "functions, once each (multiply, then squaring): " + json.dumps(
@@ -2778,6 +2802,12 @@ def run():
         check(mix["static"].get("imma", 0) > 0 and mix["static"].get("lds128", 0) == 0
               and mix["per_lane"] is not None,
               f"{kname} selects with IMMA and scans no position with 16-byte loads")
+    for kname in sass.BATCH_SUM_KERNELS:
+        # kernel M reads what its earlier levels wrote in the same launch:
+        # never through the read-only path
+        mix = sass_mix[kname]
+        check(mix["static"].get("ldg_nc", 0) == 0 and mix["per_lane"] is not None,
+              f"{kname}: no read-only loads, and its lane loop found")
     launches19 = sum_counts([p["launches"] for p in p19.values()])
     paths = {"phase6": launches6, "phase9": launches9, "phase12": launches12,
              "phase15": xp["launches15"], "phase16": xp["launches16"],
@@ -2883,12 +2913,18 @@ def run():
            **{x: v[x] for x in ("plain_lanes", "schedule", "group", "dynamic_smem_bytes",
                                 "blocks_per_sm") if x in v}}
           for p in (*b9.values(), *p20.values()) for k, v in p["by_kernel"].items()),
-        # phase 21: kernel M, ms and bound over a whole tree of B lanes
-        # (ceil(log2 B) launches), plain_ms the plain batch sum's on the same
-        # lanes; launches counted over both sums of the path
+        # phase 21: kernel M, ms and bound over a whole tree of B lanes (one
+        # launch), plain_ms the plain batch sum's on the same lanes; launches
+        # counted over both sums of the path; the depth floor: ceil(log2 B)
+        # times one level's latency, the slope over trees of 2^k lanes of the
+        # CUDA events of lone calls, each one launch (depth_floor_from)
         *({**entry(p["kernel"], p["name"], p["err"], p["ms"], p["plain_ms"]),
-           "launches_per_sum": (BATCH - 1).bit_length(), "first_level_ms": p["level_ms"],
-           "first_level_plain_ms": p["level_plain_ms"]} for p in p21.values()),
+           "launches_per_sum": 1, "ms_runs": p["ms_runs"], "threads": p["threads"],
+           "handoff_sizes": p["handoff_sizes"], "first_level_ms": p["level_ms"],
+           "first_level_plain_ms": p["level_plain_ms"],
+           "depth_floor_ms": p["depth_floor"]["depth_floor_ms"],
+           "depth_floor_from": p["depth_floor"]["depth_floor_from"],
+           "level_latency_ms": p["depth_floor"]["event_slope_ms"]} for p in p21.values()),
     ]
     api_ms = {"scalar_mult_base": base_api_ms, "scalar_mult": var_api_ms,
               "scalar_mult_fast": fast_ms, "scalar_mult_fast_strict": fast_strict_ms,

@@ -33,7 +33,12 @@ ints, so a kernel whose interface grew by trailing arguments (kernel E on
 P-384 / P-521 gained a scratch and its slot count) is compared with
 its older self.
 Scratch tensors (a ``Kernel``'s last ``n_scratch`` pointers) are not
-compared.
+compared. Kernel M (``batch_sum``, a whole tree of ``--batch`` lanes a
+launch; ``batch_sum_level``, its first level; with ``--only`` naming M's
+alone, only M's inputs are made) is replayed on a checkout whose M ran one
+level a launch (no ints)
+as that checkout's wrapper ran it: one launch a level, each level's output
+in tensors of its own, the last level's in the captured outputs.
 """
 
 from __future__ import annotations
@@ -54,7 +59,8 @@ import torch
 from ecsimd_tpu_torch import api, convert, x25519
 from ecsimd_tpu_torch.bench import occupancy, sass
 from ecsimd_tpu_torch.field import GFp
-from ecsimd_tpu_torch.kernels import _build, affine, comb, field_ops, ladder, mladder, window
+from ecsimd_tpu_torch.kernels import _build, affine, batch_sum, comb, field_ops, ladder, mladder
+from ecsimd_tpu_torch.kernels import window
 from ecsimd_tpu_torch.kernels import glv as kglv
 from ecsimd_tpu_torch.specs import P256, P384, P521, SECP256K1, W25519_FIELD, WEI25519
 
@@ -153,6 +159,24 @@ def _general(tag, curve, s, mma, nb) -> dict:
                 s, mma, nb, curve, 1, 2, True)}
 
 
+def _batch_sum(batch: int, dev) -> dict:
+    """Kernel M alone on every curve: the whole tree (``batch_sum_<tag>``,
+    ``batch_sum`` on P-256) and its first level (``batch_sum_level...``) on
+    ``batch`` lanes of points k_i G from the comb (Jacobian, internal
+    form)."""
+    rng = np.random.default_rng(SEED)
+    out = {}
+    for curve, (tag, _) in _build.CURVE_TAGS.items():
+        d, sfx = curve.field.ndigits, "" if curve == P256 else f"_{tag}"
+        s = _planes(_scalars(rng, batch, curve.order), dev, d)
+        mma = comb.mma_tables(curve, curve.gx, curve.gy, dev)
+        _, _, nb = comb.device_tables(curve, curve.gx, curve.gy, dev)
+        jac = comb.comb_planes(s, mma, nb, curve)
+        out |= {f"batch_sum{sfx}": lambda jac=jac, c=curve: batch_sum.batch_sum_planes(*jac, c),
+                f"batch_sum_level{sfx}": lambda jac=jac, c=curve: batch_sum.level_planes(*jac, c)}
+    return out
+
+
 def workloads(batch: int, dev) -> dict:
     """name -> a function that calls the wrapper(s) of one kernel once, on
     inputs of ``batch`` lanes made from ``SEED``."""
@@ -219,6 +243,7 @@ def workloads(batch: int, dev) -> dict:
         **_schedules("secp256k1", k1, s1, mma1, nb1),
         **_schedules("w25519", WEI25519, kw, mmaw, nbw),
         **_wide(batch, dev, rng),
+        **_batch_sum(batch, dev),
     }
 
 
@@ -272,8 +297,10 @@ def main(argv=None):
     rep_this, rep_other = sass.ptxas(this.log), sass.ptxas(other.log)
     funcs = ({lab: _sass_functions(b.path) for lab, b in (("this", this), ("other", other))}
              if args.sass else None)
-    work = workloads(args.batch, dev)
-    names = [n for n in args.only.split(",") if n] or list(work)
+    names = [n for n in args.only.split(",") if n]
+    work = (_batch_sum(args.batch, dev) if names and all(n.startswith("batch_sum") for n in names)
+            else workloads(args.batch, dev))
+    names = names or list(work)
     stream = torch.cuda.current_stream(dev).cuda_stream
     results = []
     for name in names:
@@ -294,8 +321,11 @@ def main(argv=None):
                     if n_ptr > len(ts) or n_int > len(ints):
                         raise RuntimeError(f"{name} ({lab}): {k.symbol} takes more arguments "
                                            f"than this checkout's wrapper gave it")
-                    fns[lab].append((_build.entry(b.lib, k.symbol, n_ptr, n_int), ts[:n_ptr], n,
-                                     ints[:n_int]))
+                    fn = _build.entry(b.lib, k.symbol, n_ptr, n_int)
+                    if k.symbol.startswith("ec_batch_sum") and n_int == 0 and ints:
+                        fns[lab] += [(fn, t, m, ()) for t, m in _per_level(ts, n, ints[0])]
+                    else:
+                        fns[lab].append((fn, ts[:n_ptr], n, ints[:n_int]))
         # the results: every tensor but the scratch
         tensors = [t for k, ts, _, _ in launches for t in ts[:len(ts) - k.n_scratch]]
 
@@ -351,6 +381,22 @@ def main(argv=None):
     print(smi)
     if not all(r["exact"] is not False for r in results):
         raise SystemExit("outputs differ between the two libraries")
+
+
+def _per_level(ts, n, levels):
+    """Kernel M's launch on ``n`` lanes (x, y, z, ox, oy, oz, scratch) at
+    ``levels`` levels as one launch a level of the interface before the
+    tree was one launch: [(x, y, z, next x, y, z), lanes in]; the last
+    level writes the launch's own outputs."""
+    x, y, z, *outs = ts[:6]
+    src, m, out = [x, y, z], n, []
+    for lvl in range(levels):
+        mo = m - m // 2
+        dst = outs if lvl + 1 == levels else [
+            torch.empty((x.shape[0], mo), dtype=torch.int32, device=x.device) for _ in range(3)]
+        out.append((src + dst, m))
+        src, m = dst, mo
+    return out
 
 
 def _sass_functions(lib: Path) -> dict:

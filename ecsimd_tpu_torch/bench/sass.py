@@ -25,6 +25,13 @@ thread's (``per_thread``), which converts G lanes (``AFFINE_GROUPS``), and
 ``per_lane`` is that over G; on P-384 and P-521 the block's one inversion
 (the code from its first loop to its last, ``ONE_THREAD``) counts a
 1 / 128 share in each thread, as thread 0 of the block's 128 runs it.
+Kernel M (the batch sum's tree, five curves) has no per-lane loop nest:
+its ``per_lane`` is the mix of one trip of its hottest lane loop (one
+output lane's complete add), its callees' bodies once a call
+(``lane_loop``), and ``lane_loops`` that of each call site of the add in
+address order: the grid's lane loop, then block 0's level loop where its
+lanes are in shared memory (one loop serves both where they are in the
+scratch).
 Without ``--lib`` it
 builds (or reuses) this checkout's library. Needs the CUDA toolkit's
 ``cuobjdump``.
@@ -65,6 +72,8 @@ LADDER_KERNELS = tuple(f"ladder_{tag}_kernel" for tag in COMB_TAGS)
 AFFINE_KERNELS = tuple(f"affine_{tag}_kernel" for tag in COMB_TAGS)
 TREE_PIPE_KERNELS = tuple(f"comb_{kind}_{tag}_kernel" for kind in ("tree", "pipe")
                           for tag in COMB_TAGS)
+# kernel M, the batch sum's tree (batch_sum_lane.cuh's batch_sum_tree)
+BATCH_SUM_KERNELS = tuple(f"batch_sum_{tag}_kernel" for tag in COMB_TAGS)
 # kernels G (X25519's x-only ladder; not kernel A's ladder_w25519_kernel,
 # whose name it holds) and H (x / z)
 X25519_KERNELS = ("mladder_w25519_kernel", "xdivz_w25519_kernel")
@@ -72,7 +81,8 @@ DEFAULT_KERNELS = ("window_p256_kernel", "window_strict_p256_kernel", "glv_secp2
                    "glv_strict_secp256k1_kernel", "window_secp256k1_kernel",
                    "window_strict_secp256k1_kernel", "window_w25519_kernel",
                    "window_strict_w25519_kernel") + WIDE_KERNELS + COMB_KERNELS + (
-                   LADDER_KERNELS + AFFINE_KERNELS + TREE_PIPE_KERNELS + X25519_KERNELS)
+                   LADDER_KERNELS + AFFINE_KERNELS + TREE_PIPE_KERNELS + X25519_KERNELS
+                   + BATCH_SUM_KERNELS)
 
 # Loop nests as the sources write them, outermost first, loops in address
 # order: (name, iterations each time the loop is entered, inner loops).
@@ -452,6 +462,48 @@ def dynamic(instrs, tree, trips, one_thread=None) -> dict[str, int] | None:
     return {k: round(v) for k, v in total.items()}
 
 
+def lane_loops(instrs) -> list[dict]:
+    """Kernel M's lane loops, by their mix a trip, in address order: of
+    every loop of ``own(instrs)`` (at any depth), its own instructions with
+    its callees' bodies counted once a CALL, those that hold at least half
+    the most multiplies any one holds: each a call site of the complete add
+    (the grid's lane loop, and block 0's level loop where its lanes are in
+    shared memory; one loop where one call site serves both)."""
+    body_of = callees(instrs)
+    in_callee = {y[0] for fn in body_of.values() for y in fn}
+    nodes = []
+
+    def collect(tree):
+        for node in tree:
+            nodes.append(node)
+            collect(node["inner"])
+
+    collect(loops(own(instrs)))
+
+    def trip(node):
+        skip = [(c["start"], c["end"]) for c in node["inner"]]
+        body = [x for x in instrs if node["start"] <= x[0] <= node["end"]
+                and not any(s <= x[0] <= e for s, e in skip) and x[0] not in in_callee]
+        total = dict(_mix(body))
+        for tgt, fn in body_of.items():
+            calls = sum(1 for x in body if x[1].split(".")[0] == "CALL"
+                        and re.search(rf"0x0*{tgt:x}\b", x[2]))
+            for k, v in _mix(fn).items():
+                total[k] = total.get(k, 0) + v * calls
+        return total
+
+    trips = [(n["start"], trip(n)) for n in nodes]
+    most = max((t.get("imad", 0) for _, t in trips), default=0)
+    return [t for _, t in sorted(trips, key=lambda st: st[0])
+            if most and 2 * t.get("imad", 0) >= most]
+
+
+def lane_loop(instrs) -> dict | None:
+    """Kernel M's hottest lane loop: of ``lane_loops(instrs)``, the one whose
+    trip holds the most multiplies; None without a loop."""
+    return max(lane_loops(instrs), key=lambda t: t.get("imad", 0), default=None)
+
+
 def ptxas(log: str) -> dict[str, dict[str, int]]:
     """{mangled kernel name: {"registers", "smem_bytes", "stack_frame_bytes",
     "spill_stores", "spill_loads"}} from nvcc's -Xptxas -v output. A stack
@@ -526,7 +578,12 @@ def report(lib: Path, names=DEFAULT_KERNELS) -> dict:
         instrs = funcs[match[0]]
         tree = loops(own(instrs))
         called = sorted(callees(instrs).items(), key=lambda kv: -_mix(kv[1]).get("imad", 0))
-        per_lane = None
+        per_lane = current = None
+        if name in BATCH_SUM_KERNELS:
+            out[name] = {"function": match[0], "static": _mix(own(instrs)), "loops": tree,
+                         "callees": [{"address": tgt, "static": _mix(fn)} for tgt, fn in called],
+                         "per_lane": lane_loop(instrs), "lane_loops": lane_loops(instrs)}
+            continue
         for trips in (TRIPS.get(name), TRIPS_SCAN.get(name), TRIPS_FERMAT.get(name),
                       TRIPS_G_BITS.get(name)):
             if per_lane is None and trips is not None:

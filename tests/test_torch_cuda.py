@@ -1149,9 +1149,11 @@ def _jacobian_batch(curve, n, seed, dev):
 
 @pytest.mark.parametrize("curve", ALL_CURVES, ids=lambda c: c.name)
 def test_batch_sum_kernel_matches_plain(cuda, curve):
-    """Kernel M: one level of 1,001 lanes against the plain complete add of
-    the halves, word for word (the odd tail carried), and the whole tree
-    (10 launches) against the plain group.batch_sum."""
+    """Kernel M: one level of 1,001 lanes (levels = 1) against the plain
+    complete add of the halves, word for word (the odd tail carried), and
+    whole trees, one launch each, against the plain group.batch_sum: 1,001
+    lanes, and the sizes where the grid hands off to one block (2, 3, the
+    block's threads +- 1, twice them +- 1)."""
     pt = _jacobian_batch(curve, 1001, 150, cuda)
     kernel = batch_sum.KERNELS[curve]
     before = kernel.launches
@@ -1166,11 +1168,17 @@ def test_batch_sum_kernel_matches_plain(cuda, curve):
         assert g.shape == (curve.field.ndigits, h + 1)
         assert torch.equal(g[:, :h], w.planes) and torch.equal(g[:, h], c[:, 1000])
     assert not bool(got[2][:, 8:16].any())  # opposite pairs: infinity
-    tree = batch_sum.batch_sum(pt)
-    assert kernel.launches == before + 11
-    plain = group.batch_sum(pt)
-    for g, w in ((tree.x, plain.x), (tree.y, plain.y), (tree.z, plain.z)):
-        assert torch.equal(g.planes, w.planes)
+    threads = batch_sum.THREADS
+    assert batch_sum.blocks_per_sm(curve) > 0
+    for n in (1001, 2, 3, threads - 1, threads + 1, 2 * threads - 1, 2 * threads + 1):
+        sub = half(0, n) if n < 48 else _jacobian_batch(curve, n, 150 + n, cuda)
+        before = kernel.launches
+        tree = batch_sum.batch_sum(sub)
+        assert kernel.launches == before + 1, n
+        plain = group.batch_sum(sub)
+        for g, w in ((tree.x, plain.x), (tree.y, plain.y), (tree.z, plain.z)):
+            assert g.planes.shape == (curve.field.ndigits, 1)
+            assert torch.equal(g.planes, w.planes), n
 
 
 @pytest.mark.parametrize("curve", ALL_CURVES, ids=lambda c: c.name)
@@ -1191,7 +1199,7 @@ def test_msm_shared_ladder_and_sec1_on_the_card(cuda, curve):
     m = batch_sum.KERNELS[curve]
     before = m.launches
     res = api.multi_scalar_mult(pl(ks), pts)
-    assert m.launches == before + 6
+    assert m.launches == before + 1  # the whole tree, one launch
     total = sum(k * c for k, c in zip(ks, cs)) % n
     out = affine.to_affine(res)
     assert (ints(out.x)[0], ints(out.y)[0]) == coz.scalar_mult_affine(total, curve.gx, curve.gy,

@@ -157,7 +157,8 @@ def test_kernel_table_covers_the_256_bit_curves(table):
     nothing else — A, B, D, E, J, K, L and M the three 256-bit curves, P-384
     and P-521 — each an extern "C" entry of its named source (J's, K's and
     L's, and the wide B's and E's, with their _smem query; B's, J's, K's and
-    L's also with their _blocks query), with distinct symbols."""
+    L's also with their _blocks query, M's with its _blocks query), with distinct
+    symbols."""
     kernels = TABLES[table]
     keys = {_curve_and_mode(k) for k in kernels}
     assert keys == {(c, m) for c in CURVES + WIDE for m in MODES[table]}
@@ -168,7 +169,7 @@ def test_kernel_table_covers_the_256_bit_curves(table):
         if table in ("comb_tree", "comb_pipe", "comb_general") or (
                 table in ("comb", "window") and k.source.endswith(("_p384.cu", "_p521.cu"))):
             assert f'extern "C" int {k.symbol}_smem(void)' in text, k.symbol
-        if table in ("comb", "comb_tree", "comb_pipe", "comb_general"):
+        if table in ("comb", "comb_tree", "comb_pipe", "comb_general", "batch_sum"):
             assert f'extern "C" int {k.symbol}_blocks(void)' in text, k.symbol
 
 
@@ -202,7 +203,7 @@ WIDE_ROUTES = {"ladder": ("ladder", ()), "window": ("window", (SLOTS,)),
                "comb_strict": ("comb", ()),
                "comb_tree": ("comb_tree", ()), "comb_pipe": ("comb_pipe", ()),
                "comb_chains": ("comb_general", (2, 1)), "affine": ("affine", ()),
-               "batch_sum": ("batch_sum", ())}
+               "batch_sum": ("batch_sum", (1,))}
 
 
 @pytest.mark.parametrize("curve", [P384, P521], ids=lambda c: c.name)
@@ -211,7 +212,8 @@ def test_wrappers_raise_on_the_wider_curves(monkeypatch, wrapper, curve):
     """On P-384 and P-521 (the tensors' device check passed by stubbing)
     every wrapper takes the card route — kernels A, B (both modes), D, E
     (both modes), J (tree), K (pipe), L (chains 2: the generic kernel,
-    handed chains and unroll as ints) and M (one level): one launch of the curve's own kernel,
+    handed chains and unroll as ints) and M (one level: levels = 1 as its int,
+    an empty scratch): one launch of the curve's own kernel,
     ``ec_<kind>_<tag>[_strict]``, handed (24, B) / (33, B) planes (the
     comb's tables: B's, J's, K's and the generic L's in the u8 layout; E
     also its scratch, one column a resident thread, and the slot count as
@@ -237,7 +239,7 @@ def test_wrappers_raise_on_the_wider_curves(monkeypatch, wrapper, curve):
         assert shapes == [(d, 4), table, (2 * d,)] + [(d, 4)] * 3
     elif wrapper.startswith("window"):
         assert shapes == [(d, 4)] * 6 + [(window.table_split(curve).scratch_vecs, SLOTS, 4)]
-    elif wrapper == "batch_sum":  # one level of kernel M: 4 lanes in, 2 out
-        assert shapes == [(d, 4)] * 3 + [(d, 2)] * 3
+    elif wrapper == "batch_sum":  # M at levels = 1: 4 lanes in, 2 out, no scratch
+        assert shapes == [(d, 4)] * 3 + [(d, 2)] * 3 + [(0,)]
     else:
         assert shapes == [(d, 4)] * kernel.n_pointers

@@ -18,6 +18,8 @@ k, 2^nbits + 3}, and ``group.scalar_mult_shared`` meets it on TOYGLV.
 TOYGLV (strict GLV). Inputs from
 numpy.random.default_rng(seed). Tolerance: exact."""
 
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -39,6 +41,7 @@ from ecsimd_tpu_torch.kernels import ladder
 from tests.toy import TOY64, TOY64E, TOYGLV
 from tests.torch_helpers import ints, multiples, planes, port_spec, tplanes
 
+ROOT = Path(__file__).resolve().parents[1]
 MONTGOMERY_A = 486662  # Curve25519's A: Wei25519's x = u + A / 3
 
 
@@ -312,3 +315,171 @@ def test_kernel_m_wrapper_takes_cuda_tensors_only():
     z = torch.zeros((16, 4), dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):
         kbs.level_planes(z, z, z, tc)
+
+
+# -- kernel M's schedule, transcribed from csrc/batch_sum_lane.cuh
+# (batch_sum_tree, batch_sum_block_shared) and csrc/batch_sum_kernel.cuh (the
+# launcher's grid), with the wrapper's buffer sizes (kernels/batch_sum.py)
+
+def _kernel_m(x3, levels, threads, resident, add, warp=32, shared=False):
+    """Kernel M's launch on (3, D, n) planes (x, y, z stacked) at ``threads``
+    threads a block of ``warp``-thread warps and ``resident`` co-resident
+    blocks, block 0's levels in shared memory (``shared``) or in the
+    scratch, each level's adds by ``add((3, D, h) lanes i, (3, D, h) lanes
+    i + h)``. Returns the (3, D, lanes_after(n, levels)) output and the log
+    [(phase, lanes in, {output lane: (block, thread) that writes it})].
+    Checks on the way that each level writes every output lane once, never
+    the scratch buffer it reads (the shared buffer in place, its reads and
+    writes apart, as __syncthreads keeps them), inside the wrapper's scratch
+    and the block's shared buffer, and that block 0's levels write lane t
+    from thread t."""
+    _, d, n = x3.shape
+    if n == 1:  # batch_sum_planes: a 1-lane batch as it is, no launch
+        return x3, []
+    h0 = n - n // 2
+    scratch = torch.full((3 * d * kbs.scratch_lanes(n),), -7, dtype=x3.dtype)
+    tail = torch.full((3, d, threads), -7, dtype=x3.dtype)  # batch_sum_block_shared's
+    base = (0, 3 * d * h0)  # batch_sum_tree's buf[2]
+    ends = (3 * d * h0, scratch.numel())
+    out3 = torch.full((3, d, kbs.lanes_after(n, levels)), -7, dtype=x3.dtype)
+    blocks = min(-(-h0 // threads), resident)  # the launcher's grid
+
+    def planes(where, lanes):
+        if where == "input":
+            assert lanes == n
+            return x3
+        if where == "output":
+            assert lanes == out3.shape[-1]
+            return out3
+        if where == "shared":
+            assert lanes <= threads
+            return tail[..., :lanes]
+        assert base[where] + 3 * d * lanes <= ends[where]  # px, py, pz in buffer `where`
+        return scratch[base[where]:base[where] + 3 * d * lanes].view(3, d, lanes)
+
+    def level(src, m):
+        h = m // 2
+        r = add(src[..., :h], src[..., h:2 * h])
+        return torch.cat([r, src[..., m - 1:]], dim=-1) if m % 2 else r
+
+    log, src, m = [], "input", n
+    for lvl in range(levels):
+        grid = m > 2 * threads  # else block 0 alone, after the grid phase's last sync
+        out = m - m // 2
+        last = lvl + 1 == levels
+        dst = "output" if last else "shared" if shared and not grid else lvl % 2
+        assert dst != src or dst == "shared"  # in place: every read, a sync, every write
+        writes = {}
+        for b in range(blocks if grid else 1):
+            for t in range(threads):
+                spread = ((t // warp) * blocks + b) * warp + t % warp  # a warp's lanes, round robin
+                start, step = (spread, blocks * threads) if grid else (t, threads)
+                for i in range(start, out, step):
+                    assert i not in writes
+                    writes[i] = (b, t)
+        assert sorted(writes) == list(range(out))
+        assert grid or all(w == (0, i) for i, w in writes.items())
+        # a grid level's warps spread over every block before any block takes two
+        assert not grid or len({b for b, _ in writes.values()}) == min(blocks, -(-out // warp))
+        assert grid or not shared or src in ("input", "shared", (lvl - 1) % 2)
+        planes(dst, out)[...] = level(planes(src, m), m)
+        log.append(("grid" if grid else "block", m, writes))
+        src, m = dst, out
+    return out3, log
+
+
+# (threads a block, co-resident blocks, threads a warp): toy widths whose
+# hand-off to one block comes at small n, and THREADS threads, two blocks an
+# SM on 132 SMs
+M_LAYOUTS = ((4, 3, 2), (8, 2, 4), (2, 5, 1), (6, 2, 3), (kbs.THREADS, 264, 32))
+
+
+def _expr_add(memo):
+    """An add on lane ids that returns the id of the expression (left, right)."""
+    def add(a, b):
+        ids = [memo.setdefault(k, 1_000_000 + len(memo))
+               for k in zip(a[0, 0].tolist(), b[0, 0].tolist())]
+        return torch.tensor(ids, dtype=torch.int64).view(1, 1, -1).expand(3, 1, -1).clone()
+    return add
+
+
+def test_kernel_m_schedule_is_the_plain_tree_for_every_n(monkeypatch):
+    """For every n from 1 to 300, five layouts and both homes of block 0's
+    levels (shared memory, the scratch), the transcribed schedule of kernel
+    M builds the same expression as ``group.batch_sum`` (its complete add
+    swapped for the same expression builder on lane ids: which lanes are
+    added, in which order, which lane is carried), whole trees and the first
+    1, 2 and ceil(log2 n) - 1 levels (against the tree's levels on a list);
+    the grid phase hands off to one block where a level's output fits it,
+    the grid levels hand a warp's lanes out round robin over the blocks, and
+    the block's levels write lane t from thread t. The kernel's threads a
+    block are the wrapper's THREADS."""
+    header = (ROOT / "ecsimd_tpu_torch/csrc/batch_sum_kernel.cuh").read_text()
+    assert f"constexpr int kThreads = {kbs.THREADS};" in header
+    memo = {}
+    add = _expr_add(memo)
+    tc = port_spec(TOY64E)
+
+    def plain_add(p1, p2):
+        stack = lambda p: torch.stack([p.x.planes, p.y.planes, p.z.planes])  # noqa: E731
+        return JacobianPoint(*(GFp(r, tc.field) for r in add(stack(p1), stack(p2))), tc)
+
+    monkeypatch.setattr(group, "jac_add_complete", plain_add)
+    for n in range(1, 301):
+        threads, resident, warp = M_LAYOUTS[n % len(M_LAYOUTS)]
+        shared = bool(n % 2)
+        x3 = torch.arange(n, dtype=torch.int64).view(1, 1, n).expand(3, 1, n).clone()
+        got, log = _kernel_m(x3, kbs.depth(n), threads, resident, add, warp, shared)
+        ref = group.batch_sum(JacobianPoint(*(GFp(x3[c], tc.field) for c in range(3)), tc))
+        assert torch.equal(got, torch.stack([ref.x.planes, ref.y.planes, ref.z.planes])), n
+        phases = [p for p, _, _ in log]
+        assert phases == sorted(phases, key=("grid", "block").index)  # grid levels, then block
+        assert all((m > 2 * threads) == (p == "grid") for p, m, _ in log)
+        lanes = list(range(n))
+        for lvl in range(1, kbs.depth(n)):
+            h = len(lanes) // 2
+            lanes = [memo[(lanes[i], lanes[i + h])] for i in range(h)] + lanes[2 * h:]
+            if lvl in (1, 2, kbs.depth(n) - 1):
+                got, _ = _kernel_m(x3, lvl, threads, resident, add, warp, shared)
+                assert got[0, 0].tolist() == lanes and kbs.lanes_after(n, lvl) == len(lanes)
+
+
+def _schedule_with_the_plain_add(shared):
+    """The transcribed schedule driven by the plain complete add on TOY64E
+    at 4 threads a block and 3 co-resident blocks of 2-thread warps, block
+    0's levels in shared memory (``shared``) or in the scratch."""
+    tc = port_spec(TOY64E)
+    rng = np.random.default_rng(156)
+
+    def add(a, b):
+        jac = lambda t: JacobianPoint(*(GFp(t[c], tc.field) for c in range(3)), tc)  # noqa: E731
+        r = group.jac_add_complete(jac(a), jac(b))
+        return torch.stack([r.x.planes, r.y.planes, r.z.planes])
+
+    for n in (2, 3, 9, 17, 300):
+        pt = _port_jacobian(_batch(rng, TOY64E, max(n, 4))[:n], TOY64E)
+        x3 = torch.stack([pt.x.planes, pt.y.planes, pt.z.planes])
+        got, log = _kernel_m(x3, kbs.depth(n), 4, 3, add, 2, shared)
+        ref = group.batch_sum(pt)
+        assert torch.equal(got, torch.stack([ref.x.planes, ref.y.planes, ref.z.planes])), n
+        assert sum(p == "grid" for p, _, _ in log) == {2: 0, 3: 0, 9: 1, 17: 2, 300: 6}[n]
+        if n == 300:
+            first, _ = _kernel_m(x3, 1, 4, 3, add, 2, shared)
+            h = n // 2
+            assert torch.equal(first, add(x3[..., :h], x3[..., h:]))
+
+
+def test_kernel_m_schedule_with_the_plain_complete_add():
+    """The transcribed schedule driven by the plain complete add on TOY64E
+    (equal and opposite pairs, lanes at infinity), block 0's levels in the
+    scratch (secp256k1, P-384, P-521): word for word ``group.batch_sum`` at
+    n = 2, 3 (one block), 9, 17 (grid levels, then the block) and 300 (six
+    grid levels), and the first level (levels = 1) the plain complete add of
+    the halves."""
+    _schedule_with_the_plain_add(shared=False)
+
+
+def test_kernel_m_shared_tail_schedule_with_the_plain_complete_add():
+    """As above with block 0's levels in shared memory, in place (P-256,
+    Wei25519)."""
+    _schedule_with_the_plain_add(shared=True)

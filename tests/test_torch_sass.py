@@ -368,3 +368,45 @@ def test_kernels_g_and_h_are_read():
     tree = sass.loops(instrs)
     assert sass.dynamic(instrs, tree, sass.TRIPS["mladder_w25519_kernel"]) is None
     assert sass.dynamic(instrs, tree, sass.TRIPS_G_BITS["mladder_w25519_kernel"])["ldg"] == 255
+
+
+TREE_LISTING = """
+		Function : _ZN12_GLOBAL__N_121batch_sum_p384_kernelEPKiS1_S1_PiS2_S2_S2_ll
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   S2R R0, SR_TID.X ;
+        /*0020*/                   ISETP.GE.AND P2, PT, R0, 0x100, PT ;
+        /*0030*/                   IMAD.WIDE R2, R0, 0x4, R2 ;
+        /*0040*/                   IMAD R4, R5, R6, RZ ;
+        /*0050*/                   CALL.REL.NOINC 0x140 ;
+        /*0060*/               @P0 BRA 0x30 ;
+        /*0070*/                   LDG.E.STRONG.GPU R7, [R2.64] ;
+        /*0080*/              @!P1 BRA 0x70 ;
+        /*0090*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*00c0*/               @P2 BRA 0x20 ;
+        /*00d0*/                   IMAD R4, R5, R6, RZ ;
+        /*00e0*/                   LDS R8, [R9] ;
+        /*00f0*/                   IMAD R4, R5, R6, R4 ;
+        /*0100*/                   CALL.REL.NOINC 0x140 ;
+        /*0110*/                   CALL.REL.NOINC 0x140 ;
+        /*0120*/               @P3 BRA 0xd0 ;
+        /*0130*/                   EXIT ;
+        /*0140*/                   IMAD R10, R11, R12, RZ ;
+        /*0150*/                   IMAD.HI.U32 R10, R11, R12, RZ ;
+        /*0160*/                   RET.REL.NODEC R20 0x0 ;
+        /*0170*/                   BRA 0x170;
+"""
+
+
+def test_lane_loop_reads_kernel_m_s_hot_loop():
+    """Kernel M: of its loops (the levels, a lane loop inside them beside
+    the grid sync's spin loop, another lane loop after them), the one whose
+    trip holds the most multiplies, its callee's body counted once a CALL;
+    both lane loops, in address order, as its call sites of the add."""
+    instrs = sass.parse(TREE_LISTING)[
+        "_ZN12_GLOBAL__N_121batch_sum_p384_kernelEPKiS1_S1_PiS2_S2_S2_ll"]
+    assert sass.lane_loop(instrs) == {"imad": 6, "lds": 1, "control": 5, "total": 12}
+    grid, block = sass.lane_loops(instrs)  # the levels' own loop and the spin hold no add
+    assert block == sass.lane_loop(instrs) and grid["imad"] == 4
+    assert sass.lane_loop(instrs[:7]) == {"imad": 2, "control": 2, "total": 4}  # no callee
+    assert sass.lane_loop(instrs[:2]) is None and sass.lane_loops(instrs[:2]) == []  # no loop
+    assert "batch_sum_p521_kernel" in sass.DEFAULT_KERNELS
